@@ -1,0 +1,52 @@
+"""Trust evaluator backends in the shedder's ``evaluate(features)``
+protocol: a dict of tensors (leading dim = items) -> (items,) scores.
+
+Counterpart of ``repro.serving.evaluators.make_evaluator`` for the
+transformer archs (the default evaluator is ``smollm-135m``). Returns
+``(evaluate, make_features)``; ``make_features(n, seed)`` makes numpy
+evaluator inputs for n items (documents) exactly as the reference does,
+so both packages can score the same documents.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
+                   trust_scale: float = 5.0, doc_len: int = 32,
+                   params=None, device=None) -> Tuple[Callable, Callable]:
+    """``params`` (optional) is the reference's parameter pytree with
+    numpy leaves (``models.transformer.params_from_jax``); without it the
+    port draws its own weights from ``seed`` with a ``torch.Generator``
+    on ``device``. Weights are cast to the compute dtype once."""
+    dev = resolve(device)
+    cfg = get_config(arch_id, smoke=smoke)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        tparams = T.init_params(cfg, gen, device=dev)
+    else:
+        tparams = T.params_from_jax(params, cfg, device=dev)
+    tparams = T.cast_params(tparams, L.dtype_of(cfg.dtype))
+    log_vocab = math.log(float(cfg.vocab_size))
+
+    @torch.no_grad()
+    def evaluate(chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
+        # mean token logprob -> squashed to [0, trust_scale]
+        lp = T.score_tokens(tparams, cfg, chunk["tokens"], q_chunk=doc_len)
+        return torch.sigmoid(lp + log_vocab) * trust_scale
+
+    def make_features(n: int, fseed: int = 0) -> Dict[str, np.ndarray]:
+        r = np.random.default_rng(fseed)
+        return {"tokens": r.integers(0, cfg.vocab_size,
+                                     size=(n, doc_len)).astype(np.int32)}
+
+    return evaluate, make_features

@@ -1,0 +1,85 @@
+"""Import guard of the torch port, run in a fresh interpreter: importing
+every ``repro_torch`` module (and ``chip_smoke.py``) leaves ``jax`` and
+every ``repro`` module out of ``sys.modules``; and an entry point given
+no ``device`` on a machine with no card raises instead of falling back
+to the CPU."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))  # no main
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print("MODULES", len(mods))
+print("BAD", bad)
+"""
+
+
+def _run(code, *args):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-c", code, *args], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    out = _run(_PROBE, str(ROOT / "chip_smoke.py"))
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.splitlines())
+    assert int(lines["MODULES"]) >= 15
+    assert lines["BAD"] == "[]", lines["BAD"]
+
+
+def test_chip_smoke_source_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s and not s.split()[1].startswith(
+                "repro."), s
+            assert s.split()[1] != "repro", s
+
+
+_NO_CARD = r"""
+import torch
+assert not torch.cuda.is_available()
+from repro_torch.configs import TrustIRConfig
+from repro_torch.core.fused_shedder import FusedLoadShedder
+from repro_torch.core.shedder import LoadShedder
+from repro_torch.serving.evaluators import make_evaluator
+n = 0
+for make in (lambda: LoadShedder(TrustIRConfig(), None),
+             lambda: FusedLoadShedder(TrustIRConfig(), None),
+             lambda: make_evaluator("smollm-135m", smoke=True)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+        n += 1
+print("RAISED", n)
+"""
+
+
+def test_entry_points_raise_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run(_NO_CARD)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED 3" in out.stdout

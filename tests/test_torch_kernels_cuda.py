@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card (marker ``cuda``; skipped without a CUDA device). Run on a machine
+with an NVIDIA GPU:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+``shed_partition`` must equal its plain version exactly; attention
+within atol 2e-2 in bf16 (output rounding) and 1e-4 in f32 (summation
+order)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import TrustIRConfig
+from repro_torch.core import trust_cache as TC
+from repro_torch.core.fused_shedder import FusedLoadShedder
+from repro_torch.core.shedder import SimClock
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.shed_partition import (shed_partition,
+                                                shed_partition_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("ways_leading", [True, False])
+@pytest.mark.parametrize("budget_is_total", [True, False])
+@pytest.mark.parametrize("n,n_valid", [(0, 0), (1, 1), (33, 20),
+                                       (1024, 1024), (3000, 2900),
+                                       (5000, 4999)])
+def test_shed_partition_kernel_equals_plain(dev, n, n_valid, ways_leading,
+                                            budget_is_total):
+    g = torch.Generator(device=dev).manual_seed(n)
+    state = TC.init(512, 4, ways_leading=ways_leading, device=dev)
+    pool = torch.randint(-2 ** 31, 2 ** 31 - 1, (3000,), generator=g,
+                         device=dev, dtype=torch.int32)
+    state = TC.insert(state, pool[:1500], torch.rand(1500, device=dev),
+                      torch.ones(1500, dtype=torch.bool, device=dev))
+    keys = pool[torch.randint(0, 3000, (n,), generator=g, device=dev)]
+    valid = torch.arange(n, device=dev) < n_valid
+    args = (keys.contiguous(), valid, state["keys"], state["values"],
+            700, 300, 900)
+    got = shed_partition(*args, budget_is_total=budget_is_total)
+    want = shed_partition_ref(*args, budget_is_total=budget_is_total)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", [
+    (3, 31, 9, 3, 64, 0, 0.0, True),       # the evaluator's shape
+    (2, 1, 4, 2, 64, 0, 0.0, True),
+    (2, 100, 8, 2, 128, 0, 0.0, True),
+    (1, 257, 6, 1, 64, 64, 30.0, True),
+    (2, 77, 4, 4, 64, 0, 0.0, False),
+    (1, 300, 4, 2, 128, 50, 0.0, False),
+])
+def test_flash_attention_kernel_close_to_plain(dev, B, S, Hq, Hkv, D,
+                                               window, softcap, causal,
+                                               dtype, atol):
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.randn((1, 8, 4, 32), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])            # D = 32
+    q = torch.randn((1, 8, 4, 64), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q[:, ::2], q[:, ::2], q[:, ::2])        # strided
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    keys = torch.ones(8, dtype=torch.int32, device=dev)
+    st = TC.init(64, 2, device=dev)
+    with pytest.raises(ValueError):
+        shed_partition(keys, torch.ones(8, dtype=torch.bool), st["keys"],
+                       st["values"], 4, 4, 4)                   # mixed devices
+
+
+def test_fused_shedder_on_card_matches_cpu(dev):
+    w = torch.linspace(-1, 1, 8)
+
+    def ev(chunk):
+        return torch.sigmoid(chunk["x"] @ w.to(chunk["x"].device)) * 5.0
+
+    cfg = TrustIRConfig(u_capacity=128, u_threshold=128, chunk_size=16,
+                        cache_slots=1024, cache_ways=2)
+    rate = cfg.u_capacity / cfg.deadline_s
+    out = {}
+    for d in ("cpu", dev):
+        sh = FusedLoadShedder(cfg, ev, sim_clock=SimClock(rate), device=d)
+        res = []
+        for off in (1, 5000, 1):
+            keys = np.arange(off, off + 410, dtype=np.uint32)
+            feats = {"x": np.random.default_rng(off).normal(
+                size=(410, 8)).astype(np.float32)}
+            res.append(sh.process(keys, np.zeros(410, np.int32), feats))
+        out[str(d)] = res
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(a.tier, b.tier)
+        np.testing.assert_allclose(a.trust, b.trust, atol=1e-5)
