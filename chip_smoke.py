@@ -6,13 +6,20 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at the shapes the main path
-gives it, then drives the main path — the fused drain
-(``FusedLoadShedder`` under ``DrainExecutor``) with a full-width
-smollm-135m trust evaluator on seeded random weights — and checks it
-against the port's host ``LoadShedder``. Any failure raises and exits
-non-zero. Without a CUDA device it exits non-zero before printing any
-result.
+each kernel against its plain PyTorch version at the shapes its path
+gives it, then drives two paths on a full-width smollm-135m trust
+evaluator with seeded random weights:
+
+* the fused drain (``FusedLoadShedder`` under ``DrainExecutor``),
+  checked against the port's host ``LoadShedder``;
+* the serving engine end to end (the main path): raw query strings ->
+  BM25 over a 65536-document corpus on the card -> ``topk_select`` ->
+  admission -> EDF micro-batches -> fused shed -> responses, after the
+  retrieval is checked against the Python BM25 oracle and a host-vs-
+  fused engine parity run.
+
+Any failure raises and exits non-zero. Without a CUDA device it exits
+non-zero before printing any result.
 
 Output: one line per phase; then the card's name and power limit (as
 ``nvidia-smi`` reports them), the ``{"kernels": [...]}`` line, and last
@@ -50,8 +57,21 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.shed_partition import (  # noqa: E402
     shed_partition, shed_partition_ref)
+from repro_torch.kernels.topk_select import (  # noqa: E402
+    NEG_INF, topk_select, topk_select_ref)
+from repro_torch.retrieval import (CorpusRetrieval, IndexShard,  # noqa: E402
+                                   SyntheticCorpus, ZipfQueryModel, topk_py)
+from repro_torch.scheduling import Priority  # noqa: E402
 from repro_torch.scheduling.executor import DrainExecutor  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
+from repro_torch.serving.simulator import (  # noqa: E402
+    MultiTenantWorkload, TenantSpec, run_scheduled_workload)
+
+# Every kernel wrapper of the port, each with its launch count.
+KERNELS = {"shed_partition": shed_partition,
+           "flash_attention": flash_attention,
+           "topk_select": topk_select}
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s. The bound of a kernel is the larger of bytes / HBM rate and
@@ -60,12 +80,17 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
 SEED = 0
-BATCH = 4096                     # micro-batch capacity of the main path
+BATCH = 4096                     # micro-batch capacity of the fused drain
+ENGINE_BATCH = 3072              # ServingEngine's: Ucapacity + Uthreshold
 DOC_LEN = 32                     # evaluator tokens per document (S = 31)
 N_LAYERS = get_config("smollm-135m").n_layers
 BF16_ATOL = 2e-2                 # kernel vs plain, bf16 output rounding
 F32_ATOL = 1e-4                  # kernel vs plain, f32 summation order
 TRUST_ATOL = 5e-2                # fused vs host drain (phase_regime_parity)
+CORPUS_DOCS = 65536              # retrieval corpus of the main path
+TOP_K = 64                       # TrustIRConfig.retrieve_top_k
+ENGINE_QUERIES = 384             # main-path queries (8 micro-batches)
+QUERIES_PER_DRAIN = ENGINE_BATCH // TOP_K   # 48 queries fill a batch
 
 
 def log(msg: str) -> None:
@@ -106,7 +131,7 @@ def card_line() -> str:
 
 def phase_build() -> None:
     t0 = time.monotonic()
-    logs = _build.build(["shed_partition", "flash_attention"])
+    logs = _build.build(list(KERNELS))
     log(f"build: {len(logs)} kernels compiled in "
         f"{time.monotonic() - t0:.1f} s")
     for name, text in logs.items():
@@ -166,7 +191,7 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
     ucap, uthr = cfg.u_capacity, cfg.u_threshold
     max_err, cases = 0.0, 0
     timing = None
-    for n in (0, 1, 1000, BATCH, 8192 + 37):
+    for n in (0, 1, 1000, ENGINE_BATCH, BATCH, 8192 + 37):
         # half the probes are cached keys (hits), half fresh (misses)
         pick = torch.randint(0, cached.shape[0], (n,), generator=gen,
                              device=dev)
@@ -220,7 +245,8 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
             }
     bound_ms = timing["bytes"] / HBM_BYTES_PER_S * 1e3
     log(f"shed_partition: {cases} cases exactly equal to the plain version "
-        f"(N in 0, 1, 1000, 4096, 8229; both layouts; both budget modes)")
+        f"(N in 0, 1, 1000, 3072, 4096, 8229; both layouts; both budget "
+        f"modes)")
     log(f"shed_partition @N={BATCH}: kernel {timing['ms']:.4f} ms, plain "
         f"{timing['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
         f"({timing['bytes']} B)")
@@ -256,6 +282,30 @@ def phase_flash_attention(dev) -> dict:
                              f"err {err} > {BF16_ATOL}")
     log(f"flash_attention bf16 (B={B}, S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, "
         f"causal): max abs err {err:.3e} <= {BF16_ATOL}")
+
+    q3, k3, v3 = attention_inputs(ENGINE_BATCH, S, Hq, Hkv, D,
+                                  torch.bfloat16, gen, dev)
+    err3 = float((flash_attention(q3, k3, v3, causal=True).float()
+                  - flash_attention_ref(q3, k3, v3, causal=True).float())
+                 .abs().max())
+    if err3 > BF16_ATOL:
+        raise AssertionError(f"flash_attention bf16 B={ENGINE_BATCH}: max "
+                             f"abs err {err3} > {BF16_ATOL}")
+    log(f"flash_attention bf16 at the engine's batch (B={ENGINE_BATCH}): "
+        f"max abs err {err3:.3e} <= {BF16_ATOL}")
+    err = max(err, err3)
+
+    smoke = get_config("smollm-135m", smoke=True)   # serve's evaluator
+    q4, k4, v4 = attention_inputs(64, S, smoke.n_heads, smoke.n_kv_heads,
+                                  smoke.d_head, torch.float32, gen, dev)
+    err4 = float((flash_attention(q4, k4, v4, causal=True)
+                  - flash_attention_ref(q4, k4, v4, causal=True)).abs().max())
+    if err4 > F32_ATOL:
+        raise AssertionError(f"flash_attention f32 D={smoke.d_head}: max abs "
+                             f"err {err4} > {F32_ATOL}")
+    log(f"flash_attention f32 at the smoke evaluator's shape (B=64, S={S}, "
+        f"{smoke.n_heads}/{smoke.n_kv_heads} heads, D={smoke.d_head}): max "
+        f"abs err {err4:.3e} <= {F32_ATOL}")
 
     q2, k2, v2 = attention_inputs(4, 1024, 9, 3, 64, torch.float32, gen, dev)
     got2 = flash_attention(q2, k2, v2, causal=True, window=256,
@@ -302,7 +352,105 @@ def phase_flash_attention(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phase 5: topk_select against its plain version
+# ---------------------------------------------------------------------------
+
+def topk_cases(gen, dev):
+    """(label, scores, k): the main path's shape (float64 BM25 scores of
+    the 65536-document shard), the TPU kernel's float32 shapes, then the
+    edges."""
+    def randn(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, device=dev, dtype=dtype)
+
+    zeros = torch.zeros(CORPUS_DOCS, device=dev)
+    zeros[torch.rand(CORPUS_DOCS, generator=gen, device=dev) < 0.5] = -0.0
+    pick = torch.rand(CORPUS_DOCS, generator=gen, device=dev)
+    zeros[pick < 0.05] = 1.0
+    zeros[pick > 0.95] = -1.0
+    # float64 scores one ulp apart that one float32 would tie
+    base = torch.randint(0, 50, (CORPUS_DOCS,), generator=gen,
+                         device=dev).double()
+    near = torch.where(torch.rand(CORPUS_DOCS, generator=gen,
+                                  device=dev) < 0.5,
+                       torch.nextafter(base, base + 1), base)
+    return [
+        ("main path f64 N=65536 k=64", randn(CORPUS_DOCS, torch.float64),
+         TOP_K),
+        ("f32 N=65536 k=64", randn(CORPUS_DOCS), TOP_K),
+        ("f32 shard of a million N=1048576 k=64", randn(1 << 20), TOP_K),
+        ("N=1", randn(1), 1),
+        ("N=1000 k=N", randn(1000), 1000),
+        ("ragged N=70001 k=64", randn(70_001), TOP_K),
+        ("ragged N=4097 k=3", randn(4097), 3),
+        ("all NEG_INF N=65536 k=64",
+         torch.full((CORPUS_DOCS,), NEG_INF, device=dev), TOP_K),
+        ("duplicates N=65536 k=64 (5 distinct scores)",
+         torch.randint(0, 5, (CORPUS_DOCS,), generator=gen,
+                       device=dev).float(), TOP_K),
+        ("+0.0 mixed with -0.0 N=65536 k=64", zeros, TOP_K),
+        ("+0.0 mixed with -0.0 f64", zeros.double(), TOP_K),
+        ("f64 near-ties N=65536 k=64", near, TOP_K),
+        ("full sort N=10000 k=5000", randn(10_000), 5000),
+        ("full sort f64 N=10000 k=10000", randn(10_000, torch.float64),
+         10_000),
+        ("full sort N=1048576 k=3000 (duplicates)",
+         torch.randint(0, 100, (1 << 20,), generator=gen,
+                       device=dev).float(), 3000),
+    ]
+
+
+def topk_timing(scores, k, flush) -> dict:
+    n, size = scores.shape[0], scores.element_size()
+    n_bytes = n * size + k * (size + 4)          # read N, write k values+ids
+    return {
+        "ms": timed_ms(lambda: topk_select(scores, k), 200, flush),
+        "plain_ms": timed_ms(lambda: topk_select_ref(scores, k), 50, flush),
+        "library_ms": timed_ms(lambda: torch.topk(scores, k), 200, flush),
+        "bytes": n_bytes,
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def phase_topk_select(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = topk_cases(gen, dev)
+    for label, scores, k in cases:
+        got_v, got_i = topk_select(scores, k)
+        want_v, want_i = topk_select_ref(scores, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got_i, want_i):
+            bad = int((got_i != want_i).sum())
+            raise AssertionError(f"topk_select indices differ from the "
+                                 f"plain version ({label}): {bad} of {k}")
+        bits = torch.int64 if scores.dtype == torch.float64 else torch.int32
+        if got_v.dtype != scores.dtype or not torch.equal(
+                got_v.view(bits), want_v.view(bits)):
+            raise AssertionError(f"topk_select values differ from the "
+                                 f"plain version ({label})")
+    log(f"topk_select: {len(cases)} cases exactly equal to the plain "
+        f"version, values bit for bit ({'; '.join(c[0] for c in cases)})")
+    scratch = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+
+    def flush():        # evicts L2 and keeps the card busy while the
+        scratch.zero_()  # host enqueues the timed launches
+
+    timings = {label: topk_timing(scores, k, flush)
+               for label, scores, k in cases[:3]}
+    for label, t in timings.items():
+        log(f"topk_select @{label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bytes']} B)")
+    t = timings[cases[0][0]]
+    return {"name": "topk_select", "route": "cuda",
+            "source": "src/repro_torch/csrc/topk_select.cu",
+            "replaces": "src/repro/kernels/topk_select.py:111",
+            "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the fused drain at full width (the first slice's path)
 # ---------------------------------------------------------------------------
 
 def micro_batch(n: int, off: int, mk, fseed: int):
@@ -514,6 +662,234 @@ def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: retrieval on the card against the Python BM25 oracle
+# ---------------------------------------------------------------------------
+
+def build_retrieval(cfg: TrustIRConfig, mk, dev):
+    """The corpus of the main path, its collection statistics, and one
+    shard owning all partitions on the card; ``feature_fn`` maps each
+    retrieved candidate set to evaluator tokens, as the serve launcher
+    does."""
+    def doc_features(docs):
+        return mk(len(docs), fseed=int(docs[0]) % 1_000_000
+                  if len(docs) else 0)
+
+    t0 = time.monotonic()
+    corpus = SyntheticCorpus(n_docs=cfg.corpus_docs,
+                             vocab_size=cfg.corpus_vocab,
+                             zipf_a=cfg.corpus_zipf_a, seed=cfg.corpus_seed)
+    t1 = time.monotonic()
+    retrieval = CorpusRetrieval(corpus, n_partitions=cfg.index_partitions,
+                                block_docs=cfg.index_block_docs,
+                                feature_fn=doc_features, device=dev)
+    shard = retrieval.build_shard(range(cfg.index_partitions))
+    t2 = time.monotonic()
+    shard._ensure_dense()
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    log(f"retrieval: corpus of {corpus.n_docs} docs (vocab "
+        f"{corpus.vocab_size}, Zipf {corpus.zipf_a}) built in "
+        f"{t1 - t0:.1f} s on the host; statistics + index of "
+        f"{cfg.index_partitions} partitions in {t2 - t1:.1f} s; dense form "
+        f"on the card in {t3 - t2:.1f} s")
+    return corpus, retrieval, shard
+
+
+def phase_retrieval(corpus, retrieval, shard, dev) -> None:
+    if shard._w_dense is not None:
+        raise AssertionError("expected the postings-scatter form at "
+                             f"{corpus.n_docs} docs")
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (shard._post_slot, shard._post_w))
+    log(f"retrieval: scatter form {tuple(shard._post_slot.shape)} int32 + "
+        f"f64 = {n_bytes / 1e9:.3f} GB on the card")
+    cpu = IndexShard(shard.index, k1=shard.k1, b=shard.b,
+                     stats=shard.stats, device="cpu")
+    qm = ZipfQueryModel.for_corpus(corpus, seed=SEED + 1)
+    queries = [qm.sample() for _ in range(64)]
+    n_docs, t_card = 0, 0.0
+    for q in queries:
+        t0 = time.monotonic()
+        docs, scores = shard.retrieve(q, TOP_K)
+        t_card += time.monotonic() - t0
+        want = topk_py(shard.score_py(q), TOP_K)
+        if docs.tolist() != [d for d, _ in want]:
+            raise AssertionError(f"retrieval ids differ from the Python "
+                                 f"oracle for {q!r}")
+        # float64 BM25 in the oracle's own order: the same bits
+        if scores.tolist() != [x for _, x in want]:
+            raise AssertionError(f"retrieval scores differ from the "
+                                 f"Python oracle for {q!r}")
+        docs_c, scores_c = cpu.retrieve(q, TOP_K)
+        if docs_c.tolist() != docs.tolist() \
+                or scores_c.tolist() != scores.tolist():
+            raise AssertionError(f"retrieval on the card differs from the "
+                                 f"CPU shard for {q!r}")
+        n_docs += len(docs)
+    log(f"retrieval: 64 queries, {n_docs} candidates: ids and float64 "
+        f"scores equal to the Python oracle and to the CPU shard, bit for "
+        f"bit; "
+        f"{t_card / len(queries) * 1e3:.3f} ms per query on the card "
+        f"(BM25 + topk_select + one copy to the host)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: ServingEngine end to end (the main path)
+# ---------------------------------------------------------------------------
+
+def engine_queries(corpus, seed: int, n: int):
+    qm = ZipfQueryModel.for_corpus(corpus, seed=seed)
+    r = np.random.default_rng(seed)
+    prios = r.choice(4, size=n, p=[0.1, 0.2, 0.5, 0.2])
+    return [(qm.sample(), Priority(int(p)), f"tenant{i % 4}")
+            for i, p in enumerate(prios)]
+
+
+class TimedSearcher:
+    """A searcher that sums the retrieve time of the one it wraps."""
+
+    def __init__(self, inner):
+        self.inner, self.total_s = inner, 0.0
+
+    def search(self, query, n_results):
+        res = self.inner.search(query, n_results)
+        self.total_s += self.inner.last_retrieve_s
+        return res
+
+
+def serve_queries(eng, queries) -> list:
+    rids = []
+    for i, (q, prio, tenant) in enumerate(queries):
+        rids.append(eng.enqueue_query(q, priority=prio, tenant=tenant))
+        if (i + 1) % QUERIES_PER_DRAIN == 0:
+            eng.drain(1)
+    eng.flush()
+    return rids
+
+
+def phase_engine(cfg: TrustIRConfig, retrieval, shard, evaluate,
+                 dev) -> dict:
+    """384 seeded queries through ``ServingEngine.enqueue_query`` with a
+    drain of one micro-batch every 48 queries, on the wall clock, after
+    one warm-up round. The launch counts are read around the measured
+    run."""
+    searcher = retrieval.searcher([shard])
+    timed = TimedSearcher(searcher)
+    eng = ServingEngine(cfg, evaluate, retriever=timed, device=dev)
+    sched = eng.scheduler
+    if sched.max_batch_items != ENGINE_BATCH:
+        raise AssertionError(f"micro-batch capacity {sched.max_batch_items}"
+                             f", expected {ENGINE_BATCH}")
+    serve_queries(eng, engine_queries(retrieval.corpus, SEED + 4,
+                                      QUERIES_PER_DRAIN))
+    eng.completed.clear()
+    base = sched.stats.as_dict()
+    queries = engine_queries(retrieval.corpus, SEED + 3, ENGINE_QUERIES)
+    n_search0, timed.total_s = searcher.n_searches, 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    rids = serve_queries(eng, queries)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: w.launches for name, w in KERNELS.items()}
+
+    st = sched.stats.as_dict()
+    n_batches = st["n_batches"] - base["n_batches"]
+    n_items = st["n_batched_items"] - base["n_batched_items"]
+    n_searches = searcher.n_searches - n_search0
+    answered = [r.request_id for r in eng.completed]
+    if sorted(answered) != sorted(rids) or len(set(answered)) != len(rids):
+        raise AssertionError(f"{len(rids)} requests, {len(answered)} "
+                             f"answers, {len(set(answered))} distinct")
+    for r in eng.completed:
+        if not np.isfinite(r.trust).all() or len(r.trust) != len(r.tier):
+            raise AssertionError(f"request {r.request_id}: trust malformed")
+        if (r.tier == TIER_INVALID).any():
+            raise AssertionError(f"request {r.request_id} dropped an item")
+        if not r.admitted and not r.reason:
+            raise AssertionError(f"request {r.request_id} rejected without "
+                                 f"a reason")
+    expect = {"topk_select": n_searches, "shed_partition": n_batches,
+              "flash_attention": N_LAYERS * n_batches}
+    if launches != expect or n_searches != ENGINE_QUERIES:
+        raise AssertionError(f"launches {launches}, expected {expect} for "
+                             f"{n_searches} searches and {n_batches} "
+                             f"batches")
+    slo = eng.slo_stats()
+    stats = {"queries": len(rids), "wall_s": wall,
+             "queries_per_s": len(rids) / wall,
+             "items_per_s": n_items / wall,
+             "retrieve_ms_per_query": timed.total_s / n_searches * 1e3,
+             "p50_s": slo["p50_s"], "p99_s": slo["p99_s"],
+             "slo_met_frac": slo["slo_met_frac"], "batches": n_batches,
+             "launches": launches}
+    log(f"engine (ServingEngine fused, depth {cfg.pipeline_depth}, wall "
+        f"clock): {len(rids)} queries in {wall:.3f} s = "
+        f"{stats['queries_per_s']:.1f} queries/s, "
+        f"{stats['items_per_s']:.1f} items/s; retrieve "
+        f"{stats['retrieve_ms_per_query']:.3f} ms per query; P50 "
+        f"{slo['p50_s'] * 1e3:.1f} ms, P99 {slo['p99_s'] * 1e3:.1f} ms, "
+        f"SLO met {slo['slo_met_frac']:.3f}; {slo['n_rejected']} rejected; "
+        f"every request answered once, no item dropped; launches "
+        f"{launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"engine scheduler_stats: {json.dumps(eng.scheduler_stats())}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 9: host vs fused engine on one SimClock workload
+# ---------------------------------------------------------------------------
+
+def phase_engine_parity(cfg: TrustIRConfig, retrieval, shard, evaluate,
+                        dev) -> None:
+    """One seeded two-tenant workload (raw queries from the corpus's
+    query model, 64 to 2048 candidates each) through a host-drain and a
+    fused-drain engine on SimClocks: the same admissions, rejection
+    reasons, regimes and tiers."""
+    qm = ZipfQueryModel.for_corpus(retrieval.corpus, seed=SEED + 5)
+    wl = MultiTenantWorkload(
+        tenants=[TenantSpec("interactive", qps=40.0, priority_mix={
+                     Priority.CRITICAL: 1.0, Priority.HIGH: 2.0},
+                     min_results=TOP_K, max_results=TOP_K),
+                 # up to 2048 candidates: bursts past Ucapacity +
+                 # Uthreshold, so LOW requests meet the shed ladder
+                 TenantSpec("batch", qps=60.0, priority_mix={
+                     Priority.NORMAL: 2.0, Priority.LOW: 1.0},
+                     min_results=TOP_K, max_results=32 * TOP_K)],
+        n_queries=96, seed=SEED, query_model=qm)
+    reports = {}
+    for mode in ("host", "fused"):
+        eng = ServingEngine(cfg, evaluate, drain_mode=mode, device=dev,
+                            sim_clock=SimClock(cfg.u_capacity
+                                               / cfg.deadline_s))
+        reports[mode] = run_scheduled_workload(
+            eng, retrieval.searcher([shard]), wl)
+    host, fused = reports["host"].responses, reports["fused"].responses
+    if [r.request_id for r in host] != [r.request_id for r in fused]:
+        raise AssertionError("host and fused engines answered differently")
+    worst = 0.0
+    for a, b in zip(host, fused):
+        if (a.admitted, a.reason, int(a.shed.regime)) != \
+                (b.admitted, b.reason, int(b.shed.regime)) \
+                or not np.array_equal(a.tier, b.tier):
+            raise AssertionError(f"request {a.request_id}: host and fused "
+                                 f"engines disagree")
+        worst = max(worst, float(np.abs(a.trust - b.trust).max()))
+    if worst > TRUST_ATOL:
+        raise AssertionError(f"host vs fused trust differs by {worst}")
+    sh, sf = reports["host"].summary(), reports["fused"].summary()
+    log(f"engine parity (SimClock, {len(host)} queries): host and fused "
+        f"tiers, admissions, reasons and regimes identical, max |trust "
+        f"diff| {worst:.3e} <= {TRUST_ATOL}; {sf['n_admitted']} admitted, "
+        f"rejections {sf['rejected_by_reason']}, heavy+ share "
+        f"{sf['frac_heavy+']:.3f} (host {sh['frac_heavy+']:.3f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -528,7 +904,8 @@ def main() -> int:
     phase_build()
 
     cfg = TrustIRConfig()
-    kernels = [phase_shed_partition(cfg, dev), phase_flash_attention(dev)]
+    kernels = [phase_shed_partition(cfg, dev), phase_flash_attention(dev),
+               phase_topk_select(dev)]
 
     t0 = time.monotonic()
     evaluate, mk = make_evaluator(cfg.evaluator_arch, smoke=False,
@@ -538,12 +915,19 @@ def main() -> int:
         f"({N_LAYERS} layers, bf16) built in {time.monotonic() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     phase_regime_parity(cfg, evaluate, mk, dev)
-    serving = phase_serving(cfg, evaluate, mk, dev)
+    phase_serving(cfg, evaluate, mk, dev)
     peak = torch.cuda.max_memory_allocated()
     log(f"peak device memory (parity + serving): {peak / 2 ** 30:.2f} GiB")
     phase_profile(cfg, evaluate, mk, dev)
+
+    ecfg = TrustIRConfig(corpus_docs=CORPUS_DOCS, drain_mode="fused",
+                         pipeline_depth=2)
+    corpus, retrieval, shard = build_retrieval(ecfg, mk, dev)
+    phase_retrieval(corpus, retrieval, shard, dev)
+    engine = phase_engine(ecfg, retrieval, shard, evaluate, dev)
+    phase_engine_parity(ecfg, retrieval, shard, evaluate, dev)
     for kern in kernels:
-        kern["launches"] = serving["launches"][kern["name"]]
+        kern["launches"] = engine["launches"][kern["name"]]
 
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,15 @@
 """The port's own copy of the config dataclasses it reads.
 
-Counterpart of ``repro.configs.base``, cut to the fields this slice
-reads: the dense transformer of the trust evaluator and the load
-shedder's parameters. Later slices add the fields their modules read.
+Counterpart of ``repro.configs.base``, cut to the fields the port
+reads: the dense transformer of the trust evaluator, the load shedder's
+parameters, the drain executor, the scheduler's quarantine, and the
+retrieval front end. Later slices add the fields their modules read.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -47,9 +49,41 @@ class TrustIRConfig:
     # Average-trust prior
     prior_buckets: int = 1              # 1 = paper-faithful global average
     prior_ewma: float = 0.05
+    # Quality subsystem weights (content, context, ratings)
+    quality_weights: Tuple[float, float, float] = (0.5, 0.3, 0.2)
     # Evaluator backbone (arch id from the registry)
     evaluator_arch: str = "smollm-135m"
     trust_scale: float = 5.0            # paper reports trust on a scale of 5
+    # Micro-batch drain executor: "host" = LoadShedder.process (host
+    # chunk loop with a wall-clock deadline), "fused" = FusedLoadShedder
+    # (one device step per micro-batch on the CUDA kernels)
+    drain_mode: str = "host"
+    # DrainExecutor in-flight window: depth 1 syncs every drain call,
+    # depth >= 2 keeps batches in flight across drain calls
+    pipeline_depth: int = 2
+    # Adaptive pipeline depth (cluster.depth.DepthController) inside
+    # [adaptive_depth_min, pipeline_depth]; False = static depth
+    adaptive_depth: bool = False
+    adaptive_depth_min: int = 1
+    adaptive_depth_backlog_batches: float = 2.0
+    adaptive_depth_latency_frac: float = 0.5
+    adaptive_depth_hysteresis: int = 2
+    adaptive_depth_cooldown_ticks: int = 2
+    # Poison-pill quarantine (scheduling.quarantine): open a breaker
+    # after quarantine_k executor errors of one work signature, probe
+    # again after quarantine_probe_after_s; 0 = disabled
+    quarantine_k: int = 0
+    quarantine_probe_after_s: float = 2.0
+    # Retrieval front end (retrieval): the synthetic corpus is fully
+    # determined by (corpus_docs, corpus_vocab, corpus_zipf_a,
+    # corpus_seed)
+    corpus_docs: int = 4096             # synthetic corpus size
+    corpus_vocab: int = 2048            # Zipf-ranked content vocabulary
+    corpus_zipf_a: float = 1.15         # term-frequency skew
+    corpus_seed: int = 0
+    index_block_docs: int = 512         # documents per index build block
+    index_partitions: int = 16          # doc-partition stripes
+    retrieve_top_k: int = 64            # candidate-set size per query
 
 
 def reduced(cfg, **overrides):

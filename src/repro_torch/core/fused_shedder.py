@@ -136,10 +136,11 @@ class FusedLoadShedder(LoadShedder):
                  prior_state: Optional[Dict] = None,
                  sim_clock: Optional[SimClock] = None,
                  max_evals: Optional[int] = None,
-                 device=None):
+                 device=None, adaptive=None):
         super().__init__(cfg, evaluate_batch, monitor=monitor,
                          cache_state=cache_state, prior_state=prior_state,
-                         sim_clock=sim_clock, device=device)
+                         sim_clock=sim_clock, device=device,
+                         adaptive=adaptive)
         self.evaluate_batch = evaluate_batch
         self.max_evals = max_evals
         # Wall time of the last throughput observation: pipelined
@@ -212,7 +213,7 @@ class FusedLoadShedder(LoadShedder):
         deadline_eff = effective_deadline(
             n, ucap, uthr, deadline_s=self.cfg.deadline_s,
             overload_deadline_s=self.cfg.overload_deadline_s,
-            weight=self.cfg.very_heavy_weight)
+            weight=self._vh_weight())
         # Same budget math as the host path: rate * effective deadline.
         budget_total = int(np.floor(
             ucap / self.cfg.deadline_s * deadline_eff))
@@ -283,6 +284,8 @@ class FusedLoadShedder(LoadShedder):
             n_cached=int((tier == TIER_CACHED).sum()),
             n_prior=int((tier == TIER_PRIOR).sum()),
             uload=p._n)
+        if self.adaptive is not None:
+            self.adaptive.observe(result)
         return result
 
     # -- synchronous API (drop-in for LoadShedder.process) --------------------

@@ -203,7 +203,7 @@ class LoadShedder:
                  cache_state: Optional[Dict] = None,
                  prior_state: Optional[Dict] = None,
                  sim_clock: Optional[SimClock] = None,
-                 device=None):
+                 device=None, adaptive=None):
         self.cfg = cfg
         self.device = resolve(device)
         self.evaluate_chunk = evaluate_chunk
@@ -215,9 +215,16 @@ class LoadShedder:
         self.prior = (prior_state if prior_state is not None
                       else AT.init(cfg.prior_buckets, device=self.device))
         self.sim_clock = sim_clock
+        # optional AdaptiveWeightController (core.adaptive): closes the
+        # loop on the Very-Heavy extension weight (paper §7)
+        self.adaptive = adaptive
         # Shared warmup exclusion (host and fused paths apply the SAME
         # rule, so their Ucapacity estimates are comparable).
         self._warmup = WarmupGate()
+
+    def _vh_weight(self) -> float:
+        return (self.adaptive.weight if self.adaptive is not None
+                else self.cfg.very_heavy_weight)
 
     # -- clock helpers -----------------------------------------------------
     def _now(self) -> float:
@@ -265,7 +272,7 @@ class LoadShedder:
         deadline_eff = effective_deadline(
             n, ucap, uthr, deadline_s=self.cfg.deadline_s,
             overload_deadline_s=self.cfg.overload_deadline_s,
-            weight=self.cfg.very_heavy_weight)
+            weight=self._vh_weight())
         deadline_t = t_start + deadline_eff
 
         keys_t = torch.from_numpy(keys_as_int32(item_keys)).to(self.device)
@@ -338,4 +345,6 @@ class LoadShedder:
             n_cached=int((tier == TIER_CACHED).sum()),
             n_prior=int((tier == TIER_PRIOR).sum()),
             uload=n)
+        if self.adaptive is not None:
+            self.adaptive.observe(result)
         return result

@@ -22,8 +22,9 @@
 // registers. Lane j of a warp scores key j of the tile against the warp's
 // rows (K rows padded in shared memory so the lanes hit distinct banks),
 // then accumulates output columns lane and lane + 32 (and + 64, + 96 for
-// D = 128) over the tile's keys. Any S is accepted: rows and keys past S
-// are masked, and a row that sees no key writes zeros.
+// D = 128) over the tile's keys; for D = 16 the lanes past D idle. Any S
+// is accepted: rows and keys past S are masked, and a row that sees no
+// key writes zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,7 +69,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Hq, int Hkv, float scale, int causal, int window,
                        float softcap) {
   constexpr int DP = D + 4;        // padded K row: conflict-free float4 reads
-  constexpr int C = D / 32;        // output columns per lane
+  constexpr int C = (D + 31) / 32; // output columns per lane
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                // [kBQ][D]
   float* Ks = Qs + kBQ * D;        // [kBK][DP]
@@ -155,7 +156,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = Vs[j * D + lane + 32 * c];
+      for (int c = 0; c < C; ++c)
+        vv[c] = (D % 32 == 0 || lane + 32 * c < D)
+                    ? Vs[j * D + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(0xffffffffu, p[r], j);
@@ -172,7 +175,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      ob[qpos * q_row + lane + 32 * c] = from_float<T>(acc[r][c] * inv);
+      if (D % 32 == 0 || lane + 32 * c < D)
+        ob[qpos * q_row + lane + 32 * c] = from_float<T>(acc[r][c] * inv);
   }
 }
 
@@ -200,14 +204,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 (the wrapper
-// checks). Launches on `stream`; returns cudaGetLastError() (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. D must be 16, 64 or 128 (the wrapper
+// checks; 16 is the smoke-width evaluator's head). Launches on `stream`;
+// returns cudaGetLastError() (0 = ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Hq, int Hkv, int D, int dtype,
                                       float scale, int causal, int window,
                                       float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 16)
+    return launch<float, 16>(q, k, v, o, B, S, Hq, Hkv, scale, causal,
+                             window, softcap, st);
+  if (dtype == 1 && D == 16)
+    return launch<__nv_bfloat16, 16>(q, k, v, o, B, S, Hq, Hkv, scale,
+                                     causal, window, softcap, st);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, B, S, Hq, Hkv, scale, causal,
                              window, softcap, st);

@@ -81,13 +81,15 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def library_function(name: str, symbol: str, argtypes: List) -> Callable:
+def library_function(name: str, symbol: str, argtypes: List,
+                     restype=ctypes.c_int) -> Callable:
     """``symbol`` of ``csrc/<name>.cu`` with its argument types declared
-    (pointers and the stream as ``c_void_p``) and an ``int`` result."""
+    (pointers and the stream as ``c_void_p``) and its result type (an
+    ``int`` error code unless named)."""
     key = (name, symbol)
     if key not in _functions:
         fn = getattr(library(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[key] = fn
     return _functions[key]

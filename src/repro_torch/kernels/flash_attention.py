@@ -4,7 +4,7 @@ Counterpart of ``repro.kernels.flash_attention``. ``flash_attention``
 launches the hand-written CUDA kernel (``csrc/flash_attention.cu``) for
 CUDA tensors and takes the plain version ``flash_attention_ref`` only for
 CPU tensors. The kernel accepts any S (the ragged edge is masked); it
-takes bf16 or f32 with D of 64 or 128.
+takes bf16 or f32 with D of 16 (the smoke-width evaluator), 64 or 128.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels._build import library_function
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (16, 64, 128)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,98 @@
+"""Top-k of a dense score vector by (score desc, index asc).
+
+Counterpart of ``repro.kernels.topk_select``: the retrieval hot op. BM25
+produces a dense (N,) score vector per query (one slot per shard
+document) and the candidate set is its top-k in the same total order
+the pure-Python postings scorer produces, ties included.
+
+``topk_select`` launches the hand-written CUDA kernel
+(``csrc/topk_select.cu``, replacing the TPU kernel ``_topk_kernel``:
+(score, index) keys, bitonic tile sorts in shared memory, candidate
+passes until one CTA holds them all; bound by bytes, N*4 + k*8 in
+float32) for CUDA tensors, and takes the plain version
+``topk_select_ref`` only for CPU tensors. Any ``1 <= k <= N`` is
+accepted on both, in float32 (the TPU kernel's type) or float64 (the
+type retrieval ranks in, see ``retrieval.shard``).
+
+Both treat -0.0 and +0.0 as equal scores (the tie breaks by index, as
+the reference oracle's sort of negated scores does) and return the
+input's own values, signed zeros included.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels._build import library_function
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+NEG_INF = -2.0e38
+INT32_MAX = 2 ** 31 - 1
+
+
+def topk_select_ref(scores: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version (the reference's ``kernels.ref.topk_select_ref``): a
+    stable sort of the negated scores, after ``-0.0 -> +0.0``, keeps
+    equal scores in index order."""
+    n = scores.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    canon = torch.where(scores == 0, torch.zeros_like(scores), scores)
+    order = torch.sort(-canon, stable=True).indices[:k]
+    return scores[order], order.to(torch.int32)
+
+
+def topk_select(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores: (N,) float32 or float64, contiguous; 1 <= k <= N.
+
+    Returns ``(values (k,) in the scores' type, indices (k,) int32)``
+    ordered by (score desc, index asc). CUDA tensors launch the kernel
+    (counted in ``topk_select.launches``, once per call); CPU tensors
+    take the plain version.
+    """
+    if scores.dim() != 1:
+        raise ValueError(f"scores must be (N,), got {tuple(scores.shape)}")
+    if scores.dtype not in _DTYPES:
+        raise TypeError(f"scores must be float32 or float64, got "
+                        f"{scores.dtype}")
+    n = scores.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    if scores.device.type == "cpu":
+        return topk_select_ref(scores, k)
+    if scores.device.type != "cuda":
+        raise ValueError(f"topk_select runs on cuda or cpu, "
+                         f"not {scores.device}")
+    if not scores.is_contiguous():
+        raise ValueError("scores must be contiguous")
+    if n > INT32_MAX:
+        raise ValueError(f"topk_select indexes with int32: N={n} is too "
+                         f"large")
+    dtype = _DTYPES[scores.dtype]
+    n_bytes = library_function(
+        "topk_select", "topk_select_scratch_bytes",
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+        restype=ctypes.c_longlong)(n, k, dtype)
+    fn = library_function(
+        "topk_select", "topk_select_launch",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    dev = scores.device
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    vals = torch.empty(k, dtype=scores.dtype, device=dev)
+    idxs = torch.empty(k, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(scores.data_ptr(), n, int(k), dtype, scratch.data_ptr(),
+             vals.data_ptr(), idxs.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"topk_select kernel launch failed: "
+                           f"cudaError {err}")
+    topk_select.launches += 1
+    return vals, idxs
+
+
+topk_select.launches = 0

@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = _run(_PROBE, str(ROOT / "chip_smoke.py"))
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 15
+    assert int(lines["MODULES"]) >= 40
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
@@ -62,11 +62,16 @@ assert not torch.cuda.is_available()
 from repro_torch.configs import TrustIRConfig
 from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import LoadShedder
+from repro_torch.retrieval import IndexShard
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.evaluators import make_evaluator
 n = 0
 for make in (lambda: LoadShedder(TrustIRConfig(), None),
              lambda: FusedLoadShedder(TrustIRConfig(), None),
-             lambda: make_evaluator("smollm-135m", smoke=True)):
+             lambda: make_evaluator("smollm-135m", smoke=True),
+             lambda: ServingEngine(TrustIRConfig(), None),
+             lambda: IndexShard.build(["term00001 term00002"],
+                                      [0]).score("term00001")):
     try:
         make()
     except RuntimeError as e:
@@ -82,4 +87,4 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a CUDA device is present")
     out = _run(_NO_CARD)
     assert out.returncode == 0, out.stderr
-    assert "RAISED 3" in out.stdout
+    assert "RAISED 5" in out.stdout

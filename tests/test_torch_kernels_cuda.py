@@ -4,9 +4,9 @@ with an NVIDIA GPU:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-``shed_partition`` must equal its plain version exactly; attention
-within atol 2e-2 in bf16 (output rounding) and 1e-4 in f32 (summation
-order)."""
+``shed_partition`` and ``topk_select`` must equal their plain versions
+exactly; attention within atol 2e-2 in bf16 (output rounding) and 1e-4
+in f32 (summation order)."""
 import numpy as np
 import pytest
 import torch
@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.shed_partition import (shed_partition,
                                                 shed_partition_ref)
+from repro_torch.kernels.topk_select import (NEG_INF, topk_select,
+                                             topk_select_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +61,9 @@ def test_shed_partition_kernel_equals_plain(dev, n, n_valid, ways_leading,
                                         (torch.float32, 1e-4)])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", [
     (3, 31, 9, 3, 64, 0, 0.0, True),       # the evaluator's shape
+    (5, 31, 4, 2, 16, 0, 0.0, True),       # the smoke evaluator's shape
+    (2, 77, 4, 4, 16, 0, 0.0, False),
+    (1, 257, 4, 1, 16, 64, 30.0, True),
     (2, 1, 4, 2, 64, 0, 0.0, True),
     (2, 100, 8, 2, 128, 0, 0.0, True),
     (1, 257, 6, 1, 64, 64, 30.0, True),
@@ -116,3 +121,36 @@ def test_fused_shedder_on_card_matches_cpu(dev):
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(a.tier, b.tier)
         np.testing.assert_allclose(a.trust, b.trust, atol=1e-5)
+
+
+def _topk_scores(kind, n, g, dev, dtype):
+    if kind == "normal":
+        return torch.randn(n, generator=g, device=dev, dtype=dtype)
+    if kind == "dups":                    # few distinct values: ties
+        return torch.randint(0, 5, (n,), generator=g, device=dev).to(dtype)
+    if kind == "neg_inf":
+        return torch.full((n,), NEG_INF, device=dev, dtype=dtype)
+    # +0.0 and -0.0 interleaved with a few positives and negatives
+    s = torch.zeros(n, device=dev, dtype=dtype)
+    s[torch.rand(n, generator=g, device=dev) < 0.5] = -0.0
+    pick = torch.rand(n, generator=g, device=dev)
+    s[pick < 0.1] = 1.0
+    s[pick > 0.9] = -1.0
+    return s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["normal", "dups", "neg_inf", "zeros"])
+@pytest.mark.parametrize("n,k", [(1, 1), (7, 3), (1000, 1000), (4096, 64),
+                                 (4097, 64), (9000, 1), (70_000, 64),
+                                 (10_000, 1025), (10_000, 2049),
+                                 (10_000, 10_000)])
+def test_topk_select_kernel_equals_plain(dev, kind, n, k, dtype):
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    scores = _topk_scores(kind, n, g, dev, dtype)
+    got_v, got_i = topk_select(scores, k)
+    want_v, want_i = topk_select_ref(scores, k)
+    assert got_v.dtype == dtype
+    assert torch.equal(got_i, want_i)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got_v.view(bits), want_v.view(bits))

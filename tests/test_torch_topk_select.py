@@ -1,0 +1,111 @@
+"""The port's ``topk_select`` on the CPU (its plain version) against the
+JAX reference's oracle ``kernels.ref.topk_select_ref`` and its Pallas
+kernel in interpret mode, on the reference tests' cases: the (n, k)
+grid with quantized (heavily tied) scores, all-``NEG_INF`` and duplicate
+runs, a hypothesis sweep, and signed zeros. Indices and values are
+exactly equal (values compared bit for bit). float64 scores, which the
+reference kernel does not take, are held against a numpy lexsort."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hypothesis_compat import given, settings, st
+
+from repro.kernels import ops, ref
+from repro_torch.kernels.topk_select import (INT32_MAX, NEG_INF,
+                                             topk_select, topk_select_ref)
+
+GRID = [(5, 3), (128, 8), (1024, 16), (1500, 100), (3000, 1024), (17, 17),
+        (2048, 1)]
+
+
+def _quantized(n, k, step=4):
+    r = np.random.default_rng(n * 1000 + k)
+    return (np.round(r.normal(size=n) * step) / step).astype(np.float32)
+
+
+def _port(scores, k):
+    v, i = topk_select(torch.from_numpy(scores), k)
+    return v.numpy(), i.numpy()
+
+
+def _assert_same(got, want):
+    gv, gi = got
+    wv, wi = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+
+
+@pytest.mark.parametrize("n,k", GRID)
+def test_plain_matches_reference_oracle(n, k):
+    scores = _quantized(n, k)
+    _assert_same(_port(scores, k), ref.topk_select_ref(jnp.asarray(scores), k))
+
+
+@pytest.mark.parametrize("n,k", [nk for nk in GRID if nk[1] <= 100])
+def test_plain_matches_reference_pallas_kernel(n, k):
+    scores = _quantized(n, k)
+    _assert_same(_port(scores, k),
+                 ops.topk_select(jnp.asarray(scores), k=k, interpret=True))
+
+
+def test_all_neg_inf_and_duplicates():
+    neg = np.full((256,), NEG_INF, np.float32)
+    got = _port(neg, 8)
+    _assert_same(got, ref.topk_select_ref(jnp.asarray(neg), 8))
+    np.testing.assert_array_equal(got[1], np.arange(8))
+    same = np.full((300,), 2.5, np.float32)
+    got = _port(same, 12)
+    _assert_same(got, ops.topk_select(jnp.asarray(same), k=12,
+                                      interpret=True))
+    np.testing.assert_array_equal(got[1], np.arange(12))
+
+
+def test_signed_zeros_tie_by_index_and_keep_their_bits():
+    r = np.random.default_rng(5)
+    scores = np.where(r.random(500) < 0.5, np.float32(-0.0),
+                      np.float32(0.0)).astype(np.float32)
+    scores[r.random(500) < 0.1] = 1.0
+    scores[r.random(500) < 0.1] = -1.0
+    for k in (1, 37, 500):
+        got = _port(scores, k)
+        _assert_same(got, ref.topk_select_ref(jnp.asarray(scores), k))
+    assert np.signbit(got[0]).any()            # -0.0 came back as -0.0
+
+
+def test_rejects_what_it_does_not_take():
+    s = torch.zeros(8)
+    for k in (0, 9):
+        with pytest.raises(ValueError):
+            topk_select(s, k)
+    with pytest.raises(TypeError):
+        topk_select(s.half(), 2)
+    with pytest.raises(ValueError):
+        topk_select(s.reshape(2, 4), 2)
+    assert INT32_MAX == np.iinfo(np.int32).max
+
+
+def test_float64_orders_what_float32_would_tie():
+    """float64 scores (the type retrieval ranks in) keep the order that a
+    float32 image would turn into index ties: the same total order as a
+    numpy lexsort over the float64 scores."""
+    r = np.random.default_rng(3)
+    base = np.round(r.normal(size=700) * 4) / 4
+    scores = base + r.integers(0, 3, 700) * np.finfo(np.float64).eps
+    assert len(np.unique(scores.astype(np.float32))) < len(np.unique(scores))
+    for k in (1, 50, 700):
+        v, i = topk_select(torch.from_numpy(scores), k)
+        want = np.lexsort((np.arange(700), -scores))[:k]
+        np.testing.assert_array_equal(i.numpy(), want)
+        np.testing.assert_array_equal(v.numpy(), scores[want])
+        assert v.dtype == torch.float64
+
+
+@given(st.integers(1, 600), st.integers(1, 64), st.integers(0, 10**6))
+@settings(max_examples=20, deadline=None)
+def test_plain_matches_oracle_hypothesis(n, k, seed):
+    k = min(k, n)
+    r = np.random.default_rng(seed)
+    scores = (np.round(r.normal(size=n) * 8) / 8).astype(np.float32)
+    _assert_same(_port(scores, k), ref.topk_select_ref(jnp.asarray(scores),
+                                                       k))
