@@ -5,18 +5,34 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at the shapes its path
-gives it, then drives two paths on a full-width smollm-135m trust
-evaluator with seeded random weights:
+It builds the port's five CUDA kernels from ``src/repro_torch/csrc`` in
+parallel and holds each against its plain PyTorch version at the shapes
+its path gives it:
 
-* the fused drain (``FusedLoadShedder`` under ``DrainExecutor``),
-  checked against the port's host ``LoadShedder``;
-* the serving engine end to end (the main path): raw query strings ->
-  BM25 over a 65536-document corpus on the card -> ``topk_select`` ->
-  admission -> EDF micro-batches -> fused shed -> responses, after the
-  retrieval is checked against the Python BM25 oracle and a host-vs-
-  fused engine parity run.
+* ``shed_partition``: Trust-DB probe, regime tiers, eval budget and
+  compacted eval rank of one micro-batch (exact);
+* ``flash_attention``: causal GQA attention of the transformer
+  evaluator and of ``prefill``;
+* ``topk_select``: the candidate set of one query (exact);
+* ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
+* ``flash_decode``: one-token attention against the KV cache.
+
+Then it drives three paths with seeded random weights, each with the
+launch counts set to 0 just before it and read just after:
+
+* the serving engine on a full-width smollm-135m evaluator (the main
+  path, after the fused-drain phases): raw query strings -> BM25
+  over a 65536-document corpus on the card -> ``topk_select`` ->
+  admission -> EDF micro-batches -> fused shed (``shed_partition``,
+  ``flash_attention``) -> responses, with retrieval checked against the
+  Python BM25 oracle and a host-vs-fused engine parity run;
+* the same engine on the full-width ``dlrm-mlperf`` evaluator
+  (``dot_interaction``), its 26 tables capped at 20M rows to fit the
+  card, and its host-vs-fused parity run;
+* KV-cache decode on the smollm-135m weights: 128 prompts prefilled
+  (``flash_attention``) into a 128-slot ``KVCachePool``, 64
+  ``decode_step``s over the pool (``flash_decode``), decode logits
+  checked against the full forward.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
@@ -30,6 +46,7 @@ products are full float32 and the tolerances below hold.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -52,32 +69,46 @@ from repro_torch.core.load_monitor import LoadMonitor  # noqa: E402
 from repro_torch.core.regimes import Regime  # noqa: E402
 from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
                                       SimClock)
+from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.dot_interaction import (  # noqa: E402
+    dot_interaction, dot_interaction_ref, triu_pairs)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    flash_decode, flash_decode_ref)
 from repro_torch.kernels.shed_partition import (  # noqa: E402
     shed_partition, shed_partition_ref)
 from repro_torch.kernels.topk_select import (  # noqa: E402
     NEG_INF, topk_select, topk_select_ref)
-from repro_torch.retrieval import (CorpusRetrieval, IndexShard,  # noqa: E402
-                                   SyntheticCorpus, ZipfQueryModel, topk_py)
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.recsys import embedding as E  # noqa: E402
+from repro_torch.retrieval import (CorpusRetrieval, CorpusSearcher,  # noqa: E402
+                                   IndexShard, SyntheticCorpus,
+                                   ZipfQueryModel, topk_py)
 from repro_torch.scheduling import Priority  # noqa: E402
 from repro_torch.scheduling.executor import DrainExecutor  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
+from repro_torch.serving.kv_cache import KVCachePool  # noqa: E402
 from repro_torch.serving.simulator import (  # noqa: E402
     MultiTenantWorkload, TenantSpec, run_scheduled_workload)
 
 # Every kernel wrapper of the port, each with its launch count.
 KERNELS = {"shed_partition": shed_partition,
            "flash_attention": flash_attention,
-           "topk_select": topk_select}
+           "topk_select": topk_select,
+           "dot_interaction": dot_interaction,
+           "flash_decode": flash_decode}
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s. The bound of a kernel is the larger of bytes / HBM rate and
-# operations / peak rate for its type.
+# FLOP/s, float32 FLOP/s outside the tensor cores. The bound of a kernel
+# is the larger of bytes / HBM rate and operations / peak rate for its
+# type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 SEED = 0
 BATCH = 4096                     # micro-batch capacity of the fused drain
@@ -91,6 +122,24 @@ CORPUS_DOCS = 65536              # retrieval corpus of the main path
 TOP_K = 64                       # TrustIRConfig.retrieve_top_k
 ENGINE_QUERIES = 384             # main-path queries (8 micro-batches)
 QUERIES_PER_DRAIN = ENGINE_BATCH // TOP_K   # 48 queries fill a batch
+# dlrm-mlperf's Criteo-1TB tables hold 187,775,488 padded rows, 96.1 GB in
+# float32, more than the card's 80 GB: every table is capped at 20M rows
+# (MLPerf DLRM's --max-ind-range), which cuts 5 of the 26 tables and
+# leaves 53.3 GB.
+DLRM_ROW_CAP = 20_000_000
+DLRM_TRUST_ATOL = 1e-4           # host vs fused drain, both float32
+# KV-cache decode: decode_32k's global batch of slots (LM_SHAPES), the
+# published context length of SmolLM-135M, prompts that leave room for
+# the steps.
+DECODE_SLOTS = 128
+DECODE_MAX_LEN = 2048
+DECODE_STEPS = 64
+MAX_PROMPT = DECODE_MAX_LEN - DECODE_STEPS  # 1984
+# decode vs full forward, both bf16: the two paths round at other places
+# (GEMMs of (128, 576) vs (S, 576), the decode kernel's f32 combine vs the
+# flash kernel's); logits have std ~0.5 and bf16 keeps 8 bits, while a
+# wrong position or cache row moves them by O(1).
+DECODE_LOGIT_ATOL = 0.1
 
 
 def log(msg: str) -> None:
@@ -115,6 +164,21 @@ def timed_ms(fn, iters: int, flush=None) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+def l2_flusher(dev):
+    """1 GiB written between timed launches evicts the 50 MB L2 (the
+    main path's traffic does so between launches) and keeps the card
+    busy (~0.3 ms) while the host enqueues the timed launch, so the
+    events time the kernel, not the host's launch path."""
+    scratch = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    return scratch.zero_
+
+
+def max_err(got, want) -> float:
+    if not got.numel():
+        return 0.0
+    return float((got.float() - want.float()).abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -226,15 +290,7 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
                         (got[1] - want[1]).abs().max()))
         if n == BATCH:
             ck, cv = layouts["ways-leading"]
-            # 1 GiB written between launches evicts the 50 MB L2 (the
-            # evaluator's traffic does so on the main path) and keeps the
-            # card busy (~0.3 ms) while the host enqueues the timed launch,
-            # so the events time the kernel, not the host's launch path.
-            scratch = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-
-            def flush():                      # the Trust DB arrives cold
-                scratch.zero_()
-
+            flush = l2_flusher(dev)           # the Trust DB arrives cold
             args = (keys, valid, ck, cv, ucap, uthr, budget_total)
             timing = {
                 "ms": timed_ms(lambda: shed_partition(
@@ -429,11 +485,7 @@ def phase_topk_select(dev) -> dict:
                                  f"plain version ({label})")
     log(f"topk_select: {len(cases)} cases exactly equal to the plain "
         f"version, values bit for bit ({'; '.join(c[0] for c in cases)})")
-    scratch = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-
-    def flush():        # evicts L2 and keeps the card busy while the
-        scratch.zero_()  # host enqueues the timed launches
-
+    flush = l2_flusher(dev)
     timings = {label: topk_timing(scores, k, flush)
                for label, scores, k in cases[:3]}
     for label, t in timings.items():
@@ -447,6 +499,177 @@ def phase_topk_select(dev) -> dict:
             "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: dot_interaction against its plain version
+# ---------------------------------------------------------------------------
+
+DLRM_F, DLRM_D = 27, 128         # dlrm-mlperf: 26 tables + the bottom MLP
+
+
+def phase_dot_interaction(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    shapes = [(b, DLRM_F, DLRM_D) for b in (1, 37, ENGINE_BATCH, BATCH)] \
+        + [(37, 27, 128), (128, 27, 128), (16, 8, 64), (5, 12, 32)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    inputs = {}
+    for dtype, atol in ((torch.float32, F32_ATOL),
+                        (torch.bfloat16, BF16_ATOL)):
+        for B, Fn, D in shapes:
+            # the model's scale: rows of norm ~1, as the 1/sqrt(D) tables
+            x = (torch.randn((B, Fn, D), generator=gen, device=dev)
+                 * D ** -0.5).to(dtype)
+            got = dot_interaction(x)
+            want = dot_interaction_ref(x)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            if got.shape != want.shape or got.dtype != dtype \
+                    or not torch.isfinite(got).all() or err > atol:
+                raise AssertionError(f"dot_interaction {dtype} B={B} F={Fn} "
+                                     f"D={D}: max abs err {err} > {atol}")
+            worst[dtype] = max(worst[dtype], err)
+            inputs[(B, Fn, D, dtype)] = x
+    log(f"dot_interaction: {len(shapes)} shapes x 2 dtypes within "
+        f"tolerance of the plain version (f32 max abs err "
+        f"{worst[torch.float32]:.3e} <= {F32_ATOL}, bf16 "
+        f"{worst[torch.bfloat16]:.3e} <= {BF16_ATOL})")
+    flush = l2_flusher(dev)
+    iu, ju = triu_pairs(DLRM_F, dev)
+
+    def yardstick(x):                  # two library calls: bmm, gather
+        return torch.bmm(x, x.transpose(1, 2))[:, iu, ju]
+
+    rows = {}
+    for B in (ENGINE_BATCH, BATCH):
+        x = inputs[(B, DLRM_F, DLRM_D, torch.float32)]
+        n_pairs = DLRM_F * (DLRM_F - 1) // 2
+        n_bytes = (x.numel() + B * n_pairs) * 4
+        flops = 2 * B * n_pairs * DLRM_D
+        t = {"ms": timed_ms(lambda: dot_interaction(x), 200, flush),
+             "plain_ms": timed_ms(lambda: dot_interaction_ref(x), 100,
+                                  flush),
+             "yardstick_ms": timed_ms(lambda: yardstick(x), 100, flush),
+             "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                             flops / F32_FLOP_PER_S) * 1e3,
+             "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                          >= flops / F32_FLOP_PER_S else "operations")}
+        rows[B] = t
+        log(f"dot_interaction @B={B} F={DLRM_F} D={DLRM_D} f32: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm + "
+            f"triangle gather (two library calls) {t['yardstick_ms']:.4f} "
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} "
+            f"B, {flops} FLOP)")
+    t = rows[ENGINE_BATCH]             # the DLRM engine's micro-batch
+    return {"name": "dot_interaction", "route": "cuda",
+            "source": "src/repro_torch/csrc/dot_interaction.cu",
+            "replaces": "src/repro/kernels/dot_interaction.py:48",
+            "max_abs_err": max(worst.values()), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: flash_decode against its plain version
+# ---------------------------------------------------------------------------
+
+def decode_inputs(B, L, Hq, Hkv, D, dtype, gen, dev):
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def check_decode(q, k, v, lengths, window, softcap, label) -> float:
+    atol = F32_ATOL if q.dtype == torch.float32 else BF16_ATOL
+    got = flash_decode(q, k, v, lengths, window=window, softcap=softcap)
+    want = flash_decode_ref(q, k, v, lengths, window=window,
+                            softcap=softcap)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if got.dtype != q.dtype or not torch.isfinite(got).all() or err > atol:
+        raise AssertionError(f"flash_decode {label}: max abs err {err} > "
+                             f"{atol}")
+    return err
+
+
+def phase_flash_decode(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    lm = get_config("smollm-135m")
+    B, L, Hq, Hkv, D = DECODE_SLOTS, DECODE_MAX_LEN, lm.n_heads, \
+        lm.n_kv_heads, lm.d_head
+    cases = [(3, 512, 4, 2, 64, 0, 0.0), (2, 512, 8, 1, 128, 100, 30.0),
+             (2, 256, 8, 8, 64, 0, 0.0), (1, 1024, 9, 3, 64, 0, 0.0),
+             (B, L, Hq, Hkv, D, 0, 0.0), (B, L, Hq, Hkv, D, 256, 30.0)]
+    worst, n_checks = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, l, hq, hkv, d, win, cap in cases:
+            q, k, v = decode_inputs(b, l, hq, hkv, d, dtype, gen, dev)
+            steps = torch.as_tensor(np.arange(b) * (l // b) % l + 1,
+                                    dtype=torch.int32, device=dev)
+            ragged = torch.randint(1, l + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            edges = torch.tensor([1, l, 0, l - 1], dtype=torch.int32,
+                                 device=dev)[:b]
+            ragged[:edges.numel()] = edges
+            for lengths in (steps, ragged):
+                label = (f"{dtype} B={b} L={l} {hq}/{hkv} heads D={d} "
+                         f"window={win} softcap={cap}")
+                worst = max(worst, check_decode(q, k, v, lengths, win, cap,
+                                                label))
+                n_checks += 1
+            zero = torch.zeros(b, dtype=torch.int32, device=dev)
+            if flash_decode(q, k, v, zero, window=win, softcap=cap).any():
+                raise AssertionError(f"flash_decode {label}: length 0 "
+                                     f"gave nonzero output")
+    # the poison check of tests/test_kernels.py: positions past the length
+    # must not reach the output
+    q, k, v = decode_inputs(2, 256, 4, 4, 64, torch.float32, gen, dev)
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=dev)
+    out1 = flash_decode(q, k, v, lengths)
+    k[:, 200:], v[:, 200:] = 1e4, -1e4
+    if not torch.equal(flash_decode(q, k, v, lengths), out1):
+        raise AssertionError("flash_decode read past the lengths")
+    log(f"flash_decode: {n_checks} cases within tolerance of the plain "
+        f"version (the four reference cases and the decode shape, f32 and "
+        f"bf16, lengths 1..L, 1, L, L-1 and 0), max abs err {worst:.3e}; "
+        f"length 0 gives zeros; the poison check holds")
+
+    q, k, v = decode_inputs(B, L, Hq, Hkv, D, torch.bfloat16, gen, dev)
+    lengths = torch.randint(1, L + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    pos = torch.arange(L, device=dev)
+    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    lib_err = max_err(library(), flash_decode_ref(q, k, v, lengths))
+    flush = l2_flusher(dev)
+    n_valid = int(lengths.sum())
+    n_bytes = (n_valid * Hkv * D * 2 * 2           # valid k and v rows
+               + 2 * q.numel() * 2 + B * 4)        # q, o, lengths
+    flops = 4 * n_valid * Hq * D                    # QK and PV
+    t = {"ms": timed_ms(lambda: flash_decode(q, k, v, lengths), 200, flush),
+         "plain_ms": timed_ms(lambda: flash_decode_ref(q, k, v, lengths),
+                              20, flush),
+         "library_ms": timed_ms(library, 100, flush)}
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
+                >= flops / BF16_FLOP_PER_S else "operations")
+    log(f"flash_decode @decode shape (B={B}, L={L}, {Hq}/{Hkv} heads, D={D}, "
+        f"bf16, mean length {n_valid / B:.0f}): kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, sdpa with a length mask "
+        f"{t['library_ms']:.4f} ms (max abs err {lib_err:.3e}), bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {n_bytes} B, {flops} FLOP)")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:83",
+            "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +837,9 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev) -> dict:
 KERNEL_GROUPS = (
     ("shed_partition kernel", ("shed_partition_kernel",)),
     ("flash_attention kernel", ("flash_attention_kernel",)),
+    ("dot_interaction kernel", ("dot_interaction_kernel",)),
+    ("flash_decode kernel", ("flash_decode_split_kernel",
+                             "flash_decode_combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas")),
     ("reductions (norms, logsumexp)", ("reduce", "softmax", "logsumexp")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -621,27 +847,26 @@ KERNEL_GROUPS = (
 )
 
 
-def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
-    """Device time of one steady-state fused step by kernel group, and
-    the card's busy share over the step's wall window (torch.profiler)."""
+def device_profile(label: str, fn) -> None:
+    """Device time of one call of ``fn`` by kernel group, and the card's
+    busy share over the call's wall window (torch.profiler; the
+    profiler's own host cost inflates the wall, so the share is a lower
+    bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fused = FusedLoadShedder(cfg, evaluate, device=dev)
-    warm = micro_batch(BATCH, 300_001, mk, fseed=7)
-    fused.process(*warm)
-    keys, buckets, feats = micro_batch(BATCH, 400_001, mk, fseed=8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        fused.process(keys, buckets, feats)
+        fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.device_time_total > 0]
     if not kernels:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile ({label}): the profiler recorded no device time (not "
+            f"measured)")
         return
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
@@ -652,14 +877,25 @@ def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
                      if any(p in key for p in pats)), "other")
         groups[name] += e.device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
-    log(f"profile (one fused step, {BATCH} items, wall {wall * 1e3:.1f} ms):"
-        f" device busy {busy_ms:.1f} ms = {busy_ms / (wall * 1e3):.3f} of "
-        f"the window, {sum(e.count for e in kernels)} kernel launches")
+    log(f"profile ({label}, wall {wall * 1e3:.1f} ms): device busy "
+        f"{busy_ms:.1f} ms = {busy_ms / (wall * 1e3):.3f} of the window, "
+        f"{sum(e.count for e in kernels)} kernel launches")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {name}: {ms:.2f} ms ({ms / busy_ms:.3f})")
+        if ms > 0:
+            log(f"  {name}: {ms:.2f} ms ({ms / busy_ms:.3f})")
     for e in top:
         log(f"  top: {e.device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
             f"{e.key[:90]}")
+
+
+def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
+    """One steady-state fused step of the smollm evaluator."""
+    fused = FusedLoadShedder(cfg, evaluate, device=dev)
+    warm = micro_batch(BATCH, 300_001, mk, fseed=7)
+    fused.process(*warm)
+    keys, buckets, feats = micro_batch(BATCH, 400_001, mk, fseed=8)
+    device_profile(f"one fused step, {BATCH} items",
+                   lambda: fused.process(keys, buckets, feats))
 
 
 # ---------------------------------------------------------------------------
@@ -768,29 +1004,42 @@ def serve_queries(eng, queries) -> list:
     return rids
 
 
-def phase_engine(cfg: TrustIRConfig, retrieval, shard, evaluate,
-                 dev) -> dict:
+class CountedEvaluator:
+    """The evaluator with a count of its forward calls."""
+
+    def __init__(self, evaluate):
+        self.evaluate, self.calls = evaluate, 0
+
+    def __call__(self, chunk):
+        self.calls += 1
+        return self.evaluate(chunk)
+
+
+def phase_engine(cfg: TrustIRConfig, searcher, evaluate, dev, label: str,
+                 expect) -> dict:
     """384 seeded queries through ``ServingEngine.enqueue_query`` with a
     drain of one micro-batch every 48 queries, on the wall clock, after
-    one warm-up round. The launch counts are read around the measured
-    run."""
-    searcher = retrieval.searcher([shard])
+    one warm-up round. Every launch count is set to 0 just before the
+    measured run and read just after; ``expect(n_searches, n_batches)``
+    gives the count each kernel must show."""
     timed = TimedSearcher(searcher)
     eng = ServingEngine(cfg, evaluate, retriever=timed, device=dev)
     sched = eng.scheduler
     if sched.max_batch_items != ENGINE_BATCH:
         raise AssertionError(f"micro-batch capacity {sched.max_batch_items}"
                              f", expected {ENGINE_BATCH}")
-    serve_queries(eng, engine_queries(retrieval.corpus, SEED + 4,
+    serve_queries(eng, engine_queries(searcher.corpus, SEED + 4,
                                       QUERIES_PER_DRAIN))
     eng.completed.clear()
     base = sched.stats.as_dict()
-    queries = engine_queries(retrieval.corpus, SEED + 3, ENGINE_QUERIES)
+    queries = engine_queries(searcher.corpus, SEED + 3, ENGINE_QUERIES)
     n_search0, timed.total_s = searcher.n_searches, 0.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+    if isinstance(evaluate, CountedEvaluator):
+        evaluate.calls = 0
     t0 = time.monotonic()
     rids = serve_queries(eng, queries)
     torch.cuda.synchronize()
@@ -813,21 +1062,21 @@ def phase_engine(cfg: TrustIRConfig, retrieval, shard, evaluate,
         if not r.admitted and not r.reason:
             raise AssertionError(f"request {r.request_id} rejected without "
                                  f"a reason")
-    expect = {"topk_select": n_searches, "shed_partition": n_batches,
-              "flash_attention": N_LAYERS * n_batches}
-    if launches != expect or n_searches != ENGINE_QUERIES:
-        raise AssertionError(f"launches {launches}, expected {expect} for "
-                             f"{n_searches} searches and {n_batches} "
-                             f"batches")
+    want = expect(n_searches, n_batches)
+    if launches != want or n_searches != ENGINE_QUERIES:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} for {n_searches} searches and "
+                             f"{n_batches} batches")
     slo = eng.slo_stats()
+    peak = torch.cuda.max_memory_allocated()
     stats = {"queries": len(rids), "wall_s": wall,
              "queries_per_s": len(rids) / wall,
              "items_per_s": n_items / wall,
              "retrieve_ms_per_query": timed.total_s / n_searches * 1e3,
              "p50_s": slo["p50_s"], "p99_s": slo["p99_s"],
              "slo_met_frac": slo["slo_met_frac"], "batches": n_batches,
-             "launches": launches}
-    log(f"engine (ServingEngine fused, depth {cfg.pipeline_depth}, wall "
+             "launches": launches, "peak_bytes": peak}
+    log(f"{label} (ServingEngine fused, depth {cfg.pipeline_depth}, wall "
         f"clock): {len(rids)} queries in {wall:.3f} s = "
         f"{stats['queries_per_s']:.1f} queries/s, "
         f"{stats['items_per_s']:.1f} items/s; retrieve "
@@ -835,9 +1084,8 @@ def phase_engine(cfg: TrustIRConfig, retrieval, shard, evaluate,
         f"{slo['p50_s'] * 1e3:.1f} ms, P99 {slo['p99_s'] * 1e3:.1f} ms, "
         f"SLO met {slo['slo_met_frac']:.3f}; {slo['n_rejected']} rejected; "
         f"every request answered once, no item dropped; launches "
-        f"{launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    log(f"engine scheduler_stats: {json.dumps(eng.scheduler_stats())}")
+        f"{launches}; peak device memory {peak / 2 ** 30:.2f} GiB")
+    log(f"{label} scheduler_stats: {json.dumps(eng.scheduler_stats())}")
     return stats
 
 
@@ -845,13 +1093,15 @@ def phase_engine(cfg: TrustIRConfig, retrieval, shard, evaluate,
 # phase 9: host vs fused engine on one SimClock workload
 # ---------------------------------------------------------------------------
 
-def phase_engine_parity(cfg: TrustIRConfig, retrieval, shard, evaluate,
-                        dev) -> None:
+def phase_engine_parity(cfg: TrustIRConfig, make_searcher, evaluate, dev,
+                        label: str, trust_atol: float) -> None:
     """One seeded two-tenant workload (raw queries from the corpus's
     query model, 64 to 2048 candidates each) through a host-drain and a
-    fused-drain engine on SimClocks: the same admissions, rejection
-    reasons, regimes and tiers."""
-    qm = ZipfQueryModel.for_corpus(retrieval.corpus, seed=SEED + 5)
+    fused-drain engine on SimClocks, each with a searcher from
+    ``make_searcher()``: the same admissions, rejection reasons, regimes
+    and tiers, trust within ``trust_atol``."""
+    corpus = make_searcher().corpus
+    qm = ZipfQueryModel.for_corpus(corpus, seed=SEED + 5)
     wl = MultiTenantWorkload(
         tenants=[TenantSpec("interactive", qps=40.0, priority_mix={
                      Priority.CRITICAL: 1.0, Priority.HIGH: 2.0},
@@ -867,8 +1117,7 @@ def phase_engine_parity(cfg: TrustIRConfig, retrieval, shard, evaluate,
         eng = ServingEngine(cfg, evaluate, drain_mode=mode, device=dev,
                             sim_clock=SimClock(cfg.u_capacity
                                                / cfg.deadline_s))
-        reports[mode] = run_scheduled_workload(
-            eng, retrieval.searcher([shard]), wl)
+        reports[mode] = run_scheduled_workload(eng, make_searcher(), wl)
     host, fused = reports["host"].responses, reports["fused"].responses
     if [r.request_id for r in host] != [r.request_id for r in fused]:
         raise AssertionError("host and fused engines answered differently")
@@ -880,14 +1129,203 @@ def phase_engine_parity(cfg: TrustIRConfig, retrieval, shard, evaluate,
             raise AssertionError(f"request {a.request_id}: host and fused "
                                  f"engines disagree")
         worst = max(worst, float(np.abs(a.trust - b.trust).max()))
-    if worst > TRUST_ATOL:
-        raise AssertionError(f"host vs fused trust differs by {worst}")
+    if worst > trust_atol:
+        raise AssertionError(f"{label}: host vs fused trust differs by "
+                             f"{worst}")
     sh, sf = reports["host"].summary(), reports["fused"].summary()
-    log(f"engine parity (SimClock, {len(host)} queries): host and fused "
+    log(f"{label} parity (SimClock, {len(host)} queries): host and fused "
         f"tiers, admissions, reasons and regimes identical, max |trust "
-        f"diff| {worst:.3e} <= {TRUST_ATOL}; {sf['n_admitted']} admitted, "
+        f"diff| {worst:.3e} <= {trust_atol}; {sf['n_admitted']} admitted, "
         f"rejections {sf['rejected_by_reason']}, heavy+ share "
         f"{sf['frac_heavy+']:.3f} (host {sh['frac_heavy+']:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the serving engine on the full-width DLRM evaluator
+# ---------------------------------------------------------------------------
+
+def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
+    """dlrm-mlperf at its published widths with every table capped at
+    DLRM_ROW_CAP rows, seeded weights drawn on the card; the main path's
+    384 queries through ``ServingEngine`` on the 65536-document shard
+    already built (a DLRM feature function in place of the tokens), then
+    the host-vs-fused engine parity run with this evaluator."""
+    full = get_config("dlrm-mlperf")
+    capped = cap_table_rows(full, DLRM_ROW_CAP)
+    cut = [(t.name, t.vocab, c.vocab) for t, c in zip(full.tables,
+                                                      capped.tables)
+           if t.vocab != c.vocab]
+    rows = {name: sum(E.padded_rows(t.vocab) for t in c.tables)
+            for name, c in (("full", full), ("capped", capped))}
+    log(f"dlrm: {len(full.tables)} tables of dim {full.embed_dim}, "
+        f"{rows['full']} padded rows ({rows['full'] * 512 / 1e9:.1f} GB "
+        f"f32) as published; capped at {DLRM_ROW_CAP} rows (cuts "
+        f"{', '.join(f'{n} {a}->{b}' for n, a, b in cut)}): "
+        f"{rows['capped']} rows ({rows['capped'] * 512 / 1e9:.1f} GB)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    evaluate, mk = make_evaluator("dlrm-mlperf", smoke=False, seed=SEED,
+                                  device=dev, max_table_rows=DLRM_ROW_CAP)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    log(f"dlrm: evaluator built on the card in {time.monotonic() - t0:.1f} "
+        f"s, {held / 1e9:.2f} GB of weights")
+
+    def doc_features(docs):        # retrieved docs -> DLRM features
+        return mk(len(docs), fseed=int(docs[0]) % 1_000_000
+                  if len(docs) else 0)
+
+    def make_searcher():
+        return CorpusSearcher(corpus, [shard], feature_fn=doc_features)
+
+    counted = CountedEvaluator(evaluate)
+
+    def expect(n_searches, n_batches):
+        return {"topk_select": n_searches, "shed_partition": n_batches,
+                "flash_attention": 0, "dot_interaction": counted.calls,
+                "flash_decode": 0}
+
+    stats = phase_engine(cfg, make_searcher(), counted, dev, "dlrm engine",
+                         expect)
+    if not 0 < stats["launches"]["dot_interaction"] == counted.calls:
+        raise AssertionError(f"dot_interaction launched "
+                             f"{stats['launches']['dot_interaction']} times "
+                             f"for {counted.calls} evaluator calls")
+    phase_engine_parity(cfg, make_searcher, evaluate, dev, "dlrm engine",
+                        DLRM_TRUST_ATOL)
+    fused = FusedLoadShedder(cfg, evaluate, device=dev)
+    batches = [(np.arange(off, off + ENGINE_BATCH, dtype=np.uint32),
+                np.zeros(ENGINE_BATCH, np.int32),
+                mk(ENGINE_BATCH, fseed=off)) for off in (500_001, 600_001)]
+    fused.process(*batches[0])
+    device_profile(f"one fused DLRM step, {ENGINE_BATCH} items",
+                   lambda: fused.process(*batches[1]))
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"dlrm: {counted.calls} evaluator calls in the measured run, each "
+        f"one dot_interaction launch; peak device memory of the phase "
+        f"{stats['peak_bytes'] / 2 ** 30:.2f} GiB")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 11: KV-cache decode on the full-width smollm-135m
+# ---------------------------------------------------------------------------
+
+def phase_decode(dev) -> dict:
+    """128 seeded prompts of 1..1984 tokens, one ``prefill`` each at B 1,
+    admitted into a 128-slot ``KVCachePool`` of 2048 positions; 64
+    ``decode_step``s over the whole pool; every slot retired. Decode
+    logits of a few slots at a few steps are held against the full
+    forward over the same tokens."""
+    cfg = get_config("smollm-135m")
+    params = T.cast_params(
+        T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev), L.dtype_of(cfg.dtype))
+    r = np.random.default_rng(SEED + 8)
+    prompt_lens = r.integers(1, MAX_PROMPT + 1, size=DECODE_SLOTS)
+    prompt_lens[:2] = (1, MAX_PROMPT)              # both ends
+    prompts = [r.integers(0, cfg.vocab_size, size=n) for n in prompt_lens]
+    feed = r.integers(0, cfg.vocab_size, size=(DECODE_STEPS, DECODE_SLOTS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = KVCachePool(cfg, n_slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+                       device=dev)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (pool.cache["k"], pool.cache["v"]))
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    scores = []
+    for i, p in enumerate(prompts):
+        score, kv = T.prefill(params, cfg, torch.as_tensor(
+            p, dtype=torch.int32, device=dev)[None])
+        if pool.admit(i, kv, prompt_len=len(p)) != i:
+            raise AssertionError(f"prompt {i} did not get slot {i}")
+        scores.append(score)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    prefill_launches = {n: w.launches for n, w in KERNELS.items()}
+    scores = torch.cat(scores)
+    if prefill_launches["flash_attention"] != cfg.n_layers * DECODE_SLOTS \
+            or not torch.isfinite(scores).all():
+        raise AssertionError(f"prefill: launches {prefill_launches}, "
+                             f"finite scores {bool(torch.isfinite(scores).all())}")
+
+    check_slots = (0, 1, DECODE_SLOTS * 3 // 5)  # shortest, longest, one
+    check_steps = (0, DECODE_STEPS // 2, DECODE_STEPS - 1)
+    kept = {}
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t1 = time.monotonic()
+    for t in range(DECODE_STEPS):
+        tok = torch.as_tensor(feed[t], dtype=torch.int32, device=dev)
+        logits, pool.cache = T.decode_step(params, cfg, tok, pool.cache)
+        if t in check_steps:
+            kept[t] = logits[list(check_slots)].float().clone()
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t1
+    launches = {n: w.launches for n, w in KERNELS.items()}
+    want = {n: 0 for n in KERNELS}
+    want["flash_decode"] = cfg.n_layers * DECODE_STEPS
+    if launches != want:
+        raise AssertionError(f"decode: launches {launches}, expected {want}")
+    lengths = pool.cache["lengths"].cpu().numpy()
+    if not np.array_equal(lengths, prompt_lens + DECODE_STEPS):
+        raise AssertionError("decode: cache lengths do not count the steps")
+    peak = torch.cuda.max_memory_allocated()
+    extra = torch.as_tensor(feed[0], dtype=torch.int32, device=dev)
+
+    def one_step():
+        _, pool.cache = T.decode_step(params, cfg, extra, pool.cache)
+
+    device_profile(f"one decode_step, {DECODE_SLOTS} slots", one_step)
+    for slot in range(DECODE_SLOTS):
+        pool.retire(slot)
+    if pool.active_mask().any() or pool.cache["lengths"].any() \
+            or len(pool.alloc.free) != DECODE_SLOTS:
+        raise AssertionError("decode: retire left a slot claimed")
+
+    worst, worst_rel = 0.0, 0.0
+    for slot in check_slots:
+        for t in check_steps:
+            toks = np.concatenate([prompts[slot], feed[:t + 1, slot]])
+            with torch.no_grad():
+                full = T.forward(params, cfg, torch.as_tensor(
+                    toks, dtype=torch.int32, device=dev)[None])[0, -1]
+            diff = (kept[t][check_slots.index(slot)] - full.float()).abs()
+            worst = max(worst, float(diff.max()))
+            worst_rel = max(worst_rel, float(diff.norm()
+                                             / full.float().norm()))
+    if worst > DECODE_LOGIT_ATOL:
+        raise AssertionError(f"decode logits differ from the forward by "
+                             f"{worst} > {DECODE_LOGIT_ATOL}")
+    n_tokens = DECODE_SLOTS * DECODE_STEPS
+    row = cfg.n_kv_heads * cfg.d_head * 2 * 2        # k and v, bf16
+    kv_read = [cfg.n_layers * int((prompt_lens + t + 1).sum()) * row
+               for t in range(DECODE_STEPS)]
+    stats = {"prefill_s": prefill_s, "decode_s": decode_s,
+             "tokens_per_s": n_tokens / decode_s,
+             "step_ms": decode_s / DECODE_STEPS * 1e3,
+             "kv_bytes_per_step": float(np.mean(kv_read)),
+             "launches": launches, "peak_bytes": peak,
+             "logit_err": worst}
+    log(f"decode: {DECODE_SLOTS} prompts of 1..{MAX_PROMPT} tokens (mean "
+        f"{prompt_lens.mean():.0f}) prefilled in {prefill_s:.2f} s "
+        f"({prefill_launches['flash_attention']} flash_attention launches) "
+        f"into a KVCachePool of {DECODE_SLOTS} x {DECODE_MAX_LEN} "
+        f"({kv_bytes / 1e9:.2f} GB bf16)")
+    log(f"decode: {DECODE_STEPS} decode_steps over {DECODE_SLOTS} slots in "
+        f"{decode_s:.3f} s = {stats['tokens_per_s']:.1f} tokens/s, "
+        f"{stats['step_ms']:.2f} ms per step; KV bytes read per step "
+        f"{stats['kv_bytes_per_step'] / 1e9:.3f} GB (mean), "
+        f"{stats['kv_bytes_per_step'] / (stats['step_ms'] / 1e3) / 1e12:.3f} "
+        f"TB/s of step time; launches {launches}; logits vs the full "
+        f"forward at slots {check_slots}, steps {check_steps}: max abs err "
+        f"{worst:.3e} <= {DECODE_LOGIT_ATOL} (relative {worst_rel:.3e}); "
+        f"every slot retired; peak device memory {peak / 2 ** 30:.2f} GiB")
+    return stats
 
 
 def main() -> int:
@@ -897,6 +1335,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.monotonic()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     card = card_line()
@@ -905,7 +1344,9 @@ def main() -> int:
 
     cfg = TrustIRConfig()
     kernels = [phase_shed_partition(cfg, dev), phase_flash_attention(dev),
-               phase_topk_select(dev)]
+               phase_topk_select(dev), phase_dot_interaction(dev),
+               phase_flash_decode(dev)]
+    torch.cuda.empty_cache()
 
     t0 = time.monotonic()
     evaluate, mk = make_evaluator(cfg.evaluator_arch, smoke=False,
@@ -924,10 +1365,33 @@ def main() -> int:
                          pipeline_depth=2)
     corpus, retrieval, shard = build_retrieval(ecfg, mk, dev)
     phase_retrieval(corpus, retrieval, shard, dev)
-    engine = phase_engine(ecfg, retrieval, shard, evaluate, dev)
-    phase_engine_parity(ecfg, retrieval, shard, evaluate, dev)
+
+    def smollm_expect(n_searches, n_batches):
+        return {"topk_select": n_searches, "shed_partition": n_batches,
+                "flash_attention": N_LAYERS * n_batches,
+                "dot_interaction": 0, "flash_decode": 0}
+
+    engine = phase_engine(ecfg, retrieval.searcher([shard]), evaluate, dev,
+                          "engine", smollm_expect)
+    phase_engine_parity(ecfg, lambda: retrieval.searcher([shard]), evaluate,
+                        dev, "engine", TRUST_ATOL)
+    dlrm = phase_dlrm(ecfg, corpus, shard, dev)
+    gc.collect()                       # the DLRM tables go with the phase
+    torch.cuda.empty_cache()
+    log(f"dlrm tables freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB still allocated")
+    decode = phase_decode(dev)
+
+    path_launches = dict(engine["launches"])
+    path_launches["dot_interaction"] = dlrm["launches"]["dot_interaction"]
+    path_launches["flash_decode"] = decode["launches"]["flash_decode"]
     for kern in kernels:
-        kern["launches"] = engine["launches"][kern["name"]]
+        kern["launches"] = path_launches[kern["name"]]
+        if kern["launches"] < 1:
+            raise AssertionError(f"{kern['name']} was not launched on its "
+                                 f"path")
+    log(f"chip_smoke: all phases passed in "
+        f"{time.monotonic() - t_start:.1f} s")
 
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 """The port's own copy of the config dataclasses it reads.
 
 Counterpart of ``repro.configs.base``, cut to the fields the port
-reads: the dense transformer of the trust evaluator, the load shedder's
-parameters, the drain executor, the scheduler's quarantine, and the
-retrieval front end. Later slices add the fields their modules read.
+reads: the dense transformer of the trust evaluator, the DLRM
+recommender (the other evaluator backbone the port serves), the load
+shedder's parameters, the drain executor, the scheduler's quarantine,
+and the retrieval front end. Later slices add the fields their modules
+read.
 """
 from __future__ import annotations
 
@@ -27,6 +29,29 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     act: str = "silu"                  # SwiGLU
     dtype: str = "bfloat16"            # compute type
+    param_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class EmbeddingTableConfig:
+    """One sparse embedding table."""
+    name: str
+    vocab: int
+    dim: int
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    """A recommender backbone; the port reads the DLRM fields."""
+    name: str
+    model: str                     # "dlrm"
+    embed_dim: int
+    tables: Tuple[EmbeddingTableConfig, ...] = ()
+    n_dense: int = 0
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    interaction: str = "dot"
+    dtype: str = "float32"
     param_dtype: str = "float32"
 
 
@@ -89,3 +114,13 @@ class TrustIRConfig:
 def reduced(cfg, **overrides):
     """Return a copy of a frozen dataclass config with overrides applied."""
     return dataclasses.replace(cfg, **overrides)
+
+
+def cap_table_rows(cfg: RecsysConfig, max_rows: int) -> RecsysConfig:
+    """``cfg`` with every embedding table cut to at most ``max_rows`` rows
+    (MLPerf DLRM's ``--max-ind-range``); widths, table count, MLPs and
+    dtype unchanged."""
+    if max_rows < 1:
+        raise ValueError(f"max_rows must be positive, got {max_rows}")
+    return reduced(cfg, tables=tuple(
+        reduced(t, vocab=min(t.vocab, max_rows)) for t in cfg.tables))

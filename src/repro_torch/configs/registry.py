@@ -1,9 +1,9 @@
 """Arch registry: maps an arch id to its full or smoke config."""
 from __future__ import annotations
 
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import dlrm_mlperf, smollm_135m
 
-_MODULES = {smollm_135m.ARCH_ID: smollm_135m}
+_MODULES = {m.ARCH_ID: m for m in (smollm_135m, dlrm_mlperf)}
 
 
 def get_config(arch_id: str, smoke: bool = False):

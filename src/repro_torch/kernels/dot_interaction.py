@@ -1,0 +1,95 @@
+"""DLRM dot interaction: the strict upper triangle of each sample's Gram.
+
+Counterpart of ``repro.kernels.dot_interaction``. For (B, F, D) features
+it returns (B, F(F-1)/2): entry p is ``x[b, i] . x[b, j]`` for the p-th
+pair of ``np.triu_indices(F, 1)``, summed in float32 and returned in the
+input's type, without storing the (B, F, F) Gram.
+
+``dot_interaction`` launches the hand-written CUDA kernel
+(``csrc/dot_interaction.cu``, replacing the TPU kernel
+``_dot_int_kernel``, whose selection-matrix GEMM becomes a direct store
+of each thread's 4 x 4 Gram tile to its triangle entries; bound by bytes,
+B*F*D reads and B*F(F-1)/2 writes) for CUDA tensors, and takes the plain
+version ``dot_interaction_ref`` only for CPU tensors. Both take float32
+or bfloat16.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._build import library_function
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_THREADS = 1024
+MAX_SMEM_BYTES = 232_448            # an H100 block's shared memory
+
+
+def triu_pairs(n_f: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``np.triu_indices(n_f, 1)`` as int64 tensors on ``device``."""
+    iu, ju = np.triu_indices(n_f, k=1)
+    return (torch.as_tensor(iu, device=device),
+            torch.as_tensor(ju, device=device))
+
+
+def dot_interaction_ref(feats: torch.Tensor) -> torch.Tensor:
+    """Plain version (the reference's ``kernels.ref.dot_interaction_ref``):
+    the full float32 Gram, then the triangle gather."""
+    x = feats.to(torch.float32)
+    z = torch.bmm(x, x.transpose(1, 2))
+    iu, ju = triu_pairs(feats.shape[1], feats.device)
+    return z[:, iu, ju].to(feats.dtype)
+
+
+def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
+    """feats: (B, F, D) float32 or bfloat16 -> (B, F(F-1)/2), same type.
+
+    CUDA tensors launch the kernel (counted in
+    ``dot_interaction.launches``); CPU tensors take the plain version.
+    """
+    if feats.dim() != 3:
+        raise ValueError(f"feats must be (B, F, D), got "
+                         f"{tuple(feats.shape)}")
+    if feats.dtype not in _DTYPES:
+        raise TypeError(f"dot_interaction takes float32 or bfloat16, got "
+                        f"{feats.dtype}")
+    if feats.device.type == "cpu":
+        return dot_interaction_ref(feats)
+    if feats.device.type != "cuda":
+        raise ValueError(f"dot_interaction runs on cuda or cpu, not "
+                         f"{feats.device}")
+    if not feats.is_contiguous():
+        raise ValueError("feats must be contiguous")
+    B, F, D = feats.shape
+    t = (F + 3) // 4
+    if t * (t + 1) // 2 > MAX_THREADS:
+        raise ValueError(f"dot_interaction takes F <= 176, got F={F}")
+    smem = library_function("dot_interaction", "dot_interaction_smem_bytes",
+                            [ctypes.c_int, ctypes.c_int],
+                            restype=ctypes.c_longlong)(F, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"dot_interaction: F={F}, D={D} needs {smem} B of "
+                         f"shared memory, more than a block has")
+    if B > 2 ** 31 - 1:
+        raise ValueError(f"dot_interaction indexes blocks with int32: "
+                         f"B={B} is too large")
+    fn = library_function(
+        "dot_interaction", "dot_interaction_launch",
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+    out = torch.empty((B, F * (F - 1) // 2), dtype=feats.dtype,
+                      device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    err = fn(feats.data_ptr(), out.data_ptr(), B, F, D, _DTYPES[feats.dtype],
+             stream)
+    if err != 0:
+        raise RuntimeError(f"dot_interaction kernel launch failed: "
+                           f"cudaError {err}")
+    dot_interaction.launches += 1
+    return out
+
+
+dot_interaction.launches = 0

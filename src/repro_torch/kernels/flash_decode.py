@@ -1,0 +1,146 @@
+"""One-token decode attention against a KV cache (GQA, window, softcap).
+
+Counterpart of ``repro.kernels.flash_decode``. ``lengths`` counts each
+row's valid positions including the newest token (already in the
+cache); position t of row b is seen when ``t < lengths[b]`` and, with
+``window > 0``, ``t >= lengths[b] - window``. A row that sees no
+position (``lengths[b] == 0``) gives zeros, as the TPU kernel does
+(the reference's ``flash_decode_ref`` gives the mean of V there).
+
+``flash_decode`` launches the hand-written CUDA kernel
+(``csrc/flash_decode.cu``, replacing the TPU kernel ``_decode_kernel``:
+split-K flash-decoding, each warp one span of a row's valid range, then
+a combine pass; bound by the bytes of the valid cache) for CUDA tensors,
+and takes the plain version ``flash_decode_ref`` only for CPU tensors.
+The kernel takes bf16 or f32, D of 16, 32, 64 or 128, and up to 8 query
+heads per KV head.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import library_function
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8
+MAX_GRID_YZ = 65535
+NEG_INF = -2.0e38
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int = 0, softcap: float = 0.0,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: the reference's ``kernels.ref.flash_decode_ref`` in
+    float32, except that a row with no visible position gives zeros."""
+    B, L, Hkv, D = k_cache.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    qg = q.reshape(B, Hkv, G, D).to(torch.float32)
+    s = torch.einsum("bhgd,bthd->bhgt", qg,
+                     k_cache.to(torch.float32)) * sm_scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(L, device=q.device)
+    lens = lengths.to(torch.int64)[:, None]
+    ok = pos[None, :] < lens
+    if window > 0:
+        ok &= pos[None, :] > lens - 1 - window
+    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, None]
+    o = torch.einsum("bhgt,bthd->bhgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _check(q, k_cache, v_cache, lengths) -> None:
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"q must be (B,Hq,D) and the caches (B,L,Hkv,D); "
+                         f"got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, L, Hkv, D = k_cache.shape
+    if q.shape[0] != B or q.shape[2] != D or q.shape[1] % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_cache.shape)}")
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be ({B},), got "
+                         f"{tuple(lengths.shape)}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must share q's dtype and device")
+    if lengths.device != q.device:
+        raise ValueError("lengths must be on q's device")
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                 window: int = 0, softcap: float = 0.0,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, D); caches: (B, L, Hkv, D); lengths: (B,) int32.
+    Returns (B, Hq, D) in q's type.
+
+    CUDA tensors launch the kernel (counted in ``flash_decode.launches``,
+    once per call); CPU tensors take the plain version.
+    """
+    _check(q, k_cache, v_cache, lengths)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, lengths, window=window,
+                                softcap=softcap, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    B, L, Hkv, D = k_cache.shape
+    G = q.shape[1] // Hkv
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_decode takes D in {_HEAD_DIMS}, got {D}")
+    if G > MAX_GROUP:
+        raise ValueError(f"flash_decode takes up to {MAX_GROUP} query heads "
+                         f"per KV head, got {G}")
+    if B > MAX_GRID_YZ or Hkv > MAX_GRID_YZ:
+        raise ValueError(f"flash_decode takes B and Hkv up to "
+                         f"{MAX_GRID_YZ}, got {B} and {Hkv}")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:            # the kernel reads 16-byte chunks
+            raise ValueError(f"{name} must be 16-byte aligned")
+    n_spans = library_function(
+        "flash_decode", "flash_decode_n_spans",
+        [ctypes.c_int] * 3)(B, Hkv, L)
+    fn = library_function(
+        "flash_decode", "flash_decode_launch",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    dev = q.device
+    part_ml = torch.empty((2, B, Hkv, n_spans, G), dtype=torch.float32,
+                          device=dev)
+    part_acc = torch.empty((B, Hkv, n_spans, G, D), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), B, L, Hkv, G, D, n_spans,
+             _DTYPES[q.dtype], float(sm_scale), int(window), float(softcap),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: "
+                           f"cudaError {err}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

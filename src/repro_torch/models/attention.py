@@ -1,20 +1,24 @@
-"""GQA attention for full sequences (the evaluator's forward).
+"""GQA attention: full sequences (prefill, the evaluator's forward) and
+one-token decode against a KV cache.
 
-Counterpart of ``repro.models.attention.attention``. Shapes are
-``(batch, seq, heads, d_head)``; grouped-query attention keeps the KV
-heads grouped (no KV repeat).
+Counterpart of ``repro.models.attention`` (``attention``,
+``decode_attention``, ``update_kv_cache``). Shapes are ``(batch, seq,
+heads, d_head)``; grouped-query attention keeps the KV heads grouped (no
+KV repeat).
 
 On CUDA tensors ``attention`` runs the hand-written flash kernel
-(``kernels.flash_attention``); on CPU tensors it runs the plain chunked
-online-softmax form below, the torch twin of the reference's jnp path.
+(``kernels.flash_attention``) and ``decode_attention`` the flash-decode
+kernel (``kernels.flash_decode``); on CPU tensors they run the plain
+forms below, the torch twins of the reference's jnp paths.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import NEG_INF, flash_decode
 
 
 def _chunk(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lo: int,
@@ -84,3 +88,62 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                q_chunk, **kw))
         out = torch.cat(outs, dim=1)
     return out.reshape(B, S, Hq, D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int = 0, softcap: float = 0.0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One-token attention against a KV cache.
+
+    q: (B, Hq, D); k_cache, v_cache: (B, L, Hkv, D); lengths: (B,) int32,
+    the valid cache positions *including* the new token (written at
+    lengths - 1). Returns (B, Hq, D). A row with no valid position gives
+    zeros on both devices (the TPU kernel's behaviour; the reference's
+    jnp form gives the mean of V there)."""
+    if q.is_cuda:
+        return flash_decode(q.contiguous(), k_cache, v_cache,
+                            lengths.to(torch.int32).contiguous(),
+                            window=window, softcap=softcap, sm_scale=scale)
+    B, L, Hkv, D = k_cache.shape
+    G = q.shape[1] // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qg = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(L, device=q.device)
+    lens = lengths.to(torch.int64)[:, None]
+    ok = pos[None, :] < lens                               # (B, L)
+    if window > 0:
+        ok &= pos[None, :] > lens - 1 - window
+    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, None]
+    out = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, Hkv * G, D).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    write_pos: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one new (k, v) per sequence at per-row positions, **in
+    place** (the reference returns new arrays; a cache of gigabytes is
+    not copied per token). Returns the same two tensors.
+
+    k_cache: (B, L, Hkv, D); k_new: (B, Hkv, D); write_pos: (B,) integer.
+    A position outside [0, L) writes nothing, as the reference's
+    ``mode="drop"``: such rows rewrite their clamped slot with its own
+    value, so the device never sees an out-of-range index and the host
+    never waits for one."""
+    B, L = k_cache.shape[:2]
+    rows = torch.arange(B, device=k_cache.device)
+    pos = write_pos.to(torch.int64)
+    keep = ((pos >= 0) & (pos < L))[:, None, None]
+    at = pos.clamp(0, L - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, at] = torch.where(keep, new.to(cache.dtype),
+                                      cache[rows, at])
+    return k_cache, v_cache

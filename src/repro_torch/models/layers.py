@@ -8,8 +8,9 @@ config's ``dtype``; norms and RoPE compute in float32 and cast back.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,12 +34,25 @@ def trunc_normal(shape, std: float, generator: torch.Generator,
 
 
 def dense_init(d_in: int, d_out: int, generator: torch.Generator, *,
-               device=None, dtype=torch.float32,
+               bias: bool = False, device=None, dtype=torch.float32,
                std: Optional[float] = None):
-    return {"w": trunc_normal((d_in, d_out),
-                              std if std is not None
-                              else math.sqrt(1.0 / d_in),
-                              generator, device, dtype)}
+    p = {"w": trunc_normal((d_in, d_out),
+                           std if std is not None else math.sqrt(1.0 / d_in),
+                           generator, device, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def mlp_init(dims: Sequence[int], d_in: int, generator: torch.Generator, *,
+             bias: bool = True, device=None, dtype=torch.float32):
+    """A plain ReLU MLP ``d_in -> dims[0] -> ... -> dims[-1]``."""
+    layers, d = [], d_in
+    for h in dims:
+        layers.append(dense_init(d, h, generator, bias=bias, device=device,
+                                 dtype=dtype))
+        d = h
+    return {"layers": layers}
 
 
 def rmsnorm_init(d: int, device=None, dtype=torch.float32):
@@ -59,6 +73,16 @@ def embed_init(vocab: int, d_model: int, generator: torch.Generator, *,
                                   device, dtype)}
 
 
+def to_tensors(tree, device=None):
+    """A parameter pytree of numpy arrays (the reference's, converted
+    with ``np.asarray``) as the same nesting of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_tensors(v, device) for v in tree]
+    return torch.as_tensor(np.array(tree), device=device)
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -68,7 +92,20 @@ def dense_apply(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    return x @ w
+    y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def mlp_apply(p, x: torch.Tensor, final_act: bool = False,
+              compute_dtype=None) -> torch.Tensor:
+    n = len(p["layers"])
+    for i, layer in enumerate(p["layers"]):
+        x = dense_apply(layer, x, compute_dtype)
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
 
 
 def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -12,7 +12,8 @@ parse -> index lookup -> BM25 top-k retrieve through the attached
 per-tenant rate limits) -> EDF queue -> micro-batch -> shed (the
 paper's three-tier ladder decides EVAL / CACHED / PRIOR per coalesced
 batch) -> response. LM decode requests additionally claim KV slots
-from a ``kv_pool`` (duck-typed; the port has no KV pool yet).
+from a ``kv_pool`` (duck-typed: ``serving.kv_cache.KVCachePool`` or a
+bare ``SlotAllocator``).
 
 The engine is the production face of ``core.shedder``: it owns the
 monitor (throughput EWMA), the Trust DB cache and the prior state, and

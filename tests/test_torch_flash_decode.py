@@ -1,0 +1,103 @@
+"""The port's ``flash_decode`` plain version (what the wrapper runs on CPU
+tensors) against the TPU kernel in interpret mode (``ops.flash_decode``)
+and its oracle ``ref.flash_decode_ref``, at the cases of
+``tests/test_kernels.py::test_flash_decode_matches_ref`` with its
+``tol(dtype)``; the poison check of
+``test_flash_decode_respects_lengths``; and a row of length 0, where the
+port follows the TPU kernel (zeros), not the oracle (the mean of V)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_kernels import KEY, tol
+
+from repro.kernels import ops, ref
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _t(a, tdt=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32)).to(tdt)
+
+
+def _inputs(B, L, Hq, Hkv, D, jdt):
+    ks = jax.random.split(KEY, 3)
+    return (jax.random.normal(ks[0], (B, Hq, D), jdt),
+            jax.random.normal(ks[1], (B, L, Hkv, D), jdt),
+            jax.random.normal(ks[2], (B, L, Hkv, D), jdt))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,win,cap", [
+    (3, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 8, 1, 128, 100, 30.0),
+    (2, 256, 8, 8, 64, 0, 0.0),
+    (1, 1024, 9, 3, 64, 0, 0.0),       # smollm head layout
+])
+def test_flash_decode_matches_jax(B, L, Hq, Hkv, D, win, cap, dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, kc, vc = _inputs(B, L, Hq, Hkv, D, jdt)
+    lengths = np.asarray(np.arange(B) * (L // max(B, 1)) % L + 1, np.int32)
+    got = flash_decode(_t(q, tdt), _t(kc, tdt), _t(vc, tdt),
+                       torch.from_numpy(lengths), window=win, softcap=cap)
+    assert got.dtype == tdt and tuple(got.shape) == (B, Hq, D)
+    got = got.to(torch.float32).numpy()
+    jl = jnp.asarray(lengths)
+    for want in (ops.flash_decode(q, kc, vc, jl, window=win, softcap=cap,
+                                  block_k=128, interpret=True),
+                 ref.flash_decode_ref(q, kc, vc, jl, window=win,
+                                      softcap=cap)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   **tol(jdt))
+
+
+def test_flash_decode_respects_lengths():
+    """Tokens beyond ``lengths`` must not influence the output."""
+    q, kc, vc = _inputs(2, 256, 4, 4, 64, jnp.float32)
+    lengths = torch.tensor([100, 37], dtype=torch.int32)
+    out1 = flash_decode(_t(q), _t(kc), _t(vc), lengths)
+    kc2, vc2 = _t(kc), _t(vc)
+    kc2[:, 200:] = 1e4                  # poison the invalid region
+    vc2[:, 200:] = -1e4
+    out2 = flash_decode(_t(q), kc2, vc2, lengths)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6)
+
+
+def test_length_zero_gives_zeros_as_the_tpu_kernel():
+    q, kc, vc = _inputs(3, 256, 6, 2, 64, jnp.float32)
+    lengths = np.array([0, 5, 0], np.int32)
+    got = flash_decode(_t(q), _t(kc), _t(vc), torch.from_numpy(lengths),
+                       window=8)
+    tpu = ops.flash_decode(q, kc, vc, jnp.asarray(lengths), window=8,
+                           block_k=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(tpu), **tol(
+        jnp.float32))
+    assert not got[0].any() and not got[2].any()
+    oracle = ref.flash_decode_ref(q, kc, vc, jnp.asarray(lengths), window=8)
+    assert np.abs(np.asarray(oracle)[0]).max() > 0   # the oracle's caveat
+
+
+def test_plain_version_equals_wrapper_on_cpu():
+    q, kc, vc = _inputs(2, 64, 4, 2, 16, jnp.float32)
+    lengths = torch.tensor([64, 9], dtype=torch.int32)
+    before = flash_decode.launches
+    torch.testing.assert_close(
+        flash_decode(_t(q), _t(kc), _t(vc), lengths, softcap=5.0),
+        flash_decode_ref(_t(q), _t(kc), _t(vc), lengths, softcap=5.0),
+        rtol=0, atol=0)
+    assert flash_decode.launches == before
+
+
+@pytest.mark.parametrize("shapes", [
+    ((2, 4, 16), (2, 8, 3, 16), (2,)),      # Hq not a multiple of Hkv
+    ((2, 4, 16), (2, 8, 2, 16), (3,)),      # lengths of another batch
+    ((2, 4, 8), (2, 8, 2, 16), (2,)),       # head dims differ
+])
+def test_wrapper_rejects_mismatched_shapes(shapes):
+    qs, cs, ls = shapes
+    with pytest.raises(ValueError):
+        flash_decode(torch.zeros(qs), torch.zeros(cs), torch.zeros(cs),
+                     torch.zeros(ls, dtype=torch.int32))

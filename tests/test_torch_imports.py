@@ -88,3 +88,31 @@ def test_entry_points_raise_without_a_card():
     out = _run(_NO_CARD)
     assert out.returncode == 0, out.stderr
     assert "RAISED 5" in out.stdout
+
+
+_NO_CARD_DECODE = r"""
+import torch
+assert not torch.cuda.is_available()
+from repro_torch.configs import get_config
+from repro_torch.serving.evaluators import make_evaluator
+from repro_torch.serving.kv_cache import KVCachePool
+n = 0
+for make in (lambda: make_evaluator("dlrm-mlperf", smoke=True),
+             lambda: KVCachePool(get_config("smollm-135m", smoke=True), 2,
+                                 8)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+        n += 1
+print("RAISED", n)
+"""
+
+
+def test_dlrm_evaluator_and_kv_pool_raise_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run(_NO_CARD_DECODE)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED 2" in out.stdout

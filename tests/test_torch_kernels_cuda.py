@@ -5,8 +5,9 @@ with an NVIDIA GPU:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 ``shed_partition`` and ``topk_select`` must equal their plain versions
-exactly; attention within atol 2e-2 in bf16 (output rounding) and 1e-4
-in f32 (summation order)."""
+exactly; attention, ``flash_decode`` and ``dot_interaction`` within atol
+2e-2 in bf16 (output rounding) and 1e-4 in f32 (summation order); the
+DLRM evaluator and the KV-cache decode on the card against the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -15,12 +16,19 @@ from repro_torch.configs import TrustIRConfig
 from repro_torch.core import trust_cache as TC
 from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import SimClock
+from repro_torch.configs import get_config
+from repro_torch.kernels.dot_interaction import (dot_interaction,
+                                                 dot_interaction_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.shed_partition import (shed_partition,
                                                 shed_partition_ref)
 from repro_torch.kernels.topk_select import (NEG_INF, topk_select,
                                              topk_select_ref)
+from repro_torch.models import transformer as T
+from repro_torch.models.recsys import dlrm as D
+from repro_torch.serving.evaluators import make_evaluator
 
 pytestmark = pytest.mark.cuda
 
@@ -154,3 +162,102 @@ def test_topk_select_kernel_equals_plain(dev, kind, n, k, dtype):
     assert torch.equal(got_i, want_i)
     bits = torch.int32 if dtype == torch.float32 else torch.int64
     assert torch.equal(got_v.view(bits), want_v.view(bits))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,F,D", [(37, 27, 128), (128, 27, 128),
+                                   (16, 8, 64), (5, 12, 32), (1, 27, 128),
+                                   (7, 5, 16), (9, 27, 13), (3, 2, 4),
+                                   (2, 1, 8), (0, 27, 128)])
+def test_dot_interaction_kernel_close_to_plain(dev, B, F, D, dtype, atol):
+    g = torch.Generator(device=dev).manual_seed(B * F + D)
+    # the model's scale: 1/sqrt(D) rows, as the embedding tables
+    x = (torch.randn((B, F, D), generator=g, device=dev) * D ** -0.5
+         ).to(dtype)
+    got = dot_interaction(x)
+    want = dot_interaction_ref(x)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,window,softcap", [
+    (3, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 8, 1, 128, 100, 30.0),
+    (2, 256, 8, 8, 64, 0, 0.0),
+    (1, 1024, 9, 3, 64, 0, 0.0),
+    (4, 64, 4, 2, 16, 0, 0.0),
+    (3, 100, 6, 3, 32, 7, 5.0),
+    (128, 2048, 9, 3, 64, 0, 0.0),          # the decode path's shape
+])
+def test_flash_decode_kernel_close_to_plain(dev, B, L, Hq, Hkv, D, window,
+                                            softcap, dtype, atol):
+    g = torch.Generator(device=dev).manual_seed(L + B)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    ragged = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    edges = torch.tensor([0, 1, L, L - 1], device=dev)[:B]
+    ragged[:edges.numel()] = edges
+    for lengths in (ragged.to(torch.int32),
+                    torch.full((B,), L, dtype=torch.int32, device=dev)):
+        kw = dict(window=window, softcap=softcap)
+        got = flash_decode(q, k, v, lengths, **kw)
+        want = flash_decode_ref(q, k, v, lengths, **kw)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+    assert not got.isnan().any()
+
+
+def test_flash_decode_kernel_respects_lengths(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 4, 64), generator=g, device=dev)
+    k, v = (torch.randn((2, 256, 4, 64), generator=g, device=dev)
+            for _ in range(2))
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=dev)
+    out1 = flash_decode(q, k, v, lengths)
+    k[:, 200:], v[:, 200:] = 1e4, -1e4      # poison the invalid region
+    torch.testing.assert_close(flash_decode(q, k, v, lengths), out1,
+                               rtol=0, atol=0)
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def test_dlrm_on_card_matches_cpu(dev):
+    cfg = get_config("dlrm-mlperf", smoke=True)
+    params = D.init_params(cfg, torch.Generator().manual_seed(3))
+    _, mk = make_evaluator("dlrm-mlperf", smoke=True, device="cpu")
+    feats = mk(300, fseed=1)
+    dense, sparse = (torch.from_numpy(feats[k]) for k in ("dense", "sparse"))
+    want = D.relevance_scores(params, cfg, dense, sparse)
+    before = dot_interaction.launches
+    got = D.relevance_scores(_to(params, dev), cfg, dense.to(dev),
+                             sparse.to(dev))
+    assert dot_interaction.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_decode_on_card_matches_cpu(dev):
+    cfg = get_config("smollm-135m", smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 9),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        _, cache = T.prefill(p, cfg, toks[:, :5].to(d), max_len=12)
+        logits = []
+        for t in range(5, 9):
+            lg, cache = T.decode_step(p, cfg, toks[:, t].to(d), cache)
+            logits.append(lg.cpu())
+        out[str(d)] = torch.stack(logits)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=2e-3, rtol=0)

@@ -35,6 +35,22 @@ def test_sync_serve_on_cpu_prints_its_scoreboard(extra):
         assert any(l.startswith("retrieval: 4 searches") for l in lines)
 
 
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--corpus", "192", "--drain-mode", "fused"],
+], ids=["host-pre-retrieved", "fused-corpus"])
+def test_sync_serve_dlrm_on_cpu_prints_its_scoreboard(extra):
+    """``--arch dlrm-mlperf`` through the registry, at smoke width as the
+    reference's launcher builds it."""
+    out = _serve("--sync", "--device", "cpu", "--arch", "dlrm-mlperf",
+                 "--n-requests", "3", *extra)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("dlrm-mlperf on cpu:")
+    assert sum(l.lstrip().startswith("req ") for l in lines) == 3
+    assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
+
 def test_scheduled_mode_exits_2_with_the_roadmap_pointer():
     out = _serve("--device", "cpu")
     assert out.returncode == 2
