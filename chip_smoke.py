@@ -76,7 +76,7 @@ from repro_torch.kernels.dot_interaction import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
-    flash_decode, flash_decode_ref)
+    flash_decode, flash_decode_ref, piece_length)
 from repro_torch.kernels.shed_partition import (  # noqa: E402
     shed_partition, shed_partition_ref)
 from repro_torch.kernels.topk_select import (  # noqa: E402
@@ -376,35 +376,69 @@ def phase_flash_attention(dev) -> dict:
     log(f"flash_attention f32 (B=4, S=1024, 9/3 heads, window=256, "
         f"softcap=50): max abs err {err2:.3e} <= {F32_ATOL}")
 
+    # prefill of the decode phase's longest prompt: B 1, S 1984
+    q5, k5, v5 = attention_inputs(1, MAX_PROMPT, Hq, Hkv, D, torch.bfloat16,
+                                  gen, dev)
+    want5 = flash_attention_ref(q5, k5, v5, causal=True)
+    err5 = max_err(flash_attention(q5, k5, v5, causal=True), want5)
+    if err5 > BF16_ATOL:
+        raise AssertionError(f"flash_attention bf16 prefill S={MAX_PROMPT}: "
+                             f"max abs err {err5} > {BF16_ATOL}")
+    log(f"flash_attention bf16 at the prefill shape (B=1, S={MAX_PROMPT}, "
+        f"causal): max abs err {err5:.3e} <= {BF16_ATOL}")
+    err = max(err, err5)
+
+    flush = l2_flusher(dev)            # the main path finds q, k, v cold
+    timing = attention_timing(q, k, v, flush, plain_iters=5)
+    log(f"flash_attention @evaluator shape: kernel {timing['ms']:.4f} ms, "
+        f"plain {timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} "
+        f"ms (sdpa max abs err {max_err(timing['library_out'], want):.3e}), "
+        f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+        f"{timing['bytes']} B, {timing['flops']} FLOP)")
+    prefill = attention_timing(q5, k5, v5, flush, plain_iters=0)
+    log(f"flash_attention @prefill shape (B=1, S={MAX_PROMPT}): kernel "
+        f"{prefill['ms']:.4f} ms, sdpa {prefill['library_ms']:.4f} ms (sdpa "
+        f"max abs err {max_err(prefill['library_out'], want5):.3e}), bound "
+        f"{prefill['bound_ms']:.6f} ms ({prefill['bound_by']}: "
+        f"{prefill['bytes']} B, {prefill['flops']} FLOP)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:97",
+            "max_abs_err": err, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"],
+            "prefill_ms": prefill["ms"],
+            "prefill_library_ms": prefill["library_ms"],
+            "prefill_bound_ms": prefill["bound_ms"]}
+
+
+def attention_timing(q, k, v, flush, plain_iters: int) -> dict:
+    """Causal bf16 attention at one shape: the kernel, SDPA (GQA) and,
+    with ``plain_iters``, the plain version, each with L2 flushed between
+    launches; the bound from the bytes of q, k, v, o and the causal
+    FLOPs."""
+    B, S, Hq, D = q.shape
+
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
-    lib = library().transpose(1, 2)
-    lib_err = float((lib.float() - want.float()).abs().max())
-    timing = {
-        "ms": timed_ms(lambda: flash_attention(q, k, v, causal=True), 20),
-        "plain_ms": timed_ms(lambda: flash_attention_ref(q, k, v,
-                                                         causal=True), 5),
-        "library_ms": timed_ms(library, 20),
-    }
     n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q,o + k,v
     flops = 4 * B * Hq * D * (S * (S + 1) // 2)              # causal QK, PV
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S,
-                   flops / BF16_FLOP_PER_S) * 1e3
-    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                >= flops / BF16_FLOP_PER_S else "operations")
-    log(f"flash_attention @evaluator shape: kernel {timing['ms']:.4f} ms, "
-        f"plain {timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} "
-        f"ms (sdpa max abs err {lib_err:.3e}), bound {bound_ms:.4f} ms "
-        f"({n_bytes} B, {flops} FLOP)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:97",
-            "max_abs_err": err, "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": timing["library_ms"]}
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {
+        "ms": timed_ms(lambda: flash_attention(q, k, v, causal=True), 20,
+                       flush),
+        "plain_ms": (timed_ms(lambda: flash_attention_ref(q, k, v,
+                                                          causal=True),
+                              plain_iters, flush) if plain_iters else None),
+        "library_ms": timed_ms(library, 20, flush),
+        "library_out": library().transpose(1, 2),
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "bytes": n_bytes, "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -612,7 +646,9 @@ def phase_flash_decode(dev) -> dict:
             edges = torch.tensor([1, l, 0, l - 1], dtype=torch.int32,
                                  device=dev)[:b]
             ragged[:edges.numel()] = edges
-            for lengths in (steps, ragged):
+            one_long = torch.ones(b, dtype=torch.int32, device=dev)
+            one_long[b // 2] = l
+            for lengths in (steps, ragged, one_long):
                 label = (f"{dtype} B={b} L={l} {hq}/{hkv} heads D={d} "
                          f"window={win} softcap={cap}")
                 worst = max(worst, check_decode(q, k, v, lengths, win, cap,
@@ -632,13 +668,46 @@ def phase_flash_decode(dev) -> dict:
         raise AssertionError("flash_decode read past the lengths")
     log(f"flash_decode: {n_checks} cases within tolerance of the plain "
         f"version (the four reference cases and the decode shape, f32 and "
-        f"bf16, lengths 1..L, 1, L, L-1 and 0), max abs err {worst:.3e}; "
+        f"bf16, lengths 1..L, 1, L, L-1 and 0, one row at L and the rest at "
+        f"1), max abs err {worst:.3e}; "
         f"length 0 gives zeros; the poison check holds")
 
     q, k, v = decode_inputs(B, L, Hq, Hkv, D, torch.bfloat16, gen, dev)
+    flush = l2_flusher(dev)
     lengths = torch.randint(1, L + 1, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
-    pos = torch.arange(L, device=dev)
+    t = decode_timing(q, k, v, lengths, flush, plain_iters=20)
+    log(f"flash_decode @decode shape (B={B}, L={L}, {Hq}/{Hkv} heads, D={D}, "
+        f"bf16, mean length {t['mean_length']:.0f}, pieces of "
+        f"{t['piece']}): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, sdpa with a length mask "
+        f"{t['library_ms']:.4f} ms (max abs err {t['library_err']:.3e}), "
+        f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']} B, "
+        f"{t['flops']} FLOP)")
+    full = decode_timing(q, k, v, torch.full((B,), L, dtype=torch.int32,
+                                             device=dev), flush, 0)
+    log(f"flash_decode @decode shape, every row at length {L}: kernel "
+        f"{full['ms']:.4f} ms, sdpa with a length mask "
+        f"{full['library_ms']:.4f} ms (max abs err "
+        f"{full['library_err']:.3e}), bound {full['bound_ms']:.6f} ms "
+        f"({full['bound_by']}: {full['bytes']} B)")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:83",
+            "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "full_ms": full["ms"], "full_library_ms": full["library_ms"],
+            "full_bound_ms": full["bound_ms"]}
+
+
+def decode_timing(q, k, v, lengths, flush, plain_iters: int) -> dict:
+    """The decode kernel, SDPA with a boolean length mask and, with
+    ``plain_iters``, the plain version at one set of lengths, L2 flushed
+    between launches; the bound from the valid cache rows' bytes."""
+    B, L, Hkv, D = k.shape
+    Hq = q.shape[1]
+    pos = torch.arange(L, device=q.device)
     mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
 
     def library():
@@ -646,30 +715,23 @@ def phase_flash_decode(dev) -> dict:
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)[:, :, 0]
 
-    lib_err = max_err(library(), flash_decode_ref(q, k, v, lengths))
-    flush = l2_flusher(dev)
     n_valid = int(lengths.sum())
     n_bytes = (n_valid * Hkv * D * 2 * 2           # valid k and v rows
                + 2 * q.numel() * 2 + B * 4)        # q, o, lengths
     flops = 4 * n_valid * Hq * D                    # QK and PV
-    t = {"ms": timed_ms(lambda: flash_decode(q, k, v, lengths), 200, flush),
-         "plain_ms": timed_ms(lambda: flash_decode_ref(q, k, v, lengths),
-                              20, flush),
-         "library_ms": timed_ms(library, 100, flush)}
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                >= flops / BF16_FLOP_PER_S else "operations")
-    log(f"flash_decode @decode shape (B={B}, L={L}, {Hq}/{Hkv} heads, D={D}, "
-        f"bf16, mean length {n_valid / B:.0f}): kernel {t['ms']:.4f} ms, "
-        f"plain {t['plain_ms']:.4f} ms, sdpa with a length mask "
-        f"{t['library_ms']:.4f} ms (max abs err {lib_err:.3e}), bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {n_bytes} B, {flops} FLOP)")
-    return {"name": "flash_decode", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_decode.cu",
-            "replaces": "src/repro/kernels/flash_decode.py:83",
-            "max_abs_err": worst, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": t["library_ms"]}
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {
+        "ms": timed_ms(lambda: flash_decode(q, k, v, lengths), 200, flush),
+        "plain_ms": (timed_ms(lambda: flash_decode_ref(q, k, v, lengths),
+                              plain_iters, flush) if plain_iters else None),
+        "library_ms": timed_ms(library, 100, flush),
+        "library_err": max_err(library(), flash_decode_ref(q, k, v,
+                                                           lengths)),
+        "piece": piece_length(B, Hkv, L, q.dtype, D),
+        "mean_length": n_valid / B,
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "bytes": n_bytes, "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -836,9 +898,10 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev) -> dict:
 
 KERNEL_GROUPS = (
     ("shed_partition kernel", ("shed_partition_kernel",)),
-    ("flash_attention kernel", ("flash_attention_kernel",)),
+    ("flash_attention kernel", ("flash_attention_bf16_kernel",
+                                "flash_attention_f32_kernel")),
     ("dot_interaction kernel", ("dot_interaction_kernel",)),
-    ("flash_decode kernel", ("flash_decode_split_kernel",
+    ("flash_decode kernel", ("flash_decode_pieces_kernel",
                              "flash_decode_combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas")),
     ("reductions (norms, logsumexp)", ("reduce", "softmax", "logsumexp")),

@@ -1,6 +1,6 @@
 // One-token decode attention against a KV cache: split-K flash-decoding
-// with a combine pass. Per-row lengths, optional sliding window and tanh
-// logit softcap, grouped-query heads.
+// over balanced pieces, with a combine pass. Per-row lengths, optional
+// sliding window and tanh logit softcap, grouped-query heads.
 //
 // Replaces the TPU kernel `flash_decode` / `_decode_kernel` in
 // src/repro/kernels/flash_decode.py (pallas_call at :110).
@@ -14,38 +14,74 @@
 // What bounds it on an H100: the bytes of the valid cache. Each key and
 // value row is read once for the G = Hq / Hkv query heads of its group,
 // ~4 G FLOP per cache byte in bf16; at the decode shape (B = 128, Hkv = 3,
-// D = 64, mean length ~1024) one launch reads ~100 MB, ~30 us at
-// 3.35 TB/s. The design therefore reads the valid cache once, with all the
-// card's SMs in flight, and nothing else of size.
+// D = 64, mean length ~1034) one launch reads ~102 MB, ~30 us at
+// 3.35 TB/s. So the design keeps the whole card reading the valid cache,
+// whatever the spread of lengths, and reads nothing else of size.
 //
-// Design: pass 1 gives each (batch row, KV head) NS = 4 * gridDim.x spans
-// of its valid range (a multiple of 32 positions each), one span per warp.
-// The number of blocks per row grows as B * Hkv shrinks, so B = 1 with a
-// long cache still fills the card. A block holds the G query heads of its
-// group in shared memory (no KV duplication for GQA), and reads `lengths`
-// itself (the TPU kernel's scalar prefetch). Positions past the length
-// and before the window are never loaded. A warp walks its span in tiles
-// of 32 positions: it copies the K and V rows to shared memory with 16-byte
-// loads (K rows padded 16 bytes so lane j reading row j hits distinct
-// banks), lane j scores position j for every head, and the (max,
-// denominator, accumulator) of each head is carried in f32 registers,
-// lane c holding output columns c, c + 32, ... . Pass 2 merges the NS
-// partial states of each row and head and divides.
+// Design:
+// - Balance. The valid range [lo, hi) of each (batch row, KV head) is cut
+//   into pieces of `piece_len` positions, so a row's number of pieces
+//   follows its length. `piece_len` is a multiple of the 32-position tile
+//   chosen from the shape (flash_decode_piece_len: about two pieces per
+//   resident warp if every row were full, 32 to 256). Pieces are
+//   numbered row by row, KV head by KV head. A persistent grid (as many
+//   blocks as fit on the SMs) walks that list: warp w of the W in the grid
+//   takes pieces w, w + W, ..., locating each by a running warp-wide
+//   prefix sum over `lengths` (read by the warp itself: no host sync and
+//   no extra launch). No warp carries more than one piece beyond the mean.
+//   Each piece leaves its partial state (max, denominator, unnormalised
+//   output, float32) in its slot of a scratch sized for the worst case,
+//   B * Hkv * ceil(L / piece_len) pieces, and the combine pass merges the
+//   ceil((hi - lo) / piece_len) slots of each row.
+// - Pipelining. Each warp owns a cp.async ring of kStages tiles (K and V
+//   rows of 32 positions, rows padded by 16 bytes) and keeps the next
+//   tiles in flight, across piece boundaries, while it computes the
+//   current one. Positions past the length or before the window are never
+//   read: their rows are zero-filled.
+// - bf16 products on the tensor cores (mma.sync m16n8k16, tensor_core.cuh):
+//   the G <= 8 query heads are rows 0..G-1 of the A tile (rows 8..15 are
+//   zero), QK^T is one mma per 8 positions and 16 of depth, the softmax
+//   runs on the fragments with quad shuffles, and P enters PV as two bf16
+//   terms (hi + lo, two mma on the same V fragments), keeping ~16 bits of
+//   p as flash_attention.cu does. float32 keeps FP32 FMAs
+//   (TF32 would miss the 1e-4 tolerance) under the same split: lane j
+//   scores position j of the tile for every head, and the output columns
+//   are accumulated lane by lane.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kTile = 32;          // positions per warp tile (one per lane)
+constexpr int kTile = 32;          // positions per warp tile
 constexpr int kMaxG = 8;           // query heads per KV head
+constexpr int kMaxPieceTiles = 8;  // a piece is at most 8 tiles long
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+// A tile descriptor's info word: valid positions, then two flags.
+constexpr int kValidMask = 63;
+constexpr int kOpens = 64;         // the first tile of its piece
+constexpr int kCloses = 128;       // the last tile of its piece
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <typename T, int D>
+struct Layout {
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kStages = kBf16 ? 3 : 2;
+  static constexpr int kRowElems = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kRowBytes = kRowElems * static_cast<int>(sizeof(T));
+  // K and V rows of a tile, then the tile's descriptor (16 bytes)
+  static constexpr int kStageBytes = 2 * kTile * kRowBytes + 16;
+  static constexpr int kQBytes = kBf16 ? 0 : kMaxG * D * 4;   // f32 q rows
+  static constexpr int kWarpBytes = kStages * kStageBytes + kQBytes;
+  static constexpr int kWarps = 4 * kWarpBytes <= 220 * 1024 ? 4 : 2;
+  static constexpr int kSmemBytes = kWarps * kWarpBytes;
+};
+
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -57,190 +93,446 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-// Shared bytes of one K or V tile row: D elements plus 16 bytes of padding.
-template <typename T, int D>
-__host__ __device__ constexpr int row_bytes() {
-  return D * static_cast<int>(sizeof(T)) + 16;
+// The valid range [lo, hi) of a row of length `len`.
+__device__ __forceinline__ void valid_range(int len, int L, int window,
+                                            int& lo, int& hi) {
+  hi = min(max(len, 0), L);
+  lo = window > 0 ? min(max(len - window, 0), hi) : 0;
 }
 
-template <typename T, int D>
-size_t split_smem_bytes(int G) {
-  return sizeof(float) * G * D +
-         static_cast<size_t>(kWarps) * 2 * kTile * row_bytes<T, D>();
-}
+struct Shape {
+  const int* lengths;
+  int B, L, Hkv, window, piece_len;
+};
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ part_m,
-                          float* __restrict__ part_l,
-                          float* __restrict__ part_acc, int L, int Hkv,
-                          int G, float scale, int window, float softcap) {
-  constexpr int C = (D + 31) / 32;           // output columns per lane
-  constexpr int E = 16 / sizeof(T);          // elements per 16 bytes
-  constexpr int CPR = D / E;                 // 16-byte chunks per row
-  constexpr int RB = row_bytes<T, D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);             // [G][D]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* ks = smem + sizeof(float) * G * D +
-                      static_cast<size_t>(warp) * 2 * kTile * RB;
-  unsigned char* vs = ks + kTile * RB;
+// A warp's walk over its pieces, one 32-position tile at a time. `x` is
+// the flattened piece id; `chunk` and `base` carry the prefix sum over the
+// rows of `lengths` (32 at a time) so that ids are located in order.
+struct Cursor {
+  int x, chunk, base;
+  bool valid;
+  int b, hk, piece, beg, end, pos;
 
-  const int hk = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int Hq = Hkv * G;
-  const T* qb = q + (b * Hq + static_cast<long long>(hk) * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    qs[i] = to_float(qb[i]);
-  __syncthreads();
-
-  // This warp's span of the row's valid range [lo, hi).
-  const int len = lengths[b];
-  const int hi = min(max(len, 0), L);
-  const int lo = window > 0 ? min(max(len - window, 0), hi) : 0;
-  const int n_spans = gridDim.x * kWarps;
-  const int span_id = blockIdx.x * kWarps + warp;
-  const int per = (hi - lo + n_spans - 1) / n_spans;
-  const int span = (per + kTile - 1) / kTile * kTile;
-  const int beg = min(lo + span_id * span, hi);
-  const int end = min(beg + span, hi);
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][C];
+  __device__ void locate(const Shape& sh, int lane) {
+    valid = false;
+    while (chunk * 32 < sh.B) {
+      const int r = chunk * 32 + lane;
+      int lo = 0, hi = 0;
+      if (r < sh.B) valid_range(sh.lengths[r], sh.L, sh.window, lo, hi);
+      const int per = (hi - lo + sh.piece_len - 1) / sh.piece_len;
+      const int cnt = per * sh.Hkv;
+      int incl = cnt;
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[g][c] = 0.f;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      if (x < base + total) {
+        const int owner = __popc(__ballot_sync(kFull, base + incl <= x));
+        const int first = base + __shfl_sync(kFull, incl - cnt, owner);
+        const int o_per = __shfl_sync(kFull, per, owner);
+        const int o_lo = __shfl_sync(kFull, lo, owner);
+        const int o_hi = __shfl_sync(kFull, hi, owner);
+        const int local = x - first;
+        b = chunk * 32 + owner;
+        hk = local / o_per;
+        piece = local % o_per;
+        beg = o_lo + piece * sh.piece_len;
+        end = min(beg + sh.piece_len, o_hi);
+        pos = beg;
+        valid = true;
+        return;
+      }
+      base += total;
+      ++chunk;
+    }
   }
 
-  const long long row_stride = static_cast<long long>(Hkv) * D;
-  const T* kb = k + b * L * row_stride + static_cast<long long>(hk) * D;
-  const T* vb = v + b * L * row_stride + static_cast<long long>(hk) * D;
-  for (int k0 = beg; k0 < end; k0 += kTile) {
-    const int n = min(kTile, end - k0);
-    for (int c = lane; c < kTile * CPR; c += 32) {
-      const int j = c / CPR, part = c % CPR;
-      uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (j < n) {
-        const long long off = (k0 + j) * row_stride;
-        kk = reinterpret_cast<const uint4*>(kb + off)[part];
-        vv = reinterpret_cast<const uint4*>(vb + off)[part];
-      }
-      *reinterpret_cast<uint4*>(ks + j * RB + part * 16) = kk;
-      *reinterpret_cast<uint4*>(vs + j * RB + part * 16) = vv;
-    }
-    __syncwarp();
+  __device__ void advance(const Shape& sh, int stride, int lane) {
+    pos += kTile;
+    if (pos < end) return;
+    x += stride;
+    locate(sh, lane);
+  }
+};
 
-    // Lane j scores position k0 + j against every head of the group.
+// bf16: the group's heads are rows 0..G-1 of an m16n8k16 A tile.
+template <int D>
+struct Bf16Math {
+  static constexpr int KS = D / 16;        // depth steps of QK^T
+  uint32_t qa[KS][2];                      // a0, a2 (rows 8..15 are zero)
+  uint32_t qn[KS][2];                      // the next piece's, in flight
+  float m, l;                              // head grp, log2 units
+  float acc[D / 8][4];                     // c0, c1: head grp
+
+  // Start loading the q rows of a piece (global loads into registers,
+  // consumed by the next begin).
+  __device__ void fetch(const __nv_bfloat16* qg, int G, int lane) {
+    const int grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const __nv_bfloat16* p = qg + grp * D + ks * 16 + 2 * tig;
+      qn[ks][0] = grp < G ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+      qn[ks][1] = grp < G ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+    }
+  }
+
+  __device__ void begin(int, int) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[ks][0] = qn[ks][0];
+      qa[ks][1] = qn[ks][1];
+    }
+    m = -INFINITY;
+    l = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+
+  __device__ void tile(const unsigned char* kv, int n_valid, float scale,
+                       float softcap, int lane) {
+    constexpr int RE = Layout<__nv_bfloat16, D>::kRowElems;
+    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(kv);
+    const __nv_bfloat16* vs = ks + kTile * RE;
+    const int tig = lane & 3;
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < kTile / 16; ++jp) {
+      if (16 * jp >= n_valid) continue;
+#pragma unroll
+      for (int ks_ = 0; ks_ < KS; ++ks_) {
+        const uint32_t a[4] = {qa[ks_][0], 0u, qa[ks_][1], 0u};
+        uint32_t kf[4];
+        tc::ldmatrix_x4(kf, ks + (16 * jp + (lane & 7) + (lane >> 4) * 8) *
+                                     RE + ks_ * 16 + ((lane >> 3) & 1) * 8);
+        tc::mma_bf16(s[2 * jp], a, kf[0], kf[1]);
+        tc::mma_bf16(s[2 * jp + 1], a, kf[2], kf[3]);
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[n][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        x = 8 * n + 2 * tig + e < n_valid ? x * kLog2e : -INFINITY;
+        s[n][e] = x;
+        mx = fmaxf(mx, x);
+      }
+    const float m_new = fmaxf(m, tc::quad_max(mx));   // n_valid >= 1
+    const float corr = tc::exp2_approx(m - m_new);
+    m = m_new;
+    l *= corr;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr;
+      acc[n][1] *= corr;
+    }
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = tc::exp2_approx(s[n][e] - m_new);
+        l += s[n][e];
+      }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      if (16 * kk >= n_valid) continue;
+      uint32_t pa[4] = {0u, 0u, 0u, 0u}, pl[4] = {0u, 0u, 0u, 0u};
+      tc::split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
+      tc::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t vf[4];
+        tc::ldmatrix_x4_trans(vf, vs + (16 * kk + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * RE +
+                                      16 * np + (lane >> 4) * 8);
+        tc::mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
+        tc::mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
+        tc::mma_bf16(acc[2 * np], pl, vf[0], vf[1]);
+        tc::mma_bf16(acc[2 * np + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+
+  __device__ void finish(float* pm, float* pl, float* pacc, int G,
+                         int lane) {
+    const int grp = lane >> 2, tig = lane & 3;
+    const float den = tc::quad_sum(l);
+    if (grp >= G) return;
+    if (tig == 0) {
+      pm[grp] = m;
+      pl[grp] = den;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(pacc + grp * D + 8 * n + 2 * tig) =
+          make_float2(acc[n][0], acc[n][1]);
+  }
+};
+
+// float32: lane j scores position j of the tile for every head; lane c
+// accumulates output columns c + 32 i.
+template <int D>
+struct F32Math {
+  static constexpr int C = (D + 31) / 32;
+  float* qs;                               // the warp's [G][D] q rows
+  const float* qn;                         // the next piece's q rows
+  int G;
+  float m[kMaxG], l[kMaxG], acc[kMaxG][C];
+
+  __device__ void fetch(const float* qg, int, int) { qn = qg; }
+
+  __device__ void begin(int G_, int lane) {
+    G = G_;
+    __syncwarp();                          // the last piece's reads are done
+    for (int i = lane; i < G * D; i += 32) qs[i] = qn[i];
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[g][c] = 0.f;
+    }
+  }
+
+  __device__ void tile(const unsigned char* kv, int n_valid, float scale,
+                       float softcap, int lane) {
+    constexpr int RB = Layout<float, D>::kRowBytes;
+    const unsigned char* ks = kv;
+    const unsigned char* vs = kv + kTile * RB;
     float s[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    const unsigned char* krow = ks + lane * RB;
+    const float* krow = reinterpret_cast<const float*>(ks + lane * RB);
 #pragma unroll 2
-    for (int part = 0; part < CPR; ++part) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + part * 16);
-      const T* kv = reinterpret_cast<const T*>(&raw);
-      float kf[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) kf[e] = to_float(kv[e]);
+    for (int d = 0; d < D; d += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) break;
-        const float* qg = qs + g * D + part * E;
-#pragma unroll
-        for (int e = 0; e < E; ++e) s[g] = fmaf(qg[e], kf[e], s[g]);
+        const float4 qq = *reinterpret_cast<const float4*>(qs + g * D + d);
+        s[g] = fmaf(qq.x, kk.x, fmaf(qq.y, kk.y,
+                    fmaf(qq.z, kk.z, fmaf(qq.w, kk.w, s[g]))));
       }
     }
-    const bool ok = lane < n;
+    const bool ok = lane < n_valid;
     float p[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g >= G) break;
       float x = s[g] * scale;
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      x *= kLog2e;
       const float m_new = fmaxf(m[g], warp_max(ok ? x : -INFINITY));
-      p[g] = ok ? expf(x - m_new) : 0.f;     // n >= 1: m_new is finite
-      const float corr = expf(m[g] - m_new);
+      p[g] = ok ? exp2f(x - m_new) : 0.f;  // n_valid >= 1: m_new is finite
+      const float corr = exp2f(m[g] - m_new);
       l[g] = l[g] * corr + warp_sum(p[g]);
       m[g] = m_new;
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[g][c] *= corr;
     }
-
-    // Lane c accumulates output columns c + 32 i over the tile.
-    for (int j = 0; j < n; ++j) {
-      const T* vrow = reinterpret_cast<const T*>(vs + j * RB);
+    for (int j = 0; j < n_valid; ++j) {
+      const float* vrow = reinterpret_cast<const float*>(vs + j * RB);
       float vf[C];
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        vf[c] = (D % 32 == 0 || lane + 32 * c < D)
-                    ? to_float(vrow[lane + 32 * c]) : 0.f;
+        vf[c] = (D % 32 == 0 || lane + 32 * c < D) ? vrow[lane + 32 * c]
+                                                  : 0.f;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) break;
-        const float pj = __shfl_sync(0xffffffffu, p[g], j);
+        const float pj = __shfl_sync(kFull, p[g], j);
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[g][c] = fmaf(pj, vf[c], acc[g][c]);
       }
     }
-    __syncwarp();                   // the tile is consumed
   }
 
-  const long long part_idx = (b * Hkv + hk) * n_spans + span_id;
+  __device__ void finish(float* pm, float* pl, float* pacc, int G_,
+                         int lane) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      part_m[part_idx * G + g] = m[g];
-      part_l[part_idx * G + g] = l[g];
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G_) break;
+      if (lane == 0) {
+        pm[g] = m[g];
+        pl[g] = l[g];
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (D % 32 == 0 || lane + 32 * c < D)
+          pacc[g * D + lane + 32 * c] = acc[g][c];
     }
-    float* pa = part_acc + (part_idx * G + g) * D;
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Layout<T, D>::kWarps * 32)
+flash_decode_pieces_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, Shape sh,
+                           float* __restrict__ part_m,
+                           float* __restrict__ part_l,
+                           float* __restrict__ part_acc, int G,
+                           int max_pieces, float scale, float softcap) {
+  using Lay = Layout<T, D>;
+  using Math = typename std::conditional<Lay::kBf16, Bf16Math<D>,
+                                         F32Math<D>>::type;
+  constexpr int E = 16 / sizeof(T);        // elements per 16-byte chunk
+  constexpr int CPR = D / E;               // chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* ring = smem + warp * Lay::kWarpBytes;
+  const int stride = gridDim.x * Lay::kWarps;
+  const long long row_stride = static_cast<long long>(sh.Hkv) * D;
+
+  // Only the loading cursor walks the piece list. With each tile it
+  // leaves a descriptor in the tile's stage: the piece's scratch slot, the
+  // valid positions (0 ends the walk), whether the tile opens or closes
+  // its piece, and the piece's batch row and KV head.
+  auto desc = [&](int stage) {
+    return reinterpret_cast<int4*>(ring + stage * Lay::kStageBytes +
+                                   2 * kTile * Lay::kRowBytes);
+  };
+  auto load_tile = [&](Cursor& c, int stage) {
+    if (!c.valid) {
+      if (lane == 0) *desc(stage) = make_int4(0, 0, 0, 0);
+      return;
+    }
+    unsigned char* ks = ring + stage * Lay::kStageBytes;
+    unsigned char* vs = ks + kTile * Lay::kRowBytes;
+    const long long base = static_cast<long long>(c.b) * sh.L * row_stride +
+                           static_cast<long long>(c.hk) * D;
+    for (int i = lane; i < kTile * CPR; i += 32) {
+      const int j = i / CPR, part = i % CPR, p = c.pos + j;
+      const bool ok = p < c.end;
+      const long long off = ok ? base + p * row_stride + part * E : 0;
+      tc::cp_async16(ks + j * Lay::kRowBytes + part * 16, k + off, ok);
+      tc::cp_async16(vs + j * Lay::kRowBytes + part * 16, v + off, ok);
+    }
+    if (lane == 0) {
+      const int slot = (c.b * sh.Hkv + c.hk) * max_pieces + c.piece;
+      const int info = min(kTile, c.end - c.pos) |
+                       (c.pos == c.beg ? kOpens : 0) |
+                       (c.pos + kTile >= c.end ? kCloses : 0);
+      *desc(stage) = make_int4(slot, info, c.b, c.hk);
+    }
+    c.advance(sh, stride, lane);
+  };
+  const int Hq = sh.Hkv * G;
+  auto q_rows = [&](const int4& d) {
+    return q + (static_cast<long long>(d.z) * Hq +
+                static_cast<long long>(d.w) * G) * D;
+  };
+
+  Cursor ld{static_cast<int>(blockIdx.x) * Lay::kWarps + warp, 0, 0, false};
+  ld.locate(sh, lane);
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (D % 32 == 0 || lane + 32 * c < D) pa[lane + 32 * c] = acc[g][c];
+  for (int s = 0; s < Lay::kStages - 1; ++s) {
+    load_tile(ld, s);
+    tc::cp_async_commit();
+  }
+
+  Math math;
+  if constexpr (!Lay::kBf16)
+    math.qs = reinterpret_cast<float*>(ring + Lay::kStages * Lay::kStageBytes);
+  bool fetched = false;                    // q of the next piece in flight
+  for (int stage = 0;; stage = (stage + 1) % Lay::kStages) {
+    load_tile(ld, (stage + Lay::kStages - 1) % Lay::kStages);
+    tc::cp_async_commit();
+    tc::cp_async_wait<Lay::kStages - 1>();   // this stage's tile landed
+    __syncwarp();
+    const int4 d = *desc(stage);
+    const int n_valid = d.y & kValidMask;
+    if (n_valid == 0) break;
+    if (d.y & kOpens) {
+      if (!fetched) math.fetch(q_rows(d), G, lane);
+      math.begin(G, lane);
+    }
+    // The next stage's descriptor is written and visible: start loading
+    // the q rows of the piece it opens, if any.
+    const int4 dn = *desc((stage + 1) % Lay::kStages);
+    fetched = (dn.y & kValidMask) != 0 && (dn.y & kOpens) != 0;
+    if (fetched) math.fetch(q_rows(dn), G, lane);
+    math.tile(ring + stage * Lay::kStageBytes, n_valid, scale, softcap,
+              lane);
+    if (d.y & kCloses) {
+      const long long slot = d.x;
+      math.finish(part_m + slot * G, part_l + slot * G,
+                  part_acc + slot * G * D, G, lane);
+    }
+    __syncwarp();                            // the stage may be refilled
   }
 }
 
-// Pass 2: one block per (KV head, batch row) merges the row's spans.
+// Pass 2: one warp per (batch row, query head) merges the row's pieces,
+// lane c holding output columns c + 32 i.
+constexpr int kCombineWarps = 4;
+
 template <typename T>
-__global__ void flash_decode_combine_kernel(const float* __restrict__ part_m,
-                                            const float* __restrict__ part_l,
-                                            const float* __restrict__ part_acc,
-                                            T* __restrict__ o, int Hkv, int G,
-                                            int D, int n_spans) {
-  const int hk = blockIdx.x;
-  const long long b = blockIdx.y;
-  const long long row = (b * Hkv + hk) * n_spans;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int s = 0; s < n_spans; ++s)
-      mx = fmaxf(mx, part_m[(row + s) * G + g]);
-    float den = 0.f, num = 0.f;
-    if (mx > -INFINITY) {
-      for (int s = 0; s < n_spans; ++s) {
-        const float w = expf(part_m[(row + s) * G + g] - mx);
-        den = fmaf(part_l[(row + s) * G + g], w, den);
-        num = fmaf(part_acc[((row + s) * G + g) * D + d], w, num);
-      }
+__global__ void __launch_bounds__(kCombineWarps * 32)
+flash_decode_combine_kernel(const float* __restrict__ part_m,
+                            const float* __restrict__ part_l,
+                            const float* __restrict__ part_acc,
+                            T* __restrict__ o, Shape sh, int G, int D,
+                            int max_pieces) {
+  const int lane = threadIdx.x & 31;
+  const int Hq = sh.Hkv * G;
+  const long long task =
+      static_cast<long long>(blockIdx.x) * kCombineWarps + (threadIdx.x >> 5);
+  if (task >= static_cast<long long>(sh.B) * Hq) return;
+  const long long b = task / Hq;
+  const int h = static_cast<int>(task % Hq), g = h % G;
+  int lo, hi;
+  valid_range(sh.lengths[b], sh.L, sh.window, lo, hi);
+  const int n = (hi - lo + sh.piece_len - 1) / sh.piece_len;
+  const long long row = (b * sh.Hkv + h / G) * max_pieces;
+  // Pieces 32 at a time: lane s holds piece s0 + s's max and sum; the
+  // running max, sum and output are rescaled as the max grows.
+  float mx = -INFINITY, den = 0.f, num[4] = {0.f, 0.f, 0.f, 0.f};  // D <= 128
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    const int s = s0 + lane;
+    const float ms = s < n ? part_m[(row + s) * G + g] : -INFINITY;
+    const float ls = s < n ? part_l[(row + s) * G + g] : 0.f;
+    const float m_new = fmaxf(mx, warp_max(ms));     // finite: n > s0
+    const float corr = tc::exp2_approx(mx - m_new);
+    const float w = tc::exp2_approx(ms - m_new);
+    den = den * corr + warp_sum(ls * w);
+    mx = m_new;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) num[c] *= corr;
+    const int count = min(32, n - s0);
+#pragma unroll 8
+    for (int j = 0; j < count; ++j) {
+      const float wj = __shfl_sync(kFull, w, j);
+      const float* a = part_acc + ((row + s0 + j) * G + g) * D;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (lane + 32 * c < D) num[c] = fmaf(wj, a[lane + 32 * c], num[c]);
     }
-    o[((b * Hkv + hk) * G + g) * D + d] =
-        from_float<T>(den > 0.f ? num / den : 0.f);
   }
+  T* out = o + (b * Hq + h) * D;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (lane + 32 * c < D)
+      out[lane + 32 * c] = from_float<T>(den > 0.f ? num[c] / den : 0.f);
 }
 
 int sm_count() {
@@ -255,75 +547,118 @@ int sm_count() {
   return count;
 }
 
+// Raises the pieces kernel's shared-memory limit and gives the number of
+// its blocks resident on the card at once (the persistent grid).
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* part_m, float* part_l, float* part_acc, void* o, int B,
-           int L, int Hkv, int G, int n_spans, float scale, int window,
-           float softcap, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes<T, D>(G);
-  auto split = flash_decode_split_kernel<T, D>;
+int resident_blocks(int* blocks) {
+  using Lay = Layout<T, D>;
+  auto pieces = flash_decode_pieces_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      split, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      pieces, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B == 0) return 0;
-  const dim3 grid(n_spans / kWarps, Hkv, B);
-  split<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_m, part_l, part_acc, L, Hkv, G,
-      scale, window, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<T><<<dim3(Hkv, B), 128, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(o), Hkv, G, D, n_spans);
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pieces, Lay::kWarps * 32, Lay::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) per_sm = 1;
+  }
+  *blocks = per_sm * sm_count();
+  return 0;
+}
+
+template <typename T, int D>
+int piece_len(int B, int Hkv, int L) {
+  int blocks = 0;
+  const int err = resident_blocks<T, D>(&blocks);
+  if (err != 0) return -err;
+  // About two pieces per resident warp if every row were full, so that
+  // a long batch takes long pieces (less partial state to merge) and a
+  // short one still spreads over the card: 32 to 256 positions.
+  const long long warps = static_cast<long long>(blocks) * Layout<T, D>::kWarps;
+  const long long positions = static_cast<long long>(B) * Hkv * L;
+  long long tiles = (positions + 2 * warps * kTile - 1) / (2 * warps * kTile);
+  if (tiles < 1) tiles = 1;
+  if (tiles > kMaxPieceTiles) tiles = kMaxPieceTiles;
+  return static_cast<int>(tiles) * kTile;
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const Shape& sh,
+           float* part_m, float* part_l, float* part_acc, void* o, int G,
+           int max_pieces, float scale, float softcap, cudaStream_t stream) {
+  using Lay = Layout<T, D>;
+  int resident = 0;
+  const int status = resident_blocks<T, D>(&resident);
+  if (status != 0) return status;
+  if (sh.B == 0) return 0;
+  const long long worst = static_cast<long long>(sh.B) * sh.Hkv * max_pieces;
+  const long long needed = (worst + Lay::kWarps - 1) / Lay::kWarps;
+  const long long blocks = resident < needed ? resident : needed;
+  if (blocks > 0) {
+    flash_decode_pieces_kernel<T, D>
+        <<<static_cast<unsigned>(blocks), Lay::kWarps * 32, Lay::kSmemBytes,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), sh, part_m, part_l, part_acc,
+                     G, max_pieces, scale, softcap);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long tasks = static_cast<long long>(sh.B) * sh.Hkv * G;
+  flash_decode_combine_kernel<T>
+      <<<static_cast<unsigned>((tasks + kCombineWarps - 1) / kCombineWarps),
+         kCombineWarps * 32, 0, stream>>>(part_m, part_l, part_acc,
+                                          static_cast<T*>(o), sh, G, D,
+                                          max_pieces);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Spans per (batch row, KV head), a multiple of the warps of a block:
-// about four blocks per SM in all, each warp at least one tile of the
-// longest row.
-extern "C" int flash_decode_n_spans(int B, int Hkv, int L) {
-  const long long rows = static_cast<long long>(B) * Hkv;
-  long long blocks = rows > 0 ? (4LL * sm_count() + rows - 1) / rows : 1;
-  const long long cap = (static_cast<long long>(L) + kWarps * kTile - 1) /
-                        (kWarps * kTile);
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65535) blocks = 65535;
-  return static_cast<int>(blocks) * kWarps;
+#define FD_DISPATCH(CALL)                                   \
+  if (dtype == 0) {                                         \
+    if (D == 16) return CALL(float, 16);                    \
+    if (D == 32) return CALL(float, 32);                    \
+    if (D == 64) return CALL(float, 64);                    \
+    if (D == 128) return CALL(float, 128);                  \
+  } else if (dtype == 1) {                                  \
+    if (D == 16) return CALL(__nv_bfloat16, 16);            \
+    if (D == 32) return CALL(__nv_bfloat16, 32);            \
+    if (D == 64) return CALL(__nv_bfloat16, 64);            \
+    if (D == 128) return CALL(__nv_bfloat16, 128);          \
+  }
+
+// Positions per piece for this shape (a multiple of 32), or a negative
+// CUDA error code.
+extern "C" int flash_decode_piece_len(int B, int Hkv, int L, int dtype,
+                                      int D) {
+#define FD_PIECE(TYPE, DIM) piece_len<TYPE, DIM>(B, Hkv, L)
+  FD_DISPATCH(FD_PIECE)
+#undef FD_PIECE
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}; G <= 8;
-// n_spans from flash_decode_n_spans; part_m, part_l: (B, Hkv, n_spans, G)
-// and part_acc: (B, Hkv, n_spans, G, D) float32 scratch. Launches both
-// passes on `stream`; returns cudaGetLastError() (0 = ok).
+// piece_len from flash_decode_piece_len; max_pieces = ceil(L / piece_len);
+// part_m, part_l: (B, Hkv, max_pieces, G) and part_acc: (B, Hkv,
+// max_pieces, G, D) float32 scratch. Launches both passes on `stream`;
+// returns cudaGetLastError() (0 = ok).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* lengths,
                                    float* part_m, float* part_l,
                                    float* part_acc, void* o, int B, int L,
-                                   int Hkv, int G, int D, int n_spans,
-                                   int dtype, float scale, int window,
-                                   float softcap, void* stream) {
+                                   int Hkv, int G, int D, int piece_len,
+                                   int max_pieces, int dtype, float scale,
+                                   int window, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > kMaxG || n_spans < kWarps || n_spans % kWarps)
+  if (G < 1 || G > kMaxG || piece_len < kTile || piece_len % kTile ||
+      max_pieces != (L + piece_len - 1) / piece_len)
     return static_cast<int>(cudaErrorInvalidValue);
-#define FD_CASE(TYPE, DIM)                                                 \
-  return launch<TYPE, DIM>(q, k, v, lengths, part_m, part_l, part_acc, o, \
-                           B, L, Hkv, G, n_spans, scale, window, softcap,  \
-                           st)
-  if (dtype == 0) {
-    if (D == 16) FD_CASE(float, 16);
-    if (D == 32) FD_CASE(float, 32);
-    if (D == 64) FD_CASE(float, 64);
-    if (D == 128) FD_CASE(float, 128);
-  } else if (dtype == 1) {
-    if (D == 16) FD_CASE(__nv_bfloat16, 16);
-    if (D == 32) FD_CASE(__nv_bfloat16, 32);
-    if (D == 64) FD_CASE(__nv_bfloat16, 64);
-    if (D == 128) FD_CASE(__nv_bfloat16, 128);
-  }
-#undef FD_CASE
+  const Shape sh{lengths, B, L, Hkv, window, piece_len};
+#define FD_LAUNCH(TYPE, DIM)                                              \
+  launch<TYPE, DIM>(q, k, v, sh, part_m, part_l, part_acc, o, G, max_pieces, \
+                    scale, softcap, st)
+  FD_DISPATCH(FD_LAUNCH)
+#undef FD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/lib<name>-<source hash>.so`` inside the package
-directory (listed in ``.gitignore``). A library is built on first use;
-``build`` starts one ``nvcc`` per missing library, all at once. Nothing
-is compiled when a module is imported.
+directory (listed in ``.gitignore``); the hash covers the ``.cu`` and
+every header it includes with ``#include "..."``. A library is built on
+first use; ``build`` starts one ``nvcc`` per missing library, all at
+once. Nothing is compiled when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,6 +24,8 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], Callable] = {}
@@ -38,10 +42,25 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
+def _source_files(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and, depth first, every file it includes with
+    ``#include "..."`` that exists beside it, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        header = path.parent / inc.decode()
+        if header.exists():
+            _source_files(header.resolve(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in _source_files((CSRC / f"{name}.cu").resolve(), []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

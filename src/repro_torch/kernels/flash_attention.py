@@ -3,8 +3,10 @@
 Counterpart of ``repro.kernels.flash_attention``. ``flash_attention``
 launches the hand-written CUDA kernel (``csrc/flash_attention.cu``) for
 CUDA tensors and takes the plain version ``flash_attention_ref`` only for
-CPU tensors. The kernel accepts any S (the ragged edge is masked); it
-takes bf16 or f32 with D of 16 (the smoke-width evaluator), 64 or 128.
+CPU tensors. bf16 runs on the tensor cores with the GQA group packed into
+the rows of a tile; float32 runs in FP32 FMAs. The kernel accepts any S
+(the ragged edge is masked); it takes D of 16 (the smoke-width
+evaluator), 64 or 128.
 """
 from __future__ import annotations
 
@@ -89,6 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:            # the kernel reads 16-byte chunks
+            raise ValueError(f"{name} must be 16-byte aligned")
     fn = library_function(
         "flash_attention", "flash_attention_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6

@@ -9,9 +9,10 @@ position (``lengths[b] == 0``) gives zeros, as the TPU kernel does
 
 ``flash_decode`` launches the hand-written CUDA kernel
 (``csrc/flash_decode.cu``, replacing the TPU kernel ``_decode_kernel``:
-split-K flash-decoding, each warp one span of a row's valid range, then
-a combine pass; bound by the bytes of the valid cache) for CUDA tensors,
-and takes the plain version ``flash_decode_ref`` only for CPU tensors.
+split-K flash-decoding over pieces of ``piece_length`` positions of each
+row's valid range, walked by a persistent grid, then a combine pass;
+bound by the bytes of the valid cache) for CUDA tensors, and takes the plain
+version ``flash_decode_ref`` only for CPU tensors.
 The kernel takes bf16 or f32, D of 16, 32, 64 or 128, and up to 8 query
 heads per KV head.
 """
@@ -27,7 +28,6 @@ from repro_torch.kernels._build import library_function
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
-MAX_GRID_YZ = 65535
 NEG_INF = -2.0e38
 
 
@@ -56,6 +56,18 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, None]
     o = torch.einsum("bhgt,bthd->bhgd", p, v_cache.to(torch.float32))
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def piece_length(B: int, Hkv: int, L: int, dtype: torch.dtype,
+                 D: int) -> int:
+    """Positions per piece of a row's valid range for this shape on the
+    current card (a multiple of 32, at most 256): about two pieces per
+    resident warp if every row were full."""
+    n = library_function("flash_decode", "flash_decode_piece_len",
+                         [ctypes.c_int] * 5)(B, Hkv, L, _DTYPES[dtype], D)
+    if n <= 0:
+        raise RuntimeError(f"flash_decode_piece_len failed: cudaError {-n}")
+    return n
 
 
 def _check(q, k_cache, v_cache, lengths) -> None:
@@ -103,39 +115,40 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if G > MAX_GROUP:
         raise ValueError(f"flash_decode takes up to {MAX_GROUP} query heads "
                          f"per KV head, got {G}")
-    if B > MAX_GRID_YZ or Hkv > MAX_GRID_YZ:
-        raise ValueError(f"flash_decode takes B and Hkv up to "
-                         f"{MAX_GRID_YZ}, got {B} and {Hkv}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:            # the kernel reads 16-byte chunks
             raise ValueError(f"{name} must be 16-byte aligned")
-    n_spans = library_function(
-        "flash_decode", "flash_decode_n_spans",
-        [ctypes.c_int] * 3)(B, Hkv, L)
+    piece = piece_length(B, Hkv, L, q.dtype, D)
+    max_pieces = -(-L // piece)
+    if max(B * Hkv * max_pieces, B * q.shape[1]) >= 2 ** 31:
+        raise ValueError(f"flash_decode takes fewer than 2**31 pieces and "
+                         f"(row, head) pairs, got B={B}, Hkv={Hkv}, "
+                         f"{max_pieces} pieces per row")
     fn = library_function(
         "flash_decode", "flash_decode_launch",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     if sm_scale is None:
         sm_scale = D ** -0.5
     dev = q.device
-    part_ml = torch.empty((2, B, Hkv, n_spans, G), dtype=torch.float32,
+    # partial state of every piece a row could have (the worst case)
+    part_ml = torch.empty((2, B, Hkv, max_pieces, G), dtype=torch.float32,
                           device=dev)
-    part_acc = torch.empty((B, Hkv, n_spans, G, D), dtype=torch.float32,
+    part_acc = torch.empty((B, Hkv, max_pieces, G, D), dtype=torch.float32,
                            device=dev)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), B, L, Hkv, G, D, n_spans,
-             _DTYPES[q.dtype], float(sm_scale), int(window), float(softcap),
-             stream)
+             part_acc.data_ptr(), out.data_ptr(), B, L, Hkv, G, D, piece,
+             max_pieces, _DTYPES[q.dtype], float(sm_scale), int(window),
+             float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"cudaError {err}")

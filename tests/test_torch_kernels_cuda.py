@@ -21,7 +21,8 @@ from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_ref, piece_length)
 from repro_torch.kernels.shed_partition import (shed_partition,
                                                 shed_partition_ref)
 from repro_torch.kernels.topk_select import (NEG_INF, topk_select,
@@ -82,6 +83,30 @@ def test_flash_attention_kernel_close_to_plain(dev, B, S, Hq, Hkv, D,
                                                window, softcap, causal,
                                                dtype, atol):
     g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", [
+    (2, 33, 8, 1, 64, 0, 0.0, True),       # G = 8: 264 packed rows
+    (1, 300, 8, 1, 128, 40, 20.0, False),  # G = 8, window, softcap
+    (2, 45, 4, 4, 64, 0, 0.0, True),       # G = 1
+    (3, 17, 6, 2, 16, 0, 0.0, True),       # G * S = 51, not a multiple of 16
+    (1, 1984, 9, 3, 64, 0, 0.0, True),     # prefill of the longest prompt
+    (3072, 31, 9, 3, 64, 0, 0.0, True),    # the engine's micro-batch
+])
+def test_flash_attention_kernel_packed_rows_close_to_plain(
+        dev, B, S, Hq, Hkv, D, window, softcap, causal, dtype, atol):
+    """The edges of packing a GQA group's heads into the rows of a tile:
+    whole groups of 8 or 1, a ragged last tile, long and wide grids."""
+    g = torch.Generator(device=dev).manual_seed(B + S + Hq)
     q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
                for h in (Hq, Hkv, Hkv))
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -210,6 +235,37 @@ def test_flash_decode_kernel_close_to_plain(dev, B, L, Hq, Hkv, D, window,
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=0)
     assert not got.isnan().any()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("spread", ["one_long", "all_full", "window_piece"])
+def test_flash_decode_kernel_length_spreads(dev, spread, G, dtype, atol):
+    """Spreads of lengths that stress the balanced pieces: one row at L and
+    the rest at 1, every row at L, and a window that ends at the first
+    piece boundary."""
+    B, L, Hkv, D = 64, 1500, 2, 64          # pieces of a few tiles
+    piece = piece_length(B, Hkv, L, dtype, D)
+    g = torch.Generator(device=dev).manual_seed(G)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    window = 0
+    if spread == "one_long":
+        lengths = torch.ones(B, dtype=torch.int32, device=dev)
+        lengths[B // 2] = L
+    elif spread == "all_full":
+        lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+        lengths[:3] = torch.tensor([piece, piece + 1, L], device=dev)
+        window = piece
+    got = flash_decode(q, k, v, lengths, window=window)
+    want = flash_decode_ref(q, k, v, lengths, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 def test_flash_decode_kernel_respects_lengths(dev):
