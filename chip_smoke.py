@@ -72,7 +72,7 @@ from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
 from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
-    dot_interaction, dot_interaction_ref, triu_pairs)
+    dot_interaction, dot_interaction_ref, group_size, triu_pairs)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
@@ -80,7 +80,8 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
 from repro_torch.kernels.shed_partition import (  # noqa: E402
     shed_partition, shed_partition_ref)
 from repro_torch.kernels.topk_select import (  # noqa: E402
-    NEG_INF, topk_select, topk_select_ref)
+    NEG_INF, TILE, launch_floor, launch_kernel, staged_capacity, topk_select,
+    topk_select_ref)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.recsys import embedding as E  # noqa: E402
@@ -445,12 +446,35 @@ def attention_timing(q, k, v, flush, plain_iters: int) -> dict:
 # phase 5: topk_select against its plain version
 # ---------------------------------------------------------------------------
 
+def edge_scores(kind, n, dtype, gen, dev):
+    """Scores for the edges of the cluster radix select: the k-th score
+    tied at every 32nd place (so across every CTA) under 40 higher ones;
+    a third of the scores tied under 10 higher ones; BM25-shaped scores,
+    non-negative with 90% exact zeros and repeated values."""
+    u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+    if kind == "tied_kth":
+        s = u * 0.5
+        s[7::32] = 1.5
+        s[torch.randperm(n, generator=gen, device=dev)[:40]] = 2.0 + u[:40]
+    elif kind == "ties_above_k":
+        s = u * 0.5
+        s[u < 1 / 3] = 1.0
+        s[torch.randperm(n, generator=gen, device=dev)[:10]] = 3.0
+    else:                                           # "bm25"
+        s = torch.where(u < 0.9, torch.zeros_like(u),
+                        torch.round(-torch.log(u) * 64) / 8)
+    return s.to(dtype)
+
+
 def topk_cases(gen, dev):
     """(label, scores, k): the main path's shape (float64 BM25 scores of
     the 65536-document shard), the TPU kernel's float32 shapes, then the
     edges."""
     def randn(n, dtype=torch.float32):
         return torch.randn(n, generator=gen, device=dev, dtype=dtype)
+
+    def edge(kind, n, dtype=torch.float64):
+        return edge_scores(kind, n, dtype, gen, dev)
 
     zeros = torch.zeros(CORPUS_DOCS, device=dev)
     zeros[torch.rand(CORPUS_DOCS, generator=gen, device=dev) < 0.5] = -0.0
@@ -463,9 +487,11 @@ def topk_cases(gen, dev):
     near = torch.where(torch.rand(CORPUS_DOCS, generator=gen,
                                   device=dev) < 0.5,
                        torch.nextafter(base, base + 1), base)
+    f32, f64 = torch.float32, torch.float64
+    cap32, cap64 = staged_capacity(f32), staged_capacity(f64)
+    half32, half64 = TILE[f32] // 2, TILE[f64] // 2
     return [
-        ("main path f64 N=65536 k=64", randn(CORPUS_DOCS, torch.float64),
-         TOP_K),
+        ("main path f64 N=65536 k=64", randn(CORPUS_DOCS, f64), TOP_K),
         ("f32 N=65536 k=64", randn(CORPUS_DOCS), TOP_K),
         ("f32 shard of a million N=1048576 k=64", randn(1 << 20), TOP_K),
         ("N=1", randn(1), 1),
@@ -480,9 +506,27 @@ def topk_cases(gen, dev):
         ("+0.0 mixed with -0.0 N=65536 k=64", zeros, TOP_K),
         ("+0.0 mixed with -0.0 f64", zeros.double(), TOP_K),
         ("f64 near-ties N=65536 k=64", near, TOP_K),
+        ("k-th score tied across every CTA f64 k=TILE/2",
+         edge("tied_kth", CORPUS_DOCS), half64),
+        ("k-th score tied across every CTA f32 k=TILE/2",
+         edge("tied_kth", CORPUS_DOCS, f32), half32),
+        ("k-th score tied across every CTA f64 k=64",
+         edge("tied_kth", CORPUS_DOCS), TOP_K),
+        ("ties at T more than k f64 N=65536 k=64",
+         edge("ties_above_k", CORPUS_DOCS), TOP_K),
+        ("ties at T more than k f32 N=70001 k=7",
+         edge("ties_above_k", 70_001, f32), 7),
+        ("f64 N=staged capacity-1", randn(cap64 - 1, f64), TOP_K),
+        ("f64 N=staged capacity+1", randn(cap64 + 1, f64), TOP_K),
+        ("f32 N=staged capacity-1", randn(cap32 - 1), TOP_K),
+        ("f32 N=staged capacity+1", randn(cap32 + 1), TOP_K),
+        ("f64 N=262144 k=64", randn(1 << 18, f64), TOP_K),
+        ("f64 k=TILE/2+1 (full sort)", randn(CORPUS_DOCS, f64), half64 + 1),
+        ("f32 k=TILE/2 N=65536", randn(CORPUS_DOCS), half32),
+        ("f32 k=TILE/2+1 (full sort)", randn(CORPUS_DOCS), half32 + 1),
+        ("BM25-shaped f64 N=65536 k=64", edge("bm25", CORPUS_DOCS), TOP_K),
         ("full sort N=10000 k=5000", randn(10_000), 5000),
-        ("full sort f64 N=10000 k=10000", randn(10_000, torch.float64),
-         10_000),
+        ("full sort f64 N=10000 k=10000", randn(10_000, f64), 10_000),
         ("full sort N=1048576 k=3000 (duplicates)",
          torch.randint(0, 100, (1 << 20,), generator=gen,
                        device=dev).float(), 3000),
@@ -505,20 +549,22 @@ def phase_topk_select(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     cases = topk_cases(gen, dev)
     for label, scores, k in cases:
-        got_v, got_i = topk_select(scores, k)
-        want_v, want_i = topk_select_ref(scores, k)
-        torch.cuda.synchronize()
-        if not torch.equal(got_i, want_i):
-            bad = int((got_i != want_i).sum())
-            raise AssertionError(f"topk_select indices differ from the "
-                                 f"plain version ({label}): {bad} of {k}")
         bits = torch.int64 if scores.dtype == torch.float64 else torch.int32
-        if got_v.dtype != scores.dtype or not torch.equal(
-                got_v.view(bits), want_v.view(bits)):
-            raise AssertionError(f"topk_select values differ from the "
-                                 f"plain version ({label})")
+        want_v, want_i = topk_select_ref(scores, k)
+        runs = [topk_select(scores, k) for _ in range(2)]
+        torch.cuda.synchronize()
+        for got_v, got_i in runs:
+            if not torch.equal(got_i, want_i):
+                bad = int((got_i != want_i).sum())
+                raise AssertionError(f"topk_select indices differ from the "
+                                     f"plain version ({label}): {bad} of {k}")
+            if got_v.dtype != scores.dtype or not torch.equal(
+                    got_v.view(bits), want_v.view(bits)):
+                raise AssertionError(f"topk_select values differ from the "
+                                     f"plain version ({label})")
     log(f"topk_select: {len(cases)} cases exactly equal to the plain "
-        f"version, values bit for bit ({'; '.join(c[0] for c in cases)})")
+        f"version, values bit for bit, two calls each with the same bits "
+        f"({'; '.join(c[0] for c in cases)})")
     flush = l2_flusher(dev)
     timings = {label: topk_timing(scores, k, flush)
                for label, scores, k in cases[:3]}
@@ -526,13 +572,24 @@ def phase_topk_select(dev) -> dict:
         log(f"topk_select @{label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bytes']} B)")
+    floor_ms = timed_ms(lambda: launch_floor(dev), 200, flush)
+    million = cases[2][1]
+    by_cluster = {c: timed_ms(lambda: launch_kernel(million, TOP_K, c), 200,
+                              flush) for c in (8, 16)}
+    log(f"topk_select: launch floor (an empty kernel through the same ctypes "
+        f"route) {floor_ms:.4f} ms; f32 N=1048576 with a cluster of 8 CTAs "
+        f"{by_cluster[8]:.4f} ms, of 16 {by_cluster[16]:.4f} ms")
     t = timings[cases[0][0]]
     return {"name": "topk_select", "route": "cuda",
             "source": "src/repro_torch/csrc/topk_select.cu",
             "replaces": "src/repro/kernels/topk_select.py:111",
             "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"], "launch_floor_ms": floor_ms,
+            "f32_ms": timings[cases[1][0]]["ms"],
+            "f32_1m_ms": timings[cases[2][0]]["ms"],
+            "f32_1m_cluster8_ms": by_cluster[8],
+            "f32_1m_cluster16_ms": by_cluster[16]}
 
 
 # ---------------------------------------------------------------------------
@@ -544,16 +601,24 @@ DLRM_F, DLRM_D = 27, 128         # dlrm-mlperf: 26 tables + the bottom MLP
 
 def phase_dot_interaction(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    # the engine's shapes, then the group walk's edges: fewer samples
+    # than SMs, B not a multiple of the group (F 8 groups six samples), a
+    # run that starts unaligned (F 63 in bf16), F 1 and 2, odd D, x not
+    # 16-byte aligned (the last)
     shapes = [(b, DLRM_F, DLRM_D) for b in (1, 37, ENGINE_BATCH, BATCH)] \
-        + [(37, 27, 128), (128, 27, 128), (16, 8, 64), (5, 12, 32)]
+        + [(37, 27, 128), (128, 27, 128), (16, 8, 64), (5, 12, 32),
+           (4097, 8, 64), (45, 63, 64), (40, 1, 128), (300, 2, 128),
+           (33, 27, 127), (50, 27, 128)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     inputs = {}
     for dtype, atol in ((torch.float32, F32_ATOL),
                         (torch.bfloat16, BF16_ATOL)):
-        for B, Fn, D in shapes:
+        for i, (B, Fn, D) in enumerate(shapes):
             # the model's scale: rows of norm ~1, as the 1/sqrt(D) tables
-            x = (torch.randn((B, Fn, D), generator=gen, device=dev)
-                 * D ** -0.5).to(dtype)
+            flat = (torch.randn(B * Fn * D + 1, generator=gen, device=dev)
+                    * D ** -0.5).to(dtype)
+            skew = int(i == len(shapes) - 1)
+            x = flat[skew:skew + B * Fn * D].view(B, Fn, D)
             got = dot_interaction(x)
             want = dot_interaction_ref(x)
             torch.cuda.synchronize()
@@ -564,7 +629,12 @@ def phase_dot_interaction(dev) -> dict:
                                      f"D={D}: max abs err {err} > {atol}")
             worst[dtype] = max(worst[dtype], err)
             inputs[(B, Fn, D, dtype)] = x
-    log(f"dot_interaction: {len(shapes)} shapes x 2 dtypes within "
+    groups = {f"F {f} {str(dt).split('.')[1]}": group_size(f, d, dt)
+              for f, d in ((DLRM_F, DLRM_D), (8, 64))
+              for dt in (torch.float32, torch.bfloat16)}
+    log(f"dot_interaction: {len(shapes)} shapes x 2 dtypes ({shapes}, the "
+        f"last with x one element off 16-byte alignment; samples a group: "
+        f"{groups}) within "
         f"tolerance of the plain version (f32 max abs err "
         f"{worst[torch.float32]:.3e} <= {F32_ATOL}, bf16 "
         f"{worst[torch.bfloat16]:.3e} <= {BF16_ATOL})")
@@ -584,6 +654,9 @@ def phase_dot_interaction(dev) -> dict:
              "plain_ms": timed_ms(lambda: dot_interaction_ref(x), 100,
                                   flush),
              "yardstick_ms": timed_ms(lambda: yardstick(x), 100, flush),
+             # one read-only pass over the input: the floor a kernel that
+             # reads these bytes meets under the same flush
+             "read_ms": timed_ms(lambda: x.sum(), 100, flush),
              "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
                              flops / F32_FLOP_PER_S) * 1e3,
              "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
@@ -592,6 +665,7 @@ def phase_dot_interaction(dev) -> dict:
         log(f"dot_interaction @B={B} F={DLRM_F} D={DLRM_D} f32: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm + "
             f"triangle gather (two library calls) {t['yardstick_ms']:.4f} "
+            f"ms, one read-only pass over x (torch.sum) {t['read_ms']:.4f} "
             f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} "
             f"B, {flops} FLOP)")
     t = rows[ENGINE_BATCH]             # the DLRM engine's micro-batch
@@ -600,7 +674,9 @@ def phase_dot_interaction(dev) -> dict:
             "replaces": "src/repro/kernels/dot_interaction.py:48",
             "max_abs_err": max(worst.values()), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None}
+            "bound_by": t["bound_by"], "library_ms": None,
+            "b4096_ms": rows[BATCH]["ms"],
+            "yardstick_ms": t["yardstick_ms"], "read_ms": t["read_ms"]}
 
 
 # ---------------------------------------------------------------------------

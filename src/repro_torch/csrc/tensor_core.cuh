@@ -1,5 +1,6 @@
 // PTX helpers shared by the bf16 attention kernels (flash_attention.cu and
-// flash_decode.cu): 16-byte asynchronous copies into shared memory,
+// flash_decode.cu) and dot_interaction.cu: 16-byte asynchronous copies
+// into shared memory,
 // ldmatrix fragment loads, and the m16n8k16 bf16 tensor-core product with
 // float32 accumulators.
 //

@@ -8,10 +8,13 @@ input's type, without storing the (B, F, F) Gram.
 ``dot_interaction`` launches the hand-written CUDA kernel
 (``csrc/dot_interaction.cu``, replacing the TPU kernel
 ``_dot_int_kernel``, whose selection-matrix GEMM becomes a direct store
-of each thread's 4 x 4 Gram tile to its triangle entries; bound by bytes,
-B*F*D reads and B*F(F-1)/2 writes) for CUDA tensors, and takes the plain
-version ``dot_interaction_ref`` only for CPU tensors. Both take float32
-or bfloat16.
+of each Gram entry to its triangle index; a persistent grid whose
+blocks request the next groups of samples with bulk asynchronous copies
+while they compute the current one on the tensor cores, float32 split
+into a TF32 product and a bf16 product of the cross terms; bound by
+bytes, B*F*D reads and B*F(F-1)/2 writes) for CUDA tensors, and takes
+the plain version ``dot_interaction_ref`` only for CPU tensors. Both
+take float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -68,8 +71,9 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     if t * (t + 1) // 2 > MAX_THREADS:
         raise ValueError(f"dot_interaction takes F <= 176, got F={F}")
     smem = library_function("dot_interaction", "dot_interaction_smem_bytes",
-                            [ctypes.c_int, ctypes.c_int],
-                            restype=ctypes.c_longlong)(F, D)
+                            [ctypes.c_int] * 3,
+                            restype=ctypes.c_longlong)(
+        F, D, _DTYPES[feats.dtype])
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"dot_interaction: F={F}, D={D} needs {smem} B of "
                          f"shared memory, more than a block has")
@@ -93,3 +97,10 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
 
 
 dot_interaction.launches = 0
+
+
+def group_size(n_f: int, d: int, dtype: torch.dtype) -> int:
+    """Samples the kernel stages and computes together for (F, D, dtype);
+    the card tests choose B around it."""
+    return library_function("dot_interaction", "dot_interaction_group",
+                            [ctypes.c_int] * 3)(n_f, d, _DTYPES[dtype])

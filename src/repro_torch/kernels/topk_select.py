@@ -6,13 +6,15 @@ document) and the candidate set is its top-k in the same total order
 the pure-Python postings scorer produces, ties included.
 
 ``topk_select`` launches the hand-written CUDA kernel
-(``csrc/topk_select.cu``, replacing the TPU kernel ``_topk_kernel``:
-(score, index) keys, bitonic tile sorts in shared memory, candidate
-passes until one CTA holds them all; bound by bytes, N*4 + k*8 in
-float32) for CUDA tensors, and takes the plain version
-``topk_select_ref`` only for CPU tensors. Any ``1 <= k <= N`` is
-accepted on both, in float32 (the TPU kernel's type) or float64 (the
-type retrieval ranks in, see ``retrieval.shard``).
+(``csrc/topk_select.cu``, replacing the TPU kernel ``_topk_kernel``: an
+exact radix select on the score images in one launch of one
+thread-block cluster, whose CTAs merge their digit histograms through
+distributed shared memory and take the ties at the threshold by an
+ordered compaction; bound by bytes, N*4 + k*8 in float32) for CUDA
+tensors, and takes the plain version ``topk_select_ref`` only for CPU
+tensors. Any ``1 <= k <= N`` is accepted on both, in float32 (the TPU
+kernel's type) or float64 (the type retrieval ranks in, see
+``retrieval.shard``).
 
 Both treat -0.0 and +0.0 as equal scores (the tie breaks by index, as
 the reference oracle's sort of negated scores does) and return the
@@ -30,6 +32,18 @@ from repro_torch.kernels._build import library_function
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 NEG_INF = -2.0e38
 INT32_MAX = 2 ** 31 - 1
+# As csrc/topk_select.cu: keys a sort tile holds (the cluster path takes
+# N > TILE and k <= TILE / 2), and the bytes of score images a CTA of the
+# cluster stages in shared memory.
+TILE = {torch.float32: 4096, torch.float64: 2048}
+STAGE_BYTES = 160 * 1024
+
+
+def staged_capacity(dtype: torch.dtype) -> int:
+    """The largest N whose chunks a cluster of 8 CTAs stages in shared
+    memory (images are as wide as the scores); past it the cluster grows
+    to 16 CTAs."""
+    return 8 * (STAGE_BYTES // torch.empty(0, dtype=dtype).element_size())
 
 
 def topk_select_ref(scores: torch.Tensor, k: int
@@ -72,27 +86,46 @@ def topk_select(scores: torch.Tensor, k: int
     if n > INT32_MAX:
         raise ValueError(f"topk_select indexes with int32: N={n} is too "
                          f"large")
-    dtype = _DTYPES[scores.dtype]
+    return launch_kernel(scores, k)
+
+
+def launch_kernel(scores: torch.Tensor, k: int, cluster: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on checked CUDA ``scores``, counted in
+    ``topk_select.launches``. ``cluster`` sets the CTAs of the radix
+    select's cluster (1..16); 0, which ``topk_select`` passes, lets the
+    kernel choose from N."""
+    n, dtype = scores.shape[0], _DTYPES[scores.dtype]
     n_bytes = library_function(
         "topk_select", "topk_select_scratch_bytes",
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
         restype=ctypes.c_longlong)(n, k, dtype)
     fn = library_function(
         "topk_select", "topk_select_launch",
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 4)
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int] + [ctypes.c_void_p] * 4)
     dev = scores.device
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
     vals = torch.empty(k, dtype=scores.dtype, device=dev)
     idxs = torch.empty(k, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(scores.data_ptr(), n, int(k), dtype, scratch.data_ptr(),
-             vals.data_ptr(), idxs.data_ptr(), stream)
+    err = fn(scores.data_ptr(), n, int(k), dtype, int(cluster),
+             scratch.data_ptr(), vals.data_ptr(), idxs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"topk_select kernel launch failed: "
                            f"cudaError {err}")
     topk_select.launches += 1
     return vals, idxs
+
+
+def launch_floor(device) -> None:
+    """Launch an empty kernel through the same ctypes route: the card's
+    launch floor, the least time any launch of this kernel can take."""
+    err = library_function("topk_select", "topk_select_launch_floor",
+                           [ctypes.c_void_p])(
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 topk_select.launches = 0

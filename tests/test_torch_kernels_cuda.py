@@ -18,15 +18,16 @@ from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import SimClock
 from repro_torch.configs import get_config
 from repro_torch.kernels.dot_interaction import (dot_interaction,
-                                                 dot_interaction_ref)
+                                                 dot_interaction_ref,
+                                                 group_size)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_ref, piece_length)
 from repro_torch.kernels.shed_partition import (shed_partition,
                                                 shed_partition_ref)
-from repro_torch.kernels.topk_select import (NEG_INF, topk_select,
-                                             topk_select_ref)
+from repro_torch.kernels.topk_select import (NEG_INF, TILE, staged_capacity,
+                                             topk_select, topk_select_ref)
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import dlrm as D
 from repro_torch.serving.evaluators import make_evaluator
@@ -187,6 +188,108 @@ def test_topk_select_kernel_equals_plain(dev, kind, n, k, dtype):
     assert torch.equal(got_i, want_i)
     bits = torch.int32 if dtype == torch.float32 else torch.int64
     assert torch.equal(got_v.view(bits), want_v.view(bits))
+
+
+def _topk_edge(kind, n, g, dev, dtype):
+    """Scores for the edges of the cluster radix select."""
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    if kind == "tied_kth_every_cta":    # 40 above T, T at every 32nd place
+        s = u * 0.5
+        s[7::32] = 1.5
+        s[torch.randperm(n, generator=g, device=dev)[:40]] = 2.0 + u[:40]
+    elif kind == "ties_above_k":        # 10 above T, ~n/3 ties at T
+        s = u * 0.5
+        s[u < 1 / 3] = 1.0
+        s[torch.randperm(n, generator=g, device=dev)[:10]] = 3.0
+    elif kind == "bm25":                # non-negative, mostly exact zeros
+        s = torch.where(u < 0.9, torch.zeros_like(u),
+                        torch.round(-torch.log(u) * 64) / 8)
+    else:                               # "normal"
+        s = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    return s.to(dtype)
+
+
+def _assert_topk_equal(scores, k):
+    got_v, got_i = topk_select(scores, k)
+    want_v, want_i = topk_select_ref(scores, k)
+    assert got_v.dtype == scores.dtype
+    assert torch.equal(got_i, want_i)
+    bits = torch.int32 if scores.dtype == torch.float32 else torch.int64
+    assert torch.equal(got_v.view(bits), want_v.view(bits))
+    return got_v.view(bits), got_i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [
+    ("tied_kth_every_cta", 65536, "half_tile"), ("tied_kth_every_cta", 65536,
+                                                 64),
+    ("ties_above_k", 65536, 64), ("ties_above_k", 70_001, 7),
+    ("bm25", 65536, 64), ("bm25", 65536, "half_tile"),
+    ("normal", "staged-1", 64), ("normal", "staged", 64),
+    ("normal", "staged+1", 64), ("normal", "big", 64),
+    ("normal", 65536, "half_tile"), ("normal", 65536, "half_tile+1"),
+    ("tied_kth_every_cta", "staged+1", 100),
+])
+def test_topk_select_kernel_radix_select_edges(dev, case, dtype):
+    """The cluster path's edges: the k-th score tied across every CTA,
+    more ties at the threshold than k, N around the staged capacity and
+    past it (f32 1M, f64 256k), k where the path switches, BM25-shaped
+    scores; exact against the plain version, and the same bits twice."""
+    kind, n, k = case
+    cap = staged_capacity(dtype)
+    n = {"staged-1": cap - 1, "staged": cap, "staged+1": cap + 1,
+         "big": (1 << 20) if dtype == torch.float32 else (1 << 18)}.get(n, n)
+    k = {"half_tile": TILE[dtype] // 2,
+         "half_tile+1": TILE[dtype] // 2 + 1}.get(k, k)
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    scores = _topk_edge(kind, n, g, dev, dtype)
+    first = _assert_topk_equal(scores, k)
+    again = _assert_topk_equal(scores, k)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_topk_select_kernel_any_cluster_size(dev, cluster, dtype):
+    """Every cluster size the launch takes gives the plain version's
+    answer (1 and 2 CTAs walk their chunks from global memory)."""
+    from repro_torch.kernels.topk_select import launch_kernel
+    g = torch.Generator(device=dev).manual_seed(cluster)
+    for kind in ("normal", "ties_above_k", "bm25"):
+        scores = _topk_edge(kind, 300_000, g, dev, dtype)
+        got_v, got_i = launch_kernel(scores, 64, cluster)
+        want_v, want_i = topk_select_ref(scores, 64)
+        assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("edge", ["below_sms", "ragged_groups",
+                                  "unaligned_run", "unaligned_input", "f1",
+                                  "f2", "odd_d"])
+def test_dot_interaction_kernel_group_walk_edges(dev, edge, dtype, atol):
+    """The persistent grid's edges: fewer samples than SMs, B not a
+    multiple of the group (F 8 groups several samples), a group whose
+    output run starts unaligned (F 63 in bf16), x not 16-byte aligned,
+    F 1 and 2, odd D."""
+    B, F, D = {"below_sms": (37, 27, 128), "ragged_groups": (4097, 8, 64),
+               "unaligned_run": (45, 63, 64),
+               "unaligned_input": (50, 27, 128), "f1": (40, 1, 128),
+               "f2": (300, 2, 128), "odd_d": (33, 27, 127)}[edge]
+    grp = group_size(F, D, dtype)
+    if edge == "ragged_groups":
+        assert B % grp
+    if edge == "unaligned_run" and dtype == torch.bfloat16:
+        assert grp * F * (F - 1) // 2 * 2 % 16
+    g = torch.Generator(device=dev).manual_seed(B * F + D)
+    n = B * F * D
+    flat = (torch.randn(n + 1, generator=g, device=dev) * D ** -0.5
+            ).to(dtype)
+    x = (flat[1:] if edge == "unaligned_input" else flat[:n]).view(B, F, D)
+    got = dot_interaction(x)
+    want = dot_interaction_ref(x)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),

@@ -109,3 +109,56 @@ def test_plain_matches_oracle_hypothesis(n, k, seed):
     scores = (np.round(r.normal(size=n) * 8) / 8).astype(np.float32)
     _assert_same(_port(scores, k), ref.topk_select_ref(jnp.asarray(scores),
                                                        k))
+
+
+def _tied_at_threshold(n, k, n_above, n_tied, seed):
+    """``n_above`` scores above a threshold T, ``n_tied`` copies of T
+    spread over the whole range (more than the k - n_above the top k
+    takes), the rest below: the top k must take the ties of smallest
+    index."""
+    r = np.random.default_rng(seed)
+    scores = (r.random(n) * 0.5).astype(np.float64)
+    scores[r.permutation(n)[:n_tied]] = 1.5
+    scores[r.permutation(n)[:n_above]] = 2.0 + r.random(n_above)
+    return scores
+
+
+@pytest.mark.parametrize("n,k,n_above,n_tied", [
+    (2000, 64, 40, 300), (3000, 7, 10, 500), (1500, 100, 0, 1500),
+    (4096, 512, 200, 2000)])
+def test_ties_at_threshold_take_the_smallest_indices(n, k, n_above, n_tied):
+    """The k-th score repeated past k: float32 against the reference's
+    oracle and its Pallas kernel, float64 against a numpy lexsort."""
+    scores = _tied_at_threshold(n, k, n_above, n_tied, n + k)
+    s32 = scores.astype(np.float32)
+    got = _port(s32, k)
+    _assert_same(got, ref.topk_select_ref(jnp.asarray(s32), k))
+    if k <= 100:
+        _assert_same(got, ops.topk_select(jnp.asarray(s32), k=k,
+                                          interpret=True))
+    v, i = topk_select(torch.from_numpy(scores), k)
+    want = np.lexsort((np.arange(n), -scores))[:k]
+    np.testing.assert_array_equal(i.numpy(), want)
+    np.testing.assert_array_equal(v.numpy(), scores[want])
+    tied = want[scores[want] == 1.5]
+    assert len(tied) == k - min(n_above, k)
+    np.testing.assert_array_equal(tied, np.flatnonzero(scores == 1.5)
+                                  [:len(tied)])
+
+
+@pytest.mark.parametrize("n,k", [(2048, 64), (5000, 64), (700, 300)])
+def test_bm25_shaped_scores_with_many_exact_zeros(n, k):
+    """Retrieval's scores: non-negative, most exactly zero (documents
+    with no query term), the rest on a coarse grid with repeats."""
+    r = np.random.default_rng(n + k)
+    u = r.random(n)
+    scores = np.where(u < 0.9, 0.0, np.round(-np.log(u) * 64) / 8)
+    s32 = scores.astype(np.float32)
+    _assert_same(_port(s32, k), ref.topk_select_ref(jnp.asarray(s32), k))
+    if k <= 100:
+        _assert_same(_port(s32, k), ops.topk_select(jnp.asarray(s32), k=k,
+                                                    interpret=True))
+    v, i = topk_select(torch.from_numpy(scores), k)
+    want = np.lexsort((np.arange(n), -scores))[:k]
+    np.testing.assert_array_equal(i.numpy(), want)
+    np.testing.assert_array_equal(v.numpy(), scores[want])
