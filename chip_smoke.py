@@ -80,10 +80,11 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
 from repro_torch.kernels.shed_partition import (  # noqa: E402
     shed_partition, shed_partition_ref)
 from repro_torch.kernels.topk_select import (  # noqa: E402
-    NEG_INF, TILE, launch_floor, launch_kernel, staged_capacity, topk_select,
+    NEG_INF, TILE, launch_floor, staged_capacity, topk_select,
     topk_select_ref)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.recsys import dlrm as dlrm_model  # noqa: E402
 from repro_torch.models.recsys import embedding as E  # noqa: E402
 from repro_torch.retrieval import (CorpusRetrieval, CorpusSearcher,  # noqa: E402
                                    IndexShard, SyntheticCorpus,
@@ -573,12 +574,8 @@ def phase_topk_select(dev) -> dict:
             f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bytes']} B)")
     floor_ms = timed_ms(lambda: launch_floor(dev), 200, flush)
-    million = cases[2][1]
-    by_cluster = {c: timed_ms(lambda: launch_kernel(million, TOP_K, c), 200,
-                              flush) for c in (8, 16)}
     log(f"topk_select: launch floor (an empty kernel through the same ctypes "
-        f"route) {floor_ms:.4f} ms; f32 N=1048576 with a cluster of 8 CTAs "
-        f"{by_cluster[8]:.4f} ms, of 16 {by_cluster[16]:.4f} ms")
+        f"route) {floor_ms:.4f} ms")
     t = timings[cases[0][0]]
     return {"name": "topk_select", "route": "cuda",
             "source": "src/repro_torch/csrc/topk_select.cu",
@@ -587,9 +584,7 @@ def phase_topk_select(dev) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t["library_ms"], "launch_floor_ms": floor_ms,
             "f32_ms": timings[cases[1][0]]["ms"],
-            "f32_1m_ms": timings[cases[2][0]]["ms"],
-            "f32_1m_cluster8_ms": by_cluster[8],
-            "f32_1m_cluster16_ms": by_cluster[16]}
+            "f32_1m_ms": timings[cases[2][0]]["ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1283,6 +1278,43 @@ def phase_engine_parity(cfg: TrustIRConfig, make_searcher, evaluate, dev,
 # phase 10: the serving engine on the full-width DLRM evaluator
 # ---------------------------------------------------------------------------
 
+def dlrm_interaction_check(evaluate, mk, dev) -> float:
+    """``dot_interaction`` against its plain version on the features the
+    DLRM evaluator feeds it (the bottom MLP's post-ReLU output beside the
+    26 looked-up rows) for one engine micro-batch: the f32 split's error
+    grows with the rows' norms, which these set, not the unit-norm rows
+    of the kernel phase."""
+    seen = []
+    kernel = dlrm_model.dot_interaction
+
+    def record(feats):
+        seen.append(feats)
+        return kernel(feats)
+
+    dlrm_model.dot_interaction = record
+    try:
+        f = mk(ENGINE_BATCH, fseed=700_001)
+        evaluate({name: torch.as_tensor(v, device=dev)
+                  for name, v in f.items()})
+    finally:
+        dlrm_model.dot_interaction = kernel
+    (feats,) = seen
+    got, want = dot_interaction(feats), dot_interaction_ref(feats)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    norms = feats.float().norm(dim=-1)
+    if not torch.isfinite(got).all() or err > F32_ATOL:
+        raise AssertionError(f"dot_interaction on the DLRM evaluator's "
+                             f"features: max abs err {err} > {F32_ATOL}")
+    log(f"dlrm: dot_interaction on the evaluator's own features "
+        f"{tuple(feats.shape)} {feats.dtype} (row norms: bottom MLP max "
+        f"{float(norms[:, 0].max()):.3f}, tables max "
+        f"{float(norms[:, 1:].max()):.3f}; largest Gram entry "
+        f"{float(want.abs().max()):.3f}): max abs err {err:.3e} <= "
+        f"{F32_ATOL}")
+    return err
+
+
 def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     """dlrm-mlperf at its published widths with every table capped at
     DLRM_ROW_CAP rows, seeded weights drawn on the card; the main path's
@@ -1311,6 +1343,7 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     held = torch.cuda.memory_allocated() - before
     log(f"dlrm: evaluator built on the card in {time.monotonic() - t0:.1f} "
         f"s, {held / 1e9:.2f} GB of weights")
+    feats_err = dlrm_interaction_check(evaluate, mk, dev)
 
     def doc_features(docs):        # retrieved docs -> DLRM features
         return mk(len(docs), fseed=int(docs[0]) % 1_000_000
@@ -1342,6 +1375,7 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     device_profile(f"one fused DLRM step, {ENGINE_BATCH} items",
                    lambda: fused.process(*batches[1]))
     stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+    stats["feats_err"] = feats_err
     log(f"dlrm: {counted.calls} evaluator calls in the measured run, each "
         f"one dot_interaction launch; peak device memory of the phase "
         f"{stats['peak_bytes'] / 2 ** 30:.2f} GiB")
@@ -1525,6 +1559,9 @@ def main() -> int:
     path_launches["dot_interaction"] = dlrm["launches"]["dot_interaction"]
     path_launches["flash_decode"] = decode["launches"]["flash_decode"]
     for kern in kernels:
+        if kern["name"] == "dot_interaction":
+            kern["dlrm_feats_max_abs_err"] = dlrm["feats_err"]
+            kern["max_abs_err"] = max(kern["max_abs_err"], dlrm["feats_err"])
         kern["launches"] = path_launches[kern["name"]]
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "

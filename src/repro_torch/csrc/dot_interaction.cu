@@ -14,11 +14,11 @@
 // D = 128, f32) a sample is 13.8 KB read and 1.4 KB written for 45k
 // multiply-adds; at B = 3072 the bound is 46.8 MB / 3.35 TB/s = 14.0 us.
 //
-// What held the PR-13 design back: a block staged its samples with
-// synchronous loads, waited, computed, waited and stored, so no block
-// overlapped its loads with its arithmetic; and its 4 x 4 FMA tiles read
-// 8 shared-memory vectors per 64 FMAs, so shared memory, not HBM, paced
-// the arithmetic.
+// What held the first design (FMA tiles) back: a block staged its samples
+// with synchronous loads, waited, computed, waited and stored, so no block
+// overlapped its loads with its arithmetic; and its 4 x 4 FMA tiles read 8
+// shared-memory vectors per 64 FMAs, so shared memory, not HBM, paced the
+// arithmetic.
 //
 // Design: a persistent grid (as many blocks as fit on the card) walks
 // groups of samples (up to 192 threads' worth: one sample at DLRM's
@@ -33,25 +33,25 @@
 //
 // A sample's Gram is computed as the m16n8 tiles that cover its upper
 // triangle, up to 16 warps a sample, each taking every 16th tile. float32
-// inputs are split into a tf32 hi (the top 10 mantissa bits) and
-// lo = x - hi; a tile takes hi*hi as one TF32 m16n8k8 `mma.sync` and
-// hi*lo + lo*hi as one bf16 m16n8k16 `mma.sync` (both cross terms in its
-// 16 k slots, hi and lo cut to bf16): under 2^-16 relative error a term,
-// where one TF32 product alone would miss the 1e-4 tolerance. bf16 inputs
-// are exact in tf32 and take the one TF32 product. The column pair a lane
-// holds is k and k + 1 for both operands (the dot product does not care
-// which k pairs with which fragment slot), so a lane reads one 8-byte f32
-// pair or one 4-byte bf16 pair; the row stride puts a warp's reads in
-// distinct banks. The entries land in a shared output tile, which the
-// block stores as one contiguous run: scalar stores up to a 16-byte
-// boundary, then 16-byte stores.
+// inputs take the 3xTF32 split: hi is x rounded to tf32 and lo = x - hi
+// rounded to tf32, and a tile takes hi*hi, hi*lo and lo*hi as three TF32
+// m16n8k8 `mma.sync` products (lo*lo, at most 2^-22 of a term, is left out):
+// under 2^-20 relative error a term, of either sign, where one TF32 product
+// alone would miss the 1e-4 tolerance. bf16 inputs are exact in tf32 and
+// take the one product. The column pair a lane holds is k and k + 1 for both
+// operands (the dot product does not care which k pairs with which fragment
+// slot), so a lane reads one 8-byte f32 pair or one 4-byte bf16 pair; the
+// row stride puts a warp's reads in distinct banks. The entries land in a
+// shared output tile, which the block stores as one contiguous run: scalar
+// stores up to a 16-byte boundary, then 16-byte stores.
 //
 // Measured by chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700.00 W, L2
-// flushed between launches (f32, F 27, D 128): 0.0401 ms at B 3072 and
-// 0.0495 ms at B 4096 (the PR-13 design: 0.0678 / 0.0954; torch.bmm +
-// triangle gather, two calls: 0.0555 / 0.0689; one read-only torch.sum
+// flushed between launches (f32, F 27, D 128): 0.0416 ms at B 3072 and
+// 0.0512 ms at B 4096 (the FMA-tile design: 0.0678 / 0.0954; torch.bmm +
+// triangle gather, two calls: 0.0552 / 0.0686; one read-only torch.sum
 // over the same input, the floor a pass over these bytes met under that
-// flush: 0.0308 / 0.0370). PERF.md keeps the current numbers.
+// flush: 0.0308 / 0.0369); max abs error 5.96e-07 on the DLRM
+// evaluator's own features. PERF.md keeps the current numbers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,29 +84,30 @@ __device__ __forceinline__ uint4 pack16(const float* v, __nv_bfloat16) {
                     tc::pack_bf16(v[4], v[5]), tc::pack_bf16(v[6], v[7]));
 }
 
-// The (k, k + 1) pair of a staged row as operands. hi: tf32 operands,
-// for f32 the top 10 mantissa bits (a mask, not a conversion: cvt runs
-// at a quarter of the ALU rate), bf16 widened exactly. For f32 also
-// lo = x - hi (exact) and the pair's hi and lo as bf16 pairs, each the
-// top 16 bits of its float (a byte permute): bf16[0] = (hi_k, hi_k+1),
-// bf16[1] = (lo_k, lo_k+1).
+// x rounded to the nearest tf32 (10 mantissa bits, ties away from zero)
+// by integer operations: cvt.rna runs at a quarter of the ALU rate.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The (k, k + 1) pair of a staged row as tf32 operands. f32: hi, x
+// rounded to tf32, and lo = x - hi (exact, at most 2^-11 |x|) rounded to
+// tf32, so that both carry unbiased errors. bf16: widened exactly, no lo.
 __device__ __forceinline__ void split_pair(const float* p, uint32_t (&hi)[2],
-                                           uint32_t (&bf16)[2]) {
+                                           uint32_t (&lo)[2]) {
   const float2 v = *reinterpret_cast<const float2*>(p);
-  hi[0] = __float_as_uint(v.x) & 0xffffe000u;
-  hi[1] = __float_as_uint(v.y) & 0xffffe000u;
-  const uint32_t lo0 = __float_as_uint(v.x - __uint_as_float(hi[0]));
-  const uint32_t lo1 = __float_as_uint(v.y - __uint_as_float(hi[1]));
-  bf16[0] = __byte_perm(hi[0], hi[1], 0x7632);
-  bf16[1] = __byte_perm(lo0, lo1, 0x7632);
+  hi[0] = to_tf32(v.x);
+  hi[1] = to_tf32(v.y);
+  lo[0] = to_tf32(v.x - __uint_as_float(hi[0]));
+  lo[1] = to_tf32(v.y - __uint_as_float(hi[1]));
 }
 __device__ __forceinline__ void split_pair(const __nv_bfloat16* p,
                                            uint32_t (&hi)[2],
-                                           uint32_t (&bf16)[2]) {
+                                           uint32_t (&lo)[2]) {
   const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
   hi[0] = w << 16;
   hi[1] = w & 0xffff0000u;
-  bf16[0] = bf16[1] = 0u;
+  lo[0] = lo[1] = 0u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -149,18 +150,15 @@ __device__ __forceinline__ int pair_index(int r, int c, int F) {
   return r * F - r * (r + 1) / 2 + (c - r - 1);
 }
 
-// Products a tile takes: for f32 the TF32 hi*hi and one bf16 product
-// holding both cross terms hi*lo + lo*hi; for bf16 one TF32 product
-// (exact).
+// Accumulators a tile keeps: for f32 one for hi*hi and one for the cross
+// terms hi*lo + lo*hi, so the small terms sum apart; for bf16 one (its
+// one product is exact).
 template <typename T>
 __host__ __device__ constexpr int kProducts() {
   return sizeof(T) == 4 ? 2 : 1;
 }
 
-// One k step of 8 (a lane's column pair at `col`) of tile (mt, nt). The
-// m16n8k16 bf16 product sees 16 k slots: slots 2 tig, 2 tig + 1 hold the
-// pair's hi in A and lo in B, slots 2 tig + 8, + 9 lo in A and hi in B,
-// so it sums hi*lo + lo*hi over the step's 8 columns.
+// One k step of 8 (a lane's column pair at `col`) of tile (mt, nt).
 template <typename T>
 __device__ __forceinline__ void gram_step(const T* base, const T* zero_row,
                                           int stride, int F, int col, int mt,
@@ -168,15 +166,16 @@ __device__ __forceinline__ void gram_step(const T* base, const T* zero_row,
                                           float (&acc)[kProducts<T>()][4]) {
   const int r0 = mt * 16 + grp, r1 = r0 + 8;   // A rows
   const int n = nt * 8 + grp;                 // B: row n of x, as k x n
-  uint32_t h0[2], x0[2], h1[2], x1[2], hn[2], xn[2];
-  split_pair((r0 < F ? base + r0 * stride : zero_row) + col, h0, x0);
-  split_pair((r1 < F ? base + r1 * stride : zero_row) + col, h1, x1);
-  split_pair((n < F ? base + n * stride : zero_row) + col, hn, xn);
+  uint32_t h0[2], l0[2], h1[2], l1[2], hn[2], ln[2];
+  split_pair((r0 < F ? base + r0 * stride : zero_row) + col, h0, l0);
+  split_pair((r1 < F ? base + r1 * stride : zero_row) + col, h1, l1);
+  split_pair((n < F ? base + n * stride : zero_row) + col, hn, ln);
   const uint32_t a[4] = {h0[0], h1[0], h0[1], h1[1]};
   mma_tf32(acc[0], a, hn[0], hn[1]);
   if constexpr (kProducts<T>() == 2) {
-    const uint32_t ax[4] = {x0[0], x1[0], x0[1], x1[1]};
-    tc::mma_bf16(acc[1], ax, xn[1], xn[0]);
+    const uint32_t al[4] = {l0[0], l1[0], l0[1], l1[1]};
+    mma_tf32(acc[1], a, ln[0], ln[1]);
+    mma_tf32(acc[1], al, hn[0], hn[1]);
   }
 }
 

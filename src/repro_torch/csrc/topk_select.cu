@@ -21,10 +21,10 @@
 // read back from the input at the decoded index, so they keep their exact
 // bits (-0.0 comes back as -0.0). NaN scores are not ordered.
 //
-// What held the PR-12 design back: at the main path's shape it made two
-// serial launches of full bitonic sorts (66 barrier-separated
-// shared-memory stages per 2048-key tile, 32 CTAs then one), keeping 64
-// keys of every 2048 it sorted.
+// What held the first design (bitonic sorts) back: at the main path's shape
+// it made two serial launches of full bitonic sorts (66 barrier-separated
+// shared-memory stages per 2048-key tile, 32 CTAs then one), keeping 64 keys
+// of every 2048 it sorted.
 //
 // Design (N > TILE, k <= TILE / 2, which holds the main path): one launch
 // of one thread-block cluster (8 CTAs, or 16 where a CTA's chunk would
@@ -56,11 +56,12 @@
 // stages in shared memory and the long strides one global pass each.
 //
 // Measured by chip_smoke.py on one NVIDIA H100 80GB HBM3 at 700.00 W, L2
-// flushed between launches: 0.0192 ms at the main path's f64 N 65536,
-// k 64 (the PR-12 design: 0.1004; torch.topk 0.1177); 0.0193 ms at f32
-// N 65536 (0.0554) and 0.0727 ms at f32 N 1048576 (0.1197), the latter
-// with 16 CTAs walking their chunks from global memory (8 CTAs: 0.1284);
-// the launch floor is 0.0048 ms. PERF.md keeps the current numbers.
+// flushed between launches: 0.0191 ms at the main path's f64 N 65536,
+// k 64 (the bitonic design: 0.1004; torch.topk 0.1189); 0.0192 ms at f32
+// N 65536 (0.0554) and 0.0722 ms at f32 N 1048576 (0.1197), the latter
+// with 16 CTAs walking their chunks from global memory (8 CTAs took
+// 0.127 ms); the launch floor is 0.0048 ms. PERF.md keeps the current
+// numbers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -496,58 +497,38 @@ size_t cluster_smem(long long n, int cluster) {
          (stages<T>(n, cluster) ? chunk * sizeof(typename T::Radix) : 0);
 }
 
+// The cluster kernel's attributes, set once a device: room for the most
+// dynamic shared memory a launch gives it, and the non-portable cluster
+// size of 16 CTAs.
 template <class T>
-cudaError_t prepare(int cluster, size_t smem) {
+cudaError_t prepare() {
+  constexpr int DEVICES = 64;
+  static bool ready[DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < DEVICES && ready[dev])) return err;
   auto kernel = topk_cluster_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cluster > 8)
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(cand_cap<T>() * sizeof(typename T::Key) + STAGE_BYTES));
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < DEVICES) ready[dev] = true;
   return err;
 }
 
-cudaLaunchConfig_t cluster_config(int cluster, size_t smem, cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The cluster size when the caller names none: 8 CTAs where each one's
-// chunk stages in shared memory, else 16 where the card can place such a
-// cluster (a non-portable size), so that twice the SMs walk the chunks.
+// 8 CTAs where each one's chunk stages in shared memory, else 16 (a
+// non-portable size), so that twice the SMs walk the chunks: at f32
+// N 1048576 on an H100, 16 CTAs reading from L2 beat 8 (PERF.md).
 template <class T>
-int auto_cluster(long long n, cudaStream_t st) {
-  if (stages<T>(n, 8)) return 8;
-  static int fits16 = -1;
-  if (fits16 < 0) {
-    size_t smem = cluster_smem<T>(n, 16);
-    int count = 0;
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = cluster_config(16, smem, st, &attr);
-    fits16 = prepare<T>(16, smem) == cudaSuccess &&
-             cudaOccupancyMaxActiveClusters(&count, topk_cluster_kernel<T>,
-                                            &cfg) == cudaSuccess &&
-             count > 0;
-    cudaGetLastError();                  // a refused query is no error here
-  }
-  return fits16 ? 16 : 8;
+int cluster_size(long long n) {
+  return stages<T>(n, 8) ? 8 : MAX_CLUSTER;
 }
 
 template <class T>
-int launch(const typename T::Score* scores, long long n, int k, int cluster,
-           void* scratch, typename T::Score* out_v, int* out_i,
-           cudaStream_t st) {
+int launch(const typename T::Score* scores, long long n, int k, void* scratch,
+           typename T::Score* out_v, int* out_i, cudaStream_t st) {
   typedef typename T::Key Key;
   cudaError_t err;
   if (n <= T::TILE) {
@@ -578,13 +559,20 @@ int launch(const typename T::Score* scores, long long n, int k, int cluster,
                        st>>>(keys, scores, k, out_v, out_i);
     return (int)cudaGetLastError();
   }
-  if (cluster == 0) cluster = auto_cluster<T>(n, st);
-  if (cluster < 1 || cluster > MAX_CLUSTER)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = cluster_smem<T>(n, cluster);
-  if ((err = prepare<T>(cluster, smem)) != cudaSuccess) return (int)err;
+  if ((err = prepare<T>()) != cudaSuccess) return (int)err;
+  const int cluster = cluster_size<T>(n);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(cluster, smem, st, &attr);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = cluster_smem<T>(n, cluster);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, topk_cluster_kernel<T>, scores, n, k,
                            (int)ceil_div(n, cluster),
                            (int)stages<T>(n, cluster), out_v, out_i);
@@ -604,18 +592,17 @@ extern "C" long long topk_select_scratch_bytes(long long n, int k,
 
 // scores: (n,) float32 (dtype 0) or float64 (dtype 1) on the device;
 // 1 <= k <= n < 2^31; scratch holds topk_select_scratch_bytes(n, k,
-// dtype) bytes; out_v (k,) in the scores' type, out_i (k,) int32;
-// ``cluster`` is the cluster path's CTA count (1..16), or 0 to choose it
-// from n. Launches on ``stream``; returns the first CUDA error, or 0.
+// dtype) bytes; out_v (k,) in the scores' type, out_i (k,) int32.
+// Launches on ``stream``; returns the first CUDA error, or 0.
 extern "C" int topk_select_launch(const void* scores, long long n, int k,
-                                  int dtype, int cluster, void* scratch,
-                                  void* out_v, int* out_i, void* stream) {
+                                  int dtype, void* scratch, void* out_v,
+                                  int* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<F64>((const double*)scores, n, k, cluster, scratch,
-                       (double*)out_v, out_i, st);
-  return launch<F32>((const float*)scores, n, k, cluster, scratch,
-                     (float*)out_v, out_i, st);
+    return launch<F64>((const double*)scores, n, k, scratch, (double*)out_v,
+                       out_i, st);
+  return launch<F32>((const float*)scores, n, k, scratch, (float*)out_v,
+                     out_i, st);
 }
 
 // An empty kernel launched through the same route: the card's launch

@@ -11,7 +11,7 @@ input's type, without storing the (B, F, F) Gram.
 of each Gram entry to its triangle index; a persistent grid whose
 blocks request the next groups of samples with bulk asynchronous copies
 while they compute the current one on the tensor cores, float32 split
-into a TF32 product and a bf16 product of the cross terms; bound by
+into three TF32 products, hi*hi + hi*lo + lo*hi; bound by
 bytes, B*F*D reads and B*F(F-1)/2 writes) for CUDA tensors, and takes
 the plain version ``dot_interaction_ref`` only for CPU tensors. Both
 take float32 or bfloat16.
@@ -27,7 +27,6 @@ import torch
 from repro_torch.kernels._build import library_function
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_THREADS = 1024
 MAX_SMEM_BYTES = 232_448            # an H100 block's shared memory
 
 
@@ -67,9 +66,6 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     if not feats.is_contiguous():
         raise ValueError("feats must be contiguous")
     B, F, D = feats.shape
-    t = (F + 3) // 4
-    if t * (t + 1) // 2 > MAX_THREADS:
-        raise ValueError(f"dot_interaction takes F <= 176, got F={F}")
     smem = library_function("dot_interaction", "dot_interaction_smem_bytes",
                             [ctypes.c_int] * 3,
                             restype=ctypes.c_longlong)(

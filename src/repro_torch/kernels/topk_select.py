@@ -41,8 +41,8 @@ STAGE_BYTES = 160 * 1024
 
 def staged_capacity(dtype: torch.dtype) -> int:
     """The largest N whose chunks a cluster of 8 CTAs stages in shared
-    memory (images are as wide as the scores); past it the cluster grows
-    to 16 CTAs."""
+    memory (images are as wide as the scores); past it the cluster has
+    16 CTAs, which stage their chunks up to twice this N."""
     return 8 * (STAGE_BYTES // torch.empty(0, dtype=dtype).element_size())
 
 
@@ -86,31 +86,22 @@ def topk_select(scores: torch.Tensor, k: int
     if n > INT32_MAX:
         raise ValueError(f"topk_select indexes with int32: N={n} is too "
                          f"large")
-    return launch_kernel(scores, k)
-
-
-def launch_kernel(scores: torch.Tensor, k: int, cluster: int = 0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the kernel on checked CUDA ``scores``, counted in
-    ``topk_select.launches``. ``cluster`` sets the CTAs of the radix
-    select's cluster (1..16); 0, which ``topk_select`` passes, lets the
-    kernel choose from N."""
-    n, dtype = scores.shape[0], _DTYPES[scores.dtype]
+    dtype = _DTYPES[scores.dtype]
     n_bytes = library_function(
         "topk_select", "topk_select_scratch_bytes",
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
         restype=ctypes.c_longlong)(n, k, dtype)
     fn = library_function(
         "topk_select", "topk_select_launch",
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int] + [ctypes.c_void_p] * 4)
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
     dev = scores.device
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
     vals = torch.empty(k, dtype=scores.dtype, device=dev)
     idxs = torch.empty(k, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(scores.data_ptr(), n, int(k), dtype, int(cluster),
-             scratch.data_ptr(), vals.data_ptr(), idxs.data_ptr(), stream)
+    err = fn(scores.data_ptr(), n, int(k), dtype, scratch.data_ptr(),
+             vals.data_ptr(), idxs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"topk_select kernel launch failed: "
                            f"cudaError {err}")

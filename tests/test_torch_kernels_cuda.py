@@ -249,17 +249,30 @@ def test_topk_select_kernel_radix_select_edges(dev, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
-def test_topk_select_kernel_any_cluster_size(dev, cluster, dtype):
-    """Every cluster size the launch takes gives the plain version's
-    answer (1 and 2 CTAs walk their chunks from global memory)."""
-    from repro_torch.kernels.topk_select import launch_kernel
-    g = torch.Generator(device=dev).manual_seed(cluster)
+@pytest.mark.parametrize("n", ["twice_staged", "twice_staged+1"])
+def test_topk_select_kernel_sixteen_cta_cluster(dev, n, dtype):
+    """Past the staged capacity the cluster has 16 CTAs: up to twice it
+    they stage their chunks, one past it they walk them from global
+    memory; exact against the plain version either way."""
+    n = 2 * staged_capacity(dtype) + (n == "twice_staged+1")
+    g = torch.Generator(device=dev).manual_seed(n)
     for kind in ("normal", "ties_above_k", "bm25"):
-        scores = _topk_edge(kind, 300_000, g, dev, dtype)
-        got_v, got_i = launch_kernel(scores, 64, cluster)
-        want_v, want_i = topk_select_ref(scores, 64)
-        assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+        _assert_topk_equal(_topk_edge(kind, n, g, dev, dtype), 64)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_dot_interaction_kernel_f32_large_rows(dev, scale):
+    """float32 rows as the DLRM bottom MLP gives them, non-negative after
+    its ReLU and of norm ~8 (~32 in the second case), beside unit-norm
+    table rows: the 3xTF32 split holds 1e-4 at these norms, where a bf16
+    product of the cross terms errs by up to ~6e-5."""
+    g = torch.Generator(device=dev).manual_seed(int(scale))
+    x = torch.randn((3072, 27, 128), generator=g, device=dev) * 128 ** -0.5
+    x[:, 0] = torch.relu(torch.randn((3072, 128), generator=g, device=dev)
+                         ) * scale
+    got = dot_interaction(x)
+    want = dot_interaction_ref(x)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
