@@ -46,6 +46,7 @@ products are full float32 and the tolerances below hold.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -244,6 +245,41 @@ def shed_bytes(keys, valid, ck, cv) -> int:
     return n * (4 + 1) + n * 12 + n_probe_bytes
 
 
+def shed_inputs(n: int, cached, gen, dev, mask: str = "prefix",
+                offset: int = 0):
+    """n probe keys, half of them cached (hits) and half fresh (misses),
+    and their flags: the first 90% valid (``prefix``, as the drain pads a
+    micro-batch) or 70% at random (``gapped``). With ``offset`` both are
+    views that many elements into a larger buffer, so the kernel takes
+    its unaligned load path."""
+    m = n + offset
+    pick = torch.randint(0, cached.shape[0], (m,), generator=gen,
+                         device=dev)
+    fresh = torch.randint(1, 2 ** 31 - 1, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    keys = torch.where(torch.rand(m, generator=gen, device=dev) < 0.5,
+                       cached[pick], fresh)
+    if mask == "gapped":
+        valid = torch.rand(m, generator=gen, device=dev) < 0.7
+    else:
+        valid = torch.arange(m, device=dev) < offset + n - n // 10
+    return keys[offset:], valid[offset:]
+
+
+def shed_cases():
+    """(N, mask, offset) of every exact check: the first six as in earlier
+    runs, then the round edges (one round covers 8192 items), gapped masks
+    and views at an offset of one element."""
+    cases = [(n, "prefix", 0) for n in (0, 1, 1000, ENGINE_BATCH, BATCH,
+                                        8192 + 37)]
+    cases += [(n, "prefix", 0) for n in (8191, 8192, 8193, 20000)]
+    cases += [(n, "gapped", 0) for n in (1000, ENGINE_BATCH, BATCH, 8191,
+                                         8193, 20000)]
+    cases += [(n, mask, 1) for n in (1000, BATCH, 8193)
+              for mask in ("prefix", "gapped")]
+    return cases
+
+
 def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     state, cached = production_cache(cfg, gen, dev)
@@ -255,18 +291,12 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
                           state["values"].T.contiguous()),
     }
     ucap, uthr = cfg.u_capacity, cfg.u_threshold
-    max_err, cases = 0.0, 0
-    timing = None
-    for n in (0, 1, 1000, ENGINE_BATCH, BATCH, 8192 + 37):
-        # half the probes are cached keys (hits), half fresh (misses)
-        pick = torch.randint(0, cached.shape[0], (n,), generator=gen,
-                             device=dev)
-        fresh = torch.randint(1, 2 ** 31 - 1, (n,), generator=gen,
-                              device=dev, dtype=torch.int32)
-        keys = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
-                           cached[pick], fresh).contiguous()
-        n_valid = n - n // 10
-        valid = torch.arange(n, device=dev) < n_valid
+    max_err, n_checked = 0.0, 0
+    timed = {}
+    cases = shed_cases()
+    for n, mask, offset in cases:
+        keys, valid = shed_inputs(n, cached, gen, dev, mask, offset)
+        n_valid = int(valid.sum())
         deadline = effective_deadline(
             n_valid, ucap, uthr, deadline_s=cfg.deadline_s,
             overload_deadline_s=cfg.overload_deadline_s,
@@ -284,36 +314,85 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
                         bad = int((g != w).sum())
                         raise AssertionError(
                             f"shed_partition {name} differs from the plain "
-                            f"version at N={n} {layout} budget_is_total="
-                            f"{total}: {bad} items")
-                cases += 1
-                if n and got[0].numel():
+                            f"version at N={n} {mask} offset {offset} "
+                            f"{layout} budget_is_total={total}: {bad} items")
+                n_checked += 1
+                if n:
                     max_err = max(max_err, float(
                         (got[1] - want[1]).abs().max()))
-        if n == BATCH:
-            ck, cv = layouts["ways-leading"]
-            flush = l2_flusher(dev)           # the Trust DB arrives cold
-            args = (keys, valid, ck, cv, ucap, uthr, budget_total)
-            timing = {
-                "ms": timed_ms(lambda: shed_partition(
-                    *args, budget_is_total=True), 200, flush),
-                "plain_ms": timed_ms(lambda: shed_partition_ref(
-                    *args, budget_is_total=True), 50, flush),
-                "bytes": shed_bytes(keys, valid, ck, cv),
-            }
-    bound_ms = timing["bytes"] / HBM_BYTES_PER_S * 1e3
-    log(f"shed_partition: {cases} cases exactly equal to the plain version "
-        f"(N in 0, 1, 1000, 3072, 4096, 8229; both layouts; both budget "
-        f"modes)")
-    log(f"shed_partition @N={BATCH}: kernel {timing['ms']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
-        f"({timing['bytes']} B)")
+        if (mask, offset) == ("prefix", 0) and n in (ENGINE_BATCH, BATCH):
+            timed[n] = (keys, valid, budget_total)
+    log(f"shed_partition: {n_checked} cases exactly equal to the plain "
+        f"version (N, mask, offset: "
+        f"{'; '.join(f'{n} {m} {o}' for n, m, o in cases)}; both layouts; "
+        f"both budget modes)")
+
+    ck, cv = layouts["ways-leading"]
+    flush = l2_flusher(dev)                   # the Trust DB arrives cold
+    ms = {}
+    for n, (keys, valid, budget) in timed.items():
+        args = (keys, valid, ck, cv, ucap, uthr, budget)
+        ms[n] = timed_ms(lambda: shed_partition(*args, budget_is_total=True),
+                         200, flush)
+    keys, valid, budget = timed[BATCH]
+    args = (keys, valid, ck, cv, ucap, uthr, budget)
+    plain_ms = timed_ms(lambda: shed_partition_ref(
+        *args, budget_is_total=True), 50, flush)
+    floor_ms = timed_ms(lambda: launch_floor(dev), 200, flush)
+    n_bytes = shed_bytes(keys, valid, ck, cv)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    variant = values_with_keys_timing(timed, ck, cv, ucap, uthr, flush, ms)
+    log(f"shed_partition @N={BATCH}: kernel {ms[BATCH]:.4f} ms, "
+        f"@N={ENGINE_BATCH}: {ms[ENGINE_BATCH]:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; launch floor (an empty kernel through the same "
+        f"ctypes route) {floor_ms:.4f} ms; bound {bound_ms:.7f} ms "
+        f"({n_bytes} B)")
     return {"name": "shed_partition", "route": "cuda",
             "source": "src/repro_torch/csrc/shed_partition.cu",
             "replaces": "src/repro/kernels/shed_partition.py:200",
-            "max_abs_err": max_err, "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": max_err, "ms": ms[BATCH], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "n3072_ms": ms[ENGINE_BATCH], "launch_floor_ms": floor_ms,
+            **variant}
+
+
+def values_with_keys_timing(timed, ck, cv, ucap, uthr, flush, ms):
+    """The kernel with every way's value loaded beside its key, checked
+    against the plain version and timed in turns with the default."""
+    fn = _build.library_function(
+        "shed_partition", "shed_partition_launch_values_with_keys",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
+    n_slots, n_ways, wl = TC.dims(tuple(ck.shape))
+    out = {}
+    for n, (keys, valid, budget) in timed.items():
+        res = [torch.empty(n, dtype=dt, device=keys.device)
+               for dt in (torch.int32, torch.float32, torch.int32)]
+
+        def run():
+            err = fn(keys.data_ptr(), valid.data_ptr(), ck.data_ptr(),
+                     cv.data_ptr(), n, n_slots, n_ways, int(wl), ucap,
+                     budget, 1, *(r.data_ptr() for r in res),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"cudaError {err}")
+
+        run()
+        want = shed_partition_ref(keys, valid, ck, cv, ucap, uthr, budget,
+                                  budget_is_total=True)
+        if not all(torch.equal(a, b) for a, b in zip(res, want)):
+            raise AssertionError("values-with-keys variant differs")
+        args = (keys, valid, ck, cv, ucap, uthr, budget)
+        turns = [("variant", timed_ms(run, 200, flush)),
+                 ("default", timed_ms(lambda: shed_partition(
+                     *args, budget_is_total=True), 200, flush)),
+                 ("variant", timed_ms(run, 200, flush))]
+        log(f"shed_partition @N={n} in turns: default {ms[n]:.4f}, " +
+            ", ".join(f"{k} {v:.4f}" for k, v in turns) + " ms")
+        out[f"values_with_keys_n{n}_ms"] = [t for k, t in turns
+                                            if k == "variant"]
+        out[f"default_again_n{n}_ms"] = [t for k, t in turns
+                                         if k == "default"]
+    return out
 
 
 # ---------------------------------------------------------------------------

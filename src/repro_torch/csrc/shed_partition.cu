@@ -8,24 +8,48 @@
 //
 // What bounds it on an H100: nothing but latency. At the serving batch
 // (N = 4096) it reads ~20 B of keys, flags and cache entries and writes
-// 12 B per item, ~0.2 MB in all: under 0.1 us at 3.35 TB/s, far below the
-// few microseconds one kernel launch costs.
+// 12 B per item, ~0.12 MB in all: under 0.1 us at 3.35 TB/s, far below the
+// few microseconds one kernel launch costs. What it can cut is the chain
+// of dependent round trips to device memory (the Trust DB arrives cold:
+// the evaluator's traffic evicts it from L2 between batches) and of
+// block-wide barriers.
 //
-// Design: the TPU kernel carries four running counters in SMEM across a
-// sequential grid. CUDA blocks run in no order, so ONE block owns the
-// whole micro-batch and walks it in tiles of 1024 items in arrival order,
-// carrying the counters (valid so far, normal-queue evals, drop-queue
-// candidates, EVAL cursor) from tile to tile in registers. Each tile needs
-// three block-wide exclusive scans (warp shuffles, then one pass over the
-// 32 warp totals): arrival position; normal-queue evals and drop-queue
-// candidates (packed in one int, each tile count is <= 1024); and the EVAL
-// rank, which depends on the tier. Every normal-queue item precedes every
-// drop-queue item, so the running normal-eval count is final by the time
-// the first drop-queue candidate is scanned: one pass is exact.
-// The production Trust DB (65536 slots x 4 ways, 2 MiB) does not fit in
-// shared memory; it is probed from global memory, where it stays in L2.
-// Keys are uint32 (the wrapper hands int32 tensors holding the bit
-// pattern); the hash and `% n_slots` are native unsigned arithmetic.
+// Why one scan is enough. Every Normal-queue item precedes every Drop-queue
+// item in arrival order. Let pos be the number of valid items before an
+// item and h the number of valid, non-hit items before it. Then, for any
+// validity mask:
+//   * the compacted eval rank of every EVAL item is h (every earlier
+//     non-hit item of the Normal queue is EVAL, and the Drop queue's EVAL
+//     items are a prefix of its candidates);
+//   * a valid non-hit item is EVAL iff pos < ucap, or h < budget with a
+//     total budget (h - NE is its drop-queue rank, NE the Normal queue's
+//     eval count, and the drop-queue budget is budget - NE), or
+//     h - NE < budget with a drop-queue budget.
+// So the TPU kernel's three dependent scans (arrival position; normal
+// evals and drop candidates; EVAL rank) fold into ONE block scan of the
+// packed pair (valid, valid & !hit).
+//
+// Design: one CTA of 1024 threads owns up to 8192 items per round, each
+// thread 8 consecutive items in arrival order, so the main path's batches
+// (N 3072 and 4096) take one round:
+//   1. keys load as two 16-byte vectors and the flags as one 8-byte load
+//      per thread where the pointers and N allow, else item by item;
+//   2. the probe issues every way's key load of all of a thread's items
+//      before any compare (n_ways == 4, the production Trust DB, is a
+//      template), takes the first matching way, then loads the hits'
+//      values: two round trips with no chain between the ways; other
+//      n_ways take a generic loop that stops at the first match;
+//   3. a thread-serial prefix over its 8 items, one warp-shuffle scan and
+//      one pass over the 32 warp totals give pos and h; each half of the
+//      packed pair counts at most 8192 items of one round, the running
+//      totals across rounds are 32-bit;
+//   4. with a drop-queue budget the thread holding arrival position
+//      ucap - 1 publishes NE through shared memory (one more barrier, in
+//      that mode only, until the Normal queue has closed);
+//   5. outputs store as 16-byte vectors where aligned.
+// The kernel allocates nothing and needs no scratch. Keys are uint32 (the
+// wrapper hands int32 tensors holding the bit pattern); key 0 means an
+// empty way and never hits, and invalid items do not probe.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +57,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;                    // consecutive items a thread owns
+constexpr int kRound = kThreads * kItems;    // items one round covers
 constexpr int TIER_EVAL = 0;
 constexpr int TIER_CACHED = 1;
 constexpr int TIER_PRIOR = 2;
@@ -44,104 +70,266 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// Block-wide exclusive scan of one int per thread. Returns the exclusive
-// prefix; `total` receives the block's sum. All threads must call it.
-__device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot,
-                                                    int& total) {
+struct TrustDB {
+  const uint32_t* __restrict__ keys;
+  const float* __restrict__ values;
+  uint32_t n_slots;
+  int n_ways;
+  bool ways_leading;
+
+  __device__ __forceinline__ size_t at(int w, uint32_t slot) const {
+    return ways_leading ? static_cast<size_t>(w) * n_slots + slot
+                        : static_cast<size_t>(slot) * n_ways + w;
+  }
+};
+
+// Probe of a thread's items with kWays ways: every way's key load of every
+// item is issued before any compare; then the first matching way's value
+// (kValuesWithKeys: every way's value loads with the keys instead).
+// Returns the hit mask; `val` receives the hits' values.
+template <int kWays, bool kValuesWithKeys>
+__device__ __forceinline__ uint32_t probe_fixed(const TrustDB& db,
+                                                const uint32_t (&key)[kItems],
+                                                uint32_t probe,
+                                                float (&val)[kItems]) {
+  uint32_t slot[kItems];
+  uint32_t way_key[kItems][kWays];
+  float way_val[kItems][kWays];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    slot[i] = hash32(key[i]) % db.n_slots;
+    const bool p = (probe >> i) & 1u;
+#pragma unroll
+    for (int w = 0; w < kWays; ++w) {
+      way_key[i][w] = p ? __ldg(db.keys + db.at(w, slot[i])) : 0u;
+      if constexpr (kValuesWithKeys)
+        way_val[i][w] = p ? __ldg(db.values + db.at(w, slot[i])) : 0.f;
+    }
+  }
+  uint32_t hit = 0;
+  int way[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    way[i] = kWays;
+#pragma unroll
+    for (int w = kWays - 1; w >= 0; --w)       // the lowest matching way
+      if (way_key[i][w] == key[i]) way[i] = w;
+    if (((probe >> i) & 1u) && way[i] < kWays) hit |= 1u << i;
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    val[i] = 0.f;
+    if (!((hit >> i) & 1u)) continue;
+    if constexpr (kValuesWithKeys) {
+#pragma unroll
+      for (int w = 0; w < kWays; ++w)
+        if (way[i] == w) val[i] = way_val[i][w];
+    } else {
+      val[i] = __ldg(db.values + db.at(way[i], slot[i]));
+    }
+  }
+  return hit;
+}
+
+// Any number of ways: item by item, stopping at the first matching way.
+__device__ __forceinline__ uint32_t probe_any(const TrustDB& db,
+                                              const uint32_t (&key)[kItems],
+                                              uint32_t probe,
+                                              float (&val)[kItems]) {
+  uint32_t hit = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    val[i] = 0.f;
+    if (!((probe >> i) & 1u)) continue;
+    const uint32_t slot = hash32(key[i]) % db.n_slots;
+    for (int w = 0; w < db.n_ways; ++w) {
+      const size_t off = db.at(w, slot);
+      if (db.keys[off] == key[i]) {
+        hit |= 1u << i;
+        val[i] = db.values[off];
+        break;
+      }
+    }
+  }
+  return hit;
+}
+
+// Block-wide exclusive scan of one packed count per thread; `tot` receives
+// the block's sum. `warp_tot` (kWarps + 1 entries) must not be reused by
+// the next call: the caller alternates two buffers, so one round needs two
+// barriers, not three.
+__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t x,
+                                                         uint32_t* warp_tot,
+                                                         uint32_t& tot) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int incl = x;
+  uint32_t incl = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += y;
   }
   if (lane == 31) warp_tot[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int t = warp_tot[lane];
-    int ti = t;
+    const uint32_t t = warp_tot[lane];
+    uint32_t ti = t;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, ti, o);
+      const uint32_t y = __shfl_up_sync(0xffffffffu, ti, o);
       if (lane >= o) ti += y;
     }
-    warp_tot[lane] = ti - t;            // exclusive warp offsets
+    warp_tot[lane] = ti - t;                 // exclusive warp offsets
     if (lane == 31) warp_tot[kWarps] = ti;
   }
   __syncthreads();
-  const int out = warp_tot[warp] + incl - x;
-  total = warp_tot[kWarps];
-  __syncthreads();                      // warp_tot is reused by the next scan
-  return out;
+  tot = warp_tot[kWarps];
+  return warp_tot[warp] + incl - x;
 }
 
+template <int kWays, bool kValuesWithKeys>
 __global__ void __launch_bounds__(kThreads)
 shed_partition_kernel(const uint32_t* __restrict__ keys,
-                      const uint8_t* __restrict__ valid,
-                      const uint32_t* __restrict__ cache_keys,
-                      const float* __restrict__ cache_values, int n,
-                      int n_slots, int n_ways, int ways_leading, int ucap,
-                      int budget, int budget_is_total,
+                      const uint8_t* __restrict__ valid, TrustDB db, int n,
+                      int ucap, int budget, int budget_is_total,
                       int32_t* __restrict__ tier_out,
                       float* __restrict__ cval_out,
                       int32_t* __restrict__ rank_out) {
   static_assert(kWarps == 32, "the warp-total pass assumes 32 warps");
-  __shared__ int warp_tot[kWarps + 1];
-  int base_valid = 0, base_ne = 0, base_dq = 0, base_e = 0;
-  for (int t0 = 0; t0 < n; t0 += kThreads) {
-    const int i = t0 + threadIdx.x;
-    const bool inside = i < n;
-    const uint32_t key = inside ? keys[i] : 0u;
-    const bool v = inside && valid[i] != 0;
+  static_assert(kRound < (1 << 16), "a round's counts must fit 16 bits");
+  __shared__ uint32_t warp_tot[2][kWarps + 1];
+  __shared__ int ne_shared;
+  const bool vec_keys = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  const bool vec_valid = (reinterpret_cast<uintptr_t>(valid) & 7) == 0;
+  const bool vec_out = ((reinterpret_cast<uintptr_t>(tier_out) |
+                         reinterpret_cast<uintptr_t>(cval_out) |
+                         reinterpret_cast<uintptr_t>(rank_out)) & 15) == 0;
+  int base_pos = 0, base_h = 0;              // carried from round to round
+  // NE, the Normal queue's eval count, is needed only with a drop-queue
+  // budget and is known once arrival position ucap - 1 has been scanned.
+  bool ne_known = budget_is_total || ucap <= 0;
+  int ne = 0;
 
-    // Trust DB probe: first way whose key matches; key 0 means empty.
-    bool hit = false;
-    float val = 0.f;
-    if (v && key != 0u) {
-      const uint32_t slot = hash32(key) % static_cast<uint32_t>(n_slots);
-      for (int w = 0; w < n_ways; ++w) {
-        const size_t off = ways_leading
-                               ? static_cast<size_t>(w) * n_slots + slot
-                               : static_cast<size_t>(slot) * n_ways + w;
-        if (cache_keys[off] == key) {
-          hit = true;
-          val = cache_values[off];
-          break;
-        }
+  for (int r0 = 0, round = 0; r0 < n; r0 += kRound, ++round) {
+    const int first = r0 + threadIdx.x * kItems;
+    const bool full = first + kItems <= n;
+    uint32_t key[kItems];
+    uint32_t vmask = 0;
+    if (full && vec_keys) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(keys + first));
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(keys + first) + 1);
+      key[0] = a.x; key[1] = a.y; key[2] = a.z; key[3] = a.w;
+      key[4] = b.x; key[5] = b.y; key[6] = b.z; key[7] = b.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i)
+        key[i] = first + i < n ? __ldg(keys + first + i) : 0u;
+    }
+    if (full && vec_valid) {
+      const uint2 f = __ldg(reinterpret_cast<const uint2*>(valid + first));
+#pragma unroll
+      for (int i = 0; i < kItems; ++i)
+        if ((((i < 4 ? f.x : f.y) >> (8 * (i & 3))) & 0xFFu) != 0)
+          vmask |= 1u << i;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i)
+        if (first + i < n && __ldg(valid + first + i) != 0) vmask |= 1u << i;
+    }
+
+    uint32_t probe = 0;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (((vmask >> i) & 1u) && key[i] != 0u) probe |= 1u << i;
+    float val[kItems];
+    uint32_t hit;
+    if constexpr (kWays > 0)
+      hit = probe_fixed<kWays, kValuesWithKeys>(db, key, probe, val);
+    else
+      hit = probe_any(db, key, probe, val);
+    const uint32_t miss = vmask & ~hit;       // valid, not cached
+
+    // pos and h of the thread's first item: one packed scan
+    const uint32_t own = __popc(vmask) | (__popc(miss) << 16);
+    uint32_t tot;
+    const uint32_t ex = block_exclusive_scan(own, warp_tot[round & 1], tot);
+    const int round_pos = base_pos, round_h = base_h;
+    base_pos += tot & 0xFFFFu;
+    base_h += tot >> 16;
+
+    if (!ne_known) {                         // block-uniform
+      int pos = round_pos + (ex & 0xFFFFu);
+      int h = round_h + (ex >> 16);
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (!((vmask >> i) & 1u)) continue;
+        h += (miss >> i) & 1u;
+        if (pos == ucap - 1) ne_shared = h;  // inclusive: closes the queue
+        ++pos;
+      }
+      __syncthreads();
+      if (base_pos >= ucap) {
+        ne = ne_shared;
+        ne_known = true;
       }
     }
 
-    int tot_v, tot_packed, tot_e;
-    const int pos = base_valid + block_exclusive_scan(v, warp_tot, tot_v);
-    const bool in_normal = v && pos < ucap;
-    const bool ne = in_normal && !hit;          // normal-queue eval
-    const bool dq = v && !in_normal && !hit;    // drop-queue candidate
-    const int packed = block_exclusive_scan(
-        static_cast<int>(ne) | (static_cast<int>(dq) << 16), warp_tot,
-        tot_packed);
-    const int ne_incl = base_ne + (packed & 0xFFFF) + ne;
-    const int dq_rank = base_dq + (packed >> 16);
-    const int dq_budget = budget_is_total ? budget - ne_incl : budget;
-
-    int tier;
-    if (!v) tier = TIER_INVALID;
-    else if (hit) tier = TIER_CACHED;
-    else if (in_normal || (dq && dq_rank < dq_budget)) tier = TIER_EVAL;
-    else tier = TIER_PRIOR;
-    const bool is_eval = tier == TIER_EVAL;
-    const int erank = base_e + block_exclusive_scan(is_eval, warp_tot, tot_e);
-
-    if (inside) {
-      tier_out[i] = tier;
-      cval_out[i] = hit ? val : 0.f;
-      rank_out[i] = is_eval ? erank : -1;
+    int tier[kItems], rank[kItems];
+    int pos = round_pos + (ex & 0xFFFFu);
+    int h = round_h + (ex >> 16);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const bool v = (vmask >> i) & 1u;
+      const bool m = (miss >> i) & 1u;
+      const bool eval =
+          m && (pos < ucap || (budget_is_total ? h < budget
+                                               : h - ne < budget));
+      tier[i] = !v ? TIER_INVALID
+                   : !m ? TIER_CACHED : eval ? TIER_EVAL : TIER_PRIOR;
+      rank[i] = eval ? h : -1;
+      pos += v;
+      h += m;
     }
-    base_valid += tot_v;
-    base_ne += tot_packed & 0xFFFF;
-    base_dq += tot_packed >> 16;
-    base_e += tot_e;
+
+    if (full && vec_out) {
+      int4* t4 = reinterpret_cast<int4*>(tier_out + first);
+      float4* c4 = reinterpret_cast<float4*>(cval_out + first);
+      int4* r4 = reinterpret_cast<int4*>(rank_out + first);
+      t4[0] = make_int4(tier[0], tier[1], tier[2], tier[3]);
+      t4[1] = make_int4(tier[4], tier[5], tier[6], tier[7]);
+      c4[0] = make_float4(val[0], val[1], val[2], val[3]);
+      c4[1] = make_float4(val[4], val[5], val[6], val[7]);
+      r4[0] = make_int4(rank[0], rank[1], rank[2], rank[3]);
+      r4[1] = make_int4(rank[4], rank[5], rank[6], rank[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (first + i < n) {
+          tier_out[first + i] = tier[i];
+          cval_out[first + i] = val[i];
+          rank_out[first + i] = rank[i];
+        }
+      }
+    }
   }
+}
+
+template <bool kValuesWithKeys>
+int launch(const void* keys, const void* valid, const void* cache_keys,
+           const void* cache_values, int n, int n_slots, int n_ways,
+           int ways_leading, int ucap, int budget, int budget_is_total,
+           void* tier, void* cval, void* rank, void* stream) {
+  const TrustDB db{static_cast<const uint32_t*>(cache_keys),
+                   static_cast<const float*>(cache_values),
+                   static_cast<uint32_t>(n_slots), n_ways, ways_leading != 0};
+  auto kernel = n_ways == 4
+                    ? shed_partition_kernel<4, kValuesWithKeys>
+                    : shed_partition_kernel<0, false>;
+  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(valid),
+      db, n, ucap, budget, budget_is_total, static_cast<int32_t*>(tier),
+      static_cast<float*>(cval), static_cast<int32_t*>(rank));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -154,13 +342,20 @@ extern "C" int shed_partition_launch(const void* keys, const void* valid,
                                      int ways_leading, int ucap, int budget,
                                      int budget_is_total, void* tier,
                                      void* cval, void* rank, void* stream) {
-  shed_partition_kernel<<<1, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(valid),
-      static_cast<const uint32_t*>(cache_keys),
-      static_cast<const float*>(cache_values), n, n_slots, n_ways,
-      ways_leading, ucap, budget, budget_is_total,
-      static_cast<int32_t*>(tier), static_cast<float*>(cval),
-      static_cast<int32_t*>(rank));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(keys, valid, cache_keys, cache_values, n, n_slots,
+                       n_ways, ways_leading, ucap, budget, budget_is_total,
+                       tier, cval, rank, stream);
+}
+
+// The same with every way's value loaded beside its key (n_ways == 4):
+// one round trip fewer, 16 B more per item. Timed against the above by
+// chip_smoke.py to choose between the two.
+extern "C" int shed_partition_launch_values_with_keys(
+    const void* keys, const void* valid, const void* cache_keys,
+    const void* cache_values, int n, int n_slots, int n_ways,
+    int ways_leading, int ucap, int budget, int budget_is_total, void* tier,
+    void* cval, void* rank, void* stream) {
+  return launch<true>(keys, valid, cache_keys, cache_values, n, n_slots,
+                      n_ways, ways_leading, ucap, budget, budget_is_total,
+                      tier, cval, rank, stream);
 }

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs import TrustIRConfig
 from repro_torch.core import trust_cache as TC
 from repro_torch.core.fused_shedder import FusedLoadShedder
-from repro_torch.core.shedder import SimClock
+from repro_torch.core.shedder import TIER_CACHED, SimClock
 from repro_torch.configs import get_config
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_ref,
@@ -65,6 +65,104 @@ def test_shed_partition_kernel_equals_plain(dev, n, n_valid, ways_leading,
     want = shed_partition_ref(*args, budget_is_total=budget_is_total)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _shed_inputs(dev, n, *, ways=4, ways_leading=True, mask="prefix",
+                 cache="half", offset=0, seed=0):
+    """Keys, flags and a Trust DB of 1024 sets for one exact check.
+    ``cache``: half the key pool inserted, ``all_hit`` (every key drawn
+    from 200 inserted ones), ``all_miss`` (nothing inserted) or
+    ``first_way`` (every way of a set holds the key of way 0, each with
+    its own value, so the first matching way must win). ``mask``: the
+    first 90% valid or 70% at random. ``offset`` views keys and flags
+    one element into a larger buffer (the kernel's unaligned path)."""
+    g = torch.Generator(device=dev).manual_seed(seed + n)
+    st = TC.init(1024, ways, ways_leading=ways_leading, device=dev)
+    pool = torch.randint(-2 ** 31, 2 ** 31 - 1, (4000,), generator=g,
+                         device=dev, dtype=torch.int32)
+    pick = torch.randint(0, 4000, (n + offset,), generator=g, device=dev)
+    if cache == "all_hit":
+        pool = pool[:200]
+        pick = pick % 200
+    # all_hit inserts one key at a time: keys of one set that arrive in
+    # one batch would take the same empty way
+    cached = pool[:0] if cache == "all_miss" else pool[:2000]
+    step = 1 if cache == "all_hit" else max(cached.shape[0], 1)
+    for i in range(0, cached.shape[0], step):
+        ins = cached[i:i + step]
+        st = TC.insert(st, ins, torch.rand(ins.shape[0], generator=g,
+                                           device=dev),
+                       torch.ones(ins.shape[0], dtype=torch.bool,
+                                  device=dev))
+    if cache == "first_way":
+        way0 = st["keys"][:1] if ways_leading else st["keys"][:, :1]
+        st["keys"] = way0.expand_as(st["keys"]).contiguous()
+    keys = pool[pick]
+    if mask == "gapped":
+        valid = torch.rand(n + offset, generator=g, device=dev) < 0.7
+    else:
+        valid = torch.arange(n + offset, device=dev) < offset + n - n // 10
+    return keys[offset:], valid[offset:], st["keys"], st["values"]
+
+
+def _assert_shed_exact(inputs, ucap, budget, budget_is_total):
+    args = (*inputs, ucap, 0, budget)
+    got = shed_partition(*args, budget_is_total=budget_is_total)
+    want = shed_partition_ref(*args, budget_is_total=budget_is_total)
+    for a, b, name in zip(got, want, ("tier", "cval", "rank")):
+        assert torch.equal(a, b), name
+    return want
+
+
+@pytest.mark.parametrize("ways_leading", [True, False])
+@pytest.mark.parametrize("budget_is_total", [True, False])
+@pytest.mark.parametrize("mask", ["prefix", "gapped"])
+@pytest.mark.parametrize("n", [4095, 4096, 8191, 8192, 8193, 20000])
+def test_shed_partition_kernel_round_edges(dev, n, mask, ways_leading,
+                                           budget_is_total):
+    """N at the edges of the kernel's 8192-item rounds, the Normal queue
+    closing in the last round (ucap 5/8 of N), prefix and gapped flags."""
+    inputs = _shed_inputs(dev, n, ways_leading=ways_leading, mask=mask)
+    _assert_shed_exact(inputs, n * 5 // 8, n // 4, budget_is_total)
+
+
+SHED_EDGES = {
+    "ucap_0": dict(n=5000, ucap=0),
+    "ucap_n": dict(n=5000, ucap=5000),
+    "ucap_over_n": dict(n=20000, ucap=30000),
+    "budget_0": dict(n=9000, budget=0),
+    "budget_0_ucap_0": dict(n=4096, ucap=0, budget=0),
+    "all_hit": dict(n=8193, cache="all_hit"),
+    "all_miss": dict(n=8193, cache="all_miss"),
+    "first_way_wins": dict(n=4096, cache="first_way", mask="gapped"),
+    "ways_1": dict(n=9000, ways=1),
+    "ways_2": dict(n=9000, ways=2, mask="gapped"),
+    "ways_8": dict(n=9000, ways=8),
+    "ways_2_first_way_wins": dict(n=3000, ways=2, cache="first_way"),
+    "offset_view": dict(n=4096, offset=1),
+    "offset_view_gapped": dict(n=8193, offset=1, mask="gapped"),
+    "offset_view_ways_2": dict(n=1000, offset=1, ways=2),
+}
+
+
+@pytest.mark.parametrize("ways_leading", [True, False])
+@pytest.mark.parametrize("budget_is_total", [True, False])
+@pytest.mark.parametrize("edge", list(SHED_EDGES))
+def test_shed_partition_kernel_edges(dev, edge, ways_leading,
+                                     budget_is_total):
+    """Capacity and budget at their limits, all-hit and all-miss batches,
+    the generic probe of 1, 2 and 8 ways, duplicate keys in a set, and
+    views that take the unaligned load path."""
+    spec = dict(SHED_EDGES[edge])
+    n = spec.pop("n")
+    ucap, budget = spec.pop("ucap", 700), spec.pop("budget", 900)
+    inputs = _shed_inputs(dev, n, ways_leading=ways_leading, **spec)
+    want = _assert_shed_exact(inputs, ucap, budget, budget_is_total)
+    valid = inputs[1]
+    if spec.get("cache") == "all_hit":        # the case is what it says
+        assert bool((want[0][valid] == TIER_CACHED).all())
+    if spec.get("cache") == "all_miss":
+        assert not bool((want[0] == TIER_CACHED).any())
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
