@@ -46,7 +46,6 @@ products are full float32 and the tolerances below hold.
 """
 from __future__ import annotations
 
-import ctypes
 import gc
 import json
 import subprocess
@@ -268,11 +267,13 @@ def shed_inputs(n: int, cached, gen, dev, mask: str = "prefix",
 
 def shed_cases():
     """(N, mask, offset) of every exact check: the first six as in earlier
-    runs, then the round edges (one round covers 8192 items), gapped masks
-    and views at an offset of one element."""
+    runs, then the round edges (1024 threads own 1, 2, 4 or 8 items each,
+    so one round covers up to 8192), gapped masks and views at an offset
+    of one element."""
     cases = [(n, "prefix", 0) for n in (0, 1, 1000, ENGINE_BATCH, BATCH,
                                         8192 + 37)]
-    cases += [(n, "prefix", 0) for n in (8191, 8192, 8193, 20000)]
+    cases += [(n, "prefix", 0) for n in (1025, 2049, 4097, 8191, 8192,
+                                         8193, 20000)]
     cases += [(n, "gapped", 0) for n in (1000, ENGINE_BATCH, BATCH, 8191,
                                          8193, 20000)]
     cases += [(n, mask, 1) for n in (1000, BATCH, 8193)
@@ -341,7 +342,6 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
     floor_ms = timed_ms(lambda: launch_floor(dev), 200, flush)
     n_bytes = shed_bytes(keys, valid, ck, cv)
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    variant = values_with_keys_timing(timed, ck, cv, ucap, uthr, flush, ms)
     log(f"shed_partition @N={BATCH}: kernel {ms[BATCH]:.4f} ms, "
         f"@N={ENGINE_BATCH}: {ms[ENGINE_BATCH]:.4f} ms; plain "
         f"{plain_ms:.4f} ms; launch floor (an empty kernel through the same "
@@ -352,47 +352,7 @@ def phase_shed_partition(cfg: TrustIRConfig, dev) -> dict:
             "replaces": "src/repro/kernels/shed_partition.py:200",
             "max_abs_err": max_err, "ms": ms[BATCH], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "n3072_ms": ms[ENGINE_BATCH], "launch_floor_ms": floor_ms,
-            **variant}
-
-
-def values_with_keys_timing(timed, ck, cv, ucap, uthr, flush, ms):
-    """The kernel with every way's value loaded beside its key, checked
-    against the plain version and timed in turns with the default."""
-    fn = _build.library_function(
-        "shed_partition", "shed_partition_launch_values_with_keys",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
-    n_slots, n_ways, wl = TC.dims(tuple(ck.shape))
-    out = {}
-    for n, (keys, valid, budget) in timed.items():
-        res = [torch.empty(n, dtype=dt, device=keys.device)
-               for dt in (torch.int32, torch.float32, torch.int32)]
-
-        def run():
-            err = fn(keys.data_ptr(), valid.data_ptr(), ck.data_ptr(),
-                     cv.data_ptr(), n, n_slots, n_ways, int(wl), ucap,
-                     budget, 1, *(r.data_ptr() for r in res),
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"cudaError {err}")
-
-        run()
-        want = shed_partition_ref(keys, valid, ck, cv, ucap, uthr, budget,
-                                  budget_is_total=True)
-        if not all(torch.equal(a, b) for a, b in zip(res, want)):
-            raise AssertionError("values-with-keys variant differs")
-        args = (keys, valid, ck, cv, ucap, uthr, budget)
-        turns = [("variant", timed_ms(run, 200, flush)),
-                 ("default", timed_ms(lambda: shed_partition(
-                     *args, budget_is_total=True), 200, flush)),
-                 ("variant", timed_ms(run, 200, flush))]
-        log(f"shed_partition @N={n} in turns: default {ms[n]:.4f}, " +
-            ", ".join(f"{k} {v:.4f}" for k, v in turns) + " ms")
-        out[f"values_with_keys_n{n}_ms"] = [t for k, t in turns
-                                            if k == "variant"]
-        out[f"default_again_n{n}_ms"] = [t for k, t in turns
-                                         if k == "default"]
-    return out
+            "n3072_ms": ms[ENGINE_BATCH], "launch_floor_ms": floor_ms}
 
 
 # ---------------------------------------------------------------------------

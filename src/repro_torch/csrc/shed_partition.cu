@@ -57,8 +57,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;                    // consecutive items a thread owns
-constexpr int kRound = kThreads * kItems;    // items one round covers
+constexpr int kMaxItems = 8;                 // items a thread owns, at most
+constexpr int kMaxRound = kThreads * kMaxItems;
 constexpr int TIER_EVAL = 0;
 constexpr int TIER_CACHED = 1;
 constexpr int TIER_PRIOR = 2;
@@ -70,41 +70,43 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// The Trust DB in either layout: entry (way w, slot s) lies at
+// s * slot_stride + w * way_stride (32-bit: the wrapper checks the size).
 struct TrustDB {
   const uint32_t* __restrict__ keys;
   const float* __restrict__ values;
   uint32_t n_slots;
+  uint32_t slot_stride, way_stride;
   int n_ways;
-  bool ways_leading;
 
-  __device__ __forceinline__ size_t at(int w, uint32_t slot) const {
-    return ways_leading ? static_cast<size_t>(w) * n_slots + slot
-                        : static_cast<size_t>(slot) * n_ways + w;
+  __device__ __forceinline__ uint32_t slot_of(uint32_t key) const {
+    const uint32_t h = hash32(key);
+    return (n_slots & (n_slots - 1)) == 0 ? h & (n_slots - 1) : h % n_slots;
+  }
+  __device__ __forceinline__ uint32_t at(int w, uint32_t slot) const {
+    return slot * slot_stride + static_cast<uint32_t>(w) * way_stride;
   }
 };
 
 // Probe of a thread's items with kWays ways: every way's key load of every
-// item is issued before any compare; then the first matching way's value
-// (kValuesWithKeys: every way's value loads with the keys instead).
-// Returns the hit mask; `val` receives the hits' values.
-template <int kWays, bool kValuesWithKeys>
+// item is issued before any compare, then the first matching way's value.
+// (Loading every way's value beside its key saves that second round trip
+// but doubles the cache lines one SM looks up, and was slower: PERF.md.)
+// Returns the hit mask; `val` receives the hits' values, 0 elsewhere.
+template <int kWays, int kItems>
 __device__ __forceinline__ uint32_t probe_fixed(const TrustDB& db,
                                                 const uint32_t (&key)[kItems],
                                                 uint32_t probe,
                                                 float (&val)[kItems]) {
   uint32_t slot[kItems];
   uint32_t way_key[kItems][kWays];
-  float way_val[kItems][kWays];
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    slot[i] = hash32(key[i]) % db.n_slots;
+    slot[i] = db.slot_of(key[i]);
     const bool p = (probe >> i) & 1u;
 #pragma unroll
-    for (int w = 0; w < kWays; ++w) {
+    for (int w = 0; w < kWays; ++w)
       way_key[i][w] = p ? __ldg(db.keys + db.at(w, slot[i])) : 0u;
-      if constexpr (kValuesWithKeys)
-        way_val[i][w] = p ? __ldg(db.values + db.at(w, slot[i])) : 0.f;
-    }
   }
   uint32_t hit = 0;
   int way[kItems];
@@ -117,21 +119,14 @@ __device__ __forceinline__ uint32_t probe_fixed(const TrustDB& db,
     if (((probe >> i) & 1u) && way[i] < kWays) hit |= 1u << i;
   }
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    val[i] = 0.f;
-    if (!((hit >> i) & 1u)) continue;
-    if constexpr (kValuesWithKeys) {
-#pragma unroll
-      for (int w = 0; w < kWays; ++w)
-        if (way[i] == w) val[i] = way_val[i][w];
-    } else {
-      val[i] = __ldg(db.values + db.at(way[i], slot[i]));
-    }
-  }
+  for (int i = 0; i < kItems; ++i)
+    val[i] = ((hit >> i) & 1u) ? __ldg(db.values + db.at(way[i], slot[i]))
+                               : 0.f;
   return hit;
 }
 
 // Any number of ways: item by item, stopping at the first matching way.
+template <int kItems>
 __device__ __forceinline__ uint32_t probe_any(const TrustDB& db,
                                               const uint32_t (&key)[kItems],
                                               uint32_t probe,
@@ -141,9 +136,9 @@ __device__ __forceinline__ uint32_t probe_any(const TrustDB& db,
   for (int i = 0; i < kItems; ++i) {
     val[i] = 0.f;
     if (!((probe >> i) & 1u)) continue;
-    const uint32_t slot = hash32(key[i]) % db.n_slots;
+    const uint32_t slot = db.slot_of(key[i]);
     for (int w = 0; w < db.n_ways; ++w) {
-      const size_t off = db.at(w, slot);
+      const uint32_t off = db.at(w, slot);
       if (db.keys[off] == key[i]) {
         hit |= 1u << i;
         val[i] = db.values[off];
@@ -187,7 +182,44 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t x,
   return warp_tot[warp] + incl - x;
 }
 
-template <int kWays, bool kValuesWithKeys>
+// A thread's kItems keys and flags from item `first` on (0 past n); two
+// 16-byte and two 4-byte loads where the pointers allow and no item lies
+// past n. Returns the mask of valid items.
+template <int kItems>
+__device__ __forceinline__ uint32_t load_items(const uint32_t* keys,
+                                               const uint8_t* valid,
+                                               int first, int n, bool vec,
+                                               uint32_t (&key)[kItems]) {
+  uint32_t vmask = 0;
+  if (kItems % 4 == 0 && vec && first + kItems <= n) {
+#pragma unroll
+    for (int g = 0; g < kItems / 4; ++g) {
+      const uint4 k = __ldg(reinterpret_cast<const uint4*>(keys + first) + g);
+      const uint32_t f = __ldg(reinterpret_cast<const unsigned int*>(
+                                   valid + first) + g);
+      key[4 * g] = k.x;
+      key[4 * g + 1] = k.y;
+      key[4 * g + 2] = k.z;
+      key[4 * g + 3] = k.w;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if ((f >> (8 * b)) & 0xFFu) vmask |= 1u << (4 * g + b);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const bool in = first + i < n;
+      key[i] = in ? __ldg(keys + first + i) : 0u;
+      if (in && __ldg(valid + first + i) != 0) vmask |= 1u << i;
+    }
+  }
+  return vmask;
+}
+
+// One CTA; each thread owns kItems consecutive items of every round of
+// kThreads * kItems items. The launch picks the least kItems whose round
+// covers min(N, kMaxRound), so every thread of a main-path batch has work.
+template <int kWays, int kItems>
 __global__ void __launch_bounds__(kThreads)
 shed_partition_kernel(const uint32_t* __restrict__ keys,
                       const uint8_t* __restrict__ valid, TrustDB db, int n,
@@ -196,11 +228,13 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
                       float* __restrict__ cval_out,
                       int32_t* __restrict__ rank_out) {
   static_assert(kWarps == 32, "the warp-total pass assumes 32 warps");
-  static_assert(kRound < (1 << 16), "a round's counts must fit 16 bits");
+  static_assert(kMaxRound < (1 << 16), "a round's counts must fit 16 bits");
+  static_assert(kItems <= kMaxItems, "at most kMaxItems items a thread");
+  constexpr int kRound = kThreads * kItems;
   __shared__ uint32_t warp_tot[2][kWarps + 1];
   __shared__ int ne_shared;
-  const bool vec_keys = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
-  const bool vec_valid = (reinterpret_cast<uintptr_t>(valid) & 7) == 0;
+  const bool vec_in = ((reinterpret_cast<uintptr_t>(keys) & 15) |
+                       (reinterpret_cast<uintptr_t>(valid) & 3)) == 0;
   const bool vec_out = ((reinterpret_cast<uintptr_t>(tier_out) |
                          reinterpret_cast<uintptr_t>(cval_out) |
                          reinterpret_cast<uintptr_t>(rank_out)) & 15) == 0;
@@ -212,54 +246,33 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
 
   for (int r0 = 0, round = 0; r0 < n; r0 += kRound, ++round) {
     const int first = r0 + threadIdx.x * kItems;
-    const bool full = first + kItems <= n;
     uint32_t key[kItems];
-    uint32_t vmask = 0;
-    if (full && vec_keys) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(keys + first));
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(keys + first) + 1);
-      key[0] = a.x; key[1] = a.y; key[2] = a.z; key[3] = a.w;
-      key[4] = b.x; key[5] = b.y; key[6] = b.z; key[7] = b.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < kItems; ++i)
-        key[i] = first + i < n ? __ldg(keys + first + i) : 0u;
-    }
-    if (full && vec_valid) {
-      const uint2 f = __ldg(reinterpret_cast<const uint2*>(valid + first));
-#pragma unroll
-      for (int i = 0; i < kItems; ++i)
-        if ((((i < 4 ? f.x : f.y) >> (8 * (i & 3))) & 0xFFu) != 0)
-          vmask |= 1u << i;
-    } else {
-#pragma unroll
-      for (int i = 0; i < kItems; ++i)
-        if (first + i < n && __ldg(valid + first + i) != 0) vmask |= 1u << i;
-    }
-
-    uint32_t probe = 0;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i)
-      if (((vmask >> i) & 1u) && key[i] != 0u) probe |= 1u << i;
     float val[kItems];
-    uint32_t hit;
-    if constexpr (kWays > 0)
-      hit = probe_fixed<kWays, kValuesWithKeys>(db, key, probe, val);
-    else
-      hit = probe_any(db, key, probe, val);
+    uint32_t vmask = 0, hit = 0;
+    if (first < n) {                         // threads past n only scan
+      vmask = load_items<kItems>(keys, valid, first, n, vec_in, key);
+      uint32_t probe = 0;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i)
+        if (((vmask >> i) & 1u) && key[i] != 0u) probe |= 1u << i;
+      if constexpr (kWays > 0)
+        hit = probe_fixed<kWays, kItems>(db, key, probe, val);
+      else
+        hit = probe_any<kItems>(db, key, probe, val);
+    }
     const uint32_t miss = vmask & ~hit;       // valid, not cached
 
     // pos and h of the thread's first item: one packed scan
     const uint32_t own = __popc(vmask) | (__popc(miss) << 16);
     uint32_t tot;
     const uint32_t ex = block_exclusive_scan(own, warp_tot[round & 1], tot);
-    const int round_pos = base_pos, round_h = base_h;
+    const int round_pos = base_pos + (ex & 0xFFFFu);
+    const int round_h = base_h + (ex >> 16);
     base_pos += tot & 0xFFFFu;
     base_h += tot >> 16;
 
     if (!ne_known) {                         // block-uniform
-      int pos = round_pos + (ex & 0xFFFFu);
-      int h = round_h + (ex >> 16);
+      int pos = round_pos, h = round_h;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         if (!((vmask >> i) & 1u)) continue;
@@ -273,10 +286,10 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
         ne_known = true;
       }
     }
+    if (first >= n) continue;
 
     int tier[kItems], rank[kItems];
-    int pos = round_pos + (ex & 0xFFFFu);
-    int h = round_h + (ex >> 16);
+    int pos = round_pos, h = round_h;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const bool v = (vmask >> i) & 1u;
@@ -291,16 +304,17 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
       h += m;
     }
 
-    if (full && vec_out) {
-      int4* t4 = reinterpret_cast<int4*>(tier_out + first);
-      float4* c4 = reinterpret_cast<float4*>(cval_out + first);
-      int4* r4 = reinterpret_cast<int4*>(rank_out + first);
-      t4[0] = make_int4(tier[0], tier[1], tier[2], tier[3]);
-      t4[1] = make_int4(tier[4], tier[5], tier[6], tier[7]);
-      c4[0] = make_float4(val[0], val[1], val[2], val[3]);
-      c4[1] = make_float4(val[4], val[5], val[6], val[7]);
-      r4[0] = make_int4(rank[0], rank[1], rank[2], rank[3]);
-      r4[1] = make_int4(rank[4], rank[5], rank[6], rank[7]);
+    if (kItems % 4 == 0 && vec_out && first + kItems <= n) {
+#pragma unroll
+      for (int g = 0; g < kItems / 4; ++g) {
+        const int i = 4 * g;
+        reinterpret_cast<int4*>(tier_out + first)[g] =
+            make_int4(tier[i], tier[i + 1], tier[i + 2], tier[i + 3]);
+        reinterpret_cast<float4*>(cval_out + first)[g] =
+            make_float4(val[i], val[i + 1], val[i + 2], val[i + 3]);
+        reinterpret_cast<int4*>(rank_out + first)[g] =
+            make_int4(rank[i], rank[i + 1], rank[i + 2], rank[i + 3]);
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
@@ -314,22 +328,17 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
   }
 }
 
-template <bool kValuesWithKeys>
-int launch(const void* keys, const void* valid, const void* cache_keys,
-           const void* cache_values, int n, int n_slots, int n_ways,
-           int ways_leading, int ucap, int budget, int budget_is_total,
-           void* tier, void* cval, void* rank, void* stream) {
-  const TrustDB db{static_cast<const uint32_t*>(cache_keys),
-                   static_cast<const float*>(cache_values),
-                   static_cast<uint32_t>(n_slots), n_ways, ways_leading != 0};
-  auto kernel = n_ways == 4
-                    ? shed_partition_kernel<4, kValuesWithKeys>
-                    : shed_partition_kernel<0, false>;
-  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(valid),
-      db, n, ucap, budget, budget_is_total, static_cast<int32_t*>(tier),
-      static_cast<float*>(cval), static_cast<int32_t*>(rank));
-  return static_cast<int>(cudaGetLastError());
+template <int kWays>
+void launch(const uint32_t* keys, const uint8_t* valid, const TrustDB& db,
+            int n, int ucap, int budget, int budget_is_total, int32_t* tier,
+            float* cval, int32_t* rank, cudaStream_t stream) {
+  const int round = n < kMaxRound ? n : kMaxRound;
+  auto kernel = round <= kThreads       ? shed_partition_kernel<kWays, 1>
+                : round <= 2 * kThreads ? shed_partition_kernel<kWays, 2>
+                : round <= 4 * kThreads ? shed_partition_kernel<kWays, 4>
+                                        : shed_partition_kernel<kWays, 8>;
+  kernel<<<1, kThreads, 0, stream>>>(keys, valid, db, n, ucap, budget,
+                                     budget_is_total, tier, cval, rank);
 }
 
 }  // namespace
@@ -342,20 +351,22 @@ extern "C" int shed_partition_launch(const void* keys, const void* valid,
                                      int ways_leading, int ucap, int budget,
                                      int budget_is_total, void* tier,
                                      void* cval, void* rank, void* stream) {
-  return launch<false>(keys, valid, cache_keys, cache_values, n, n_slots,
-                       n_ways, ways_leading, ucap, budget, budget_is_total,
-                       tier, cval, rank, stream);
-}
-
-// The same with every way's value loaded beside its key (n_ways == 4):
-// one round trip fewer, 16 B more per item. Timed against the above by
-// chip_smoke.py to choose between the two.
-extern "C" int shed_partition_launch_values_with_keys(
-    const void* keys, const void* valid, const void* cache_keys,
-    const void* cache_values, int n, int n_slots, int n_ways,
-    int ways_leading, int ucap, int budget, int budget_is_total, void* tier,
-    void* cval, void* rank, void* stream) {
-  return launch<true>(keys, valid, cache_keys, cache_values, n, n_slots,
-                      n_ways, ways_leading, ucap, budget, budget_is_total,
-                      tier, cval, rank, stream);
+  const TrustDB db{static_cast<const uint32_t*>(cache_keys),
+                   static_cast<const float*>(cache_values),
+                   static_cast<uint32_t>(n_slots),
+                   ways_leading ? 1u : static_cast<uint32_t>(n_ways),
+                   ways_leading ? static_cast<uint32_t>(n_slots) : 1u,
+                   n_ways};
+  const auto k = static_cast<const uint32_t*>(keys);
+  const auto v = static_cast<const uint8_t*>(valid);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_ways == 4)
+    launch<4>(k, v, db, n, ucap, budget, budget_is_total,
+              static_cast<int32_t*>(tier), static_cast<float*>(cval),
+              static_cast<int32_t*>(rank), s);
+  else
+    launch<0>(k, v, db, n, ucap, budget, budget_is_total,
+              static_cast<int32_t*>(tier), static_cast<float*>(cval),
+              static_cast<int32_t*>(rank), s);
+  return static_cast<int>(cudaGetLastError());
 }

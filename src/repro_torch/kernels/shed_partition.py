@@ -80,6 +80,9 @@ def _check(keys, valid, cache_keys, cache_values) -> None:
                          f"{tuple(keys.shape)} and {tuple(valid.shape)}")
     if cache_keys.dim() != 2 or cache_values.shape != cache_keys.shape:
         raise ValueError("cache keys and values must share one 2-D shape")
+    if cache_keys.numel() >= 2 ** 32:
+        raise ValueError("the kernel addresses the cache with 32-bit "
+                         "offsets: at most 2**32 - 1 entries")
 
 
 def shed_partition(keys: torch.Tensor, valid: torch.Tensor,

@@ -117,11 +117,14 @@ def _assert_shed_exact(inputs, ucap, budget, budget_is_total):
 @pytest.mark.parametrize("ways_leading", [True, False])
 @pytest.mark.parametrize("budget_is_total", [True, False])
 @pytest.mark.parametrize("mask", ["prefix", "gapped"])
-@pytest.mark.parametrize("n", [4095, 4096, 8191, 8192, 8193, 20000])
+@pytest.mark.parametrize("n", [1025, 2048, 2049, 3072, 4095, 4096, 4097,
+                               8191, 8192, 8193, 20000])
 def test_shed_partition_kernel_round_edges(dev, n, mask, ways_leading,
                                            budget_is_total):
-    """N at the edges of the kernel's 8192-item rounds, the Normal queue
-    closing in the last round (ucap 5/8 of N), prefix and gapped flags."""
+    """N at the edges of the kernel's rounds (1024 threads owning 1, 2, 4
+    or 8 items each, so one round covers up to 8192 items), the Normal
+    queue closing in the last round (ucap 5/8 of N), prefix and gapped
+    flags."""
     inputs = _shed_inputs(dev, n, ways_leading=ways_leading, mask=mask)
     _assert_shed_exact(inputs, n * 5 // 8, n // 4, budget_is_total)
 
