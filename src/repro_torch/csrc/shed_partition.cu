@@ -50,15 +50,19 @@
 // The kernel allocates nothing and needs no scratch. Keys are uint32 (the
 // wrapper hands int32 tensors holding the bit pattern); key 0 means an
 // empty way and never hits, and invalid items do not probe.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kCluster = 8;                  // CTAs, on 8 SMs
+constexpr int kThreads = 128;                // a CTA's threads
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxItems = 8;                 // items a thread owns, at most
-constexpr int kMaxRound = kThreads * kMaxItems;
+constexpr int kMaxRound = kCluster * kThreads * kMaxItems;
 constexpr int TIER_EVAL = 0;
 constexpr int TIER_CACHED = 1;
 constexpr int TIER_PRIOR = 2;
@@ -167,15 +171,15 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t x,
   if (lane == 31) warp_tot[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const uint32_t t = warp_tot[lane];
+    const uint32_t t = lane < kWarps ? warp_tot[lane] : 0u;
     uint32_t ti = t;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
+    for (int o = 1; o < kWarps; o <<= 1) {
       const uint32_t y = __shfl_up_sync(0xffffffffu, ti, o);
       if (lane >= o) ti += y;
     }
-    warp_tot[lane] = ti - t;                 // exclusive warp offsets
-    if (lane == 31) warp_tot[kWarps] = ti;
+    if (lane < kWarps) warp_tot[lane] = ti - t;   // exclusive warp offsets
+    if (lane == kWarps - 1) warp_tot[kWarps] = ti;
   }
   __syncthreads();
   tot = warp_tot[kWarps];
@@ -216,23 +220,34 @@ __device__ __forceinline__ uint32_t load_items(const uint32_t* keys,
   return vmask;
 }
 
-// One CTA; each thread owns kItems consecutive items of every round of
-// kThreads * kItems items. The launch picks the least kItems whose round
-// covers min(N, kMaxRound), so every thread of a main-path batch has work.
+// What a CTA shares, within itself and, through distributed shared memory,
+// with the other CTAs of its cluster. The per-round entries alternate
+// between two buffers, so a round needs one cluster barrier.
+struct Shared {
+  uint32_t warp_tot[2][kWarps + 1];
+  uint32_t cta_tot[2];                       // this CTA's packed count
+  int ne;                                    // NE, where the queue closed
+};
+
+// One cluster of kCluster CTAs. A round of kCluster * kThreads * kItems
+// items is cut into one contiguous chunk a CTA, kItems consecutive items a
+// thread. The launch picks the least kItems whose round covers
+// min(N, kMaxRound), so every thread of a main-path batch has work.
 template <int kWays, int kItems>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 shed_partition_kernel(const uint32_t* __restrict__ keys,
                       const uint8_t* __restrict__ valid, TrustDB db, int n,
                       int ucap, int budget, int budget_is_total,
                       int32_t* __restrict__ tier_out,
                       float* __restrict__ cval_out,
                       int32_t* __restrict__ rank_out) {
-  static_assert(kWarps == 32, "the warp-total pass assumes 32 warps");
+  static_assert(kWarps <= 32, "the warp-total pass is one warp");
   static_assert(kMaxRound < (1 << 16), "a round's counts must fit 16 bits");
   static_assert(kItems <= kMaxItems, "at most kMaxItems items a thread");
-  constexpr int kRound = kThreads * kItems;
-  __shared__ uint32_t warp_tot[2][kWarps + 1];
-  __shared__ int ne_shared;
+  constexpr int kRound = kCluster * kThreads * kItems;
+  __shared__ Shared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const bool vec_in = ((reinterpret_cast<uintptr_t>(keys) & 15) |
                        (reinterpret_cast<uintptr_t>(valid) & 3)) == 0;
   const bool vec_out = ((reinterpret_cast<uintptr_t>(tier_out) |
@@ -245,7 +260,8 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
   int ne = 0;
 
   for (int r0 = 0, round = 0; r0 < n; r0 += kRound, ++round) {
-    const int first = r0 + threadIdx.x * kItems;
+    const int b = round & 1;
+    const int first = r0 + (rank * kThreads + threadIdx.x) * kItems;
     uint32_t key[kItems];
     float val[kItems];
     uint32_t vmask = 0, hit = 0;
@@ -262,33 +278,45 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
     }
     const uint32_t miss = vmask & ~hit;       // valid, not cached
 
-    // pos and h of the thread's first item: one packed scan
+    // pos and h of the thread's first item: one packed scan in the CTA,
+    // then the counts of the CTAs before it in the cluster
     const uint32_t own = __popc(vmask) | (__popc(miss) << 16);
     uint32_t tot;
-    const uint32_t ex = block_exclusive_scan(own, warp_tot[round & 1], tot);
-    const int round_pos = base_pos + (ex & 0xFFFFu);
-    const int round_h = base_h + (ex >> 16);
-    base_pos += tot & 0xFFFFu;
-    base_h += tot >> 16;
+    const uint32_t ex = block_exclusive_scan(own, sh.warp_tot[b], tot);
+    if (threadIdx.x == 0) sh.cta_tot[b] = tot;
+    cluster.sync();
+    uint32_t before = 0, all = 0;
+    int ne_rank = -1;                        // the CTA where the queue closes
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c) {
+      const uint32_t t = *cluster.map_shared_rank(&sh.cta_tot[b], c);
+      const int at = base_pos + static_cast<int>(all & 0xFFFFu);
+      if (at <= ucap - 1 && ucap - 1 < at + static_cast<int>(t & 0xFFFFu))
+        ne_rank = c;
+      if (c < rank) before += t;
+      all += t;
+    }
+    const int round_pos = base_pos + ((before + ex) & 0xFFFFu);
+    const int round_h = base_h + ((before + ex) >> 16);
+    base_pos += all & 0xFFFFu;
+    base_h += all >> 16;
 
-    if (!ne_known) {                         // block-uniform
+    if (!ne_known && ne_rank >= 0) {         // cluster-uniform
       int pos = round_pos, h = round_h;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         if (!((vmask >> i) & 1u)) continue;
         h += (miss >> i) & 1u;
-        if (pos == ucap - 1) ne_shared = h;  // inclusive: closes the queue
+        if (pos == ucap - 1) sh.ne = h;      // inclusive: closes the queue
         ++pos;
       }
-      __syncthreads();
-      if (base_pos >= ucap) {
-        ne = ne_shared;
-        ne_known = true;
-      }
+      cluster.sync();
+      ne = *cluster.map_shared_rank(&sh.ne, ne_rank);
+      ne_known = true;
     }
     if (first >= n) continue;
 
-    int tier[kItems], rank[kItems];
+    int tier[kItems], rank_of[kItems];
     int pos = round_pos, h = round_h;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
@@ -299,7 +327,7 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
                                                : h - ne < budget));
       tier[i] = !v ? TIER_INVALID
                    : !m ? TIER_CACHED : eval ? TIER_EVAL : TIER_PRIOR;
-      rank[i] = eval ? h : -1;
+      rank_of[i] = eval ? h : -1;
       pos += v;
       h += m;
     }
@@ -312,8 +340,8 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
             make_int4(tier[i], tier[i + 1], tier[i + 2], tier[i + 3]);
         reinterpret_cast<float4*>(cval_out + first)[g] =
             make_float4(val[i], val[i + 1], val[i + 2], val[i + 3]);
-        reinterpret_cast<int4*>(rank_out + first)[g] =
-            make_int4(rank[i], rank[i + 1], rank[i + 2], rank[i + 3]);
+        reinterpret_cast<int4*>(rank_out + first)[g] = make_int4(
+            rank_of[i], rank_of[i + 1], rank_of[i + 2], rank_of[i + 3]);
       }
     } else {
 #pragma unroll
@@ -321,24 +349,27 @@ shed_partition_kernel(const uint32_t* __restrict__ keys,
         if (first + i < n) {
           tier_out[first + i] = tier[i];
           cval_out[first + i] = val[i];
-          rank_out[first + i] = rank[i];
+          rank_out[first + i] = rank_of[i];
         }
       }
     }
   }
+  cluster.sync();          // no CTA leaves while another reads its counts
 }
 
 template <int kWays>
 void launch(const uint32_t* keys, const uint8_t* valid, const TrustDB& db,
             int n, int ucap, int budget, int budget_is_total, int32_t* tier,
             float* cval, int32_t* rank, cudaStream_t stream) {
+  constexpr int kCta = kCluster * kThreads;  // threads of the cluster
   const int round = n < kMaxRound ? n : kMaxRound;
-  auto kernel = round <= kThreads       ? shed_partition_kernel<kWays, 1>
-                : round <= 2 * kThreads ? shed_partition_kernel<kWays, 2>
-                : round <= 4 * kThreads ? shed_partition_kernel<kWays, 4>
-                                        : shed_partition_kernel<kWays, 8>;
-  kernel<<<1, kThreads, 0, stream>>>(keys, valid, db, n, ucap, budget,
-                                     budget_is_total, tier, cval, rank);
+  auto kernel = round <= kCta       ? shed_partition_kernel<kWays, 1>
+                : round <= 2 * kCta ? shed_partition_kernel<kWays, 2>
+                : round <= 4 * kCta ? shed_partition_kernel<kWays, 4>
+                                    : shed_partition_kernel<kWays, 8>;
+  kernel<<<kCluster, kThreads, 0, stream>>>(keys, valid, db, n, ucap, budget,
+                                            budget_is_total, tier, cval,
+                                            rank);
 }
 
 }  // namespace
