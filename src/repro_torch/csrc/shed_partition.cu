@@ -6,13 +6,15 @@
 // INVALID), the cached trust value, and the compacted eval rank (arrival
 // position among EVAL items, -1 otherwise).
 //
-// What bounds it on an H100: nothing but latency. At the serving batch
-// (N = 4096) it reads ~20 B of keys, flags and cache entries and writes
-// 12 B per item, ~0.12 MB in all: under 0.1 us at 3.35 TB/s, far below the
-// few microseconds one kernel launch costs. What it can cut is the chain
-// of dependent round trips to device memory (the Trust DB arrives cold:
-// the evaluator's traffic evicts it from L2 between batches) and of
-// block-wide barriers.
+// What bounds it on an H100: not bytes. At the serving batch (N 4096) it
+// reads ~20 B of keys, flags and cache entries and writes 12 B per item,
+// ~0.12 MB in all: 0.04 us at 3.35 TB/s, far below the ~4.5 us one launch
+// costs. What it pays beyond the launch is the Trust DB probe, four
+// scattered cache lines a valid item in the production (ways-leading)
+// layout plus one for a hit's value, and the chain of dependent round
+// trips (keys, way keys, value) and barriers. One SM looks up ~2.4k such
+// lines a microsecond, so on one CTA the probe alone took ~0.007 ms at
+// N 4096, cold or warm (PERF.md); spread over 8 SMs it takes ~0.0014.
 //
 // Why one scan is enough. Every Normal-queue item precedes every Drop-queue
 // item in arrival order. Let pos be the number of valid items before an
@@ -26,27 +28,35 @@
 //     eval count, and the drop-queue budget is budget - NE), or
 //     h - NE < budget with a drop-queue budget.
 // So the TPU kernel's three dependent scans (arrival position; normal
-// evals and drop candidates; EVAL rank) fold into ONE block scan of the
-// packed pair (valid, valid & !hit).
+// evals and drop candidates; EVAL rank) fold into ONE scan of the packed
+// pair (valid, valid & !hit).
 //
-// Design: one CTA of 1024 threads owns up to 8192 items per round, each
-// thread 8 consecutive items in arrival order, so the main path's batches
-// (N 3072 and 4096) take one round:
-//   1. keys load as two 16-byte vectors and the flags as one 8-byte load
-//      per thread where the pointers and N allow, else item by item;
+// Design: one cluster of 8 CTAs of 128 threads. A round of up to 8192
+// items is cut into one contiguous chunk a CTA and kItems consecutive
+// items a thread, kItems in {1, 2, 4, 8} the least whose round covers
+// min(N, 8192): the main path's batches (N 3072 and 4096, kItems 4) take
+// one round with every thread busy, and threads past N skip to the scan.
+//   1. keys load as 16-byte vectors and flags as 4-byte words where the
+//      pointers and N allow, else item by item;
 //   2. the probe issues every way's key load of all of a thread's items
 //      before any compare (n_ways == 4, the production Trust DB, is a
 //      template), takes the first matching way, then loads the hits'
 //      values: two round trips with no chain between the ways; other
-//      n_ways take a generic loop that stops at the first match;
-//   3. a thread-serial prefix over its 8 items, one warp-shuffle scan and
-//      one pass over the 32 warp totals give pos and h; each half of the
-//      packed pair counts at most 8192 items of one round, the running
-//      totals across rounds are 32-bit;
+//      n_ways take a generic loop that stops at the first match. Offsets
+//      into the Trust DB are 32-bit, the set index a mask where the set
+//      count is a power of two;
+//   3. a thread-serial prefix over its items, one warp-shuffle scan and
+//      one pass over the 4 warp totals give each thread its offset in the
+//      CTA; thread 0 posts the CTA's packed count in shared memory, and
+//      after one cluster barrier every thread reads the 8 counts through
+//      distributed shared memory: pos and h. Each half of a packed pair
+//      counts at most the 8192 items of one round; the running totals
+//      across rounds (N > 8192) are 32-bit;
 //   4. with a drop-queue budget the thread holding arrival position
-//      ucap - 1 publishes NE through shared memory (one more barrier, in
-//      that mode only, until the Normal queue has closed);
-//   5. outputs store as 16-byte vectors where aligned.
+//      ucap - 1 posts NE in its CTA's shared memory, read by all after
+//      one more cluster barrier, in that round only;
+//   5. outputs store as 16-byte vectors where aligned; a last cluster
+//      barrier keeps every CTA's counts alive until all have read them.
 // The kernel allocates nothing and needs no scratch. Keys are uint32 (the
 // wrapper hands int32 tensors holding the bit pattern); key 0 means an
 // empty way and never hits, and invalid items do not probe.
@@ -186,9 +196,10 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t x,
   return warp_tot[warp] + incl - x;
 }
 
-// A thread's kItems keys and flags from item `first` on (0 past n); two
-// 16-byte and two 4-byte loads where the pointers allow and no item lies
-// past n. Returns the mask of valid items.
+// A thread's kItems keys and flags from item `first` on (0 past n): keys
+// in 16-byte loads and flags in 4-byte words where kItems is a multiple of
+// 4, the pointers allow and no item lies past n, else item by item.
+// Returns the mask of valid items.
 template <int kItems>
 __device__ __forceinline__ uint32_t load_items(const uint32_t* keys,
                                                const uint8_t* valid,

@@ -1,8 +1,10 @@
 """The port's ``shed_partition`` (plain version on the CPU) against the JAX
 Pallas kernel in interpret mode and its jnp oracle: tier, cached value
-and compacted eval rank exactly equal over ragged N, both cache layouts
-and both budget modes. Also ``eval_indices_from_rank``,
-``combine_trust`` and ``shed_plan`` against the reference."""
+and compacted eval rank exactly equal over ragged N, prefix and gapped
+validity masks, both cache layouts and both budget modes. The identities
+the CUDA kernel's single scan rests on, held against the Pallas kernel.
+Also ``eval_indices_from_rank``, ``combine_trust`` and ``shed_plan``
+against the reference."""
 import functools
 
 import jax
@@ -30,13 +32,14 @@ def _kernel_j(budget_is_total):
                                      interpret=True))
 
 
-def _inputs(n, n_valid, cache_mode, ways_leading, seed=0):
-    """Seeded keys (top bit set on some), a validity prefix, and a cache
-    state built by the REFERENCE's insert, shared by both packages."""
+def _inputs(n, n_valid, cache_mode, ways_leading, seed=0, gapped=False):
+    """Seeded keys (top bit set on some), a validity prefix of ``n_valid``
+    (or, ``gapped``, about 70% valid at random), and a cache state built
+    by the REFERENCE's insert, shared by both packages."""
     r = np.random.default_rng(seed)
     keys = (np.arange(1, n + 1, dtype=np.uint32)
             + r.integers(0, 2, n).astype(np.uint32) * np.uint32(1 << 31))
-    valid = np.arange(n) < n_valid
+    valid = r.random(n) < 0.7 if gapped else np.arange(n) < n_valid
     cache = TC_j.init(N_SLOTS, N_WAYS, ways_leading=ways_leading)
     if cache_mode != "all_miss" and n:
         sel = keys if cache_mode == "all_hit" else keys[::3]
@@ -83,6 +86,68 @@ def test_plain_version_matches_pallas_kernel(n, n_valid, cache_mode,
 
 @pytest.mark.parametrize("budget_is_total", [True, False])
 @pytest.mark.parametrize("ways_leading", [True, False])
+@pytest.mark.parametrize("n,cache_mode", [
+    (200, "strided"),
+    (1000, "all_hit"),
+    (1500, "strided"),
+])
+def test_plain_version_matches_pallas_kernel_gapped_masks(
+        n, cache_mode, ways_leading, budget_is_total):
+    """Validity with gaps anywhere, not only a padded tail."""
+    keys, valid, ck, cv = _inputs(n, 0, cache_mode, ways_leading, seed=n,
+                                  gapped=True)
+    ucap, uthr, budget = 256, 128, 300
+    want = _kernel_j(budget_is_total)(
+        jnp.asarray(keys), jnp.asarray(valid), jnp.asarray(ck),
+        jnp.asarray(cv), ucap, uthr, budget)
+    got = shed_partition(*_torch(keys, valid, ck, cv), ucap, uthr, budget,
+                         budget_is_total=budget_is_total)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("budget_is_total", [True, False])
+@pytest.mark.parametrize("ways_leading", [True, False])
+@pytest.mark.parametrize("gapped", [False, True])
+@pytest.mark.parametrize("ucap,budget_total,budget_dq", [
+    (256, 300, 100),      # the budget splits the drop queue in both modes
+    (0, 100, 100),        # no Normal queue
+    (1000, 0, 0),         # every valid item in the Normal queue
+])
+def test_single_scan_identities_hold_on_pallas_kernel(
+        ucap, budget_total, budget_dq, gapped, ways_leading,
+        budget_is_total):
+    """What the CUDA kernel computes from one scan of (valid, valid & not
+    hit), held against the Pallas kernel's three scans. With pos the
+    valid items before an item and h the valid non-hit items before it:
+    every EVAL item's rank is h (-1 for every other tier); a valid
+    non-hit item is EVAL iff pos < ucap, or h < budget with a total
+    budget, or h - NE < budget with a drop-queue budget (NE: the valid
+    non-hit items with pos < ucap)."""
+    n = 700
+    budget = budget_total if budget_is_total else budget_dq
+    keys, valid, ck, cv = _inputs(n, 630, "strided", ways_leading,
+                                  seed=ucap + budget, gapped=gapped)
+    tier, _, rank = (np.asarray(a) for a in _kernel_j(budget_is_total)(
+        jnp.asarray(keys), jnp.asarray(valid), jnp.asarray(ck),
+        jnp.asarray(cv), ucap, 128, budget))
+    state = {"keys": jnp.asarray(ck), "values": jnp.asarray(cv)}
+    hit = np.asarray(TC_j.lookup(state, jnp.asarray(keys))[1]) & valid
+    miss = valid & ~hit
+    pos = np.cumsum(valid) - valid
+    h = np.cumsum(miss) - miss
+    ne = int((miss & (pos < ucap)).sum())
+    in_budget = h < budget if budget_is_total else h - ne < budget
+    is_eval = miss & ((pos < ucap) | in_budget)
+    np.testing.assert_array_equal(tier == S_j.TIER_EVAL, is_eval)
+    np.testing.assert_array_equal(tier == S_j.TIER_CACHED, hit)
+    np.testing.assert_array_equal(tier == S_j.TIER_INVALID, ~valid)
+    np.testing.assert_array_equal(rank, np.where(is_eval, h, -1))
+    if budget:                  # the drop-queue budget grants and denies
+        assert (is_eval & (pos >= ucap)).any() and (miss & ~is_eval).any()
+
+
+@pytest.mark.parametrize("budget_is_total", [True, False])
+@pytest.mark.parametrize("ways_leading", [True, False])
 @pytest.mark.parametrize("seed", range(4))
 def test_plain_version_matches_reference_oracle(seed, ways_leading,
                                                 budget_is_total):
@@ -110,6 +175,17 @@ def test_wrapper_rejects_bad_inputs():
         shed_partition(keys, valid[:4], ck, cv, 4, 4, 4)
     with pytest.raises(ValueError):
         shed_partition(keys, valid, ck.T, cv, 4, 4, 4)
+
+
+def test_wrapper_rejects_a_cache_past_32_bit_offsets():
+    """The kernel addresses the Trust DB with 32-bit offsets; shapes on
+    the meta device cost no memory."""
+    keys = torch.empty(8, dtype=torch.int32, device="meta")
+    valid = torch.empty(8, dtype=torch.bool, device="meta")
+    ck = torch.empty((4, 2 ** 30), dtype=torch.int32, device="meta")
+    cv = torch.empty((4, 2 ** 30), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="32-bit"):
+        shed_partition(keys, valid, ck, cv, 4, 4, 4)
 
 
 @pytest.mark.parametrize("n_valid,ucap,uthr,mode", [
