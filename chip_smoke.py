@@ -17,7 +17,7 @@ its path gives it:
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
 * ``flash_decode``: one-token attention against the KV cache.
 
-Then it drives three paths with seeded random weights, each with the
+Then it drives four paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
 
 * the serving engine on a full-width smollm-135m evaluator (the main
@@ -26,6 +26,14 @@ launch counts set to 0 just before it and read just after:
   admission -> EDF micro-batches -> fused shed (``shed_partition``,
   ``flash_attention``) -> responses, with retrieval checked against the
   Python BM25 oracle and a host-vs-fused engine parity run;
+* the serve launcher's default scheduled mode: a ``ClusterCoordinator``
+  of four replicas on the card (``configs.trust_ir``), each owning the
+  doc-partition stripes the ring gives it, on the same evaluator and
+  queries, with gossip and hedging on, a graceful leave and a join
+  midway; then its host-vs-fused parity run, ``topk_select`` at every
+  shard size the fleet built, the chaos trace replayed twice (equal
+  fingerprints) and the paper's Fig 3.2 comparison (``ProcessAll``,
+  ``RLSEDA``, ``LoadShedder``) on the wall clock;
 * the same engine on the full-width ``dlrm-mlperf`` evaluator
   (``dot_interaction``), its 26 tables capped at 20M rows to fit the
   card, and its host-vs-fused parity run;
@@ -61,7 +69,13 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.chaos import response_fingerprint  # noqa: E402
+from repro_torch.cluster import (ClusterConfig,  # noqa: E402
+                                 ClusterCoordinator)
 from repro_torch.configs import TrustIRConfig, get_config  # noqa: E402
+from repro_torch.configs import trust_ir  # noqa: E402
+from repro_torch.configs.base import reduced  # noqa: E402
+from repro_torch.core.baselines import RLSEDA, ProcessAll  # noqa: E402
 from repro_torch.core import trust_cache as TC  # noqa: E402
 from repro_torch.core.deadline import effective_deadline  # noqa: E402
 from repro_torch.core.fused_shedder import FusedLoadShedder  # noqa: E402
@@ -71,6 +85,7 @@ from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
                                       SimClock)
 from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
     dot_interaction, dot_interaction_ref, group_size, triu_pairs)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -95,7 +110,8 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
 from repro_torch.serving.kv_cache import KVCachePool  # noqa: E402
 from repro_torch.serving.simulator import (  # noqa: E402
-    MultiTenantWorkload, TenantSpec, run_scheduled_workload)
+    MultiTenantWorkload, TenantSpec, run_cluster_workload,
+    run_scheduled_workload)
 
 # Every kernel wrapper of the port, each with its launch count.
 KERNELS = {"shed_partition": shed_partition,
@@ -142,6 +158,22 @@ MAX_PROMPT = DECODE_MAX_LEN - DECODE_STEPS  # 1984
 # flash kernel's); logits have std ~0.5 and bf16 keeps 8 bits, while a
 # wrong position or cache row moves them by O(1).
 DECODE_LOGIT_ATOL = 0.1
+# The serving fleet: the launcher's default scheduled mode on one card.
+FLEET_REPLICAS = 4
+FLEET_EXTRA_QUERIES = 96         # served after the leave and the join
+FLEET_ORACLE_QUERIES = 16        # fleet searcher vs the Python BM25 oracle
+# The chaos trace of the verify notes, as launcher flags (a 2 s trace on
+# six replicas: flash crowd, query-of-death flood with the quarantine
+# armed, a regional failure of two replicas, a rolling restart, epidemic
+# gossip, hedging after 500 ms).
+CHAOS_ARGV = ["--trace", "2", "--replicas", "6", "--chaos-flash", "4",
+              "--chaos-poison", "3", "--quarantine-k", "3",
+              "--chaos-crash", "2", "--chaos-restart", "--gossip",
+              "--gossip-mode", "epidemic", "--hedge-after-ms", "500"]
+# Paper Fig 3.2: the query "study in USA" returns 89,141 results in the
+# paper's Nutch setup (benchmarks/bench_response_time.py).
+PAPER_QUERY, PAPER_RESULTS = "study in USA", 89_141
+PROCESS_ALL_MAX_S = 30.0         # ProcessAll's time cap: the count is cut
 
 
 def log(msg: str) -> None:
@@ -1314,6 +1346,405 @@ def phase_engine_parity(cfg: TrustIRConfig, make_searcher, evaluate, dev,
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: the serving fleet (the launcher's default scheduled mode)
+# ---------------------------------------------------------------------------
+
+def live_shards(coord) -> list:
+    return [s for s in coord.searcher.shards if s.n_docs]
+
+
+def shard_views(coord, query: str, label: str) -> list:
+    """Each live shard's float64 BM25 scores for ``query``: the input
+    ``topk_select`` gets there, kept for the kernel check at that N."""
+    return [(label, s.n_docs, s.score(query)) for s in live_shards(coord)]
+
+
+def fleet_serve(coord, queries, rids) -> tuple:
+    """Enqueue ``queries`` with one drain round every 48; returns the
+    ``topk_select`` launches they need (one per live shard a search)
+    and the seconds their retrieves took."""
+    n_topk, retrieve_s = 0, 0.0
+    for i, (q, prio, tenant) in enumerate(queries):
+        n_topk += len(live_shards(coord))
+        rids.append(coord.enqueue_query(q, priority=prio, tenant=tenant))
+        retrieve_s += coord.searcher.last_retrieve_s
+        if (i + 1) % QUERIES_PER_DRAIN == 0:
+            coord.drain(max_rounds=1)
+    return n_topk, retrieve_s
+
+
+def phase_fleet(fcfg: TrustIRConfig, retrieval, shard, evaluate, mk,
+                dev) -> tuple:
+    """``trust_ir.config()`` as a fleet of FLEET_REPLICAS replicas on
+    the card: one ``ClusterCoordinator`` over the main path's
+    ``CorpusRetrieval`` (each replica indexes the stripes the ring gives
+    it), the full-width evaluator shared by every replica, gossip and
+    hedging on. The main path's 384 queries, 24 more, a graceful leave
+    of the most loaded replica and a join, 72 more; launch counts set to
+    0 just before and read just after. Returns the launch counts, the
+    fleet searcher and the shards' scores for one query before and after
+    the handoff."""
+    t0 = time.monotonic()
+    coord = ClusterCoordinator(
+        fcfg, evaluate, evaluate_batch=evaluate,
+        cluster_cfg=ClusterConfig(gossip=True,
+                                  hedge_after_s=fcfg.deadline_s),
+        retrieval=retrieval, device=dev)
+    build_s = time.monotonic() - t0
+    t1 = time.monotonic()
+    for s in live_shards(coord):
+        s._ensure_dense()
+    torch.cuda.synchronize()
+    dense_s = time.monotonic() - t1
+    if coord.max_batch_items != ENGINE_BATCH:
+        raise AssertionError(f"fleet micro-batch {coord.max_batch_items}, "
+                             f"expected {ENGINE_BATCH}")
+    owners = list(coord.partition_owners().values())
+    stripes = {r.replica_id: owners.count(r.replica_id)
+               for r in coord.replicas}
+    log(f"fleet: {coord.n_replicas} replicas of {fcfg.name} (drain "
+        f"{fcfg.drain_mode}, depth {fcfg.pipeline_depth}); the ring gives "
+        f"{stripes} of {fcfg.index_partitions} stripes; shards of "
+        f"{[s.n_docs for s in live_shards(coord)]} docs (topk_select N "
+        f"{[s._d_pad for s in live_shards(coord)]}); stripes indexed on the "
+        f"host in {build_s:.1f} s (the main path's one-shard build is "
+        f"printed under retrieval), dense forms on the card in "
+        f"{dense_s:.1f} s")
+    # one warm query per replica: the fused step's shapes on each card
+    # stream, as the serve launcher warms them
+    for rep in coord.replicas:
+        rep.engine.enqueue_query("term00001 term00002")
+        rep.engine.drain()
+    coord.drain()
+    coord.completed.clear()
+    base = coord.scheduler_stats()
+    q0 = engine_queries(retrieval.corpus, SEED + 3, 1)[0][0]
+    views = shard_views(coord, q0, "before handoff")
+
+    queries = engine_queries(retrieval.corpus, SEED + 3, ENGINE_QUERIES)
+    extra = engine_queries(retrieval.corpus, SEED + 6, FLEET_EXTRA_QUERIES)
+    rids: list = []
+    torch.cuda.synchronize()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    runs = [fleet_serve(coord, queries, rids)]
+    # half a drain's worth of queries queues up before the leave, so the
+    # leaving replica has a backlog to hand off
+    half = QUERIES_PER_DRAIN // 2
+    runs.append(fleet_serve(coord, extra[:half], rids))
+    t_change = time.monotonic()
+    # the most loaded replica leaves, so its backlog hands off
+    victim = max(coord.replicas,
+                 key=lambda r: (r.queued_items, r.replica_id)).replica_id
+    moved = coord.remove_replica(victim, drain=True)
+    joined = coord.add_replica().replica_id
+    change_s = time.monotonic() - t_change
+    runs.append(fleet_serve(coord, extra[half:], rids))
+    coord.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: w.launches for name, w in KERNELS.items()}
+    want_topk = sum(n for n, _ in runs)
+    retrieve_s = sum(t for _, t in runs)
+
+    st = coord.scheduler_stats()
+    n_batches = st["n_batches"] - base["n_batches"]
+    n_items = st["n_batched_items"] - base["n_batched_items"]
+    want = {"topk_select": want_topk, "shed_partition": n_batches,
+            "flash_attention": N_LAYERS * n_batches, "dot_interaction": 0,
+            "flash_decode": 0}
+    if launches != want:
+        raise AssertionError(f"fleet: launches {launches}, expected {want}")
+    answered = [r.request_id for r in coord.completed]
+    if sorted(answered) != sorted(rids) or len(set(answered)) != len(rids):
+        raise AssertionError(f"fleet: {len(rids)} requests, {len(answered)} "
+                             f"answers, {len(set(answered))} distinct")
+    for r in coord.completed:
+        if not np.isfinite(r.trust).all() or len(r.trust) != len(r.tier):
+            raise AssertionError(f"fleet request {r.request_id}: trust "
+                                 f"malformed")
+        if (r.tier == TIER_INVALID).any():
+            raise AssertionError(f"fleet request {r.request_id} dropped an "
+                                 f"item")
+        if not r.admitted and not r.reason:
+            raise AssertionError(f"fleet request {r.request_id} rejected "
+                                 f"without a reason")
+    views += shard_views(coord, q0, "after handoff")
+
+    # the fleet searcher against the Python BM25 oracle
+    for q, _, _ in engine_queries(retrieval.corpus, SEED + 7,
+                                  FLEET_ORACLE_QUERIES):
+        docs, scores = coord.searcher.retrieve(q, TOP_K)
+        want_q = topk_py(shard.score_py(q), TOP_K)
+        if docs.tolist() != [d for d, _ in want_q] \
+                or scores.tolist() != [x for _, x in want_q]:
+            raise AssertionError(f"fleet retrieval differs from the Python "
+                                 f"oracle for {q!r}")
+
+    # dispatch on a fleet replica never waits for the card
+    sh = coord.replicas[0].engine.shedder
+    keys = np.arange(900_001, 900_001 + ENGINE_BATCH, dtype=np.uint32)
+    staged = sh.stage(keys, np.zeros(ENGINE_BATCH, np.int32),
+                      mk(ENGINE_BATCH, fseed=900_001))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = sh.dispatch_staged(staged)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pending.result()
+
+    slo = coord.slo_stats()
+    c = st["cluster"]
+    g = st["gossip"]
+    per_rep = {rid: e["n_batches"] - base["per_replica"].get(
+        rid, {"n_batches": 0})["n_batches"]
+        for rid, e in st["per_replica"].items()}
+    order = {rid: i for i, rid in enumerate(rids)}
+    slowest = sorted((r for r in coord.completed if r.admitted),
+                     key=lambda r: -r.latency_s)[:6]
+    slow_rows = [(order[r.request_id], r.priority.name,
+                  round(r.latency_s, 3), round(r.queue_delay_s, 3))
+                 for r in slowest]
+    log(f"fleet (ClusterCoordinator x{FLEET_REPLICAS} fused, depth "
+        f"{fcfg.pipeline_depth}, wall clock): {len(rids)} queries "
+        f"({ENGINE_QUERIES + half}, then leave {victim} handing off "
+        f"{moved} queued requests and join {joined} in {change_s:.3f} s, "
+        f"then {FLEET_EXTRA_QUERIES - half}) in {wall:.3f} s = "
+        f"{len(rids) / wall:.1f} queries/s, {n_items / wall:.1f} items/s; "
+        f"retrieve {retrieve_s / len(rids) * 1e3:.3f} ms per query "
+        f"({retrieve_s / wall:.3f} of the wall); P50 "
+        f"{slo['p50_s'] * 1e3:.1f} ms, P99 {slo['p99_s'] * 1e3:.1f} ms, "
+        f"SLO met {slo['slo_met_frac']:.3f}; slowest (enqueue index, "
+        f"priority, latency s, queue delay s) {slow_rows}; "
+        f"{n_batches} batches {per_rep}, "
+        f"{c['n_steals']} steals, {c['n_hedges']} hedges "
+        f"({c['n_twin_drops']} twins dropped), gossip {g['n_messages']} "
+        f"messages ({g['n_messages'] / len(per_rep):.1f} per replica), "
+        f"{g['n_applied']} deltas applied, {c['n_duplicate_evals']} "
+        f"duplicate evals; {c['n_partition_moves']} stripes moved, "
+        f"{c['n_warm_handoff_entries']} warm cache entries handed off; "
+        f"every request answered once, no item dropped; launches "
+        f"{launches} == {want}; shards now "
+        f"{[s.n_docs for s in live_shards(coord)]} docs (N "
+        f"{[s._d_pad for s in live_shards(coord)]})")
+    log(f"fleet: {FLEET_ORACLE_QUERIES} queries through the fleet searcher "
+        f"equal the Python BM25 oracle, ids and float64 scores; "
+        f"dispatch_staged on replica {coord.replicas[0].replica_id}: no "
+        f"host-device sync under sync debug mode 'error'")
+    log(f"fleet scheduler_stats: "
+        f"{json.dumps({k: v for k, v in st.items() if k != 'capacity'})}")
+    return launches, coord.searcher, views
+
+
+def phase_fleet_parity(fcfg: TrustIRConfig, searcher, evaluate, views,
+                       dev) -> list:
+    """Host drain against fused drain for the fleet: two coordinators
+    of the same config on SimClocks, one seeded 96-query workload
+    through ``run_cluster_workload`` (candidates from the fleet
+    searcher); then ``topk_select`` against its plain version at every
+    shard size the fleet built, with its times there."""
+    qm = ZipfQueryModel.for_corpus(searcher.corpus, seed=SEED + 5)
+    wl = MultiTenantWorkload(
+        tenants=[TenantSpec(f"interactive{i}", qps=20.0, priority_mix={
+                     Priority.CRITICAL: 1.0, Priority.HIGH: 2.0},
+                     min_results=TOP_K, max_results=TOP_K)
+                 for i in range(2)]
+        + [TenantSpec(f"batch{i}", qps=30.0, priority_mix={
+               Priority.NORMAL: 2.0, Priority.LOW: 1.0},
+               min_results=TOP_K, max_results=32 * TOP_K)
+           for i in range(2)],
+        n_queries=96, seed=SEED, query_model=qm)
+    reports, coords = {}, {}
+    for mode in ("host", "fused"):
+        coords[mode] = ClusterCoordinator(
+            reduced(fcfg, drain_mode=mode), evaluate,
+            evaluate_batch=evaluate,
+            cluster_cfg=ClusterConfig(gossip=True,
+                                      hedge_after_s=fcfg.deadline_s),
+            sim_rate_items_per_s=fcfg.u_capacity / fcfg.deadline_s,
+            device=dev)
+        reports[mode] = run_cluster_workload(coords[mode], searcher, wl)
+    host = sorted(reports["host"].responses, key=lambda r: r.request_id)
+    fused = sorted(reports["fused"].responses, key=lambda r: r.request_id)
+    if [r.request_id for r in host] != [r.request_id for r in fused]:
+        raise AssertionError("fleet parity: host and fused fleets answered "
+                             "differently")
+    worst = 0.0
+    for a, b in zip(host, fused):
+        if (a.admitted, a.reason, int(a.shed.regime), a.shed.n_evaluated,
+                a.shed.n_cached, a.shed.n_prior) != \
+                (b.admitted, b.reason, int(b.shed.regime),
+                 b.shed.n_evaluated, b.shed.n_cached, b.shed.n_prior) \
+                or not np.array_equal(a.tier, b.tier):
+            raise AssertionError(f"fleet parity: request {a.request_id}: "
+                                 f"host and fused fleets disagree")
+        worst = max(worst, float(np.abs(a.trust - b.trust).max()))
+    if worst > TRUST_ATOL:
+        raise AssertionError(f"fleet parity: trust differs by {worst}")
+    sh_, sf = (reports[m].scheduler_stats for m in ("host", "fused"))
+    for key in ("n_submitted", "n_admitted", "n_rejected", "n_batches",
+                "rejected_by_reason"):
+        if sh_[key] != sf[key]:
+            raise AssertionError(f"fleet parity: {key} {sh_[key]} vs "
+                                 f"{sf[key]}")
+    cf = sf["cluster"]
+    summary = reports["fused"].summary()
+    log(f"fleet parity (SimClock, {len(host)} queries, "
+        f"{FLEET_REPLICAS} replicas): host and fused tiers, admissions, "
+        f"reasons, regimes and counts identical, max |trust diff| "
+        f"{worst:.3e} <= {TRUST_ATOL}; {summary['n_admitted']} admitted, "
+        f"rejections {summary['rejected_by_reason']}, heavy+ share "
+        f"{summary['frac_heavy+']:.3f}; steals {cf['n_steals']} (host "
+        f"{sh_['cluster']['n_steals']}), hedges {cf['n_hedges']} (host "
+        f"{sh_['cluster']['n_hedges']})")
+
+    flush = l2_flusher(dev)
+    cases, seen = [], set()
+    for label, n_docs, scores in views:
+        want_v, want_i = topk_select_ref(scores, TOP_K)
+        got_v, got_i = topk_select(scores, TOP_K)
+        torch.cuda.synchronize()
+        if not torch.equal(got_i, want_i) or not torch.equal(
+                got_v.view(torch.int64), want_v.view(torch.int64)):
+            raise AssertionError(f"topk_select differs from the plain "
+                                 f"version on a fleet shard ({label}, "
+                                 f"{n_docs} docs, N {scores.shape[0]})")
+        n = int(scores.shape[0])
+        if n not in seen:
+            seen.add(n)
+            t = topk_timing(scores, TOP_K, flush)
+            cases.append({"n": n, "docs": n_docs, "ms": t["ms"],
+                          "plain_ms": t["plain_ms"],
+                          "library_ms": t["library_ms"],
+                          "bound_ms": t["bound_ms"]})
+    del flush
+    log(f"topk_select on the fleet's shards: {len(views)} shards (before "
+        f"and after the handoff) exactly equal to the plain version; "
+        + "; ".join(f"N {c['n']}: kernel {c['ms']:.4f} ms, plain "
+                    f"{c['plain_ms']:.4f}, torch.topk "
+                    f"{c['library_ms']:.4f}, bound {c['bound_ms']:.6f}"
+                    for c in cases))
+    return cases
+
+
+def phase_chaos(dev) -> dict:
+    """The chaos trace of CHAOS_ARGV through the serve launcher's own
+    functions, twice on one calibrated config: the smoke-width evaluator
+    measured on the card sets the simulated rate, the oracle evaluator
+    answers, every replica's Trust DB lives on the card. Both replays
+    must hold no-drop and give one fingerprint."""
+    args = serve._parser().parse_args(CHAOS_ARGV + ["--device", "cuda"])
+    _, _, rate = serve.calibrate(args.arch, dev)
+    cfg = serve.serve_config(args, rate)
+    prints = []
+    for run in range(2):
+        coord, rep = serve.trace_fleet(args, cfg, rate, dev)
+        if not serve.report_trace(args, coord, rep):
+            raise AssertionError(f"chaos run {run}: no-drop violated")
+        if coord.replicas[0].engine.shedder.cache["keys"].device.type \
+                != dev.type:
+            raise AssertionError("chaos: the Trust DB is not on the card")
+        prints.append(response_fingerprint(rep.responses))
+    if prints[0] != prints[1]:
+        raise AssertionError(f"chaos: replays differ {prints}")
+    st = rep.scheduler_stats
+    log(f"chaos: trace replayed twice at {rate:,.0f} items/s (the smoke "
+        f"evaluator's rate on the card): fingerprints equal {prints[0]}; "
+        f"{len(rep.responses)} responses, {st['n_executor_errors']} "
+        f"executor errors, {st['n_quarantined']} quarantined, events "
+        f"{[row[1] for row in rep.churn_log]}")
+    return {"fingerprint": prints[0], "responses": len(rep.responses)}
+
+
+def phase_baselines(evaluate, mk, dev) -> list:
+    """Paper Fig 3.2 on the wall clock with the full-width evaluator, as
+    the reference's real-evaluator variant runs it: the evaluator's rate
+    on the card (after warm-up, one chunk) sets Ucapacity and Uthreshold
+    at ``trust_ir.config()``'s deadlines, so "study in USA" at the
+    paper's 89,141 results is a Very-Heavy overload here as it was on
+    the paper's hardware; ``ProcessAll``, ``RLSEDA`` and
+    ``LoadShedder``, each warmed on disjoint keys first."""
+    base = trust_ir.config()
+    cs = base.chunk_size
+    chunk = {k: torch.as_tensor(v, device=dev)
+             for k, v in mk(cs, fseed=31).items()}
+    evaluate(chunk).float().cpu()
+    t0 = time.perf_counter()
+    reps = 8
+    for _ in range(reps):
+        evaluate(chunk).float().cpu()
+    rate = reps * cs / (time.perf_counter() - t0)
+    cfg = reduced(base, u_capacity=int(rate * base.deadline_s),
+                  u_threshold=int(rate * (base.overload_deadline_s
+                                          - base.deadline_s)))
+    n = PAPER_RESULTS
+    cut = ""
+    if n / rate > PROCESS_ALL_MAX_S:
+        n = int(rate * PROCESS_ALL_MAX_S)
+        cut = (f" (cut from {PAPER_RESULTS}: ProcessAll would take "
+               f"{PAPER_RESULTS / rate:.1f} s at this rate)")
+    keys = np.arange(1, n + 1, dtype=np.uint32)
+    buckets = (np.arange(n) % 64).astype(np.int32)
+    feats = mk(n, fseed=PAPER_RESULTS)
+    warm_n = 4 * cs
+    warm = (np.arange(2_000_001, 2_000_001 + warm_n, dtype=np.uint32),
+            np.zeros(warm_n, np.int32), mk(warm_n, fseed=32))
+    log(f"baselines: evaluator {rate:,.1f} items/s on the card (chunks of "
+        f"{cs}) -> Ucapacity {cfg.u_capacity}, Uthreshold "
+        f"{cfg.u_threshold} at deadlines {cfg.deadline_s} / "
+        f"{cfg.overload_deadline_s} s; query {PAPER_QUERY!r} with {n} "
+        f"results{cut}")
+    rows = []
+    for name, cls, kw in (("ProcessAll", ProcessAll, {}),
+                          ("RLSEDA", RLSEDA, {"seed": SEED}),
+                          ("LoadShedder", LoadShedder, {})):
+        shed = cls(cfg, evaluate, device=dev, **kw)
+        shed.process(*warm)
+        ucap, uthr = shed.monitor.parameters()  # what the run starts from
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = shed.process(keys, buckets, feats)
+        wall = time.perf_counter() - t0
+        if not np.isfinite(res.trust).all():
+            raise AssertionError(f"{name}: trust not finite")
+        invalid = int((res.tier == TIER_INVALID).sum())
+        row = {"system": name, "n": n, "wall_s": wall,
+               "response_time_s": res.response_time_s,
+               "deadline_eff_s": res.deadline_eff_s,
+               "regime": res.regime.name, "n_evaluated": res.n_evaluated,
+               "n_cached": res.n_cached, "n_prior": res.n_prior,
+               "n_dropped": invalid}
+        rows.append(row)
+        log(f"baselines: {name:<11} response {res.response_time_s:.3f} s "
+            f"(wall {wall:.3f} s), {res.regime.name}, evaluated "
+            f"{res.n_evaluated} cached {res.n_cached} prior {res.n_prior}"
+            f", dropped {invalid}{cut if name == 'ProcessAll' else ''}")
+        if name == "ProcessAll" and (res.n_evaluated != n or invalid):
+            raise AssertionError("ProcessAll did not evaluate every item")
+        if name == "RLSEDA":
+            if invalid != n - min(n, ucap + uthr) or invalid == 0:
+                raise AssertionError(f"RLSEDA left {invalid} items at "
+                                     f"TIER_INVALID, expected "
+                                     f"{n - min(n, ucap + uthr)}")
+        if name == "LoadShedder":
+            bound = res.deadline_eff_s + cs / rate
+            if invalid or res.response_time_s > bound:
+                raise AssertionError(f"LoadShedder: response "
+                                     f"{res.response_time_s:.3f} s > "
+                                     f"deadline_eff + one chunk "
+                                     f"{bound:.3f} s, or dropped "
+                                     f"{invalid}")
+    log(f"baselines: LoadShedder answered every item within deadline_eff "
+        f"{rows[2]['deadline_eff_s']:.3f} s + one chunk "
+        f"{cs / rate:.3f} s, "
+        f"{rows[0]['response_time_s'] / rows[2]['response_time_s']:.2f}x "
+        f"faster than ProcessAll; RLSEDA dropped {rows[1]['n_dropped']} "
+        f"items (its flaw)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the serving engine on the full-width DLRM evaluator
 # ---------------------------------------------------------------------------
 
@@ -1587,6 +2018,28 @@ def main() -> int:
                           "engine", smollm_expect)
     phase_engine_parity(ecfg, lambda: retrieval.searcher([shard]), evaluate,
                         dev, "engine", TRUST_ATOL)
+    fcfg = reduced(trust_ir.config(), n_replicas=FLEET_REPLICAS,
+                   drain_mode="fused", pipeline_depth=2,
+                   corpus_docs=CORPUS_DOCS)
+    seconds = {}
+    t0 = time.monotonic()
+    fleet_launches, fleet_searcher, views = phase_fleet(
+        fcfg, retrieval, shard, evaluate, mk, dev)
+    seconds["fleet"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    fleet_topk = phase_fleet_parity(fcfg, fleet_searcher, evaluate, views,
+                                    dev)
+    del fleet_searcher, views
+    seconds["fleet_parity"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_chaos(dev)
+    seconds["chaos"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_baselines(evaluate, mk, dev)
+    seconds["baselines"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fleet phases: seconds {json.dumps(seconds)}")
     dlrm = phase_dlrm(ecfg, corpus, shard, dev)
     gc.collect()                       # the DLRM tables go with the phase
     torch.cuda.empty_cache()
@@ -1594,13 +2047,16 @@ def main() -> int:
         f"GiB still allocated")
     decode = phase_decode(dev)
 
-    path_launches = dict(engine["launches"])
+    path_launches = {name: engine["launches"][name] + fleet_launches[name]
+                     for name in KERNELS}
     path_launches["dot_interaction"] = dlrm["launches"]["dot_interaction"]
     path_launches["flash_decode"] = decode["launches"]["flash_decode"]
     for kern in kernels:
         if kern["name"] == "dot_interaction":
             kern["dlrm_feats_max_abs_err"] = dlrm["feats_err"]
             kern["max_abs_err"] = max(kern["max_abs_err"], dlrm["feats_err"])
+        if kern["name"] == "topk_select":
+            kern["fleet_shard_cases"] = fleet_topk
         kern["launches"] = path_launches[kern["name"]]
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "

@@ -4,8 +4,9 @@ Counterpart of ``repro.configs.base``, cut to the fields the port
 reads: the dense transformer of the trust evaluator, the DLRM
 recommender (the other evaluator backbone the port serves), the load
 shedder's parameters, the drain executor, the scheduler's quarantine,
-and the retrieval front end. Later slices add the fields their modules
-read.
+the serving fleet (replicas, gossip, autoscaling, forecasting, and the
+fan-out fields ``configs.trust_ir`` sets), and the retrieval front end.
+Later slices add the fields their modules read.
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ class RecsysConfig:
 class TrustIRConfig:
     """The paper's serving-pipeline parameters (defaults as in
     ``repro.configs.base.TrustIRConfig``)."""
+    name: str = "trust_ir"
     # Load shedder parameters (paper §4)
     u_capacity: int = 2048              # URLs evaluable within base deadline
     u_threshold: int = 1024             # extra URLs within overload deadline
@@ -94,11 +96,37 @@ class TrustIRConfig:
     adaptive_depth_latency_frac: float = 0.5
     adaptive_depth_hysteresis: int = 2
     adaptive_depth_cooldown_ticks: int = 2
+    # Serving fleet (cluster): independent replica engines; weights bias
+    # the consistent-hash ring's virtual-node counts (empty = equal)
+    n_replicas: int = 1
+    replica_weights: Tuple[float, ...] = ()
+    # Elastic membership: with max_replicas > 0 the autoscaler may join
+    # and gracefully remove replicas in [max(min_replicas, 1),
+    # max_replicas]; 0 = membership fixed at n_replicas
+    min_replicas: int = 0
+    max_replicas: int = 0
+    # Cross-replica Trust-DB gossip of fresh cache fills, delivered to
+    # every sibling ("broadcast") or to ceil(log2 n) sampled peers plus
+    # an anti-entropy pull ("epidemic")
+    gossip: bool = False
+    gossip_mode: str = "broadcast"
     # Poison-pill quarantine (scheduling.quarantine): open a breaker
     # after quarantine_k executor errors of one work signature, probe
     # again after quarantine_probe_after_s; 0 = disabled
     quarantine_k: int = 0
     quarantine_probe_after_s: float = 2.0
+    # WatermarkAutoscaler hysteresis (cluster.autoscale_watermarks):
+    # scale up above up_pressure, down below down_pressure, then wait
+    # cooldown_ticks autoscaler updates before voting again
+    autoscale_up_pressure: float = 0.75
+    autoscale_down_pressure: float = 0.15
+    autoscale_cooldown_ticks: int = 2
+    # Feedforward capacity planning (cluster.capacity): forecast the
+    # arrival curve warmup_lead_s ahead over a sliding window and vote
+    # prewarmed joins before the predicted breach; False = reactive only
+    forecast: bool = False
+    warmup_lead_s: float = 0.5
+    forecast_window_s: float = 2.0
     # Retrieval front end (retrieval): the synthetic corpus is fully
     # determined by (corpus_docs, corpus_vocab, corpus_zipf_a,
     # corpus_seed)
@@ -109,6 +137,15 @@ class TrustIRConfig:
     index_block_docs: int = 512         # documents per index build block
     index_partitions: int = 16          # doc-partition stripes
     retrieve_top_k: int = 64            # candidate-set size per query
+    # Tail-tolerant scatter-gather (the reference's ``repro.fanout``,
+    # not ported yet: a coordinator that would build its searcher
+    # raises). quorum_k 0 = synchronous full gather.
+    fanout_quorum_k: int = 0
+    fanout_adaptive_quorum: bool = False
+    fanout_hedge_after_s: float = 0.0
+    fanout_slow_factor: float = 2.5
+    fanout_recover_factor: float = 1.4
+    fanout_max_mirrors: int = 2
 
 
 def reduced(cfg, **overrides):

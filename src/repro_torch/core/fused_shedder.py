@@ -61,10 +61,11 @@ class StagedBatch:
     """One micro-batch after its host->device transfer."""
 
     __slots__ = ("keys_t", "buckets_t", "valid_t", "feats_t", "n",
-                 "n_total", "t_start", "wall_start")
+                 "n_total", "t_start", "wall_start", "item_keys")
 
     def __init__(self, keys_t, buckets_t, valid_t, feats_t, n: int,
-                 n_total: int, t_start: float, wall_start: float):
+                 n_total: int, t_start: float, wall_start: float,
+                 item_keys: Optional[np.ndarray] = None):
         self.keys_t = keys_t
         self.buckets_t = buckets_t
         self.valid_t = valid_t
@@ -73,6 +74,7 @@ class StagedBatch:
         self.n_total = n_total
         self.t_start = t_start
         self.wall_start = wall_start
+        self.item_keys = item_keys
 
 
 class PendingShed:
@@ -89,7 +91,8 @@ class PendingShed:
                  n_evald, *, t_start: float, wall_start: float,
                  n: int, regime, deadline_eff: float,
                  skip_observe: bool = False,
-                 done: Optional[torch.cuda.Event] = None):
+                 done: Optional[torch.cuda.Event] = None,
+                 item_keys: Optional[np.ndarray] = None):
         self._shedder = shedder
         self._trust = trust
         self._tier = tier
@@ -101,6 +104,8 @@ class PendingShed:
         self._deadline_eff = deadline_eff
         self._skip_observe = skip_observe
         self._done = done
+        # host keys of the batch, for the shedder's on_shed tap
+        self._item_keys = item_keys
         self._result: Optional[ShedResult] = None
         # Wall time at which the step was FIRST observed complete
         # (stamped by is_ready): the honest end of the throughput window
@@ -200,7 +205,8 @@ class FusedLoadShedder(LoadShedder):
             buckets_t=put(np.asarray(buckets, np.int32)),
             valid_t=put(valid),
             feats_t={k: put(v) for k, v in features.items()},
-            n=n, n_total=n_total, t_start=t_start, wall_start=wall_start)
+            n=n, n_total=n_total, t_start=t_start, wall_start=wall_start,
+            item_keys=np.asarray(item_keys))
 
     def dispatch_staged(self, staged: StagedBatch) -> PendingShed:
         """Back half: launch the shedding step on staged tensors without
@@ -236,7 +242,8 @@ class FusedLoadShedder(LoadShedder):
                               wall_start=staged.wall_start,
                               n=n, regime=regime,
                               deadline_eff=deadline_eff,
-                              skip_observe=not warm, done=done)
+                              skip_observe=not warm, done=done,
+                              item_keys=staged.item_keys)
         if self.sim_clock is not None:
             pending.result()
         return pending
@@ -286,6 +293,8 @@ class FusedLoadShedder(LoadShedder):
             uload=p._n)
         if self.adaptive is not None:
             self.adaptive.observe(result)
+        if self.on_shed is not None and p._item_keys is not None:
+            self.on_shed(p._item_keys, result)
         return result
 
     # -- synchronous API (drop-in for LoadShedder.process) --------------------

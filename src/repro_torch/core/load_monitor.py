@@ -11,7 +11,7 @@ Config values seed the estimate before any measurement exists.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Hashable, Optional, Tuple
+from typing import Callable, Hashable, Optional, Tuple
 
 from repro_torch.configs.base import TrustIRConfig
 
@@ -60,6 +60,10 @@ class LoadMonitor:
     # factor of the current estimate before blending, so one
     # pathological sample cannot whipsaw the EWMA.
     rate_clamp_mult: float = 8.0
+    # Optional tap for accepted observations (the fleet's
+    # ServiceTimeModel subscribes here); fired only for samples past the
+    # warmup and validity filters.
+    on_observe: Optional[Callable[[int, float], None]] = None
 
     @property
     def rate(self) -> float:
@@ -81,6 +85,8 @@ class LoadMonitor:
                     self.rate_clamp_mult * self._rate)
             self._rate = self.ewma * r + (1 - self.ewma) * self._rate
         self.n_observations += 1
+        if self.on_observe is not None:
+            self.on_observe(n_items, elapsed_s)
 
     def parameters(self) -> Tuple[int, int]:
         """Current (Ucapacity, Uthreshold)."""

@@ -218,6 +218,10 @@ class LoadShedder:
         # optional AdaptiveWeightController (core.adaptive): closes the
         # loop on the Very-Heavy extension weight (paper §7)
         self.adaptive = adaptive
+        # Optional per-shed tap ``on_shed(item_keys, result)`` (a fleet
+        # replica records its fresh evaluations here for gossip)
+        self.on_shed: Optional[Callable[[np.ndarray, "ShedResult"],
+                                        None]] = None
         # Shared warmup exclusion (host and fused paths apply the SAME
         # rule, so their Ucapacity estimates are comparable).
         self._warmup = WarmupGate()
@@ -347,4 +351,6 @@ class LoadShedder:
             uload=n)
         if self.adaptive is not None:
             self.adaptive.observe(result)
+        if self.on_shed is not None:
+            self.on_shed(np.asarray(item_keys), result)
         return result

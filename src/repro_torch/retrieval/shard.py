@@ -339,10 +339,12 @@ class CorpusSearcher:
 
 class CorpusRetrieval:
     """Doc-partitioned retrieval: the corpus splits into
-    ``n_partitions`` contiguous doc-id stripes;
-    every shard scores with one set of collection-global statistics, so
-    a doc-partitioned set of shards ranks exactly like one big index.
-    Shards it builds live on ``device``."""
+    ``n_partitions`` contiguous doc-id stripes; partition ``p`` routes
+    through a fleet's consistent-hash ring under ``"docpart:p"``, so
+    replica joins and leaves move exactly the stripes ``remap_diff``
+    claims. Every shard scores with one set of collection-global
+    statistics, so a doc-partitioned set of shards ranks exactly like
+    one big index. Shards it builds live on ``device``."""
 
     def __init__(self, corpus: SyntheticCorpus, n_partitions: int = 16,
                  *, block_docs: int = 512, k1: float = BM25_K1,
@@ -369,6 +371,21 @@ class CorpusRetrieval:
                 df[t] = df.get(t, 0) + 1
         self.stats = CollectionStats(
             n_docs=n, avg_dl=max(total_len / max(n, 1), 1e-6), df=df)
+
+    @staticmethod
+    def partition_key(p: int) -> str:
+        """The ring key of partition ``p`` (a fleet routes stripes
+        through the same consistent-hash ring as tenants)."""
+        return f"docpart:{p}"
+
+    def partition_keys(self) -> List[str]:
+        return [self.partition_key(p) for p in range(self.n_partitions)]
+
+    @staticmethod
+    def partition_index(key: str) -> int:
+        if not key.startswith("docpart:"):
+            raise ValueError(f"not a partition key: {key!r}")
+        return int(key.split(":", 1)[1])
 
     def partition_doc_ids(self, p: int) -> List[int]:
         return list(range(self._bounds[p], self._bounds[p + 1]))

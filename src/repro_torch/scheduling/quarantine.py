@@ -162,8 +162,40 @@ class PoisonQuarantine:
             br.state = CLOSED
             br.strikes = 0
 
+    # -- restart banking -----------------------------------------------------
+
+    def adopt(self, other: "PoisonQuarantine") -> None:
+        """Inherit ``other``'s breaker state and lifetime stats.
+
+        A rolling restart rebuilds the serving engine — and with it the
+        scheduler's quarantine — from scratch.  Without banking, every
+        OPEN breaker is forgotten and the restarted replica re-eats
+        ``k`` poison strikes per known-bad signature, wave after wave.
+        ``ReplicaHandle.restart`` calls this right after the rebuild
+        (next to the scheduler-counter banking) so breakers ride
+        through.  The replica clock is monotone across a restart (the
+        new engine's clock resumes at ``now + downtime``), so inherited
+        ``opened_t`` values keep their meaning for half-open timing.
+        """
+        self._breakers = other._breakers
+        self.stats = other.stats
+
     # -- introspection -------------------------------------------------------
 
     @property
     def any_tracked(self) -> bool:
         return bool(self._breakers)
+
+    def state_of(self, sig: str) -> str:
+        br = self._breakers.get(sig)
+        return br.state if br is not None else CLOSED
+
+    def per_signature(self) -> Dict[str, Dict[str, object]]:
+        return {sig: {"state": br.state, "strikes": br.strikes,
+                      "n_errors": br.n_errors, "n_blocked": br.n_blocked,
+                      "n_probes": br.n_probes}
+                for sig, br in self._breakers.items()}
+
+    def max_errors_per_signature(self) -> int:
+        return max((br.n_errors for br in self._breakers.values()),
+                   default=0)

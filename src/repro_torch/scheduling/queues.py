@@ -17,7 +17,7 @@ from __future__ import annotations
 import heapq
 import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.scheduling.priorities import Priority
 
@@ -104,6 +104,47 @@ class EDFQueue:
         """Heap-order iteration (NOT sorted); for scans, not draining."""
         return (q for _, _, q in self._heap)
 
+    def pop_back(self, cost_fn: Optional[Callable] = None,
+                 max_candidates: int = 8) -> Optional[QueuedRequest]:
+        """Remove a non-head entry for a thief — the work-stealing
+        primitive. Never touches the head, so the victim's EDF drain
+        order is unchanged for every request that remains.
+
+        Without ``cost_fn``: the entry with the LATEST deadline leaves
+        (with >= 2 entries the max-key entry is never the min-key
+        head). With ``cost_fn(qreq) -> float`` (cost-aware stealing):
+        the HIGHEST-cost entry among the ``max_candidates`` LATEST-
+        deadline non-head entries leaves — stealing a cache-cold
+        request moves real work to the idle sibling, where stealing a
+        cache-hot one would displace cold work only to re-evaluate warm
+        items on a cold cache. Scoring is bounded to the back region
+        because each cost probe may be a device lookup; deadline breaks
+        ties (latest first), so ``cost_fn=None`` and a constant cost_fn
+        pick identically.
+        """
+        if not self._heap:
+            return None
+        if cost_fn is None:
+            i = max(range(len(self._heap)),
+                    key=lambda j: self._heap[j][:2])
+        else:
+            head_j = min(range(len(self._heap)),
+                         key=lambda j: self._heap[j][:2]) \
+                if len(self._heap) > 1 else None
+            back = heapq.nlargest(
+                max(max_candidates, 1),
+                (j for j in range(len(self._heap)) if j != head_j),
+                key=lambda j: self._heap[j][:2])
+            i = max(back, key=lambda j: (cost_fn(self._heap[j][2]),) +
+                    self._heap[j][:2])
+        _, _, qreq = self._heap[i]
+        last = self._heap.pop()
+        if i < len(self._heap):
+            self._heap[i] = last
+            heapq.heapify(self._heap)
+        self.n_items -= qreq.n_items
+        return qreq
+
 
 class PriorityQueueBank:
     """Strict-priority bank of per-class EDF queues."""
@@ -139,3 +180,32 @@ class PriorityQueueBank:
 
     def fill_frac(self, priority: Priority) -> float:
         return self.queues[priority].fill_frac()
+
+    def steal_back(self, min_leave: int = 1,
+                   cost_fn: Optional[Callable] = None
+                   ) -> Optional[QueuedRequest]:
+        """Pop from the back of the lowest-importance non-empty class.
+
+        Victim-side work stealing: least-important work leaves first,
+        and a class is only robbed while more than ``min_leave``
+        entries remain — with the default of 1 the head of every class
+        stays in place, so the victim's EDF drain order is never
+        reordered by a steal. Within the robbed class, ``cost_fn``
+        (estimated evaluation cost, e.g. items x Trust-DB miss
+        probability on the victim) selects WHICH non-head entry leaves
+        — cache-cold work migrates, cache-hot work stays where its
+        cache is warm; without it the latest-deadline back entry leaves
+        (the original policy, and the tie-break either way).
+
+        The CRITICAL queue is never robbed: it is next to drain here
+        anyway, and it may hold escalated hedge twins (entries whose
+        ``priority`` is their ORIGINAL class) — a thief re-pushing one
+        via ``push`` would silently demote it out of escalation.
+        """
+        for p in reversed(list(Priority)):
+            if p is Priority.CRITICAL:
+                continue
+            q = self.queues[p]
+            if len(q) > min_leave:
+                return q.pop_back(cost_fn=cost_fn)
+        return None

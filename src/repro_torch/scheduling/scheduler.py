@@ -38,7 +38,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.cluster.depth import controller_from_config
 from repro_torch.configs.base import TrustIRConfig
 from repro_torch.core.regimes import Regime, classify
 from repro_torch.core.shedder import (LoadShedder, ShedResult, TIER_CACHED,
@@ -187,6 +186,7 @@ class Scheduler:
         # ServiceTimeModel so the latency signal reads the same
         # per-stage fits the capacity planner maintains; standalone the
         # controller runs on the scheduler's own queue-delay EWMA.
+        from repro_torch.cluster.depth import controller_from_config
         self.depth_controller = controller_from_config(cfg)
         self._queue_delay_ewma: Optional[float] = None
 

@@ -74,9 +74,10 @@ class ServingEngine:
     def __init__(self, cfg: TrustIRConfig, evaluate_chunk: Callable,
                  sim_clock: Optional[SimClock] = None,
                  sched_cfg: Optional[SchedulerConfig] = None,
-                 kv_pool=None,
+                 kv_pool=None, request_ids=None,
                  drain_mode: Optional[str] = None,
                  evaluate_batch: Optional[Callable] = None,
+                 fused_max_evals: Optional[int] = None,
                  retriever=None,
                  feature_sharding=None, device=None):
         """``drain_mode`` (default ``cfg.drain_mode``) selects the
@@ -85,7 +86,10 @@ class ServingEngine:
         step per batch (``core.fused_shedder``). Both take an evaluator
         in the port's protocol (a dict of tensors on the engine's device
         in, a tensor of scores out); ``evaluate_batch`` overrides
-        ``evaluate_chunk`` for the fused step.
+        ``evaluate_chunk`` for the fused step. ``fused_max_evals`` caps
+        the fused evaluator batch width (default: the full padded batch
+        — always tier-exact; a smaller cap demotes overflow evals to the
+        prior).
 
         ``retriever`` (a ``retrieval.CorpusSearcher`` or anything with
         ``search(query, n) -> SearchResults``) enables
@@ -113,7 +117,7 @@ class ServingEngine:
             shedder = FusedLoadShedder(
                 cfg, evaluate_batch or evaluate_chunk,
                 monitor=self.monitor, sim_clock=sim_clock,
-                device=self.device)
+                max_evals=fused_max_evals, device=self.device)
         else:
             shedder = LoadShedder(cfg, evaluate_chunk,
                                   monitor=self.monitor,
@@ -122,7 +126,10 @@ class ServingEngine:
         self.scheduler = Scheduler(cfg, shedder,
                                    sched_cfg or SchedulerConfig(),
                                    now=self._now, kv_pool=kv_pool)
-        self._ids = itertools.count()
+        # ``request_ids`` lets a ClusterCoordinator share one id source
+        # across replica engines so request ids stay fleet-unique.
+        self._ids = request_ids if request_ids is not None \
+            else itertools.count()
         self.completed: List[Response] = []
         # Retrieval front end (retrieval): optional — engines fed
         # pre-retrieved candidate sets never touch it.

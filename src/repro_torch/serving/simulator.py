@@ -15,8 +15,14 @@ collects response-time / trust-fidelity / recall distributions.
   micro-batches, reporting per-priority latency, admission outcomes,
   and regime mix.
 
-The fleet drivers of the reference (``run_cluster_workload`` and the
-membership-churn ones) belong to the cluster slice of the port.
+* :func:`run_cluster_workload` — the same arrival model against an
+  N-replica ``ClusterCoordinator`` (``cluster``): tenants route through
+  the consistent-hash ring, replicas drain round-robin on independent
+  simulated clocks, queues rebalance by work-stealing, and stuck
+  requests hedge onto real backup replicas.
+* :func:`run_churn_workload` — the cluster driver under *membership
+  churn*: a deterministic schedule of join / graceful-leave / crash
+  events fires as the arrival clock passes each event time.
 """
 from __future__ import annotations
 
@@ -125,6 +131,8 @@ class MultiTenantWorkload:
 class SchedSimReport:
     responses: List                      # scheduling.Response, completion order
     scheduler_stats: Dict
+    # (t, action, replica_id, n_replicas_after) rows from churn runs.
+    churn_log: List[Tuple] = field(default_factory=list)
 
     def _admitted(self):
         return [r for r in self.responses if r.admitted]
@@ -230,3 +238,145 @@ def run_scheduled_workload(engine, searcher: SyntheticSearcher,
     engine.drain()
     return SchedSimReport(responses=list(engine.completed[n0:]),
                           scheduler_stats=engine.scheduler_stats())
+
+
+def run_cluster_workload(coordinator, searcher: SyntheticSearcher,
+                         wl: MultiTenantWorkload) -> SchedSimReport:
+    """Drive an N-replica ``ClusterCoordinator`` with the same
+    multi-tenant Poisson arrival stream as
+    :func:`run_scheduled_workload` (``n_replicas=1`` reproduces it).
+
+    Arrivals carry their global timestamp so each routed replica's
+    simulated clock fast-forwards onto the shared timeline; a drain
+    round (one micro-batch per replica, preceded by steal + hedge
+    scans) fires whenever the fleet backlog reaches one per-replica
+    batch budget, plus a final flush."""
+    n0 = len(coordinator.completed)
+    for t_arr, tenant, prio, n_res, query in make_arrivals(wl):
+        res = searcher.search(query, n_res)
+        feats = dict(res.features)
+        feats["trust"] = res.exact_trust
+        coordinator.enqueue(res.url_ids, res.buckets, feats,
+                            slo_s=tenant.slo_s, priority=prio,
+                            tenant=tenant.name, t_arrival=t_arr)
+        # One round drains up to one batch per replica: let a full
+        # round's worth of backlog build (keeps batches full AND gives
+        # the steal scan material to rebalance with).
+        if coordinator.queued_items >= coordinator.max_batch_items \
+                * coordinator.n_replicas:
+            coordinator.drain(max_rounds=1)
+    coordinator.drain()
+    return SchedSimReport(responses=list(coordinator.completed[n0:]),
+                          scheduler_stats=coordinator.scheduler_stats())
+
+
+# ---------------------------------------------------------------------------
+# Membership churn (elastic cluster driver)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ChurnEvent:
+    """One scheduled membership change.
+
+    ``replica_id=None`` lets the driver pick deterministically: a
+    graceful ``leave`` drains out the lightest-loaded replica (cheapest
+    handoff), a ``crash`` kills the heaviest-loaded one (worst-case
+    journal replay), and a ``slow``/``recover`` pair degrades (then
+    heals) the lexicographically-first live replica.
+
+    ``slow`` pins a persistent service-time multiplier (``mult``) on
+    the replica's index shard through the coordinator's fanout service
+    model (``set_shard_slowdown``) — the degraded-disk scenario that
+    drives selective stripe replication; ``recover`` clears it. Both
+    are no-ops on fleets without a fanout model."""
+    t: float
+    action: str       # "join" | "leave" | "crash" | "slow" | "recover"
+    replica_id: Optional[str] = None
+    weight: float = 1.0
+    mult: float = 8.0                    # "slow" service multiplier
+
+    def __post_init__(self) -> None:
+        if self.action not in ("join", "leave", "crash", "slow",
+                               "recover"):
+            raise ValueError(f"unknown churn action {self.action!r}")
+
+
+def apply_churn_event(coordinator, ev: ChurnEvent) -> Tuple:
+    """Fire one :class:`ChurnEvent` against a live coordinator and
+    return a ``(t, action, replica_id, n_replicas)`` log row. Public so
+    scripted fault timelines (``chaos``) reuse the exact same
+    deterministic victim picks as the churn driver."""
+    if ev.action == "join":
+        h = coordinator.add_replica(weight=ev.weight,
+                                    replica_id=ev.replica_id,
+                                    now_t=ev.t)
+        return (ev.t, "join", h.replica_id, coordinator.n_replicas)
+    if ev.action in ("slow", "recover"):
+        rid = ev.replica_id or min(r.replica_id
+                                   for r in coordinator.replicas)
+        coordinator.set_shard_slowdown(
+            rid, ev.mult if ev.action == "slow" else 1.0)
+        return (ev.t, ev.action, rid, coordinator.n_replicas)
+    if coordinator.n_replicas <= 1:      # never kill the last replica
+        return (ev.t, f"{ev.action}-skipped", None,
+                coordinator.n_replicas)
+    rid = ev.replica_id
+    if rid is None:
+        key = (min if ev.action == "leave" else max)
+        rid = key(coordinator.replicas,
+                  key=lambda r: (r.queued_items, r.replica_id)
+                  ).replica_id
+    coordinator.remove_replica(rid, drain=(ev.action == "leave"))
+    return (ev.t, ev.action, rid, coordinator.n_replicas)
+
+
+def run_churn_workload(coordinator, searcher: SyntheticSearcher,
+                       wl: MultiTenantWorkload,
+                       schedule: List[ChurnEvent],
+                       round_s: Optional[float] = None
+                       ) -> SchedSimReport:
+    """:func:`run_cluster_workload` under membership churn: each
+    :class:`ChurnEvent` fires once the arrival clock passes its ``t``
+    (events with ``t`` past the last arrival fire before the final
+    flush). Deterministic end to end — same seed, same schedule, same
+    responses — which is what makes the chaos tests assertable.
+
+    Unlike :func:`run_cluster_workload`'s backlog-size drain trigger
+    (whose threshold scales with fleet size — a bigger fleet would wait
+    for a DEEPER backlog, penalizing joins), drains here fire on a time
+    cadence: one round per ``round_s`` of arrival time (default: one
+    per-replica batch service time), the way a continuously-busy
+    serving loop behaves. Membership-size effects then show up as real
+    capacity, not as driver batching artifacts. An empty ``schedule``
+    makes this the churn-free baseline driver."""
+    churn = sorted(schedule, key=lambda e: e.t)
+    ci = 0
+    log: List[Tuple] = []
+    n0 = len(coordinator.completed)
+    if round_s is None:
+        clock = coordinator.replicas[0].clock
+        rate = clock.rate if clock is not None else None
+        round_s = (coordinator.max_batch_items / rate
+                   if rate else 0.05)
+    next_drain = round_s
+    for t_arr, tenant, prio, n_res, query in make_arrivals(wl):
+        while ci < len(churn) and churn[ci].t <= t_arr:
+            log.append(apply_churn_event(coordinator, churn[ci]))
+            ci += 1
+        res = searcher.search(query, n_res)
+        feats = dict(res.features)
+        feats["trust"] = res.exact_trust
+        coordinator.enqueue(res.url_ids, res.buckets, feats,
+                            slo_s=tenant.slo_s, priority=prio,
+                            tenant=tenant.name, t_arrival=t_arr)
+        while next_drain <= t_arr:
+            coordinator.drain(max_rounds=1)
+            next_drain += round_s
+    while ci < len(churn):               # events past the last arrival
+        log.append(apply_churn_event(coordinator, churn[ci]))
+        ci += 1
+    coordinator.drain()
+    return SchedSimReport(responses=list(coordinator.completed[n0:]),
+                          scheduler_stats=coordinator.scheduler_stats(),
+                          churn_log=log)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import TrustIRConfig
+from repro_torch.core import average_trust as AT
 from repro_torch.core import trust_cache as TC
 from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import TIER_CACHED, SimClock
@@ -232,6 +233,29 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         shed_partition(keys, torch.ones(8, dtype=torch.bool), st["keys"],
                        st["values"], 4, 4, 4)                   # mixed devices
+
+
+@pytest.mark.parametrize("n_buckets", [1, 7, 64])
+def test_average_trust_update_repeats_its_bits_on_card(dev, n_buckets):
+    """The prior's per-bucket sums on the card give the same bits run
+    after run (a replayed trace must fingerprint the same), and agree
+    with the CPU's index-order sums within float32 rounding."""
+    g = torch.Generator().manual_seed(n_buckets)
+    n = 89_141
+    buckets = torch.randint(0, 1000, (n,), generator=g, dtype=torch.int32)
+    values = torch.rand(n, generator=g) * 5
+    mask = torch.rand(n, generator=g) < 0.7
+    state = AT.init(n_buckets)
+    outs = [AT.update({k: v.to(dev) for k, v in state.items()},
+                      buckets.to(dev), values.to(dev), mask.to(dev))
+            for _ in range(3)]
+    for out in outs[1:]:
+        for k in out:
+            assert torch.equal(out[k], outs[0][k]), k
+    cpu = AT.update(state, buckets, values, mask)
+    for k in cpu:
+        torch.testing.assert_close(outs[0][k].cpu(), cpu[k], rtol=0,
+                                   atol=1e-5)
 
 
 def test_fused_shedder_on_card_matches_cpu(dev):

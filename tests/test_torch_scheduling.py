@@ -6,7 +6,10 @@ adaptive pipeline depth) gives the same admissions, rejection reasons,
 batch packing, tiers and scheduler stats in both packages, on the
 deterministic stub evaluator of the reference's fused-drain tests.
 Trust is allclose (atol 1e-5: the frameworks round the sigmoid
-differently)."""
+differently). The fleet hooks — work stealing (``EDFQueue.pop_back``,
+``PriorityQueueBank.steal_back``) and the quarantine's restart banking
+(``adopt``) and introspection — take the same entries and report the
+same breakers."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 from repro.configs.base import TrustIRConfig as TrustIRConfig_j
 from repro.core import LoadShedder as LoadShedder_j, SimClock as SimClock_j
 from repro.scheduling import (MicroBatcher as MicroBatcher_j,
+                              PoisonQuarantine as PoisonQuarantine_j,
                               Priority as Priority_j,
                               PriorityQueueBank as PriorityQueueBank_j,
                               QueuedRequest as QueuedRequest_j,
@@ -25,7 +29,7 @@ from repro.scheduling import (MicroBatcher as MicroBatcher_j,
                               to_fused_inputs as to_fused_inputs_j)
 from repro_torch.configs import TrustIRConfig
 from repro_torch.core.shedder import LoadShedder, SimClock
-from repro_torch.scheduling import (MicroBatcher, Priority,
+from repro_torch.scheduling import (MicroBatcher, PoisonQuarantine, Priority,
                                     PriorityQueueBank, QueuedRequest,
                                     Request, Scheduler, SchedulerConfig,
                                     to_fused_inputs)
@@ -217,3 +221,75 @@ def test_batcher_packing_and_fused_inputs_match_reference():
         np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
         np.testing.assert_array_equal(feats_t["x"].numpy(),
                                       np.asarray(feats_j["x"]))
+
+
+def _banks(seed, capacity=64):
+    script = [s for s in _script(seed) if s[0] == "submit"][:30]
+    banks = {"j": PriorityQueueBank_j(capacity),
+             "t": PriorityQueueBank(capacity)}
+    for pkg, bank in banks.items():
+        qcls, pcls = ((QueuedRequest_j, Priority_j) if pkg == "j"
+                      else (QueuedRequest, Priority))
+        for step in script:
+            bank.push(qcls(request=_request(pkg, step),
+                           priority=pcls(step[4]), tenant=step[5],
+                           deadline_t=step[2] + 1.0, enqueue_t=step[2]))
+    return banks
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("costed", [False, True], ids=["latest", "costed"])
+def test_steal_back_and_pop_back_match_reference(seed, costed):
+    """Victim-side stealing leaves every class head in place and picks
+    the same entries: the latest-deadline back entry, or the costliest
+    of the back region under a cost function."""
+    banks = _banks(seed)
+
+    def cost(qreq):                     # a stand-in for Trust-DB misses
+        return float(qreq.n_items % 7)
+
+    taken = {}
+    for pkg, bank in banks.items():
+        heads = {p.name: q.peek().request.request_id
+                 for p, q in bank.queues.items() if len(q)}
+        log = []
+        while True:
+            qreq = bank.steal_back(min_leave=1,
+                                   cost_fn=cost if costed else None)
+            if qreq is None:
+                break
+            log.append((qreq.request.request_id, qreq.priority.name))
+        # one more class-level pop_back with a small candidate window
+        crit = bank.queues[list(bank.queues)[0]]
+        got = crit.pop_back(cost_fn=cost if costed else None,
+                            max_candidates=3)
+        log.append(got.request.request_id if got is not None else None)
+        log.append(sorted(heads.items()))
+        for p, q in bank.queues.items():
+            if p.name != "CRITICAL" and len(q):
+                assert q.peek().request.request_id == heads[p.name]
+        taken[pkg] = log
+    assert taken["t"] == taken["j"]
+    assert len(taken["t"]) > 3
+
+
+def test_quarantine_adopt_and_introspection_match_reference():
+    out = {}
+    for pkg, cls in (("t", PoisonQuarantine), ("j", PoisonQuarantine_j)):
+        clock = {"t": 0.0}
+        q = cls(2, 1.0, lambda: clock["t"])
+        for i, sig in enumerate(["a", "b", "a", "c", "a", "b", "c", "c"]):
+            clock["t"] = 0.1 * i
+            q.record_failure(sig)
+            if sig == "c" and i == 3:
+                q.record_success("c")
+        clock["t"] = 2.0
+        checks = [q.check(s) for s in ("a", "b", "c", "d", "a")]
+        fresh = cls(2, 1.0, lambda: clock["t"])
+        fresh.adopt(q)
+        out[pkg] = (checks, fresh.per_signature(),
+                    [fresh.state_of(s) for s in "abcd"],
+                    fresh.max_errors_per_signature(),
+                    fresh.stats.as_dict(), fresh.any_tracked)
+    assert out["t"] == out["j"]
+    assert out["t"][3] == 3 and "half_open" in out["t"][2]

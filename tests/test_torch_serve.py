@@ -1,7 +1,9 @@
 """The port's serve launcher as a user runs it, on the CPU:
 ``--sync --device cpu`` over a small corpus exits 0 and prints one line
-per request and the P50/P99 scoreboard; every fleet mode exits 2 and
-names the ROADMAP item it waits for."""
+per request and the P50/P99 scoreboard; the scheduled fleet modes
+(replicas, trace, gossip, hedging, elastic membership, chaos) run at
+smoke width and exit 0; the flags still to port (tail-tolerant fan-out,
+``--sharded``) exit 2 and name the ROADMAP item they wait for."""
 import os
 import pathlib
 import subprocess
@@ -51,28 +53,72 @@ def test_sync_serve_dlrm_on_cpu_prints_its_scoreboard(extra):
     assert sum(l.lstrip().startswith("req ") for l in lines) == 3
     assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
 
-def test_scheduled_mode_exits_2_with_the_roadmap_pointer():
-    out = _serve("--device", "cpu")
-    assert out.returncode == 2
-    assert "ClusterCoordinator" in out.stderr
-    assert "ROADMAP.md, Queue 1, item 3" in out.stderr
-    assert out.stdout == ""
+def _assert_fleet_run(out, n_requests):
+    lines = out.splitlines()
+    assert "[scheduled x" in lines[0]
+    assert sum(l.lstrip().startswith("req ") for l in lines) == n_requests
+    assert any(l.startswith("scheduler: ") for l in lines)
+    assert any(l.startswith("cluster: ") for l in lines)
+    assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
+
+
+def test_scheduled_mode_exits_2_with_the_roadmap_pointer(capsys):
+    """The default scheduled mode (no ``--sync``) used to exit 2 until
+    the fleet was ported; it now serves through a one-replica
+    ``ClusterCoordinator`` and prints one line per request, the
+    scheduler and cluster counters and the scoreboard."""
+    from repro_torch.launch.serve import main
+    assert main(["--device", "cpu", "--n-requests", "6"]) == 0
+    out = capsys.readouterr()
+    _assert_fleet_run(out.out, 6)
+    assert "[scheduled x1 replica(s)]" in out.out
+
+
+CHAOS = ["--trace", "1", "--replicas", "6", "--chaos-flash", "4",
+         "--chaos-poison", "3", "--quarantine-k", "3", "--chaos-crash", "2",
+         "--chaos-restart", "--gossip", "--gossip-mode", "epidemic",
+         "--hedge-after-ms", "500"]
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--sync", "--replicas", "4"], 3),
-    (["--sync", "--trace", "2"], 3),
-    (["--sync", "--gossip"], 3),
-    (["--sync", "--hedge-after-ms", "5"], 3),
-    (["--sync", "--max-replicas", "3", "--forecast"], 3),
-    (["--sync", "--corpus", "64", "--quorum-k", "2"], 3),
-    (["--sync", "--chaos-poison", "2"], 3),
+    (["--replicas", "3", "--corpus", "192", "--n-requests", "8",
+      "--drain-mode", "fused"], None),
+    (["--trace", "1", "--replicas", "4"], None),
+    (["--replicas", "3", "--corpus", "192", "--n-requests", "8",
+      "--gossip"], None),
+    (["--replicas", "3", "--n-requests", "8", "--hedge-after-ms", "5"],
+     None),
+    (["--replicas", "2", "--max-replicas", "3", "--forecast",
+      "--n-requests", "8"], None),
+    (["--corpus", "64", "--quorum-k", "2"], 3),
+    (CHAOS, None),
     (["--sync", "--sharded", "--drain-mode", "fused"], 6),
 ], ids=["replicas", "trace", "gossip", "hedge", "elastic", "quorum",
         "chaos", "sharded"])
 def test_fleet_flags_exit_2_with_the_roadmap_pointer(args, item, capsys):
+    """Fleet modes used to exit 2 naming ROADMAP Queue 1 item 3; the
+    ported ones (replicas, trace, gossip, hedge, elastic, chaos) now run
+    on the CPU at smoke width and exit 0. The tail-tolerant fan-out
+    (``--quorum-k``) still exits 2 naming item 3 (fanout), and
+    ``--sharded`` item 6."""
     from repro_torch.launch.serve import main
-    assert main(["--device", "cpu", *args]) == 2
+    rc = main(["--device", "cpu", *args])
     out = capsys.readouterr()
-    assert f"ROADMAP.md, Queue 1, item {item}" in out.err
-    assert out.out == ""
+    if item is not None:
+        assert rc == 2
+        assert f"ROADMAP.md, Queue 1, item {item}" in out.err
+        assert out.out == ""
+        return
+    assert rc == 0, out.err
+    if "--trace" in args:
+        assert "no-drop OK" in out.out
+        assert any(l.startswith("P50 ") for l in out.out.splitlines())
+        if args is CHAOS:
+            assert "crash" in out.out and "rolling_restart" in out.out
+            assert "gossip[epidemic]" in out.out
+    else:
+        _assert_fleet_run(out.out, 8)
+        if "--corpus" in args:
+            assert "retrieval: " in out.out
+        if "--gossip" in args:
+            assert "gossip: " in out.out
