@@ -17,7 +17,7 @@ its path gives it:
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
 * ``flash_decode``: one-token attention against the KV cache.
 
-Then it drives four paths with seeded random weights, each with the
+Then it drives these paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
 
 * the serving engine on a full-width smollm-135m evaluator (the main
@@ -34,9 +34,19 @@ launch counts set to 0 just before it and read just after:
   shard size the fleet built, the chaos trace replayed twice (equal
   fingerprints) and the paper's Fig 3.2 comparison (``ProcessAll``,
   ``RLSEDA``, ``LoadShedder``) on the wall clock;
+* the same fleet with the tail-tolerant fan-out on SimClocks
+  (``fanout``): first-3-of-4 quorum gather, shard-probe hedges onto
+  mirror stripes, replica r0 slowed x8 for the middle of 480 queries so
+  a mirror is built on its ring sibling, wins hedges and is dropped
+  after the recovery; the mirror against r0, ``quorum_k == n`` against
+  the plain gather, and a replay's fingerprint;
 * the same engine on the full-width ``dlrm-mlperf`` evaluator
   (``dot_interaction``), its 26 tables capped at 20M rows to fit the
   card, and its host-vs-fused parity run;
+* the same engine on the full-width ``bst``, ``mind`` and
+  ``two-tower-retrieval`` evaluators in turn (``shed_partition`` and
+  ``topk_select`` only; the two-tower tables capped at 20M rows), each
+  with its host-vs-fused parity run and one profiled fused step;
 * KV-cache decode on the smollm-135m weights: 128 prompts prefilled
   (``flash_attention``) into a 128-slot ``KVCachePool``, 64
   ``decode_step``s over the pool (``flash_decode``), decode logits
@@ -77,6 +87,7 @@ from repro_torch.configs import trust_ir  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.core.baselines import RLSEDA, ProcessAll  # noqa: E402
 from repro_torch.core import trust_cache as TC  # noqa: E402
+from repro_torch.fanout import FanoutSearcher, ShardServiceModel  # noqa: E402
 from repro_torch.core.deadline import effective_deadline  # noqa: E402
 from repro_torch.core.fused_shedder import FusedLoadShedder  # noqa: E402
 from repro_torch.core.load_monitor import LoadMonitor  # noqa: E402
@@ -110,8 +121,8 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
 from repro_torch.serving.kv_cache import KVCachePool  # noqa: E402
 from repro_torch.serving.simulator import (  # noqa: E402
-    MultiTenantWorkload, TenantSpec, run_cluster_workload,
-    run_scheduled_workload)
+    ChurnEvent, MultiTenantWorkload, TenantSpec, make_arrivals,
+    run_churn_workload, run_cluster_workload, run_scheduled_workload)
 
 # Every kernel wrapper of the port, each with its launch count.
 KERNELS = {"shed_partition": shed_partition,
@@ -146,6 +157,13 @@ QUERIES_PER_DRAIN = ENGINE_BATCH // TOP_K   # 48 queries fill a batch
 # leaves 53.3 GB.
 DLRM_ROW_CAP = 20_000_000
 DLRM_TRUST_ATOL = 1e-4           # host vs fused drain, both float32
+# The other recommenders at their published widths: BST (arXiv:1905.06874,
+# 5.1M rows x 32, 0.65 GB) and MIND (arXiv:1904.08030, 11.0M rows x 64,
+# 2.82 GB) as published; the two-tower model (RecSys'19) has 62M rows x
+# 256 (63.5 GB), capped as DLRM at 20M rows a table: 32.0M rows, 32.8 GB.
+RECSYS_ARCHS = (("bst", 0), ("mind", 0),
+                ("two-tower-retrieval", DLRM_ROW_CAP))
+RECSYS_TRUST_ATOL = 1e-4         # host vs fused drain, both float32
 # KV-cache decode: decode_32k's global batch of slots (LM_SHAPES), the
 # published context length of SmolLM-135M, prompts that leave room for
 # the steps.
@@ -162,6 +180,16 @@ DECODE_LOGIT_ATOL = 0.1
 FLEET_REPLICAS = 4
 FLEET_EXTRA_QUERIES = 96         # served after the leave and the join
 FLEET_ORACLE_QUERIES = 16        # fleet searcher vs the Python BM25 oracle
+# The fan-out fleet: the launcher's straggler demo (r0 slowed x8) on the
+# fleet above, first 3 of 4 shards, shard-probe hedges after twice the
+# service model's 4 ms base; 64 queries/s of top-64 arrivals, so one
+# drain round (3072 items / 4096 items/s = 0.75 s) takes ~48 queries.
+FANOUT_QUERIES = 480
+FANOUT_QPS = 64.0
+FANOUT_QUORUM_K = 3
+FANOUT_HEDGE_AFTER_S = 0.008
+FANOUT_STRAGGLE_MULT = 8.0
+FANOUT_SLOW_AT, FANOUT_RECOVER_AT = 96, 288
 # The chaos trace of the verify notes, as launcher flags (a 2 s trace on
 # six replicas: flash crowd, query-of-death flood with the quarantine
 # armed, a regional failure of two replicas, a rolling restart, epidemic
@@ -1052,11 +1080,12 @@ KERNEL_GROUPS = (
 )
 
 
-def device_profile(label: str, fn) -> None:
+def device_profile(label: str, fn):
     """Device time of one call of ``fn`` by kernel group, and the card's
     busy share over the call's wall window (torch.profiler; the
     profiler's own host cost inflates the wall, so the share is a lower
-    bound)."""
+    bound). Returns the wall, busy time, share and launch count, or
+    None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1072,7 +1101,7 @@ def device_profile(label: str, fn) -> None:
     if not kernels:
         log(f"profile ({label}): the profiler recorded no device time (not "
             f"measured)")
-        return
+        return None
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
@@ -1091,6 +1120,9 @@ def device_profile(label: str, fn) -> None:
     for e in top:
         log(f"  top: {e.device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
             f"{e.key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+            "busy_share": busy_ms / (wall * 1e3),
+            "launches": sum(e.count for e in kernels)}
 
 
 def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
@@ -1628,6 +1660,212 @@ def phase_fleet_parity(fcfg: TrustIRConfig, searcher, evaluate, views,
     return cases
 
 
+# ---------------------------------------------------------------------------
+# phase 9c: the tail-tolerant fan-out (quorum gather, shard hedges, mirrors)
+# ---------------------------------------------------------------------------
+
+def fanout_run(fcfg: TrustIRConfig, retrieval, evaluate, dev, counted: bool):
+    """One fan-out fleet on SimClocks over FANOUT_QUERIES seeded arrivals
+    through ``run_churn_workload``, replica r0 slowed by a ``slow`` event
+    after FANOUT_SLOW_AT queries and healed by ``recover`` after
+    FANOUT_RECOVER_AT. With ``counted`` every launch count is set to 0
+    just before the run and read just after. Returns the coordinator,
+    its report, the mirrors ``add_mirror`` built (key, host, shard), the
+    launches, the wall seconds and the summed retrieve seconds."""
+    t0 = time.monotonic()
+    coord = ClusterCoordinator(
+        fcfg, evaluate, evaluate_batch=evaluate,
+        cluster_cfg=ClusterConfig(gossip=True),
+        sim_rate_items_per_s=fcfg.u_capacity / fcfg.deadline_s,
+        retrieval=retrieval, fanout_model=ShardServiceModel(seed=SEED),
+        device=dev)
+    build_s = time.monotonic() - t0
+    fan = coord.searcher
+    if not isinstance(fan, FanoutSearcher):
+        raise AssertionError("fan-out: the coordinator built no "
+                             "FanoutSearcher")
+    built = []
+    add_mirror = fan.add_mirror
+
+    def record(key, host, shard, warm=True):
+        built.append((key, host, shard))
+        add_mirror(key, host, shard, warm)
+
+    fan.add_mirror = record
+    qm = ZipfQueryModel.for_corpus(retrieval.corpus, seed=SEED + 9)
+    wl = MultiTenantWorkload(
+        tenants=[TenantSpec(f"tenant{i}", qps=FANOUT_QPS / 4,
+                            priority_mix={Priority.CRITICAL: 1.0,
+                                          Priority.HIGH: 2.0,
+                                          Priority.NORMAL: 4.0,
+                                          Priority.LOW: 1.0},
+                            min_results=TOP_K, max_results=TOP_K)
+                 for i in range(4)],
+        n_queries=FANOUT_QUERIES, seed=SEED + 9, query_model=qm)
+    arrivals = make_arrivals(wl)
+    events = [ChurnEvent(t=arrivals[FANOUT_SLOW_AT][0], action="slow",
+                         replica_id="r0", mult=FANOUT_STRAGGLE_MULT),
+              ChurnEvent(t=arrivals[FANOUT_RECOVER_AT][0],
+                         action="recover", replica_id="r0")]
+    timed = TimedSearcher(fan)
+    torch.cuda.synchronize()
+    if counted:
+        for wrapper in KERNELS.values():
+            wrapper.launches = 0
+    t1 = time.monotonic()
+    rep = run_churn_workload(coord, timed, wl, events)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = {name: w.launches for name, w in KERNELS.items()}
+    return coord, rep, built, launches, wall, timed.total_s, build_s
+
+
+def phase_fanout(fcfg: TrustIRConfig, retrieval, evaluate, dev) -> dict:
+    """``trust_ir.config()`` x FLEET_REPLICAS on the card with the fan-out
+    on: first-3-of-4 quorum gather, shard-probe hedges after 8 ms (twice
+    the service model's 4 ms base) onto mirror stripes, selective stripe
+    replication; the full-width evaluator shared. Replica r0's shard is
+    slowed x8 for the middle of the run (the launcher's straggler demo).
+    Checks: no-drop; every late stripe cache- or prior-answered; a
+    mirror of r0 built on its ring sibling, hedges won through it, and
+    dropped after the recovery; the mirror's top-64 equal to r0's bit
+    for bit; ``quorum_k == n`` equal to the plain fleet gather bit for
+    bit; ``topk_select`` launches == live shards a query + hedge wins +
+    warm probes; a replay gives the same fingerprint."""
+    fcfg = reduced(fcfg, fanout_quorum_k=FANOUT_QUORUM_K,
+                   fanout_hedge_after_s=FANOUT_HEDGE_AFTER_S)
+    coord, rep, built, launches, wall, retrieve_s, build_s = fanout_run(
+        fcfg, retrieval, evaluate, dev, counted=True)
+    fan = coord.searcher
+    live = live_shards(coord)
+    st = rep.scheduler_stats
+    fs, c = st["fanout"], st["cluster"]
+    rids = [r.request_id for r in rep.responses]
+    if len(rids) != FANOUT_QUERIES or len(set(rids)) != len(rids) \
+            or st["n_submitted"] != FANOUT_QUERIES:
+        raise AssertionError(f"fan-out: {FANOUT_QUERIES} requests, "
+                             f"{len(rids)} answers, {len(set(rids))} "
+                             f"distinct")
+    for r in rep.responses:
+        if not np.isfinite(r.trust).all() or len(r.trust) != len(r.tier):
+            raise AssertionError(f"fan-out request {r.request_id}: trust "
+                                 f"malformed")
+        if r.admitted and (r.tier == TIER_INVALID).any():
+            raise AssertionError(f"fan-out request {r.request_id} dropped "
+                                 f"an item")
+        if not r.admitted and not r.reason:
+            raise AssertionError(f"fan-out request {r.request_id} rejected "
+                                 f"without a reason")
+    if not fs["n_cache_fills"] + fs["n_prior_answered"] \
+            == fs["n_late_shards"] > 0:
+        raise AssertionError(f"fan-out: late stripes {fs}")
+    owners = coord.partition_owners()
+
+    def ring_sibling(rid):
+        first = min(p for p, owner in owners.items() if owner == rid)
+        return coord.ring.sibling_for(retrieval.partition_key(first),
+                                      exclude=(rid,))
+
+    # r0's mirror, and any a transient straggler earned, on the ring
+    # sibling of the slow replica's first stripe
+    sibling = ring_sibling("r0")
+    if ("r0", sibling) not in [b[:2] for b in built] \
+            or any(h != ring_sibling(k) for k, h, _ in built):
+        raise AssertionError(f"fan-out: mirrors built {[b[:2] for b in built]}"
+                             f", expected r0 on its ring sibling {sibling}")
+    if fs["n_shard_hedge_wins"] < 1 or c["n_stripe_replications"] \
+            != len(built) or c["n_mirror_drops"] != len(built) \
+            or fs["n_mirrors_live"] or any(r.mirrors for r in coord.replicas):
+        raise AssertionError(f"fan-out: hedges/mirrors {fs}, cluster {c}")
+    want = {"topk_select": FANOUT_QUERIES * len(live)
+            + fs["n_shard_hedge_wins"] + len(built),
+            "shed_partition": st["n_batches"],
+            "flash_attention": N_LAYERS * st["n_batches"],
+            "dot_interaction": 0, "flash_decode": 0}
+    if launches != want:
+        raise AssertionError(f"fan-out: launches {launches}, expected {want}"
+                             f" ({len(live)} live shards x {FANOUT_QUERIES} "
+                             f"queries + {fs['n_shard_hedge_wins']} hedge "
+                             f"wins + {len(built)} warm probes)")
+
+    qm = ZipfQueryModel.for_corpus(retrieval.corpus, seed=SEED + 10)
+    checks = [qm.sample() for _ in range(FLEET_ORACLE_QUERIES)]
+    mirror = next(m for k, _, m in built if k == "r0")
+    primary = coord.by_id["r0"].shard
+    for q in checks:
+        d0, s0 = primary.retrieve(q, TOP_K)
+        d1, s1 = mirror.retrieve(q, TOP_K)
+        if d0.tolist() != d1.tolist() or s0.tobytes() != s1.tobytes():
+            raise AssertionError(f"fan-out: the mirror of r0 ranks {q!r} "
+                                 f"differently from r0")
+    plain = CorpusSearcher(retrieval.corpus, live)
+    fan.quorum.quorum_k = len(live)
+    late0 = fan.n_late_shards
+    for q in checks:
+        d0, s0 = plain.retrieve(q, TOP_K)
+        d1, s1 = fan.retrieve(q, TOP_K)
+        if d0.tolist() != d1.tolist() or s0.tobytes() != s1.tobytes():
+            raise AssertionError(f"fan-out: quorum_k == n differs from the "
+                                 f"plain gather for {q!r}")
+    if fan.n_late_shards != late0:
+        raise AssertionError("fan-out: quorum_k == n left a stripe late")
+
+    replay, replay_rep, _, _, _, _, _ = fanout_run(fcfg, retrieval,
+                                                   evaluate, dev,
+                                                   counted=False)
+    prints = [response_fingerprint(rep.responses),
+              response_fingerprint(replay_rep.responses)]
+    if prints[0] != prints[1] \
+            or replay_rep.scheduler_stats["fanout"] != fs:
+        raise AssertionError(f"fan-out: the replay differs {prints}")
+    del replay, replay_rep
+
+    slo = coord.slo_stats()
+    stats = {"queries": FANOUT_QUERIES, "wall_s": wall,
+             "queries_per_s": FANOUT_QUERIES / wall,
+             "retrieve_ms_per_query": retrieve_s / FANOUT_QUERIES * 1e3,
+             "gather_p50_ms_simulated": fs["gather_p50_s"] * 1e3,
+             "gather_p99_ms_simulated": fs["gather_p99_s"] * 1e3,
+             "full_p50_ms_simulated": fs["full_p50_s"] * 1e3,
+             "full_p99_ms_simulated": fs["full_p99_s"] * 1e3,
+             "late_stripes": fs["n_late_shards"],
+             "hedges": fs["n_shard_hedges"],
+             "hedge_wins": fs["n_shard_hedge_wins"],
+             "mirrors_built": fs["n_mirrors_built"],
+             "mirrors_dropped": fs["n_mirrors_dropped"],
+             "batches": st["n_batches"], "launches": launches,
+             "fingerprint": prints[0]}
+    log(f"fan-out (ClusterCoordinator x{coord.n_replicas} fused on "
+        f"SimClocks, quorum {FANOUT_QUORUM_K} of {len(live)}, shard hedge "
+        f"after {FANOUT_HEDGE_AFTER_S * 1e3:.0f} ms, r0 x"
+        f"{FANOUT_STRAGGLE_MULT:.0f} from query {FANOUT_SLOW_AT} to "
+        f"{FANOUT_RECOVER_AT}; stripes indexed on the host in {build_s:.1f}"
+        f" s): {FANOUT_QUERIES} queries in {wall:.3f} s of wall clock = "
+        f"{stats['queries_per_s']:.1f} queries/s; retrieve "
+        f"{stats['retrieve_ms_per_query']:.3f} ms per query on the wall "
+        f"clock ({retrieve_s / wall:.3f} of it); simulated service model "
+        f"(not the card's time): gather p50/p99 "
+        f"{stats['gather_p50_ms_simulated']:.2f}/"
+        f"{stats['gather_p99_ms_simulated']:.2f} ms against the full "
+        f"gather's {stats['full_p50_ms_simulated']:.2f}/"
+        f"{stats['full_p99_ms_simulated']:.2f} ms; {fs['n_late_shards']} late"
+        f" stripes ({fs['n_cache_fills']} cache-filled, "
+        f"{fs['n_prior_answered']} prior-answered), {fs['n_shard_hedges']} "
+        f"shard hedges ({fs['n_shard_hedge_wins']} won by the mirror), "
+        f"mirrors built {[b[:2] for b in built]} (r0's ring sibling "
+        f"{sibling}) / dropped {fs['n_mirrors_dropped']} by the end; "
+        f"P50 {slo['p50_s'] * 1e3:.1f} ms, P99 {slo['p99_s'] * 1e3:.1f} ms "
+        f"simulated; {st['n_batches']} batches; every request answered "
+        f"once, no item dropped; launches {launches} == {want}")
+    log(f"fan-out: r0's mirror equals r0 on {len(checks)} queries (top-"
+        f"{TOP_K} ids and float64 score bits); quorum_k == n equals the "
+        f"plain fleet gather bit for bit on {len(checks)} queries; replay "
+        f"fingerprint equal {prints[0]}")
+    log(f"fan-out scheduler_stats: "
+        f"{json.dumps({k: v for k, v in st.items() if k != 'capacity'})}")
+    return stats
+
+
 def phase_chaos(dev) -> dict:
     """The chaos trace of CHAOS_ARGV through the serve launcher's own
     functions, twice on one calibrated config: the smoke-width evaluator
@@ -1853,6 +2091,93 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10b: the BST, MIND and two-tower evaluators on the main path
+# ---------------------------------------------------------------------------
+
+def phase_recsys(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
+    """Each recommender of RECSYS_ARCHS at its published widths (rows
+    capped where the entry says so), seeded weights drawn on the card:
+    one micro-batch's scores in [0, 5]; the main path's 384 queries
+    through ``ServingEngine`` on the 65536-document shard with the
+    arch's features; the host-vs-fused engine parity run; one fused
+    step under the profiler. Each evaluator's tables are freed before
+    the next is built."""
+    out = {}
+    for arch, cap in RECSYS_ARCHS:
+        full = get_config(arch)
+        used = cap_table_rows(full, cap) if cap else full
+        rows = {name: sum(E.padded_rows(t.vocab) for t in c.tables)
+                for name, c in (("full", full), ("used", used))}
+        width = 4 * full.embed_dim
+        cut = [(t.name, t.vocab, u.vocab) for t, u in zip(full.tables,
+                                                          used.tables)
+               if t.vocab != u.vocab]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        evaluate, mk = make_evaluator(arch, smoke=False, seed=SEED,
+                                      device=dev, max_table_rows=cap)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        log(f"{arch}: {len(full.tables)} tables of dim {full.embed_dim}, "
+            f"{rows['full']} padded rows ({rows['full'] * width / 1e9:.2f} "
+            f"GB f32) as published"
+            + (f"; capped at {cap} rows (cuts "
+               f"{', '.join(f'{n} {a}->{b}' for n, a, b in cut)}): "
+               f"{rows['used']} rows ({rows['used'] * width / 1e9:.2f} GB)"
+               if cut else "; nothing cut")
+            + f"; evaluator built on the card in {time.monotonic() - t0:.1f}"
+            f" s, {held / 1e9:.2f} GB of weights")
+        feats = {k: torch.as_tensor(v, device=dev)
+                 for k, v in mk(ENGINE_BATCH, fseed=800_001).items()}
+        scores = evaluate(feats)
+        if scores.shape != (ENGINE_BATCH,) or not torch.isfinite(
+                scores).all() or scores.min() < 0 or scores.max() > 5:
+            raise AssertionError(f"{arch}: scores {tuple(scores.shape)} "
+                                 f"outside [0, 5] or not finite")
+
+        def doc_features(docs, mk=mk):    # retrieved docs -> features
+            return mk(len(docs), fseed=int(docs[0]) % 1_000_000
+                      if len(docs) else 0)
+
+        def make_searcher(doc_features=doc_features):
+            return CorpusSearcher(corpus, [shard], feature_fn=doc_features)
+
+        def expect(n_searches, n_batches):
+            return {"topk_select": n_searches, "shed_partition": n_batches,
+                    "flash_attention": 0, "dot_interaction": 0,
+                    "flash_decode": 0}
+
+        stats = phase_engine(cfg, make_searcher(), evaluate, dev,
+                             f"{arch} engine", expect)
+        phase_engine_parity(cfg, make_searcher, evaluate, dev,
+                            f"{arch} engine", RECSYS_TRUST_ATOL)
+        fused = FusedLoadShedder(cfg, evaluate, device=dev)
+        batches = [(np.arange(off, off + ENGINE_BATCH, dtype=np.uint32),
+                    np.zeros(ENGINE_BATCH, np.int32),
+                    mk(ENGINE_BATCH, fseed=off))
+                   for off in (500_001, 600_001)]
+        fused.process(*batches[0])
+        stats["profile"] = device_profile(
+            f"one fused {arch} step, {ENGINE_BATCH} items",
+            lambda: fused.process(*batches[1]))
+        stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+        stats["weights_bytes"] = held
+        stats["scores_range"] = (float(scores.min()), float(scores.max()))
+        log(f"{arch}: scores of one micro-batch in "
+            f"[{stats['scores_range'][0]:.4f}, {stats['scores_range'][1]:.4f}]"
+            f" within [0, 5]; peak device memory of the phase "
+            f"{stats['peak_bytes'] / 2 ** 30:.2f} GiB")
+        out[arch] = stats
+        del evaluate, mk, fused, feats, scores, batches, doc_features
+        del make_searcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: KV-cache decode on the full-width smollm-135m
 # ---------------------------------------------------------------------------
 
@@ -2032,6 +2357,10 @@ def main() -> int:
     del fleet_searcher, views
     seconds["fleet_parity"] = time.monotonic() - t0
     t0 = time.monotonic()
+    fanout = phase_fanout(fcfg, retrieval, evaluate, dev)
+    seconds["fanout"] = time.monotonic() - t0
+    gc.collect()
+    t0 = time.monotonic()
     phase_chaos(dev)
     seconds["chaos"] = time.monotonic() - t0
     t0 = time.monotonic()
@@ -2045,12 +2374,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"dlrm tables freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB still allocated")
+    t0 = time.monotonic()
+    recsys = phase_recsys(ecfg, corpus, shard, dev)
+    log(f"recsys phases: {time.monotonic() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
     decode = phase_decode(dev)
 
-    path_launches = {name: engine["launches"][name] + fleet_launches[name]
+    by_path = {"engine": engine["launches"], "fleet": fleet_launches,
+               "fanout": fanout["launches"], "dlrm": dlrm["launches"],
+               **{arch: st["launches"] for arch, st in recsys.items()},
+               "decode": decode["launches"]}
+    path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
-    path_launches["dot_interaction"] = dlrm["launches"]["dot_interaction"]
-    path_launches["flash_decode"] = decode["launches"]["flash_decode"]
     for kern in kernels:
         if kern["name"] == "dot_interaction":
             kern["dlrm_feats_max_abs_err"] = dlrm["feats_err"]
@@ -2058,6 +2393,9 @@ def main() -> int:
         if kern["name"] == "topk_select":
             kern["fleet_shard_cases"] = fleet_topk
         kern["launches"] = path_launches[kern["name"]]
+        kern["launches_by_path"] = {path: run[kern["name"]]
+                                    for path, run in by_path.items()
+                                    if run[kern["name"]]}
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "
                                  f"path")

@@ -79,10 +79,8 @@ to a bare ``ServingEngine``.
 
 Counterpart of ``repro.cluster.coordinator`` (host logic, copied). Every
 replica's engine, Trust DB and index shard live on ``device`` (``cuda``
-unless named): a fleet on one card is a software fleet. The tail-
-tolerant fan-out searcher (the reference's ``repro.fanout``) is not
-ported yet; a configuration that would build it raises
-``NotImplementedError``.
+unless named): a fleet on one card is a software fleet. So do the
+fan-out's mirror stripes, which live on their primary's device.
 """
 from __future__ import annotations
 
@@ -96,6 +94,8 @@ import numpy as np
 
 from repro_torch.configs.base import TrustIRConfig
 from repro_torch.distribution.fault_tolerance import HedgedDispatch
+from repro_torch.fanout import (FanoutSearcher, ReplicationPolicy,
+                                StripeReplicator, mirror_shard_of)
 from repro_torch.scheduling import (Priority, QueuedRequest, Request,
                                     Response, SchedulerConfig)
 from repro_torch.scheduling.priorities import REASON_QUEUE_FULL
@@ -172,7 +172,7 @@ class ClusterStats:
     # doc-partitioned retrieval shards (retrieval)
     n_partition_moves: int = 0          # stripes handed off (join/leave)
     n_partition_rebuilds: int = 0       # stripes re-indexed after crash
-    # tail-tolerant fan-out (not ported yet; always 0)
+    # tail-tolerant fan-out (fanout)
     n_stripe_replications: int = 0      # slow shards mirrored to a sib
     n_mirror_drops: int = 0             # mirrors dropped on recovery
     # coordinated rolling restarts
@@ -223,10 +223,13 @@ class ClusterCoordinator:
         each replica's shard is built from the stripes it owns, and
         :meth:`enqueue_query` accepts raw query strings.
 
-        ``fanout_model`` — or any of ``cfg.fanout_quorum_k`` /
-        ``cfg.fanout_hedge_after_s`` — would upgrade the fleet searcher
-        to the reference's tail-tolerant ``FanoutSearcher``, which is
-        not ported yet: that raises ``NotImplementedError``.
+        ``fanout_model`` (a ``fanout.ShardServiceModel``) — or
+        any of ``cfg.fanout_quorum_k`` / ``cfg.fanout_hedge_after_s``
+        — upgrades the fleet searcher to the tail-tolerant
+        :class:`FanoutSearcher`: first-k-of-n quorum gather, per-shard
+        hedges onto mirror stripes (charged to the cluster hedge
+        budget when cluster hedging is on), and EWMA-driven selective
+        stripe replication run from the drain loop.
 
         ``device`` (``cuda`` unless named) is where every replica's
         engine and shard live."""
@@ -382,13 +385,6 @@ class ClusterCoordinator:
         self.searcher = None
         self._part_owner: Dict[int, str] = {}
         if retrieval is not None:
-            if (fanout_model is not None
-                    or getattr(cfg, "fanout_quorum_k", 0) > 0
-                    or getattr(cfg, "fanout_hedge_after_s", 0.0) > 0):
-                raise NotImplementedError(
-                    "the tail-tolerant fan-out searcher (fanout_model, "
-                    "fanout_quorum_k, fanout_hedge_after_s) is not ported "
-                    "yet; see ROADMAP.md, Queue 1, item 3 (fanout)")
             for rep in self.replicas:
                 owned = [p for p in range(retrieval.n_partitions)
                          if self.ring.route(retrieval.partition_key(p))
@@ -396,7 +392,35 @@ class ClusterCoordinator:
                 rep.shard = retrieval.build_shard(owned)
                 for p in owned:
                     self._part_owner[p] = rep.replica_id
-            self.searcher = retrieval.searcher([])
+            fan_on = (fanout_model is not None
+                      or getattr(cfg, "fanout_quorum_k", 0) > 0
+                      or getattr(cfg, "fanout_hedge_after_s", 0.0) > 0)
+            if fan_on:
+                probe_after = getattr(cfg, "fanout_hedge_after_s", 0.0)
+                # With cluster hedging on, shard-probe hedges spend the
+                # SAME fleet bucket as whole-request twins (their own,
+                # shorter fuse; budget refills from admitted traffic).
+                # Otherwise the searcher owns a probe-granularity
+                # bucket and earns per probe dispatched.
+                fan_hedge = (self.hedge.probe_view(probe_after)
+                             if probe_after > 0 and self.hedge is not None
+                             else None)
+                self.searcher = FanoutSearcher(
+                    retrieval.corpus,
+                    feature_fn=retrieval.feature_fn,
+                    quorum_k=getattr(cfg, "fanout_quorum_k", 0),
+                    service_model=fanout_model,
+                    hedge=fan_hedge,
+                    hedge_after_s=probe_after,
+                    replicator=StripeReplicator(ReplicationPolicy(
+                        slow_factor=getattr(cfg, "fanout_slow_factor",
+                                            2.5),
+                        recover_factor=getattr(
+                            cfg, "fanout_recover_factor", 1.4),
+                        max_mirrors=getattr(cfg, "fanout_max_mirrors",
+                                            2))))
+            else:
+                self.searcher = retrieval.searcher([])
             self._attach_searcher()
 
     # -- fleet views ---------------------------------------------------------
@@ -508,8 +532,21 @@ class ClusterCoordinator:
         part it stores and hands off)."""
         if self.searcher is None:
             return
-        self.searcher.shards = [r.shard for r in self.replicas
-                                if r.shard is not None]
+        if hasattr(self.searcher, "set_fleet"):
+            # FanoutSearcher: shard keys ARE replica ids (service
+            # model, EWMAs, and mirrors key on them); membership
+            # changes invalidate the stripe answer cache and drop
+            # mirrors whose slow shard or host departed.
+            self.searcher.set_fleet(
+                [(r.replica_id, r.shard) for r in self.replicas
+                 if r.shard is not None])
+            live = self.searcher.mirrors
+            for rep in self.replicas:
+                rep.mirrors = {key: m for key, (host, m) in live.items()
+                               if host == rep.replica_id}
+        else:
+            self.searcher.shards = [r.shard for r in self.replicas
+                                    if r.shard is not None]
         for rep in self.replicas:
             rep.engine.retriever = self.searcher
 
@@ -522,10 +559,61 @@ class ClusterCoordinator:
         """Chaos hook: pin (``mult > 1``) or clear (``mult <= 1``) a
         persistent service-time multiplier on one replica's shard —
         the degraded-disk scenario selective replication exists for.
-        No-op without a fanout service model, which the port does not
-        build yet (as in the reference without one)."""
+        No-op without a fanout service model."""
         if hasattr(self.searcher, "set_slowdown"):
             self.searcher.set_slowdown(replica_id, mult)
+
+    def _adapt_quorum(self) -> None:
+        """Regime-ladder quorum adaptation, once per drain round: read
+        the fleet's worst offered regime off the live schedulers and
+        walk ``quorum_k`` one step — toward the full fan-out under
+        Normal (converging to the bit-exact full gather), toward the
+        configured floor under Very-Heavy (paying only the configured
+        minimum of stragglers when every evaluation slot matters)."""
+        q = getattr(self.searcher, "quorum", None)
+        if q is None or not getattr(self.cfg, "fanout_adaptive_quorum",
+                                    False):
+            return
+        regime = max((r.scheduler.offered_regime()
+                      for r in self.replicas), default=0)
+        n_shards = sum(1 for r in self.replicas if r.shard is not None)
+        q.adapt(regime, n_shards)
+
+    def _fanout_maintenance(self) -> None:
+        """Selective stripe replication, run once per drain round: a
+        replica whose probe EWMA marks it persistently slow gets its
+        owned stripes mirrored onto its ring sibling (the existing
+        ``export_docs -> absorb`` handoff path, deep-copied — the
+        primary keeps serving), so shard-probe hedges have somewhere
+        to land; mirrors drop once the EWMA recovers."""
+        self._adapt_quorum()
+        s = self.searcher
+        if self.retrieval is None or not hasattr(s, "replication_due"):
+            return
+        for key in s.replication_due():
+            rep = self.by_id.get(key)
+            if rep is None or rep.shard is None or rep.shard.n_docs == 0:
+                continue
+            owned = sorted(p for p, r in self._part_owner.items()
+                           if r == key)
+            if not owned:
+                continue
+            sib = self.ring.sibling_for(
+                self.retrieval.partition_key(owned[0]), exclude=(key,))
+            if sib is None or sib not in self.by_id:
+                continue
+            mirror = mirror_shard_of(
+                rep.shard,
+                [self.retrieval.partition_doc_ids(p) for p in owned])
+            self.by_id[sib].mirrors[key] = mirror
+            s.add_mirror(key, sib, mirror)
+            self.stats.n_stripe_replications += 1
+        for key in s.mirrors_recovered():
+            host = self.by_id.get(s.mirrors[key][0])
+            if host is not None:
+                host.mirrors.pop(key, None)
+            s.drop_mirror(key)
+            self.stats.n_mirror_drops += 1
 
     def enqueue_query(self, query: str, n_results: Optional[int] = None,
                       slo_s: Optional[float] = None,
@@ -1221,6 +1309,7 @@ class ClusterCoordinator:
                                     for r in self.replicas})
             self._steal_rebalance(heap)
             self._hedge_scan()
+            self._fanout_maintenance()
             any_batch = False
             for rep in list(self.replicas):
                 # n_submitted counts rescued batches too: a batch whose
@@ -1348,6 +1437,8 @@ class ClusterCoordinator:
             agg["autoscale"] = self.last_snapshot.as_dict()
         if self.gossip is not None:
             agg["gossip"] = self.gossip.stats.as_dict()
+        if hasattr(self.searcher, "gather_stats"):
+            agg["fanout"] = self.searcher.gather_stats()
         agg["capacity"] = self.capacity.fitted()
         if self.planner is not None:
             agg["forecast"] = {

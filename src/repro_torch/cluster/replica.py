@@ -81,6 +81,13 @@ class ReplicaHandle:
         # Ownership is about residency + handoff accounting — queries
         # scatter-gather across every live shard via the fleet searcher.
         self.shard = None
+        # Mirror stripes this replica HOSTS for persistently slow
+        # siblings (fanout selective replication): slow replica
+        # id -> its mirrored IndexShard. Hedged shard probes land
+        # here; regular fan-out never queries a mirror (the primary
+        # already answers for those docs — exactly one answer per
+        # shard enters the merge).
+        self.mirrors: Dict[str, object] = {}
         self.clock = (SimClock(sim_rate_items_per_s)
                       if sim_rate_items_per_s is not None else None)
         # Construction state kept for in-place restarts (rolling
@@ -259,7 +266,7 @@ class ReplicaHandle:
     def restart(self, *, now_t: float, downtime_s: float = 0.0) -> None:
         """Rebuild the serving stack in place (coordinated rolling
         restart). The handle keeps its identity — ``replica_id``,
-        ``weight`` and its ring-owned ``shard`` —
+        ``weight``, its ring-owned ``shard`` and hosted ``mirrors`` —
         but the engine comes back cold: fresh scheduler/bank/shedder/
         monitor state, empty Trust-DB cache, reset local prior, and a
         clean completed-responses log (the coordinator banks the old

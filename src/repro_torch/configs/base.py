@@ -1,8 +1,8 @@
 """The port's own copy of the config dataclasses it reads.
 
 Counterpart of ``repro.configs.base``, cut to the fields the port
-reads: the dense transformer of the trust evaluator, the DLRM
-recommender (the other evaluator backbone the port serves), the load
+reads: the dense transformer of the trust evaluator, the recommenders
+(DLRM, BST, MIND and the two-tower retrieval model), the load
 shedder's parameters, the drain executor, the scheduler's quarantine,
 the serving fleet (replicas, gossip, autoscaling, forecasting, and the
 fan-out fields ``configs.trust_ir`` sets), and the retrieval front end.
@@ -43,15 +43,27 @@ class EmbeddingTableConfig:
 
 @dataclass(frozen=True)
 class RecsysConfig:
-    """A recommender backbone; the port reads the DLRM fields."""
+    """A recommender backbone (the reference's fields)."""
     name: str
-    model: str                     # "dlrm"
+    model: str                     # "dlrm" | "bst" | "two_tower" | "mind"
     embed_dim: int
     tables: Tuple[EmbeddingTableConfig, ...] = ()
     n_dense: int = 0
     bot_mlp: Tuple[int, ...] = ()
     top_mlp: Tuple[int, ...] = ()
+    tower_mlp: Tuple[int, ...] = ()
     interaction: str = "dot"
+    # BST
+    seq_len: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    mlp: Tuple[int, ...] = ()
+    # MIND
+    n_interests: int = 0
+    capsule_iters: int = 0
+    hist_len: int = 0
+    item_vocab: int = 0
+    user_vocab: int = 0
     dtype: str = "float32"
     param_dtype: str = "float32"
 
@@ -137,9 +149,9 @@ class TrustIRConfig:
     index_block_docs: int = 512         # documents per index build block
     index_partitions: int = 16          # doc-partition stripes
     retrieve_top_k: int = 64            # candidate-set size per query
-    # Tail-tolerant scatter-gather (the reference's ``repro.fanout``,
-    # not ported yet: a coordinator that would build its searcher
-    # raises). quorum_k 0 = synchronous full gather.
+    # Tail-tolerant scatter-gather (fanout): first-k-of-n quorum,
+    # per-shard hedges onto mirror stripes, selective replication.
+    # quorum_k 0 = synchronous full gather.
     fanout_quorum_k: int = 0
     fanout_adaptive_quorum: bool = False
     fanout_hedge_after_s: float = 0.0

@@ -1,9 +1,11 @@
 """Arch registry: maps an arch id to its full or smoke config."""
 from __future__ import annotations
 
-from repro_torch.configs import dlrm_mlperf, smollm_135m
+from repro_torch.configs import (bst, dlrm_mlperf, mind, smollm_135m,
+                                two_tower)
 
-_MODULES = {m.ARCH_ID: m for m in (smollm_135m, dlrm_mlperf)}
+_MODULES = {m.ARCH_ID: m for m in (smollm_135m, dlrm_mlperf, bst, mind,
+                                   two_tower)}
 
 
 def get_config(arch_id: str, smoke: bool = False):

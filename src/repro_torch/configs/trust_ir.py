@@ -29,9 +29,8 @@ def config() -> TrustIRConfig:
         quality_weights=(0.5, 0.3, 0.2),
         evaluator_arch="smollm-135m",
         trust_scale=5.0,
-        # Tail-tolerant fan-out (the reference's repro.fanout, not
-        # ported yet), the paper's "answer from the prior rather than
-        # miss the deadline" extended to
+        # Tail-tolerant fan-out (fanout), the paper's "answer from
+        # the prior rather than miss the deadline" extended to
         # stragglers: the gather waits for all shards by default
         # (quorum_k=0 — full trustworthy answers), but the selective-
         # replication policy is armed so a deployment that raises

@@ -66,7 +66,7 @@ class HedgedDispatch:
                    max_hedges: int = 1) -> "HedgeBudgetView":
         """A view over this SAME token bucket with its own (usually
         much shorter) hedge latency: per-shard probe hedging
-        (``repro.fanout``) fires earlier than whole-request hedging,
+        (``fanout``) fires earlier than whole-request hedging,
         but both spend one fleet-wide budget — total hedges stay a
         bounded fraction of admitted traffic no matter which layer
         issues them."""

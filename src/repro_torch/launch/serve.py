@@ -18,14 +18,19 @@ simulated fleet instead (see the epilog).
 Zipf corpus split into ``--index-shards`` doc-partitions, which the
 consistent-hash ring assigns to replicas (one shard per replica on the
 device); requests then arrive as raw query strings (parse -> BM25 ->
-``topk_select`` on every live shard -> merge). ``--device`` defaults to
-``cuda``; ``--device cpu`` runs the plain PyTorch versions of the
-kernels.
+``topk_select`` on every live shard -> merge). ``--quorum-k``,
+``--shard-hedge-ms`` and ``--straggle-mult`` make that gather
+tail-tolerant (``fanout``): first-k-of-n quorum over simulated shard
+service times, per-shard hedges onto mirror stripes, replica ``r0``
+slowed to show them. ``--device`` defaults to ``cuda``; ``--device
+cpu`` runs the plain PyTorch versions of the kernels.
 
-The tail-tolerant fan-out flags (``--quorum-k``, ``--shard-hedge-ms``,
-``--straggle-mult``) and the mesh-sharded evaluator (``--sharded``) are
-not ported yet: they exit with status 2 and say where ROADMAP.md queues
-them.
+``--arch`` names the trust evaluator: ``smollm-135m`` (default),
+``dlrm-mlperf``, ``bst``, ``mind`` or ``two-tower-retrieval``, each at
+smoke width.
+
+The mesh-sharded evaluator (``--sharded``) is not ported yet: it exits
+with status 2 and says where ROADMAP.md queues it.
 """
 from __future__ import annotations
 
@@ -36,17 +41,7 @@ import time
 import numpy as np
 import torch
 
-FANOUT_ITEM = "ROADMAP.md, Queue 1, item 3 (fanout)"
 SHARDED_ITEM = "ROADMAP.md, Queue 1, item 6 (distribution)"
-
-# Flags of the reference launcher that the port does not serve yet:
-# (flag, attribute, where the port queues it).
-_NOT_PORTED = (
-    ("--quorum-k", "quorum_k", FANOUT_ITEM),
-    ("--shard-hedge-ms", "shard_hedge_ms", FANOUT_ITEM),
-    ("--straggle-mult", "straggle_mult", FANOUT_ITEM),
-    ("--sharded", "sharded", SHARDED_ITEM),
-)
 
 _EPILOG = """\
 chaos trace replay (--trace)
@@ -156,26 +151,24 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--index-shards", type=int, default=0,
                    help="doc-partition count (0 = config default); the "
                         "ring assigns partitions to replicas")
+    p.add_argument("--quorum-k", type=int, default=0,
+                   help="tail-tolerant gather (fanout, needs --corpus): "
+                        "answer at the first k of n shard completions, "
+                        "prior-answering late stripes (0 = wait for "
+                        "every shard)")
+    p.add_argument("--shard-hedge-ms", type=float, default=0.0,
+                   help="per-shard probe hedge latency: a stripe probe "
+                        "slower than this races a twin on a sibling's "
+                        "mirror (0 disables)")
+    p.add_argument("--straggle-mult", type=float, default=0.0,
+                   help="pin a persistent service-time multiplier on "
+                        "replica r0's shard (straggler demo for "
+                        "--quorum-k/--shard-hedge-ms; 0 = off)")
     p.add_argument("--seed", type=int, default=0)
     later = p.add_argument_group(
-        "not ported yet (exit 2)",
-        f"tail-tolerant fan-out waits for {FANOUT_ITEM}; --sharded "
-        f"waits for {SHARDED_ITEM}")
-    later.add_argument("--quorum-k", type=int, default=0)
-    later.add_argument("--shard-hedge-ms", type=float, default=0.0)
-    later.add_argument("--straggle-mult", type=float, default=0.0)
+        "not ported yet (exit 2)", f"--sharded waits for {SHARDED_ITEM}")
     later.add_argument("--sharded", action="store_true")
     return p
-
-
-def _not_ported(args) -> str:
-    """The refusal message for a flag the port does not serve yet, or
-    '' when the command line stays on ported paths."""
-    for flag, attr, item in _NOT_PORTED:
-        if getattr(args, attr):
-            return (f"{flag} is not ported to repro_torch yet; it waits "
-                    f"for {item}")
-    return ""
 
 
 def calibrate(arch: str, dev):
@@ -221,6 +214,8 @@ def serve_config(args, rate: float):
         cfg_kw["corpus_docs"] = args.corpus
         if args.index_shards > 0:
             cfg_kw["index_partitions"] = args.index_shards
+        cfg_kw["fanout_quorum_k"] = max(args.quorum_k, 0)
+        cfg_kw["fanout_hedge_after_s"] = max(args.shard_hedge_ms, 0.0) / 1e3
     return TrustIRConfig(**cfg_kw)
 
 
@@ -235,9 +230,9 @@ def _print_response(resp, label: str) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    refusal = _not_ported(args)
-    if refusal:
-        print(f"serve: {refusal}", file=sys.stderr)
+    if args.sharded:
+        print(f"serve: --sharded is not ported to repro_torch yet; it "
+              f"waits for {SHARDED_ITEM}", file=sys.stderr)
         return 2
     if args.trace > 0 and args.sync:
         print("serve: --trace drives a fleet; drop --sync",
@@ -272,7 +267,7 @@ def main(argv=None) -> int:
         coord, rep = trace_fleet(args, cfg, rate, dev)
         return 0 if report_trace(args, coord, rep) else 1
 
-    retrieval = queries = None
+    retrieval = queries = fanout_model = None
     if args.corpus > 0:
         from repro_torch.retrieval import (CorpusRetrieval, SyntheticCorpus,
                                            ZipfQueryModel)
@@ -295,6 +290,15 @@ def main(argv=None) -> int:
               f"{corpus.vocab_size} -> {cfg.index_partitions} "
               f"doc-partitions, top-k={cfg.retrieve_top_k} "
               f"({time.perf_counter() - t0:.2f}s corpus+stats)")
+        if cfg.fanout_quorum_k > 0 or cfg.fanout_hedge_after_s > 0:
+            from repro_torch.fanout import ShardServiceModel
+            fanout_model = ShardServiceModel(seed=args.seed)
+            if args.straggle_mult > 1.0:
+                fanout_model.set_persistent("r0", args.straggle_mult)
+            print(f"fanout: quorum_k={cfg.fanout_quorum_k or 'n'} "
+                  f"shard-hedge={args.shard_hedge_ms:.1f}ms "
+                  + (f"straggler r0 x{args.straggle_mult:.0f}"
+                     if args.straggle_mult > 1.0 else "no straggler"))
 
     if args.sync:
         retriever = None
@@ -321,7 +325,7 @@ def main(argv=None) -> int:
                 forecast=args.forecast,
                 warmup_lead_s=max(args.warmup_lead_s, 0.0)),
             drain_mode=args.drain_mode, evaluate_batch=ev,
-            retrieval=retrieval, device=dev)
+            retrieval=retrieval, fanout_model=fanout_model, device=dev)
         if args.adaptive:
             for rep in eng.replicas:
                 rep.engine.shedder.adaptive = AdaptiveWeightController()
@@ -412,6 +416,20 @@ def main(argv=None) -> int:
         print(f"retrieval: {sr.n_searches} searches "
               f"({sr.n_fallback} fallback), {len(live)} live "
               f"shard(s), {sum(s.n_docs for s in live)} docs resident")
+        if hasattr(sr, "gather_stats") and sr.n_gathers:
+            fs = sr.gather_stats()    # simulated times, not the device's
+            print(f"fanout: gather p50/p99 "
+                  f"{fs['gather_p50_s'] * 1e3:.1f}/"
+                  f"{fs['gather_p99_s'] * 1e3:.1f} ms simulated (full "
+                  f"{fs['full_p50_s'] * 1e3:.1f}/"
+                  f"{fs['full_p99_s'] * 1e3:.1f} ms), "
+                  f"{fs['n_late_shards']} late stripes "
+                  f"({fs['n_cache_fills']} cache-filled, "
+                  f"{fs['n_prior_answered']} prior), "
+                  f"{fs['n_shard_hedges']} shard hedges "
+                  f"({fs['n_shard_hedge_wins']} wins), "
+                  f"{fs['n_mirrors_built']} mirrors built / "
+                  f"{fs['n_mirrors_dropped']} dropped")
     board = eng.slo_stats()
     print(f"P50 {board['p50_s'] * 1e3:.1f} ms  P99 "
           f"{board['p99_s'] * 1e3:.1f} ms  SLO met "

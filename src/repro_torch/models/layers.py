@@ -59,6 +59,11 @@ def rmsnorm_init(d: int, device=None, dtype=torch.float32):
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+def layernorm_init(d: int, device=None, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
 def glu_ffn_init(d_model: int, d_ff: int, generator: torch.Generator, *,
                  device=None, dtype=torch.float32):
     kw = dict(device=device, dtype=dtype)
@@ -114,6 +119,17 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (biased variance, as
+    ``jnp.var``), cast back to ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
 
 
 def glu_ffn_apply(p, x: torch.Tensor, act: str = "silu",

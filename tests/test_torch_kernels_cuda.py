@@ -7,7 +7,10 @@ with an NVIDIA GPU:
 ``shed_partition`` and ``topk_select`` must equal their plain versions
 exactly; attention, ``flash_decode`` and ``dot_interaction`` within atol
 2e-2 in bf16 (output rounding) and 1e-4 in f32 (summation order); the
-DLRM evaluator and the KV-cache decode on the card against the CPU."""
+DLRM, BST, MIND and two-tower evaluators and the KV-cache decode on the
+card against the CPU; a fan-out mirror stripe's retrieve equal to its
+primary's bit for bit on the card; the ragged embedding bag repeating
+its bits run after run on the card."""
 import numpy as np
 import pytest
 import torch
@@ -30,7 +33,14 @@ from repro_torch.kernels.shed_partition import (shed_partition,
 from repro_torch.kernels.topk_select import (NEG_INF, TILE, staged_capacity,
                                              topk_select, topk_select_ref)
 from repro_torch.models import transformer as T
+from repro_torch.fanout import mirror_shard_of
+from repro_torch.models.recsys import bst as BST
 from repro_torch.models.recsys import dlrm as D
+from repro_torch.models.recsys import embedding as E
+from repro_torch.models.recsys import mind as MIND
+from repro_torch.models.recsys import two_tower as TWO_TOWER
+from repro_torch.retrieval import (CorpusRetrieval, SyntheticCorpus,
+                                   ZipfQueryModel)
 from repro_torch.serving.evaluators import make_evaluator
 
 pytestmark = pytest.mark.cuda
@@ -558,3 +568,68 @@ def test_decode_on_card_matches_cpu(dev):
             logits.append(lg.cpu())
         out[str(d)] = torch.stack(logits)
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=2e-3, rtol=0)
+
+
+def _numpy_params(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_params(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_params(v) for v in tree]
+    return tree.numpy()
+
+
+@pytest.mark.parametrize("arch", ["bst", "mind", "two-tower-retrieval"])
+def test_recsys_evaluators_on_card_match_cpu(dev, arch):
+    """One set of seeded weights (drawn on the CPU) scores the same items
+    on the card and on the CPU within 1e-4 of trust."""
+    model = {"bst": BST, "mind": MIND, "two-tower-retrieval": TWO_TOWER}[arch]
+    cfg = get_config(arch, smoke=True)
+    params = _numpy_params(model.init_params(
+        cfg, torch.Generator().manual_seed(3)))
+    ev_c, mk = make_evaluator(arch, smoke=True, device="cpu", params=params)
+    ev_g, _ = make_evaluator(arch, smoke=True, device=dev, params=params)
+    feats = mk(300, fseed=1)
+    want = ev_c({k: torch.from_numpy(v) for k, v in feats.items()})
+    got = ev_g({k: torch.from_numpy(v).to(dev) for k, v in feats.items()})
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_mirror_shard_retrieve_equals_primary_on_card(dev):
+    """A fan-out mirror built by the export -> absorb round trip on the
+    card ranks exactly as its primary: ids and float64 score bits."""
+    corpus = SyntheticCorpus(n_docs=4096, vocab_size=512, seed=3)
+    ret = CorpusRetrieval(corpus, n_partitions=8, block_docs=256,
+                          device=dev)
+    primary = ret.build_shard([1, 2, 5])
+    mirror = mirror_shard_of(
+        primary, [ret.partition_doc_ids(p) for p in (1, 2, 5)])
+    assert mirror.device == primary.device == dev
+    before = topk_select.launches
+    qm = ZipfQueryModel.for_corpus(corpus, seed=4)
+    for _ in range(24):
+        q = qm.sample()
+        d0, s0 = primary.retrieve(q, 64)
+        d1, s1 = mirror.retrieve(q, 64)
+        assert d0.tolist() == d1.tolist()
+        assert s0.tobytes() == s1.tobytes()
+    assert topk_select.launches == before + 48
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "max"])
+def test_ragged_embedding_bag_repeats_its_bits_on_card(dev, combiner):
+    """The ragged bag's order-fixed reduction gives the same bits run
+    after run on the card (``index_add_`` would not), and the CPU's
+    within float32 rounding."""
+    g = torch.Generator().manual_seed(5)
+    table = {"table": torch.randn(5000, 64, generator=g)}
+    flat = torch.randint(0, 5000, (20_000,), generator=g)
+    seg = torch.randint(0, 700, (20_000,), generator=g)
+    on_card = {"table": table["table"].to(dev)}
+    outs = [E.ragged_embedding_bag(on_card, flat.to(dev), seg.to(dev), 701,
+                                   combiner=combiner) for _ in range(3)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    cpu = E.ragged_embedding_bag(table, flat, seg, 701, combiner=combiner)
+    torch.testing.assert_close(outs[0].cpu(), cpu, atol=1e-5, rtol=0)
+    assert not outs[0][700].any()                          # an empty bag

@@ -2,8 +2,9 @@
 ``--sync --device cpu`` over a small corpus exits 0 and prints one line
 per request and the P50/P99 scoreboard; the scheduled fleet modes
 (replicas, trace, gossip, hedging, elastic membership, chaos) run at
-smoke width and exit 0; the flags still to port (tail-tolerant fan-out,
-``--sharded``) exit 2 and name the ROADMAP item they wait for."""
+smoke width and exit 0, the tail-tolerant fan-out flags included; the
+flag still to port (``--sharded``) exits 2 and names the ROADMAP item
+it waits for."""
 import os
 import pathlib
 import subprocess
@@ -90,17 +91,20 @@ CHAOS = ["--trace", "1", "--replicas", "6", "--chaos-flash", "4",
      None),
     (["--replicas", "2", "--max-replicas", "3", "--forecast",
       "--n-requests", "8"], None),
-    (["--corpus", "64", "--quorum-k", "2"], 3),
+    (["--replicas", "3", "--corpus", "192", "--n-requests", "8",
+      "--quorum-k", "2", "--shard-hedge-ms", "5", "--straggle-mult", "8"],
+     None),
     (CHAOS, None),
     (["--sync", "--sharded", "--drain-mode", "fused"], 6),
 ], ids=["replicas", "trace", "gossip", "hedge", "elastic", "quorum",
         "chaos", "sharded"])
 def test_fleet_flags_exit_2_with_the_roadmap_pointer(args, item, capsys):
     """Fleet modes used to exit 2 naming ROADMAP Queue 1 item 3; the
-    ported ones (replicas, trace, gossip, hedge, elastic, chaos) now run
-    on the CPU at smoke width and exit 0. The tail-tolerant fan-out
-    (``--quorum-k``) still exits 2 naming item 3 (fanout), and
-    ``--sharded`` item 6."""
+    ported ones (replicas, trace, gossip, hedge, elastic, chaos, and the
+    tail-tolerant fan-out: ``--quorum-k``, ``--shard-hedge-ms``,
+    ``--straggle-mult``) now run on the CPU at smoke width and exit 0,
+    the fan-out printing its ``fanout:`` line. ``--sharded`` still exits
+    2 naming item 6."""
     from repro_torch.launch.serve import main
     rc = main(["--device", "cpu", *args])
     out = capsys.readouterr()
@@ -122,3 +126,8 @@ def test_fleet_flags_exit_2_with_the_roadmap_pointer(args, item, capsys):
             assert "retrieval: " in out.out
         if "--gossip" in args:
             assert "gossip: " in out.out
+        if "--quorum-k" in args:
+            lines = out.out.splitlines()
+            assert any(l.startswith("fanout: quorum_k=2 ") for l in lines)
+            assert any(l.startswith("fanout: gather p50/p99 ")
+                       for l in lines)
