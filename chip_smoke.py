@@ -50,7 +50,20 @@ launch counts set to 0 just before it and read just after:
 * KV-cache decode on the smollm-135m weights: 128 prompts prefilled
   (``flash_attention``) into a 128-slot ``KVCachePool``, 64
   ``decode_step``s over the pool (``flash_decode``), decode logits
-  checked against the full forward.
+  checked against the full forward;
+* the other evaluator families at their published widths and depths:
+  ``gemma2-2b`` on the main path's engine (``flash_attention`` at D 256
+  with its softcap) with its host-vs-fused parity run, then in KV decode
+  over a 16 x 8192 ``KVCachePool`` (``flash_decode`` at D 256, the
+  4096-key window of its local layers biting); ``qwen2.5-14b``,
+  ``qwen3-moe-30b-a3b``, ``moonshot-v1-16b-a3b`` and ``gcn-cora`` each
+  on the fused drain, a few micro-batches, each model's weights freed
+  before the next is built.
+
+Beside the kernel checks, the two attention kernels are held against
+their plain versions and timed at the new evaluators' heads (D 256 with
+softcap and window, qwen2.5's 40/8 x 128, the D 12 smoke head padded to
+16), and each new evaluator at smoke width on the card against the CPU.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
@@ -64,7 +77,9 @@ products are full float32 and the tolerances below hold.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -198,6 +213,31 @@ CHAOS_ARGV = ["--trace", "2", "--replicas", "6", "--chaos-flash", "4",
               "--chaos-poison", "3", "--quarantine-k", "3",
               "--chaos-crash", "2", "--chaos-restart", "--gossip",
               "--gossip-mode", "epidemic", "--hedge-after-ms", "500"]
+# The evaluator families beside smollm, at their published widths and
+# depths. gemma2-2b (arXiv:2408.00118) on the main path, and in KV decode
+# over its published context of 8192 positions: 16 slots, prompts of up to
+# 8000 tokens, so that about half the rows pass the local layers' 4096-key
+# window, then 16 steps.
+GEMMA = "gemma2-2b"
+GEMMA_DECODE_SLOTS = 16
+GEMMA_MAX_LEN = 8192
+GEMMA_MAX_PROMPT = 8000
+GEMMA_DECODE_STEPS = 16
+# gemma2's decode vs its full forward, both bf16: the logits have std ~1
+# (rms-normed states times a 0.02-std table of width 2304), twice
+# smollm's, over 26 layers; a wrong position or cache row moves them by
+# O(1).
+GEMMA_DECODE_LOGIT_ATOL = 0.25
+# The other evaluators on the fused drain, each with its evaluator batch
+# cut by fused_max_evals (a cut of traffic: the rest of a micro-batch takes
+# the prior tier, no item is dropped). The 14-30 B models leave 19-50 GB
+# of the card for activations, and MoE dispatch buffers take ~128 KB a
+# token at qwen3-moe's width; 0 = the whole micro-batch.
+BIG_EVALUATORS = (("qwen2.5-14b", 1024), ("qwen3-moe-30b-a3b", 512),
+                  ("moonshot-v1-16b-a3b", 1024), ("gcn-cora", 0))
+BIG_BATCHES = 4
+NEW_ARCHS = ("gemma2-2b", "qwen2.5-14b", "qwen3-moe-30b-a3b",
+             "moonshot-v1-16b-a3b", "gcn-cora")
 # Paper Fig 3.2: the query "study in USA" returns 89,141 results in the
 # paper's Nutch setup (benchmarks/bench_response_time.py).
 PAPER_QUERY, PAPER_RESULTS = "study in USA", 89_141
@@ -514,26 +554,37 @@ def phase_flash_attention(dev) -> dict:
             "prefill_bound_ms": prefill["bound_ms"]}
 
 
-def attention_timing(q, k, v, flush, plain_iters: int) -> dict:
-    """Causal bf16 attention at one shape: the kernel, SDPA (GQA) and,
-    with ``plain_iters``, the plain version, each with L2 flushed between
-    launches; the bound from the bytes of q, k, v, o and the causal
-    FLOPs."""
+def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,
+                     softcap: float = 0.0, scale=None) -> dict:
+    """Causal attention at one shape: the kernel, SDPA (GQA; with the
+    window as a boolean mask where it is shorter than S, and no softcap,
+    which SDPA lacks) and, with ``plain_iters``, the plain version, each
+    with L2 flushed between launches; the bound from the bytes of q, k,
+    v, o and the FLOPs of the (query, key) pairs the causal window
+    leaves."""
     B, S, Hq, D = q.shape
+    kw = dict(causal=True, window=window, softcap=softcap, sm_scale=scale)
+    mask = None
+    if 0 < window < S:
+        pos = torch.arange(S, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
 
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+            attn_mask=mask, is_causal=mask is None, scale=scale,
+            enable_gqa=True)
 
-    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q,o + k,v
-    flops = 4 * B * Hq * D * (S * (S + 1) // 2)              # causal QK, PV
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    size = q.element_size()
+    n_bytes = size * (q.numel() * 2 + k.numel() + v.numel())  # q,o + k,v
+    seen = np.minimum(np.arange(1, S + 1), window if window > 0 else S)
+    flops = 4 * B * Hq * D * int(seen.sum())                  # QK, PV
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return {
-        "ms": timed_ms(lambda: flash_attention(q, k, v, causal=True), 20,
-                       flush),
-        "plain_ms": (timed_ms(lambda: flash_attention_ref(q, k, v,
-                                                          causal=True),
+        "ms": timed_ms(lambda: flash_attention(q, k, v, **kw), 20, flush),
+        "plain_ms": (timed_ms(lambda: flash_attention_ref(q, k, v, **kw),
                               plain_iters, flush) if plain_iters else None),
         "library_ms": timed_ms(library, 20, flush),
         "library_out": library().transpose(1, 2),
@@ -871,32 +922,43 @@ def phase_flash_decode(dev) -> dict:
             "full_bound_ms": full["bound_ms"]}
 
 
-def decode_timing(q, k, v, lengths, flush, plain_iters: int) -> dict:
-    """The decode kernel, SDPA with a boolean length mask and, with
-    ``plain_iters``, the plain version at one set of lengths, L2 flushed
-    between launches; the bound from the valid cache rows' bytes."""
+def decode_timing(q, k, v, lengths, flush, plain_iters: int,
+                  window: int = 0, softcap: float = 0.0, scale=None) -> dict:
+    """The decode kernel, SDPA with a boolean length (and window) mask
+    and, with ``plain_iters``, the plain version at one set of lengths,
+    L2 flushed between launches; the bound from the valid cache rows'
+    bytes. SDPA has no softcap: with one, its error is against the plain
+    version without it."""
     B, L, Hkv, D = k.shape
     Hq = q.shape[1]
+    kw = dict(window=window, softcap=softcap, sm_scale=scale)
     pos = torch.arange(L, device=q.device)
-    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+    ok = pos[None, :] < lengths[:, None]
+    if window > 0:
+        ok &= pos[None, :] >= lengths[:, None] - window
+    mask = ok[:, None, None, :]
 
     def library():
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)[:, :, 0]
+            attn_mask=mask, scale=scale, enable_gqa=True)[:, :, 0]
 
-    n_valid = int(lengths.sum())
-    n_bytes = (n_valid * Hkv * D * 2 * 2           # valid k and v rows
-               + 2 * q.numel() * 2 + B * 4)        # q, o, lengths
+    n_valid = int(ok.sum())
+    size = q.element_size()
+    n_bytes = (n_valid * Hkv * D * 2 * size        # valid k and v rows
+               + 2 * q.numel() * size + B * 4)     # q, o, lengths
     flops = 4 * n_valid * Hq * D                    # QK and PV
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return {
-        "ms": timed_ms(lambda: flash_decode(q, k, v, lengths), 200, flush),
-        "plain_ms": (timed_ms(lambda: flash_decode_ref(q, k, v, lengths),
+        "ms": timed_ms(lambda: flash_decode(q, k, v, lengths, **kw), 200,
+                       flush),
+        "plain_ms": (timed_ms(lambda: flash_decode_ref(q, k, v, lengths,
+                                                       **kw),
                               plain_iters, flush) if plain_iters else None),
         "library_ms": timed_ms(library, 100, flush),
-        "library_err": max_err(library(), flash_decode_ref(q, k, v,
-                                                           lengths)),
+        "library_err": max_err(library(), flash_decode_ref(
+            q, k, v, lengths, window=window, sm_scale=scale)),
         "piece": piece_length(B, Hkv, L, q.dtype, D),
         "mean_length": n_valid / B,
         "bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -2296,6 +2358,449 @@ def phase_decode(dev) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the evaluator families beside smollm: new kernel shapes, gemma2 on the
+# main path and in decode, the 14-30 B models and the GCN on the fused
+# drain
+# ---------------------------------------------------------------------------
+
+def phase_new_head_dims(dev) -> dict:
+    """``flash_attention`` and ``flash_decode`` at the heads the new
+    evaluators give them, each against its plain version, then timed
+    beside its bound and SDPA: D 256 with gemma2's softcap 50 and
+    1/sqrt(256) scale (window 4096 on local layers) at the evaluator's
+    batch, the longest prefill and the decode shape; the qwen2.5 heads
+    (40/8, D 128) at its fused batch; and the qwen2.5 smoke head (D 12,
+    zero-padded to 16) in float32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    g2, qw = get_config(GEMMA), get_config("qwen2.5-14b")
+    qs = get_config("qwen2.5-14b", smoke=True)
+    S, bf, f32 = DOC_LEN - 1, torch.bfloat16, torch.float32
+    scale = g2.query_pre_attn_scalar ** -0.5
+    cap, win = g2.attn_logit_softcap, g2.sliding_window
+    qwen_evals = dict(BIG_EVALUATORS)["qwen2.5-14b"]
+    flush = l2_flusher(dev)
+    # label, B, S, config, dtype, window, softcap, scale, time it
+    cases = [("gemma2 evaluator, local layer", BATCH, S, g2, bf, win, cap,
+              scale, True),
+             ("gemma2 evaluator, global layer", BATCH, S, g2, bf, 0, cap,
+              scale, False),
+             ("gemma2 longest prefill, local layer", 1, GEMMA_MAX_PROMPT,
+              g2, bf, win, cap, scale, True),
+             ("gemma2 f32", 64, S, g2, f32, win, cap, scale, False),
+             ("qwen2.5-14b evaluator", qwen_evals, S, qw, bf, 0, 0.0, None,
+              True),
+             ("qwen2.5-14b smoke, D 12 padded", 64, S, qs, f32, 0, 0.0,
+              None, False)]
+    attn, worst_attn = [], 0.0
+    for label, B, s_len, c, dt, w, sc, scl, timed in cases:
+        q, k, v = attention_inputs(B, s_len, c.n_heads, c.n_kv_heads,
+                                   c.d_head, dt, gen, dev)
+        kw = dict(causal=True, window=w, softcap=sc, sm_scale=scl)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        atol = BF16_ATOL if dt == bf else F32_ATOL
+        if flash_attention.launches != before + 1 or got.shape != q.shape \
+                or not torch.isfinite(got).all() or err > atol:
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err} > {atol}")
+        worst_attn = max(worst_attn, err) if dt == bf else worst_attn
+        row = {"shape": f"{label}: B={B} S={s_len} {c.n_heads}/"
+                        f"{c.n_kv_heads} heads D={c.d_head} {dt} window={w}"
+                        f" softcap={sc}", "max_abs_err": err}
+        msg = f"flash_attention {row['shape']}: max abs err {err:.3e}"
+        if timed:
+            t = attention_timing(q, k, v, flush, plain_iters=3 if B > 1
+                                 else 0, window=w, softcap=sc, scale=scl)
+            row.update({key: t[key] for key in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by")})
+            row["library"] = "sdpa, no softcap" if sc else "sdpa"
+            msg += (f"; kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms'] if t['plain_ms'] is None else round(t['plain_ms'], 4)}"
+                    f" ms, {row['library']} {t['library_ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']}"
+                    f" B, {t['flops']} FLOP)")
+        log(msg)
+        attn.append(row)
+        del q, k, v, got, want
+
+    decode, worst_dec = [], 0.0
+    L_, B_ = GEMMA_MAX_LEN, GEMMA_DECODE_SLOTS
+    dcases = [("gemma2 decode, local layer", B_, L_, g2, bf, win, cap, scale,
+               True),
+              ("gemma2 decode, global layer", B_, L_, g2, bf, 0, cap, scale,
+               True),
+              ("gemma2 decode f32", 4, L_, g2, f32, win, cap, scale, False),
+              ("qwen2.5-14b smoke, D 12 padded", 64, 256, qs, f32, 0, 0.0,
+               None, False)]
+    for label, B, L, c, dt, w, sc, scl, timed in dcases:
+        q, k, v = decode_inputs(B, L, c.n_heads, c.n_kv_heads, c.d_head, dt,
+                                gen, dev)
+        lengths = torch.randint(1, min(L, GEMMA_MAX_PROMPT
+                                       + GEMMA_DECODE_STEPS) + 1, (B,),
+                                generator=gen, device=dev, dtype=torch.int32)
+        lengths[:3] = torch.tensor([1, min(L, GEMMA_MAX_PROMPT
+                                           + GEMMA_DECODE_STEPS),
+                                    max(w, 1)], device=dev)
+        atol = BF16_ATOL if dt == bf else F32_ATOL
+        got = flash_decode(q, k, v, lengths, window=w, softcap=sc,
+                           sm_scale=scl)
+        want = flash_decode_ref(q, k, v, lengths, window=w, softcap=sc,
+                                sm_scale=scl)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if got.shape != q.shape or not torch.isfinite(got).all() \
+                or err > atol:
+            raise AssertionError(f"flash_decode {label}: max abs err {err} "
+                                 f"> {atol}")
+        worst_dec = max(worst_dec, err) if dt == bf else worst_dec
+        row = {"shape": f"{label}: B={B} L={L} {c.n_heads}/{c.n_kv_heads} "
+                        f"heads D={c.d_head} {dt} window={w} softcap={sc}",
+               "max_abs_err": err}
+        msg = f"flash_decode {row['shape']}: max abs err {err:.3e}"
+        if timed:
+            t = decode_timing(q, k, v, lengths, flush, plain_iters=5,
+                              window=w, softcap=sc, scale=scl)
+            row.update({key: t[key] for key in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by")})
+            row["library"] = "sdpa with a mask, no softcap"
+            msg += (f"; mean valid length {t['mean_length']:.0f}, pieces "
+                    f"of {t['piece']}: kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, {row['library']} "
+                    f"{t['library_ms']:.4f} ms (vs plain without softcap: "
+                    f"{t['library_err']:.3e}), bound {t['bound_ms']:.6f} ms "
+                    f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP)")
+        log(msg)
+        decode.append(row)
+        del q, k, v, got, want
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": (attn, worst_attn),
+            "flash_decode": (decode, worst_dec)}
+
+
+def numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_tree(v) for v in tree]
+    return tree.cpu().numpy()
+
+
+def phase_smoke_evaluators(dev) -> None:
+    """Each new evaluator at smoke width (float32; flash_attention at D
+    16, and D 12 padded to 16) on the card against the same weights on
+    the CPU, trust within F32_ATOL; then the serve launcher as a user
+    runs it (``--sync --arch <id> --corpus 192 --drain-mode fused``) on
+    the card for each, exiting 0 with a response per request."""
+    from repro_torch.models import gnn as gnn_model
+    worst = {}
+    for arch in NEW_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        model = gnn_model if arch == "gcn-cora" else T
+        params = numpy_tree(model.init_params(
+            cfg, torch.Generator().manual_seed(SEED)))
+        ev_c, mk = make_evaluator(arch, smoke=True, params=params,
+                                  device="cpu")
+        ev_g, _ = make_evaluator(arch, smoke=True, params=params, device=dev)
+        feats = mk(256, fseed=3)
+        want = ev_c({k: torch.from_numpy(v) for k, v in feats.items()})
+        got = ev_g({k: torch.as_tensor(v, device=dev)
+                    for k, v in feats.items()}).cpu()
+        worst[arch] = max_err(got, want)
+        if worst[arch] > F32_ATOL or not torch.isfinite(got).all():
+            raise AssertionError(f"{arch} smoke on the card vs the CPU: "
+                                 f"{worst[arch]} > {F32_ATOL}")
+    log(f"smoke-width evaluators on the card vs the CPU (256 items, same "
+        f"weights): max |trust diff| {json.dumps(worst)} <= {F32_ATOL}")
+    for arch in NEW_ARCHS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--sync", "--arch", arch, "--corpus", "192",
+                             "--n-requests", "3", "--drain-mode", "fused",
+                             "--device", str(dev)])
+        lines = out.getvalue().splitlines()
+        if rc != 0 or not lines[0].startswith(f"{arch} on {dev}:") \
+                or sum(l.lstrip().startswith("req ") for l in lines) != 3 \
+                or not lines[-1].startswith("P50 "):
+            raise AssertionError(f"serve --arch {arch}: rc {rc}, output "
+                                 f"{lines}")
+        log(f"serve --sync --arch {arch}: {lines[0]} ... {lines[-1]}")
+
+
+def phase_gemma2_engine(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
+    """gemma2-2b at full width and depth on the main path: 384 queries
+    through ``ServingEngine`` (fused, depth 2) on the 65536-document
+    shard, then the host-vs-fused engine parity run and one profiled
+    fused step."""
+    full = get_config(GEMMA)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    evaluate, mk = make_evaluator(GEMMA, smoke=False, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    log(f"{GEMMA}: {full.n_layers} layers, d_model {full.d_model}, "
+        f"{full.n_heads}/{full.n_kv_heads} heads of {full.d_head}, vocab "
+        f"{full.vocab_size}, windows {T.layer_windows(full)[:2]}..., "
+        f"softcaps {full.attn_logit_softcap}/{full.final_logit_softcap}: "
+        f"evaluator built on the card in {time.monotonic() - t0:.1f} s, "
+        f"{held / 1e9:.2f} GB of bf16 weights")
+
+    def doc_features(docs):
+        return mk(len(docs), fseed=int(docs[0]) % 1_000_000
+                  if len(docs) else 0)
+
+    def make_searcher():
+        return CorpusSearcher(corpus, [shard], feature_fn=doc_features)
+
+    def expect(n_searches, n_batches):
+        return {"topk_select": n_searches, "shed_partition": n_batches,
+                "flash_attention": full.n_layers * n_batches,
+                "dot_interaction": 0, "flash_decode": 0}
+
+    stats = phase_engine(cfg, make_searcher(), evaluate, dev,
+                         f"{GEMMA} engine", expect)
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+    phase_engine_parity(cfg, make_searcher, evaluate, dev, f"{GEMMA} engine",
+                        TRUST_ATOL)
+    fused = FusedLoadShedder(cfg, evaluate, device=dev)
+    batches = [(np.arange(off, off + ENGINE_BATCH, dtype=np.uint32),
+                np.zeros(ENGINE_BATCH, np.int32), mk(ENGINE_BATCH, fseed=off))
+               for off in (500_001, 600_001)]
+    fused.process(*batches[0])
+    stats["profile"] = device_profile(
+        f"one fused {GEMMA} step, {ENGINE_BATCH} items",
+        lambda: fused.process(*batches[1]))
+    stats["weights_bytes"] = held
+    log(f"{GEMMA} engine: peak device memory of the measured run "
+        f"{stats['peak_bytes'] / 2 ** 30:.2f} GiB")
+    return stats
+
+
+def phase_gemma2_decode(dev) -> dict:
+    """16 seeded prompts of 1..8000 tokens, one ``prefill`` each at B 1,
+    admitted into a 16-slot ``KVCachePool`` of 8192 positions; 16
+    ``decode_step``s over the pool, the local layers' 4096-key window and
+    both softcaps in play; decode logits of a few slots at a few steps
+    held against the full forward's last position."""
+    cfg = get_config(GEMMA)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev, dtype=L.dtype_of(cfg.dtype))
+    r = np.random.default_rng(SEED + 19)
+    prompt_lens = r.integers(1, GEMMA_MAX_PROMPT + 1,
+                             size=GEMMA_DECODE_SLOTS)
+    prompt_lens[:3] = (1, GEMMA_MAX_PROMPT, cfg.sliding_window + 1)
+    prompts = [r.integers(0, cfg.vocab_size, size=n) for n in prompt_lens]
+    feed = r.integers(0, cfg.vocab_size,
+                      size=(GEMMA_DECODE_STEPS, GEMMA_DECODE_SLOTS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = KVCachePool(cfg, n_slots=GEMMA_DECODE_SLOTS,
+                       max_len=GEMMA_MAX_LEN, device=dev)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (pool.cache["k"], pool.cache["v"]))
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.monotonic()
+    scores = []
+    for i, p in enumerate(prompts):
+        score, kv = T.prefill(params, cfg, torch.as_tensor(
+            p, dtype=torch.int32, device=dev)[None])
+        if pool.admit(i, kv, prompt_len=len(p)) != i:
+            raise AssertionError(f"prompt {i} did not get slot {i}")
+        scores.append(score)
+        del kv
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    prefill_launches = {n: w.launches for n, w in KERNELS.items()}
+    scores = torch.cat(scores)
+    if prefill_launches["flash_attention"] != cfg.n_layers \
+            * GEMMA_DECODE_SLOTS or not torch.isfinite(scores).all():
+        raise AssertionError(f"{GEMMA} prefill: launches {prefill_launches}"
+                             f", finite scores "
+                             f"{bool(torch.isfinite(scores).all())}")
+    check_slots = (0, 1, 2)                # 1, 8000 and 4097 tokens
+    check_steps = (0, GEMMA_DECODE_STEPS // 2, GEMMA_DECODE_STEPS - 1)
+    kept = {}
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t1 = time.monotonic()
+    for t in range(GEMMA_DECODE_STEPS):
+        tok = torch.as_tensor(feed[t], dtype=torch.int32, device=dev)
+        logits, pool.cache = T.decode_step(params, cfg, tok, pool.cache)
+        if t in check_steps:
+            kept[t] = logits[list(check_slots)].float().clone()
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t1
+    launches = {n: w.launches for n, w in KERNELS.items()}
+    want = {n: 0 for n in KERNELS}
+    want["flash_decode"] = cfg.n_layers * GEMMA_DECODE_STEPS
+    if launches != want:
+        raise AssertionError(f"{GEMMA} decode: launches {launches}, "
+                             f"expected {want}")
+    lengths = pool.cache["lengths"].cpu().numpy()
+    if not np.array_equal(lengths, prompt_lens + GEMMA_DECODE_STEPS):
+        raise AssertionError("decode: cache lengths do not count the steps")
+    peak = torch.cuda.max_memory_allocated()
+    extra = torch.as_tensor(feed[0], dtype=torch.int32, device=dev)
+
+    def one_step():
+        _, pool.cache = T.decode_step(params, cfg, extra, pool.cache)
+
+    profile = device_profile(f"one {GEMMA} decode_step, "
+                             f"{GEMMA_DECODE_SLOTS} slots", one_step)
+    worst, worst_rel = 0.0, 0.0
+    for slot in check_slots:
+        for t in check_steps:
+            toks = np.concatenate([prompts[slot], feed[:t + 1, slot]])
+            with torch.no_grad():
+                x = T.hidden_states(params, cfg, torch.as_tensor(
+                    toks, dtype=torch.int32, device=dev)[None])
+                full = T.unembed(params, cfg, x[:, -1])[0].float()
+            diff = (kept[t][check_slots.index(slot)] - full).abs()
+            worst = max(worst, float(diff.max()))
+            worst_rel = max(worst_rel, float(diff.norm() / full.norm()))
+    if worst > GEMMA_DECODE_LOGIT_ATOL:
+        raise AssertionError(f"{GEMMA} decode logits differ from the "
+                             f"forward by {worst} > "
+                             f"{GEMMA_DECODE_LOGIT_ATOL}")
+    for slot in range(GEMMA_DECODE_SLOTS):
+        pool.retire(slot)
+    past = int((prompt_lens + GEMMA_DECODE_STEPS > cfg.sliding_window).sum())
+    n_tokens = GEMMA_DECODE_SLOTS * GEMMA_DECODE_STEPS
+    stats = {"prefill_s": prefill_s, "decode_s": decode_s,
+             "tokens_per_s": n_tokens / decode_s,
+             "step_ms": decode_s / GEMMA_DECODE_STEPS * 1e3,
+             "launches": launches, "prefill_launches": prefill_launches,
+             "peak_bytes": peak, "logit_err": worst, "profile": profile}
+    log(f"{GEMMA} decode: {GEMMA_DECODE_SLOTS} prompts of 1.."
+        f"{GEMMA_MAX_PROMPT} tokens (mean {prompt_lens.mean():.0f}; "
+        f"{past} rows past the {cfg.sliding_window}-key window) prefilled in "
+        f"{prefill_s:.2f} s ({prefill_launches['flash_attention']} "
+        f"flash_attention launches) into a KVCachePool of "
+        f"{GEMMA_DECODE_SLOTS} x {GEMMA_MAX_LEN} ({kv_bytes / 1e9:.2f} GB "
+        f"bf16)")
+    log(f"{GEMMA} decode: {GEMMA_DECODE_STEPS} decode_steps in "
+        f"{decode_s:.3f} s = {stats['tokens_per_s']:.1f} tokens/s, "
+        f"{stats['step_ms']:.2f} ms per step; launches {launches}; logits "
+        f"vs the full forward at slots {check_slots}, steps {check_steps}: "
+        f"max abs err {worst:.3e} <= {GEMMA_DECODE_LOGIT_ATOL} (relative "
+        f"{worst_rel:.3e}); every slot retired; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return stats
+
+
+def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
+    """One evaluator at its published width and depth, seeded weights
+    built on the card, on the fused drain (``TrustIRConfig()``,
+    ``DrainExecutor`` depth 2): BIG_BATCHES seeded micro-batches of 2048
+    to 4096 items on the wall clock, ``max_evals`` items evaluated at
+    most per batch (0 = all). Launch counts are read around the run; then
+    one profiled fused step."""
+    cfg = TrustIRConfig()
+    full = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    evaluate, mk = make_evaluator(arch, smoke=False, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    build_s = time.monotonic() - t0
+    r = np.random.default_rng(SEED + 23)
+    batches = []
+    for i in range(BIG_BATCHES + 2):          # + a warm-up and a profiled
+        n = int(r.integers(BATCH // 2, BATCH + 1))
+        keys = np.zeros(BATCH, np.uint32)
+        keys[:n] = r.integers(1 << 20, 1 << 31, n).astype(np.uint32)
+        batches.append((i, keys, np.zeros(BATCH, np.int32),
+                        mk(BATCH, fseed=3000 + i), n))
+
+    class Batch:
+        def __init__(self, i, keys, buckets, feats, n):
+            self.i, self.item_keys, self.buckets = i, keys, buckets
+            self.features, self.n_valid = feats, n
+
+    fused = FusedLoadShedder(cfg, evaluate, max_evals=max_evals or None,
+                             device=dev)
+    _, keys, buckets, feats, n = batches[-2]
+    fused.process(keys, buckets, feats, n_valid=n)          # warm-up
+    results = {}
+
+    def finalize(batch, shed):
+        if batch.i in results:
+            raise AssertionError(f"{arch}: batch {batch.i} answered twice")
+        results[batch.i] = shed
+        return [batch.i]
+
+    ex = DrainExecutor(fused, finalize, depth=2)
+    torch.cuda.synchronize()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t1 = time.monotonic()
+    for b in batches[:BIG_BATCHES]:
+        ex.submit(Batch(*b))
+    ex.flush()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches = {n_: w.launches for n_, w in KERNELS.items()}
+    n_attn = full.n_layers if hasattr(full, "n_heads") else 0
+    want = {n_: 0 for n_ in KERNELS}
+    want["shed_partition"] = BIG_BATCHES
+    want["flash_attention"] = n_attn * BIG_BATCHES
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    if sorted(results) != list(range(BIG_BATCHES)):
+        raise AssertionError(f"{arch}: answered {sorted(results)}")
+    items = evals = 0
+    for i, _k, _b, _f, n in batches[:BIG_BATCHES]:
+        res = results[i]
+        if (res.tier[:n] == TIER_INVALID).any() \
+                or (res.tier[n:] != TIER_INVALID).any():
+            raise AssertionError(f"{arch}: batch {i} dropped an item")
+        if not np.isfinite(res.trust).all() or res.trust.min() < 0 \
+                or res.trust.max() > cfg.trust_scale:
+            raise AssertionError(f"{arch}: batch {i} trust outside [0, "
+                                 f"{cfg.trust_scale}]")
+        if max_evals and res.n_evaluated > max_evals:
+            raise AssertionError(f"{arch}: {res.n_evaluated} evaluations "
+                                 f"over the cap {max_evals}")
+        items += n
+        evals += res.n_evaluated
+    lat = np.array([results[i].response_time_s for i in range(BIG_BATCHES)])
+    _, keys, buckets, feats, n = batches[-1]
+    profile = device_profile(f"one fused {arch} step",
+                             lambda: fused.process(keys, buckets, feats,
+                                                   n_valid=n))
+    peak = torch.cuda.max_memory_allocated()
+    stats = {"items_per_s": items / wall, "evals_per_s": evals / wall,
+             "p50_batch_latency_s": float(np.percentile(lat, 50)),
+             "p99_batch_latency_s": float(np.percentile(lat, 99)),
+             "launches": launches, "weights_bytes": held,
+             "peak_bytes": peak, "build_s": build_s, "profile": profile,
+             "max_evals": max_evals}
+    share = f"{profile['busy_share']:.3f}" if profile else "not measured"
+    log(f"{arch} (fused drain, depth 2, wall clock): weights "
+        f"{held / 1e9:.2f} GB built on the card in {build_s:.1f} s; "
+        f"{BIG_BATCHES} batches, {items} items ({evals} evaluated, at most "
+        f"{max_evals or 'all'} a batch) in {wall:.3f} s = "
+        f"{stats['items_per_s']:.1f} items/s, {stats['evals_per_s']:.1f} "
+        f"evaluated/s; p50 batch latency "
+        f"{stats['p50_batch_latency_s'] * 1e3:.1f} ms, p99 "
+        f"{stats['p99_batch_latency_s'] * 1e3:.1f} ms; regimes "
+        f"{[results[i].regime.name for i in range(BIG_BATCHES)]}; device "
+        f"busy share of one step {share}; launches {launches}; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2314,6 +2819,8 @@ def main() -> int:
     kernels = [phase_shed_partition(cfg, dev), phase_flash_attention(dev),
                phase_topk_select(dev), phase_dot_interaction(dev),
                phase_flash_decode(dev)]
+    new_shapes = phase_new_head_dims(dev)
+    phase_smoke_evaluators(dev)
     torch.cuda.empty_cache()
 
     t0 = time.monotonic()
@@ -2379,11 +2886,38 @@ def main() -> int:
     log(f"recsys phases: {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
     decode = phase_decode(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fam_seconds = {}
+    t0 = time.monotonic()
+    gemma = phase_gemma2_engine(ecfg, corpus, shard, dev)
+    fam_seconds[f"{GEMMA} engine"] = time.monotonic() - t0
+    del corpus, retrieval, shard, evaluate, mk
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    gemma_decode = phase_gemma2_decode(dev)
+    fam_seconds[f"{GEMMA} decode"] = time.monotonic() - t0
+    big = {}
+    for arch, max_evals in BIG_EVALUATORS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+            f"still allocated before the build")
+        t0 = time.monotonic()
+        big[arch] = phase_big_evaluator(arch, max_evals, dev)
+        fam_seconds[arch] = time.monotonic() - t0
+    log(f"evaluator families: seconds {json.dumps(fam_seconds)}")
 
     by_path = {"engine": engine["launches"], "fleet": fleet_launches,
                "fanout": fanout["launches"], "dlrm": dlrm["launches"],
                **{arch: st["launches"] for arch, st in recsys.items()},
-               "decode": decode["launches"]}
+               "decode": decode["launches"],
+               f"{GEMMA} engine": gemma["launches"],
+               f"{GEMMA} prefill": gemma_decode["prefill_launches"],
+               f"{GEMMA} decode": gemma_decode["launches"],
+               **{arch: st["launches"] for arch, st in big.items()}}
     path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
     for kern in kernels:
@@ -2392,6 +2926,10 @@ def main() -> int:
             kern["max_abs_err"] = max(kern["max_abs_err"], dlrm["feats_err"])
         if kern["name"] == "topk_select":
             kern["fleet_shard_cases"] = fleet_topk
+        if kern["name"] in new_shapes:
+            rows, worst = new_shapes[kern["name"]]
+            kern["new_shapes"] = rows
+            kern["max_abs_err"] = max(kern["max_abs_err"], worst)
         kern["launches"] = path_launches[kern["name"]]
         kern["launches_by_path"] = {path: run[kern["name"]]
                                     for path, run in by_path.items()

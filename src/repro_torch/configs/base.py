@@ -1,9 +1,10 @@
 """The port's own copy of the config dataclasses it reads.
 
 Counterpart of ``repro.configs.base``, cut to the fields the port
-reads: the dense transformer of the trust evaluator, the recommenders
-(DLRM, BST, MIND and the two-tower retrieval model), the load
-shedder's parameters, the drain executor, the scheduler's quarantine,
+reads: the transformer of the trust evaluators (dense, with Gemma-2's
+and Qwen2.5's fields, and MoE), the GCN trust propagator, the
+recommenders (DLRM, BST, MIND and the two-tower retrieval model), the
+load shedder's parameters, the drain executor, the scheduler's quarantine,
 the serving fleet (replicas, gossip, autoscaling, forecasting, and the
 fan-out fields ``configs.trust_ir`` sets), and the retrieval front end.
 Later slices add the fields their modules read.
@@ -12,7 +13,22 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                      # FFN hidden size per expert
+    n_shared_experts: int = 0
+    d_shared: int = 0                  # FFN hidden of the shared expert(s)
+    first_k_dense: int = 0             # leading layers that stay dense
+    d_ff_dense: int = 0                # FFN hidden for those dense layers
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.001     # load-balance loss coefficient
+    norm_topk_prob: bool = True        # renormalize top-k gate weights
+    dispatch: str = "dense_scatter"    # "dense_scatter" | "ep_shard_map"
 
 
 @dataclass(frozen=True)
@@ -25,11 +41,40 @@ class TransformerConfig:
     d_head: int
     d_ff: int
     vocab_size: int
+    qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
-    act: str = "silu"                  # SwiGLU
+    act: str = "silu"                  # "silu" (SwiGLU) | "gelu" (GeGLU)
+    # gemma2-style extras
+    sliding_window: int = 0            # >0: window size for local layers
+    local_global_pattern: bool = False # alternate local/global attention
+    attn_logit_softcap: float = 0.0    # >0: tanh softcap on attention logits
+    final_logit_softcap: float = 0.0   # >0: tanh softcap on output logits
+    post_norm: bool = False            # gemma2 post-block RMSNorm
+    scale_embeddings: bool = False     # gemma2 sqrt(d_model) embed scaling
+    query_pre_attn_scalar: float = 0.0 # gemma2 overrides 1/sqrt(d_head)
+    # MoE
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"            # compute type
+    param_dtype: str = "float32"
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    d_feat: int
+    n_classes: int
+    aggregator: str = "mean"       # "mean" | "sum" | "max"
+    norm: str = "sym"              # "sym" (D^-1/2 A D^-1/2) | "rw" | "none"
+    dropout: float = 0.0
+    dtype: str = "float32"
     param_dtype: str = "float32"
 
 

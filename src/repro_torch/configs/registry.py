@@ -1,11 +1,21 @@
 """Arch registry: maps an arch id to its full or smoke config."""
 from __future__ import annotations
 
-from repro_torch.configs import (bst, dlrm_mlperf, mind, smollm_135m,
-                                two_tower)
+from typing import List
 
-_MODULES = {m.ARCH_ID: m for m in (smollm_135m, dlrm_mlperf, bst, mind,
-                                   two_tower)}
+from repro_torch.configs import (bst, dlrm_mlperf, gcn_cora, gemma2_2b, mind,
+                                moonshot_16b_a3b, qwen25_14b,
+                                qwen3_moe_30b_a3b, smollm_135m, two_tower)
+
+# The reference registry's order.
+_MODULES = {m.ARCH_ID: m for m in (smollm_135m, qwen25_14b, gemma2_2b,
+                                   moonshot_16b_a3b, qwen3_moe_30b_a3b,
+                                   gcn_cora, bst, dlrm_mlperf, two_tower,
+                                   mind)}
+
+
+def arch_ids() -> List[str]:
+    return list(_MODULES)
 
 
 def get_config(arch_id: str, smoke: bool = False):

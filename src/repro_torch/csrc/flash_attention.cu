@@ -54,8 +54,16 @@
 // tile); lane j scores key j of a 32-key tile against the warp's 8 rows,
 // then accumulates output columns lane + 32 c over the tile's keys.
 //
+// D 256 (Gemma-2: 8 query heads over 4, softcap 50, a 4096-key window on
+// alternate layers): the same bf16 kernel with two K/V stages instead of
+// three (three would need 270,336 B of shared memory at 8 warps, over the
+// 232,448 a block may have) and the Q fragments read from shared memory at
+// each k-step rather than held in registers, which leaves the 128 float32
+// accumulators of a thread's output rows the registers they need. The
+// float32 kernel takes D 256 as it is (99,328 B of shared memory).
+//
 // Both accept any S (rows and keys past S are masked) and D in {16, 64,
-// 128}; a row that sees no key writes zeros.
+// 128, 256}; a row that sees no key writes zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,21 +82,32 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kKeys = 64;        // keys per K/V tile
 constexpr int kMaxWarps = 8;     // 16 packed query rows each
 constexpr int kLongWarps = 4;    // warps per block when S * G is long
-constexpr int kStages = 3;       // K/V tiles in the ring
+
+// K/V tiles in the ring: 3, or 2 at D 256, where 3 would take 270,336 B of
+// shared memory with kMaxWarps of Q rows (a block may have 232,448).
+template <int D>
+constexpr int kStages = D > 128 ? 2 : 3;
+
+// Q fragments stay in registers for the whole key loop up to D 128; at D
+// 256 they would take 64 registers a thread beside the 128 of the output
+// accumulator, so they are read from the staged Q rows at each k-step.
+template <int D>
+constexpr bool kQInRegisters = D <= 128;
 
 template <int D>
 constexpr int kPaddedRow = D + 8;  // bf16 elements of a shared row, +16 bytes
 
 // K/V ring slots a launch needs: no more than S has tiles.
+template <int D>
 __host__ __device__ inline int kv_slots(int S) {
   const int tiles = (S + kKeys - 1) / kKeys;
-  return tiles < kStages ? (tiles > 0 ? tiles : 1) : kStages;
+  return tiles < kStages<D> ? (tiles > 0 ? tiles : 1) : kStages<D>;
 }
 
 // Q (later O) rows, then the K and V tiles of the ring.
 template <int D>
 size_t bf16_smem_bytes(int n_warps, int S) {
-  const int stages = kv_slots(S);
+  const int stages = kv_slots<D>(S);
   return sizeof(__nv_bfloat16) * kPaddedRow<D> *
          (16 * n_warps + stages * 2 * kKeys);
 }
@@ -105,10 +124,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int CPR = D / 8;               // 16-byte chunks per row
   constexpr int KS = D / 16;               // k-steps of QK^T
   constexpr int NT = kKeys / 8;            // n-tiles of S per key tile
+  constexpr int kSt = kStages<D>;
+  constexpr bool kQRegs = kQInRegisters<D>;
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   const int n_warps = blockDim.x >> 5;
   const int M = 16 * n_warps;
-  const int stages = kv_slots(S);
+  const int stages = kv_slots<D>(S);
   __nv_bfloat16* Qs = smem;                // [M][DP], later O
   __nv_bfloat16* Ks = Qs + M * DP;         // [stages][kKeys][DP]
   __nv_bfloat16* Vs = Ks + stages * kKeys * DP;
@@ -156,10 +177,10 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       tc::cp_async16(vs + j * DP + c * 8, vb + off, ok);
     }
   };
-  // Q and the first kStages - 1 tiles, one commit group each (empty past
-  // the last tile), so that a fixed wait count finds each tile landed.
+  // Q and the first kSt - 1 tiles, one commit group each (empty past the
+  // last tile), so that a fixed wait count finds each tile landed.
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < kSt - 1; ++i) {
     if (t_begin + i < t_end) load_kv(t_begin + i, i);
     tc::cp_async_commit();
   }
@@ -179,7 +200,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float c_exp = softcap > 0.f ? 1.f : scale * kLog2e;
   const float cap_in = scale / softcap, cap_out = softcap * kLog2e;
 
-  uint32_t qf[KS][4];
+  uint32_t qf[kQRegs ? KS : 1][4];
+  const __nv_bfloat16* q_frag =            // this lane's ldmatrix row of Q
+      Qs + (16 * warp + (lane & 15)) * DP + (lane >> 4) * 8;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
 #pragma unroll
@@ -189,21 +212,21 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int t = t_begin; t < t_end; ++t) {
     const int it = t - t_begin;
-    if (t + kStages - 1 < t_end)
-      load_kv(t + kStages - 1, (it + kStages - 1) % kStages);
+    if (t + kSt - 1 < t_end) load_kv(t + kSt - 1, (it + kSt - 1) % kSt);
     tc::cp_async_commit();
-    tc::cp_async_wait<kStages - 1>();      // this tile (and Q) landed
+    tc::cp_async_wait<kSt - 1>();          // this tile (and Q) landed
     __syncthreads();
-    if (it == 0) {
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        tc::ldmatrix_x4(qf[ks], Qs + (16 * warp + (lane & 15)) * DP +
-                                    ks * 16 + (lane >> 4) * 8);
+        for (int ks = 0; ks < KS; ++ks)
+          tc::ldmatrix_x4(qf[ks], q_frag + ks * 16);
+      }
     }
     const int k0 = t * kKeys;
     if (live && k0 < w_kend && k0 + kKeys > w_kbegin) {
-      const __nv_bfloat16* ks = Ks + (it % kStages) * kKeys * DP;
-      const __nv_bfloat16* vs = Vs + (it % kStages) * kKeys * DP;
+      const __nv_bfloat16* ks = Ks + (it % kSt) * kKeys * DP;
+      const __nv_bfloat16* vs = Vs + (it % kSt) * kKeys * DP;
       float s[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -215,10 +238,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           uint32_t kf[4];
+          if constexpr (!kQRegs) tc::ldmatrix_x4(qf[0], q_frag + kk * 16);
+          const uint32_t(&a)[4] = qf[kQRegs ? kk : 0];
           tc::ldmatrix_x4(kf, ks + (16 * jp + (lane & 7) + (lane >> 4) * 8) *
                                       DP + kk * 16 + ((lane >> 3) & 1) * 8);
-          tc::mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
-          tc::mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+          tc::mma_bf16(s[2 * jp], a, kf[0], kf[1]);
+          tc::mma_bf16(s[2 * jp + 1], a, kf[2], kf[3]);
         }
       }
       if (softcap > 0.f) {
@@ -329,7 +354,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   auto kernel = flash_attention_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bf16_smem_bytes<D>(kMaxWarps, kStages * kKeys)));
+      static_cast<int>(bf16_smem_bytes<D>(kMaxWarps, kStages<D> * kKeys)));
   if (err != cudaSuccess) return static_cast<int>(err);
   // A pair whose packed rows fit kMaxWarps warps takes one block of just
   // enough warps (the evaluator: 93 rows, 6 warps); longer ones take tiles
@@ -517,8 +542,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). D
-// must be 16, 64 or 128 (the wrapper checks; 16 is the smoke-width
-// evaluator's head). Launches on `stream`; returns cudaGetLastError()
+// must be 16, 64, 128 or 256 (the wrapper checks, and zero-pads a head
+// narrower than 16 to 16; 16 is the smoke-width evaluators' head, 256
+// Gemma-2's). Launches on `stream`; returns cudaGetLastError()
 // (0 = ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
@@ -532,10 +558,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (D == 16) FA_CASE(launch_f32, 16);
     if (D == 64) FA_CASE(launch_f32, 64);
     if (D == 128) FA_CASE(launch_f32, 128);
+    if (D == 256) FA_CASE(launch_f32, 256);
   } else if (dtype == 1) {
     if (D == 16) FA_CASE(launch_bf16, 16);
     if (D == 64) FA_CASE(launch_bf16, 64);
     if (D == 128) FA_CASE(launch_bf16, 128);
+    if (D == 256) FA_CASE(launch_bf16, 256);
   }
 #undef FA_CASE
   return static_cast<int>(cudaErrorInvalidValue);

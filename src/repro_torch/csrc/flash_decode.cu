@@ -43,7 +43,10 @@
 //   zero), QK^T is one mma per 8 positions and 16 of depth, the softmax
 //   runs on the fragments with quad shuffles, and P enters PV as two bf16
 //   terms (hi + lo, two mma on the same V fragments), keeping ~16 bits of
-//   p as flash_attention.cu does. float32 keeps FP32 FMAs
+//   p as flash_attention.cu does. At D 256 (Gemma-2) the q rows of a piece
+//   are staged in the warp's shared memory and read at each depth step,
+//   not held in registers beside the 128-float accumulator, and a block
+//   has 2 warps (shared memory). float32 keeps FP32 FMAs
 //   (TF32 would miss the 1e-4 tolerance) under the same split: lane j
 //   scores position j of the tile for every head, and the output columns
 //   are accumulated lane by lane.
@@ -68,6 +71,11 @@ constexpr int kValidMask = 63;
 constexpr int kOpens = 64;         // the first tile of its piece
 constexpr int kCloses = 128;       // the last tile of its piece
 
+// bf16 at D 256 keeps the q rows in shared memory: in registers they would
+// take 64 a thread beside the 128 of the output accumulator.
+template <int D>
+constexpr bool kBf16QInSmem = D > 128;
+
 template <typename T, int D>
 struct Layout {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -76,9 +84,15 @@ struct Layout {
   static constexpr int kRowBytes = kRowElems * static_cast<int>(sizeof(T));
   // K and V rows of a tile, then the tile's descriptor (16 bytes)
   static constexpr int kStageBytes = 2 * kTile * kRowBytes + 16;
-  static constexpr int kQBytes = kBf16 ? 0 : kMaxG * D * 4;   // f32 q rows
+  // the warp's q rows, where they are staged in shared memory
+  static constexpr int kQBytes =
+      kBf16 ? (kBf16QInSmem<D> ? kMaxG * D * 2 : 0) : kMaxG * D * 4;
   static constexpr int kWarpBytes = kStages * kStageBytes + kQBytes;
-  static constexpr int kWarps = 4 * kWarpBytes <= 220 * 1024 ? 4 : 2;
+  // as many warps (4, 2 or 1) as fit 220 KB: D 256 takes 2 in bf16
+  // (211,040 B), 1 in float32 (141,344 B)
+  static constexpr int kWarps = 4 * kWarpBytes <= 220 * 1024   ? 4
+                                : 2 * kWarpBytes <= 220 * 1024 ? 2
+                                                               : 1;
   static constexpr int kSmemBytes = kWarps * kWarpBytes;
 };
 
@@ -170,28 +184,46 @@ struct Cursor {
 template <int D>
 struct Bf16Math {
   static constexpr int KS = D / 16;        // depth steps of QK^T
-  uint32_t qa[KS][2];                      // a0, a2 (rows 8..15 are zero)
-  uint32_t qn[KS][2];                      // the next piece's, in flight
+  static constexpr bool kQSmem = kBf16QInSmem<D>;
+  static constexpr int KQ = kQSmem ? 1 : KS;
+  uint32_t qa[KQ][2];                      // a0, a2 (rows 8..15 are zero)
+  uint32_t qn[KQ][2];                      // the next piece's, in flight
+  __nv_bfloat16* qs;                       // kQSmem: the warp's [G][D] q rows
+  const __nv_bfloat16* qg_next;            // kQSmem: the next piece's q rows
+  int G;
   float m, l;                              // head grp, log2 units
   float acc[D / 8][4];                     // c0, c1: head grp
 
   // Start loading the q rows of a piece (global loads into registers,
-  // consumed by the next begin).
-  __device__ void fetch(const __nv_bfloat16* qg, int G, int lane) {
-    const int grp = lane >> 2, tig = lane & 3;
+  // consumed by the next begin); with kQSmem only note where they are.
+  __device__ void fetch(const __nv_bfloat16* qg, int G_, int lane) {
+    if constexpr (kQSmem) {
+      qg_next = qg;
+    } else {
+      const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const __nv_bfloat16* p = qg + grp * D + ks * 16 + 2 * tig;
-      qn[ks][0] = grp < G ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-      qn[ks][1] = grp < G ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* p = qg + grp * D + ks * 16 + 2 * tig;
+        qn[ks][0] = grp < G_ ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+        qn[ks][1] = grp < G_ ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+      }
     }
   }
 
-  __device__ void begin(int, int) {
+  __device__ void begin(int G_, int lane) {
+    G = G_;
+    if constexpr (kQSmem) {
+      __syncwarp();                        // the last piece's reads are done
+      for (int i = lane; i < G * D / 8; i += 32)
+        reinterpret_cast<uint4*>(qs)[i] =
+            reinterpret_cast<const uint4*>(qg_next)[i];
+      __syncwarp();
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      qa[ks][0] = qn[ks][0];
-      qa[ks][1] = qn[ks][1];
+      for (int ks = 0; ks < KS; ++ks) {
+        qa[ks][0] = qn[ks][0];
+        qa[ks][1] = qn[ks][1];
+      }
     }
     m = -INFINITY;
     l = 0.f;
@@ -206,7 +238,7 @@ struct Bf16Math {
     constexpr int RE = Layout<__nv_bfloat16, D>::kRowElems;
     const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(kv);
     const __nv_bfloat16* vs = ks + kTile * RE;
-    const int tig = lane & 3;
+    const int grp = lane >> 2, tig = lane & 3;
     float s[kTile / 8][4];
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n)
@@ -217,7 +249,17 @@ struct Bf16Math {
       if (16 * jp >= n_valid) continue;
 #pragma unroll
       for (int ks_ = 0; ks_ < KS; ++ks_) {
-        const uint32_t a[4] = {qa[ks_][0], 0u, qa[ks_][1], 0u};
+        uint32_t a[4] = {0u, 0u, 0u, 0u};
+        if constexpr (kQSmem) {
+          const __nv_bfloat16* p = qs + grp * D + ks_ * 16 + 2 * tig;
+          if (grp < G) {
+            a[0] = *reinterpret_cast<const uint32_t*>(p);
+            a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+          }
+        } else {
+          a[0] = qa[ks_][0];
+          a[2] = qa[ks_][1];
+        }
         uint32_t kf[4];
         tc::ldmatrix_x4(kf, ks + (16 * jp + (lane & 7) + (lane >> 4) * 8) *
                                      RE + ks_ * 16 + ((lane >> 3) & 1) * 8);
@@ -451,8 +493,9 @@ flash_decode_pieces_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   Math math;
-  if constexpr (!Lay::kBf16)
-    math.qs = reinterpret_cast<float*>(ring + Lay::kStages * Lay::kStageBytes);
+  if constexpr (Lay::kQBytes > 0)
+    math.qs = reinterpret_cast<decltype(math.qs)>(ring + Lay::kStages *
+                                                             Lay::kStageBytes);
   bool fetched = false;                    // q of the next piece in flight
   for (int stage = 0;; stage = (stage + 1) % Lay::kStages) {
     load_tile(ld, (stage + Lay::kStages - 1) % Lay::kStages);
@@ -485,6 +528,7 @@ flash_decode_pieces_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Pass 2: one warp per (batch row, query head) merges the row's pieces,
 // lane c holding output columns c + 32 i.
 constexpr int kCombineWarps = 4;
+constexpr int kCombineCols = 8;    // columns a lane holds: D <= 256
 
 template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
@@ -506,7 +550,9 @@ flash_decode_combine_kernel(const float* __restrict__ part_m,
   const long long row = (b * sh.Hkv + h / G) * max_pieces;
   // Pieces 32 at a time: lane s holds piece s0 + s's max and sum; the
   // running max, sum and output are rescaled as the max grows.
-  float mx = -INFINITY, den = 0.f, num[4] = {0.f, 0.f, 0.f, 0.f};  // D <= 128
+  float mx = -INFINITY, den = 0.f, num[kCombineCols];
+#pragma unroll
+  for (int c = 0; c < kCombineCols; ++c) num[c] = 0.f;
   for (int s0 = 0; s0 < n; s0 += 32) {
     const int s = s0 + lane;
     const float ms = s < n ? part_m[(row + s) * G + g] : -INFINITY;
@@ -517,20 +563,20 @@ flash_decode_combine_kernel(const float* __restrict__ part_m,
     den = den * corr + warp_sum(ls * w);
     mx = m_new;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) num[c] *= corr;
+    for (int c = 0; c < kCombineCols; ++c) num[c] *= corr;
     const int count = min(32, n - s0);
 #pragma unroll 8
     for (int j = 0; j < count; ++j) {
       const float wj = __shfl_sync(kFull, w, j);
       const float* a = part_acc + ((row + s0 + j) * G + g) * D;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < kCombineCols; ++c)
         if (lane + 32 * c < D) num[c] = fmaf(wj, a[lane + 32 * c], num[c]);
     }
   }
   T* out = o + (b * Hq + h) * D;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < kCombineCols; ++c)
     if (lane + 32 * c < D)
       out[lane + 32 * c] = from_float<T>(den > 0.f ? num[c] / den : 0.f);
 }
@@ -621,11 +667,13 @@ int launch(const void* q, const void* k, const void* v, const Shape& sh,
     if (D == 32) return CALL(float, 32);                    \
     if (D == 64) return CALL(float, 64);                    \
     if (D == 128) return CALL(float, 128);                  \
+    if (D == 256) return CALL(float, 256);                  \
   } else if (dtype == 1) {                                  \
     if (D == 16) return CALL(__nv_bfloat16, 16);            \
     if (D == 32) return CALL(__nv_bfloat16, 32);            \
     if (D == 64) return CALL(__nv_bfloat16, 64);            \
     if (D == 128) return CALL(__nv_bfloat16, 128);          \
+    if (D == 256) return CALL(__nv_bfloat16, 256);          \
   }
 
 // Positions per piece for this shape (a multiple of 32), or a negative
@@ -638,7 +686,7 @@ extern "C" int flash_decode_piece_len(int B, int Hkv, int L, int dtype,
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}; G <= 8;
+// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128, 256}; G <= 8;
 // piece_len from flash_decode_piece_len; max_pieces = ceil(L / piece_len);
 // part_m, part_l: (B, Hkv, max_pieces, G) and part_acc: (B, Hkv,
 // max_pieces, G, D) float32 scratch. Launches both passes on `stream`;

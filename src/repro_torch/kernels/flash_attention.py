@@ -6,7 +6,10 @@ CUDA tensors and takes the plain version ``flash_attention_ref`` only for
 CPU tensors. bf16 runs on the tensor cores with the GQA group packed into
 the rows of a tile; float32 runs in FP32 FMAs. The kernel accepts any S
 (the ragged edge is masked); it takes D of 16 (the smoke-width
-evaluator), 64 or 128.
+evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
+qwen2.5 smoke config's 12) is zero-padded to 16 and the output cut back:
+zero columns add nothing to q k^T, and the padded columns of v are
+dropped.
 """
 from __future__ import annotations
 
@@ -14,11 +17,22 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import library_function
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64, 128)
+_HEAD_DIMS = (16, 64, 128, 256)
+MIN_HEAD_DIM = 16                        # narrower heads are zero-padded
+
+
+def pad_head_dim(*ts: torch.Tensor):
+    """Each tensor's last axis zero-padded to ``MIN_HEAD_DIM`` if it is
+    narrower (an exact change for attention: see the module note)."""
+    D = ts[0].shape[-1]
+    if D >= MIN_HEAD_DIM:
+        return ts
+    return tuple(F.pad(t, (0, MIN_HEAD_DIM - D)) for t in ts)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,6 +100,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, "
                         f"got {q.dtype}")
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if D < MIN_HEAD_DIM:
+        qp, kp, vp = pad_head_dim(q, k, v)
+        return flash_attention(qp, kp, vp, causal=causal, window=window,
+                               softcap=softcap,
+                               sm_scale=sm_scale)[..., :D].contiguous()
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention takes D in {_HEAD_DIMS}, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -98,8 +119,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_void_p])
-    if sm_scale is None:
-        sm_scale = D ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -13,8 +13,9 @@ split-K flash-decoding over pieces of ``piece_length`` positions of each
 row's valid range, walked by a persistent grid, then a combine pass;
 bound by the bytes of the valid cache) for CUDA tensors, and takes the plain
 version ``flash_decode_ref`` only for CPU tensors.
-The kernel takes bf16 or f32, D of 16, 32, 64 or 128, and up to 8 query
-heads per KV head.
+The kernel takes bf16 or f32, D of 16, 32, 64, 128 or 256, and up to 8
+query heads per KV head; a head narrower than 16 is zero-padded to 16
+and the output cut back, as ``flash_attention`` does.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import library_function
+from repro_torch.kernels.flash_attention import MIN_HEAD_DIM, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8
 NEG_INF = -2.0e38
 
@@ -110,6 +112,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
                         f"{q.dtype}")
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if D < MIN_HEAD_DIM:
+        qp, kp, vp = pad_head_dim(q, k_cache, v_cache)
+        return flash_decode(qp, kp, vp, lengths, window=window,
+                            softcap=softcap,
+                            sm_scale=sm_scale)[..., :D].contiguous()
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_decode takes D in {_HEAD_DIMS}, got {D}")
     if G > MAX_GROUP:
@@ -134,8 +143,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         "flash_decode", "flash_decode_launch",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    if sm_scale is None:
-        sm_scale = D ** -0.5
     dev = q.device
     # partial state of every piece a row could have (the worst case)
     part_ml = torch.empty((2, B, Hkv, max_pieces, G), dtype=torch.float32,

@@ -25,9 +25,12 @@ service times, per-shard hedges onto mirror stripes, replica ``r0``
 slowed to show them. ``--device`` defaults to ``cuda``; ``--device
 cpu`` runs the plain PyTorch versions of the kernels.
 
-``--arch`` names the trust evaluator: ``smollm-135m`` (default),
-``dlrm-mlperf``, ``bst``, ``mind`` or ``two-tower-retrieval``, each at
-smoke width.
+``--arch`` names the trust evaluator, any of the registry's ten, each at
+smoke width: the transformers ``smollm-135m`` (default),
+``qwen2.5-14b``, ``gemma2-2b``, ``moonshot-v1-16b-a3b`` and
+``qwen3-moe-30b-a3b``, the GCN trust propagator ``gcn-cora``, and the
+recommenders ``bst``, ``dlrm-mlperf``, ``two-tower-retrieval`` and
+``mind``.
 
 The mesh-sharded evaluator (``--sharded``) is not ported yet: it exits
 with status 2 and says where ROADMAP.md queues it.
@@ -40,6 +43,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.configs.registry import arch_ids
 
 SHARDED_ITEM = "ROADMAP.md, Queue 1, item 6 (distribution)"
 
@@ -75,7 +80,8 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__, epilog=_EPILOG,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--arch", default="smollm-135m")
+    p.add_argument("--arch", default="smollm-135m", choices=arch_ids(),
+                   help="trust evaluator (smoke width)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")

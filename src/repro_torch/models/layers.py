@@ -27,10 +27,13 @@ def dtype_of(name: str) -> torch.dtype:
 
 def trunc_normal(shape, std: float, generator: torch.Generator,
                  device=None, dtype=torch.float32) -> torch.Tensor:
-    """``std`` times a normal truncated to [-2, 2], as the reference."""
-    t = torch.empty(shape, dtype=dtype, device=device)
+    """``std`` times a normal truncated to [-2, 2], as the reference;
+    drawn in float32 and cast to ``dtype``, so a model built straight
+    in bf16 holds one float32 tensor at a time, not a float32 copy of
+    itself."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(std)
+    return t.mul_(std).to(dtype)
 
 
 def dense_init(d_in: int, d_out: int, generator: torch.Generator, *,
@@ -132,14 +135,22 @@ def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
             + p["bias"].to(torch.float32)).to(x.dtype)
 
 
+def glu(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated product: ``silu(g) * u`` (SwiGLU) or ``gelu(g) * u`` with
+    the tanh approximation (GeGLU, ``jax.nn.gelu(approximate=True)``)."""
+    if act == "silu":
+        return F.silu(g) * u
+    if act == "gelu":
+        return F.gelu(g, approximate="tanh") * u
+    raise ValueError(f"unknown act {act!r}")
+
+
 def glu_ffn_apply(p, x: torch.Tensor, act: str = "silu",
                   compute_dtype=None) -> torch.Tensor:
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
-    if act != "silu":
-        raise ValueError(f"the port's FFN supports act='silu', got {act!r}")
+    """``down(act(gate(x)) * up(x))``: SwiGLU or GeGLU."""
     g = dense_apply(p["gate"], x, compute_dtype)
     u = dense_apply(p["up"], x, compute_dtype)
-    return dense_apply(p["down"], F.silu(g) * u, compute_dtype)
+    return dense_apply(p["down"], glu(g, u, act), compute_dtype)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -161,6 +172,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` in float32, cast back to ``x``'s dtype."""
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
 def embed_apply(p, tokens: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     t = p["table"]
     if compute_dtype is not None:
@@ -171,3 +187,47 @@ def embed_apply(p, tokens: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 def unembed_apply(p, x: torch.Tensor) -> torch.Tensor:
     """Logits via the (tied) embedding table."""
     return x @ p["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Segment reductions in a fixed order
+# ---------------------------------------------------------------------------
+
+def _by_segment(data: torch.Tensor, segment_ids: torch.Tensor,
+                n_segments: int):
+    """Rows of ``data`` stably sorted by segment id, ids outside ``[0,
+    n_segments)`` moved to a spare last segment (as ``segment_sum``
+    drops them), and the rows a segment has, spare one included."""
+    seg = segment_ids.reshape(-1).long()
+    seg = torch.where((seg >= 0) & (seg < n_segments), seg,
+                      torch.full_like(seg, n_segments))
+    seg, order = torch.sort(seg, stable=True)
+    return data[order], torch.bincount(seg, minlength=n_segments + 1)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: each segment's rows added in their order,
+    one after another (``torch.segment_reduce`` over the stably sorted
+    rows, no atomics: the same bits run after run on every device); an
+    empty segment is 0."""
+    rows, counts = _by_segment(data, segment_ids, n_segments)
+    return torch.segment_reduce(rows, "sum", lengths=counts,
+                                initial=0.0)[:n_segments]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_max``: an empty segment is -inf."""
+    rows, counts = _by_segment(data, segment_ids, n_segments)
+    return torch.segment_reduce(rows, "max",
+                                lengths=counts)[:n_segments]
+
+
+def segment_counts(segment_ids: torch.Tensor,
+                   n_segments: int) -> torch.Tensor:
+    """Rows in each segment (ids out of range not counted)."""
+    seg = segment_ids.reshape(-1).long()
+    keep = (seg >= 0) & (seg < n_segments)
+    return torch.bincount(torch.where(keep, seg, torch.full_like(
+        seg, n_segments)), minlength=n_segments + 1)[:n_segments]

@@ -5,8 +5,8 @@ Counterpart of ``repro.models.recsys.embedding``: ``ROW_PAD``,
 multi-hot ``(B, n_hot)`` bag) and ``ragged_embedding_bag`` (offsets-style
 bags). Tables are ``(padded_rows(vocab), dim)`` as in the reference.
 
-The ragged bag sums each bag's rows in index order, one elementwise add
-a position, on every device: ``index_add_`` would add in no fixed order
+The ragged bag sums each bag's rows in index order, one row after
+another, on every device: ``index_add_`` would add in no fixed order
 on CUDA (atomics), so its bits would change run to run. The same order
 is the reference's ``segment_sum`` order on the CPU.
 """
@@ -82,32 +82,18 @@ def ragged_embedding_bag(p: Dict, flat_idx: torch.Tensor,
     (ids outside ``[0, n_bags)`` are dropped, as ``segment_sum`` drops
     them). Returns (n_bags, dim); an empty bag is 0.
 
-    The rows are laid out as a ``(n_bags, longest bag, dim)`` block in
-    their original order within each bag (a stable sort by bag id), then
-    reduced one position at a time: the same order, and bits, run after
-    run on every device."""
+    Each bag's rows are reduced in their original order
+    (``layers.segment_sum``: a stable sort by bag id, then one row after
+    another): the same order, and bits, run after run on every
+    device."""
     if combiner not in ("sum", "mean", "max"):
         raise ValueError(f"unknown combiner {combiner!r}")
     e = lookup(p, flat_idx, compute_dtype)            # (nnz, dim)
-    seg = segment_ids.reshape(-1).long()
-    keep = (seg >= 0) & (seg < n_bags)
-    e, seg = e[keep], seg[keep]
-    seg, order = torch.sort(seg, stable=True)
-    e = e[order]
-    counts = torch.bincount(seg, minlength=n_bags)
-    start = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(len(seg), device=e.device) - start[seg]
-    longest = max(int(counts.max()) if len(seg) else 0, 1)
-    fill = float("-inf") if combiner == "max" else 0.0
-    block = torch.full((n_bags, longest, e.shape[-1]), fill,
-                       dtype=e.dtype, device=e.device)
-    block[seg, pos] = e                               # one row per slot
     if combiner == "max":                             # empty bags -> 0
-        out = block.amax(dim=1)
+        out = L.segment_max(e, segment_ids, n_bags)
         return torch.where(torch.isfinite(out), out, 0.0)
-    out = block[:, 0]
-    for j in range(1, longest):
-        out = out + block[:, j]
+    out = L.segment_sum(e, segment_ids, n_bags)
     if combiner == "mean":
+        counts = L.segment_counts(segment_ids, n_bags)
         out = out / counts.to(e.dtype).clamp(min=1.0)[:, None]
     return out

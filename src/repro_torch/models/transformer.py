@@ -1,11 +1,19 @@
-"""Dense decoder-only transformer: the trust evaluator's forward.
+"""Decoder-only transformer: the trust evaluators' forward.
 
-Counterpart of ``repro.models.transformer`` for the dense llama-style
-configs (smollm-135m): GQA with RoPE, SwiGLU FFN, RMSNorm, tied
-embeddings; the full-sequence forward and scoring head, and the KV-cache
-path (``init_kv_cache``, ``prefill``, ``decode_step``). It has no MoE, no
-sliding window and no remat; layers run in a Python loop over a list of
-block dicts.
+Counterpart of ``repro.models.transformer`` for every LM config of the
+reference, all driven by ``TransformerConfig``:
+- GQA with RoPE and an optional QKV bias (qwen2.5);
+- SwiGLU or GeGLU FFN, or an MoE FFN (``models.moe``: qwen3-moe,
+  moonshot), with ``first_k_dense`` leading dense layers in
+  ``dense_blocks``;
+- gemma2's extras: alternating local (sliding-window) and global layers,
+  attention and final logit softcaps, pre and post RMSNorm, the
+  sqrt(d_model) embedding scale and the query pre-attention scalar;
+- tied or untied (``unembed``) output embeddings.
+
+The full-sequence forward and scoring head, and the KV-cache path
+(``init_kv_cache``, ``prefill``, ``decode_step``). Layers run in a Python
+loop over lists of block dicts; there is no remat (inference only).
 
 Parameters are nested dicts of tensors with the reference's names and
 ``(d_in, d_out)`` dense weights; :func:`params_from_jax` converts a JAX
@@ -14,57 +22,80 @@ parameter pytree (as numpy arrays) into this form.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
-# Rows of the (rows, S, vocab) logits that score_tokens materializes at
-# once: 256 x 31 x 49152 bf16 logits are 0.8 GB, their float32
-# log-softmax temporaries about 3 GB.
-SCORE_ROW_CHUNK = 256
+# float32 logits the scoring head materializes at once: 256 sequences of
+# S 31 at smollm's vocab of 49152 (1.56 GB), which is 1,523 positions at
+# gemma2's vocab of 256000.
+SCORE_LOGIT_BYTES = 256 * 31 * 49152 * 4
+
+
+def _block_init(cfg: TransformerConfig, generator: torch.Generator, kw,
+                moe_layer: bool, d_ff: int) -> Dict:
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    bias = dict(bias=cfg.qkv_bias, **kw)
+    p = {
+        "ln1": L.rmsnorm_init(d, **kw),
+        "ln2": L.rmsnorm_init(d, **kw),
+        "attn": {
+            "wq": L.dense_init(d, Hq * Dh, generator, **bias),
+            "wk": L.dense_init(d, Hkv * Dh, generator, **bias),
+            "wv": L.dense_init(d, Hkv * Dh, generator, **bias),
+            "wo": L.dense_init(Hq * Dh, d, generator, **kw,
+                               std=math.sqrt(1.0 / (Hq * Dh))
+                               / math.sqrt(2.0 * cfg.n_layers)),
+        },
+    }
+    if cfg.post_norm:
+        p["ln1_post"] = L.rmsnorm_init(d, **kw)
+        p["ln2_post"] = L.rmsnorm_init(d, **kw)
+    if moe_layer:
+        p["moe"] = M.moe_init(d, cfg.moe, generator, **kw)
+    else:
+        p["ffn"] = L.glu_ffn_init(d, d_ff, generator, **kw)
+    return p
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device=None) -> Dict:
+                device=None, dtype: Optional[torch.dtype] = None) -> Dict:
     """Seeded init with the reference's shapes and scales (not its
-    numbers: torch and JAX draw different bits from a seed)."""
-    if not cfg.tie_embeddings:
-        raise ValueError("the port's transformer supports tied "
-                         "embeddings only")
-    dt = L.dtype_of(cfg.param_dtype)
+    numbers: torch and JAX draw different bits from a seed). Built in
+    ``dtype`` (default ``cfg.param_dtype``), one float32 draw at a time:
+    a 30 B model is built straight in bf16 on the card."""
+    dt = dtype or L.dtype_of(cfg.param_dtype)
     kw = dict(device=device, dtype=dt)
-    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    params: Dict = {"embed": L.embed_init(cfg.vocab_size, d, generator,
-                                          **kw)}
-    blocks = []
-    for _ in range(cfg.n_layers):
-        blocks.append({
-            "ln1": L.rmsnorm_init(d, **kw),
-            "ln2": L.rmsnorm_init(d, **kw),
-            "attn": {
-                "wq": L.dense_init(d, Hq * Dh, generator, **kw),
-                "wk": L.dense_init(d, Hkv * Dh, generator, **kw),
-                "wv": L.dense_init(d, Hkv * Dh, generator, **kw),
-                "wo": L.dense_init(Hq * Dh, d, generator, **kw,
-                                   std=math.sqrt(1.0 / (Hq * Dh))
-                                   / math.sqrt(2.0 * cfg.n_layers)),
-            },
-            "ffn": L.glu_ffn_init(d, cfg.d_ff, generator, **kw),
-        })
-    params["blocks"] = blocks
-    params["final_norm"] = L.rmsnorm_init(d, **kw)
+    first_dense = _first_dense(cfg)
+    params: Dict = {"embed": L.embed_init(cfg.vocab_size, cfg.d_model,
+                                          generator, **kw)}
+    if first_dense:
+        params["dense_blocks"] = [
+            _block_init(cfg, generator, kw, False, cfg.moe.d_ff_dense)
+            for _ in range(first_dense)]
+    params["blocks"] = [
+        _block_init(cfg, generator, kw, cfg.moe is not None, cfg.d_ff)
+        for _ in range(cfg.n_layers - first_dense)]
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, **kw)
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(cfg.d_model, cfg.vocab_size,
+                                         generator, **kw)
     return params
 
 
 def params_from_jax(params, cfg: TransformerConfig, device=None) -> Dict:
     """The reference's parameter pytree (leaves as numpy arrays) as the
-    port's tensors. ``blocks`` may be the stacked form (one dict whose
-    leaves carry a leading layer axis: ``scan_layers=True``) or a list
-    of per-layer dicts (``scan_layers=False``)."""
+    port's tensors: ``embed``, ``unembed``, ``final_norm``, the
+    ``dense_blocks`` list and ``blocks``, with every subtree a block
+    holds (q/k/v biases, ``ln*_post``, ``moe``). ``blocks`` may be the
+    stacked form (one dict whose leaves carry a leading layer axis:
+    ``scan_layers=True``) or a list of per-layer dicts
+    (``scan_layers=False``)."""
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
@@ -73,10 +104,13 @@ def params_from_jax(params, cfg: TransformerConfig, device=None) -> Dict:
     out = L.to_tensors({k: v for k, v in params.items() if k != "blocks"},
                        device)
     blocks = params["blocks"]
+    n_blocks = cfg.n_layers - _first_dense(cfg)
     if isinstance(blocks, dict):                     # stacked: (L, ...)
-        blocks = [layer(blocks, i) for i in range(cfg.n_layers)]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
+        blocks = [layer(blocks, i) for i in range(n_blocks)]
+    if len(blocks) != n_blocks:
+        raise ValueError(f"{len(blocks)} blocks for {n_blocks} layers")
+    if len(out.get("dense_blocks", [])) != _first_dense(cfg):
+        raise ValueError("dense_blocks do not match moe.first_k_dense")
     out["blocks"] = [L.to_tensors(b, device) for b in blocks]
     return out
 
@@ -89,6 +123,60 @@ def cast_params(params: Dict, dtype: torch.dtype) -> Dict:
     if isinstance(params, list):
         return [cast_params(v, dtype) for v in params]
     return params.to(dtype) if params.is_floating_point() else params
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+def _first_dense(cfg: TransformerConfig) -> int:
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def layer_windows(cfg: TransformerConfig) -> List[int]:
+    """Per-layer sliding-window size (0 = global): with
+    ``local_global_pattern`` even layers are local, odd ones global."""
+    if cfg.local_global_pattern and cfg.sliding_window > 0:
+        return [cfg.sliding_window if i % 2 == 0 else 0
+                for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
+
+
+def _attn_scale(cfg: TransformerConfig) -> float:
+    if cfg.query_pre_attn_scalar > 0:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return cfg.d_head ** -0.5
+
+
+def _layers(params: Dict) -> List[Dict]:
+    """Every block in depth order: the leading dense ones, then the
+    rest."""
+    return list(params.get("dense_blocks", [])) + list(params["blocks"])
+
+
+def _embed(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
+           compute_dtype) -> torch.Tensor:
+    x = L.embed_apply(params["embed"], tokens, compute_dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype,
+                             device=x.device)
+    return x
+
+
+def unembed(params: Dict, cfg: TransformerConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    """Output logits of final hidden states, in x's dtype."""
+    if cfg.tie_embeddings:
+        logits = L.unembed_apply(params["embed"], x)
+    else:
+        logits = L.dense_apply(params["unembed"], x, x.dtype)
+    if cfg.final_logit_softcap > 0:
+        logits = L.softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+def _add_metrics(acc: Dict, m: Dict) -> Dict:
+    return {k: acc[k] + m[k] for k in acc} if acc else dict(m)
 
 
 def _qkv(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
@@ -107,79 +195,120 @@ def _qkv(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
 
 
 def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
-                  o: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """The block after attention: output projection, residual, FFN."""
+                  o: torch.Tensor, compute_dtype
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The block after attention: output projection, (post-norm,)
+    residual, FFN or MoE, (post-norm,) residual. Returns the new x and
+    the MoE metrics ({} for a dense block)."""
     o = L.dense_apply(bp["attn"]["wo"],
                       o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head),
                       compute_dtype)
+    if cfg.post_norm:
+        o = L.rmsnorm_apply(bp["ln1_post"], o, cfg.norm_eps)
     x = x + o
     h = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
-    return x + L.glu_ffn_apply(bp["ffn"], h, act=cfg.act,
-                               compute_dtype=compute_dtype)
+    metrics: Dict = {}
+    if "moe" in bp:
+        f, metrics = M.apply(bp["moe"], h.reshape(-1, h.shape[-1]), cfg.moe,
+                             act=cfg.act, compute_dtype=compute_dtype)
+        f = f.reshape(h.shape)
+    else:
+        f = L.glu_ffn_apply(bp["ffn"], h, act=cfg.act,
+                            compute_dtype=compute_dtype)
+    if cfg.post_norm:
+        f = L.rmsnorm_apply(bp["ln2_post"], f, cfg.norm_eps)
+    return x + f, metrics
 
 
 def _block_fwd(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
-               positions: torch.Tensor, compute_dtype, q_chunk: int
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence block forward. x: (B, S, D). Returns the new x and
-    the block's k, v (B, S, Hkv, Dh)."""
+               positions: torch.Tensor, window: int, compute_dtype,
+               q_chunk: int):
+    """Full-sequence block forward. x: (B, S, D). Returns the new x, the
+    block's k, v (B, S, Hkv, Dh) and its MoE metrics."""
     h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(bp, cfg, h, positions, compute_dtype)
-    o = A.attention(q, k, v, causal=True, scale=cfg.d_head ** -0.5,
+    o = A.attention(q, k, v, causal=True, window=window,
+                    softcap=cfg.attn_logit_softcap, scale=_attn_scale(cfg),
                     q_chunk=q_chunk)
-    return _attn_out_ffn(bp, cfg, x, o, compute_dtype), k, v
+    x, metrics = _attn_out_ffn(bp, cfg, x, o, compute_dtype)
+    return x, k, v, metrics
 
 
-def hidden_states(params: Dict, cfg: TransformerConfig,
-                  tokens: torch.Tensor, q_chunk: int = 1024
-                  ) -> torch.Tensor:
-    """Forward up to (and including) the final norm. tokens: (B, S)."""
+def _trunk(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
+           q_chunk: int, kv_sink=None) -> Tuple[torch.Tensor, Dict]:
+    """Embedding, every block, final norm. ``kv_sink(i, k, v)`` receives
+    each layer's keys and values. Returns (x, summed MoE metrics)."""
     cdt = L.dtype_of(cfg.dtype)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = L.embed_apply(params["embed"], tokens, cdt)
-    for bp in params["blocks"]:
-        x, _, _ = _block_fwd(bp, cfg, x, positions, cdt, q_chunk)
-    return L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    x = _embed(params, cfg, tokens, cdt)
+    metrics: Dict = {}
+    for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
+        x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk)
+        if kv_sink is not None:
+            kv_sink(i, k, v)
+        metrics = _add_metrics(metrics, m) if m else metrics
+    return L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), metrics
+
+
+def hidden_states(params: Dict, cfg: TransformerConfig,
+                  tokens: torch.Tensor, q_chunk: int = 1024,
+                  with_metrics: bool = False):
+    """Forward up to (and including) the final norm. tokens: (B, S).
+    With ``with_metrics`` returns (x, metrics): the MoE layers' summed
+    ``moe_aux_loss`` and ``moe_drop_frac`` ({} for a dense model)."""
+    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    return (x, metrics) if with_metrics else x
 
 
 def forward(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
-            q_chunk: int = 1024) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) in the compute dtype."""
-    return L.unembed_apply(params["embed"],
-                           hidden_states(params, cfg, tokens, q_chunk))
+            q_chunk: int = 1024, with_metrics: bool = False):
+    """tokens: (B, S) -> logits (B, S, V) in the compute dtype (and the
+    MoE metrics with ``with_metrics``, as ``hidden_states``)."""
+    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    logits = unembed(params, cfg, x)
+    return (logits, metrics) if with_metrics else logits
 
 
-def _mean_token_logprob(params: Dict, x: torch.Tensor, tgt: torch.Tensor,
-                        row_chunk: int) -> torch.Tensor:
+def _token_chunk(cfg: TransformerConfig) -> int:
+    return max(1, SCORE_LOGIT_BYTES // (4 * cfg.vocab_size))
+
+
+def _mean_token_logprob(params: Dict, cfg: TransformerConfig,
+                        x: torch.Tensor, tgt: torch.Tensor,
+                        token_chunk: int) -> torch.Tensor:
     """Per-sequence mean logprob of ``tgt`` (B, T) under the final hidden
-    states ``x`` (B, T, d), ``row_chunk`` sequences of logits at a time;
-    zeros where T is 0."""
+    states ``x`` (B, T, d), ``token_chunk`` positions (over rows and
+    positions alike) of logits at a time; zeros where T is 0."""
     B, T = tgt.shape
     if T == 0:
         return torch.zeros((B,), dtype=torch.float32, device=x.device)
-    tgt = tgt.long()
-    tok_lp = torch.empty((B, T), dtype=torch.float32, device=x.device)
-    for lo in range(0, B, row_chunk):
-        logits = L.unembed_apply(params["embed"],
-                                 x[lo:lo + row_chunk]).to(torch.float32)
+    xf = x.reshape(B * T, x.shape[-1])
+    tf = tgt.reshape(B * T).long()
+    tok_lp = torch.empty((B * T,), dtype=torch.float32, device=x.device)
+    for lo in range(0, B * T, token_chunk):
+        logits = unembed(params, cfg, xf[lo:lo + token_chunk]
+                         ).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
-        tok_lp[lo:lo + row_chunk] = logits.gather(
-            -1, tgt[lo:lo + row_chunk, :, None])[..., 0] - lse
-    return tok_lp.mean(dim=-1)
+        tok_lp[lo:lo + token_chunk] = logits.gather(
+            -1, tf[lo:lo + token_chunk, None])[:, 0] - lse
+    return tok_lp.reshape(B, T).mean(dim=-1)
 
 
 def score_tokens(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
                  q_chunk: int = 1024,
-                 row_chunk: int = SCORE_ROW_CHUNK) -> torch.Tensor:
+                 row_chunk: Optional[int] = None) -> torch.Tensor:
     """Sequence log-likelihood score, the LM trust-evaluator head:
     per-sequence mean token logprob (B,).
 
-    The same function as the reference's, computed ``row_chunk``
-    sequences at a time after the trunk, so the (B, S, V) logits and
-    their float32 log-softmax never exist whole."""
+    The same function as the reference's, computed a chunk of positions
+    at a time after the trunk (``SCORE_LOGIT_BYTES`` of float32 logits,
+    or ``row_chunk`` whole sequences), so the (B, S, V) logits and their
+    float32 log-softmax never exist whole."""
     x = hidden_states(params, cfg, tokens[:, :-1], q_chunk)
-    return _mean_token_logprob(params, x, tokens[:, 1:], row_chunk)
+    chunk = (row_chunk * (tokens.shape[1] - 1) if row_chunk
+             else _token_chunk(cfg))
+    return _mean_token_logprob(params, cfg, x, tokens[:, 1:], max(chunk, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -217,40 +346,37 @@ def decode_step(params: Dict, cfg: TransformerConfig, token: torch.Tensor,
     lengths = cache["lengths"]
     positions = lengths[:, None]                     # new token position
     new_len = lengths + 1
-    x = L.embed_apply(params["embed"], token, cdt)   # (B, d)
-    for i, bp in enumerate(params["blocks"]):
+    x = _embed(params, cfg, token, cdt)              # (B, d)
+    for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
         k_c, v_c = cache["k"][i], cache["v"][i]
         h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(bp, cfg, h[:, None, :], positions, cdt)
         A.update_kv_cache(k_c, v_c, k[:, 0], v[:, 0], lengths)
-        o = A.decode_attention(q[:, 0], k_c, v_c, new_len,
-                               scale=cfg.d_head ** -0.5)
-        x = _attn_out_ffn(bp, cfg, x, o, cdt)
+        o = A.decode_attention(q[:, 0], k_c, v_c, new_len, window=w,
+                               softcap=cfg.attn_logit_softcap,
+                               scale=_attn_scale(cfg))
+        x, _ = _attn_out_ffn(bp, cfg, x, o, cdt)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed_apply(params["embed"], x)
-    return logits, {**cache, "lengths": new_len}
+    return unembed(params, cfg, x), {**cache, "lengths": new_len}
 
 
 @torch.no_grad()
 def prefill(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None, q_chunk: int = 1024,
-            row_chunk: int = SCORE_ROW_CHUNK) -> Tuple[torch.Tensor, Dict]:
+            max_len: Optional[int] = None, q_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, Dict]:
     """Prefill scoring pass: returns (per-seq score (B,), KV cache).
 
     The score is the mean next-token logprob over the prompt (0 for a
     one-token prompt), as the reference's; the cache holds every prompt
     position, zero-padded to ``max_len``, so decode can continue."""
-    cdt = L.dtype_of(cfg.dtype)
     B, S = tokens.shape
-    max_len = max_len or S
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    cache = init_kv_cache(cfg, B, max_len, device=tokens.device)
+    cache = init_kv_cache(cfg, B, max_len or S, device=tokens.device)
     cache["lengths"].fill_(S)
-    x = L.embed_apply(params["embed"], tokens, cdt)
-    for i, bp in enumerate(params["blocks"]):
-        x, k, v = _block_fwd(bp, cfg, x, positions, cdt, q_chunk)
+
+    def keep(i, k, v):
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
-    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return _mean_token_logprob(params, x[:, :-1], tokens[:, 1:],
-                               row_chunk), cache
+
+    x, _ = _trunk(params, cfg, tokens, q_chunk, kv_sink=keep)
+    return _mean_token_logprob(params, cfg, x[:, :-1], tokens[:, 1:],
+                               _token_chunk(cfg)), cache

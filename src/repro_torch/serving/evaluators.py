@@ -1,8 +1,10 @@
 """Trust evaluator backends in the shedder's ``evaluate(features)``
 protocol: a dict of tensors (leading dim = items) -> (items,) scores.
 
-Counterpart of ``repro.serving.evaluators.make_evaluator`` for the
-transformer archs (the default evaluator is ``smollm-135m``) and the
+Counterpart of ``repro.serving.evaluators.make_evaluator`` for every
+arch of the registry: the transformers (``smollm-135m``, the default,
+``qwen2.5-14b``, ``gemma2-2b``, ``moonshot-v1-16b-a3b`` and
+``qwen3-moe-30b-a3b``), the GCN trust propagator (``gcn-cora``) and the
 recommenders (``dlrm-mlperf``, ``bst``, ``mind`` and
 ``two-tower-retrieval``). Returns ``(evaluate, make_features)``;
 ``make_features(n, seed)`` makes numpy evaluator inputs for n items
@@ -18,8 +20,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import RecsysConfig, cap_table_rows
+from repro_torch.configs.base import (GNNConfig, RecsysConfig,
+                                      cap_table_rows)
 from repro_torch.device import resolve
+from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import bst, dlrm, mind, two_tower
@@ -32,8 +36,8 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
     """``params`` (optional) is the reference's parameter pytree with
     numpy leaves (``params_from_jax`` of the arch's model); without it
     the port draws its own weights from ``seed`` with a
-    ``torch.Generator`` on ``device``. Transformer weights are cast to
-    the compute dtype once. ``max_table_rows`` (recommenders only) caps
+    ``torch.Generator`` on ``device``. Transformer weights are built in
+    (or cast once to) the compute dtype. ``max_table_rows`` (recommenders only) caps
     every embedding table at that many rows, as MLPerf DLRM's
     ``--max-ind-range`` does where the tables outgrow the card; 0 keeps
     the published rows."""
@@ -46,12 +50,15 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
     if max_table_rows:
         raise ValueError(f"max_table_rows applies to recommenders, not "
                          f"{arch_id}")
+    if isinstance(cfg, GNNConfig):
+        return _gnn_evaluator(cfg, seed, trust_scale, params, dev)
+    cdt = L.dtype_of(cfg.dtype)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        tparams = T.init_params(cfg, gen, device=dev)
+        tparams = T.init_params(cfg, gen, device=dev, dtype=cdt)
     else:
-        tparams = T.params_from_jax(params, cfg, device=dev)
-    tparams = T.cast_params(tparams, L.dtype_of(cfg.dtype))
+        tparams = T.cast_params(T.params_from_jax(params, cfg, device=dev),
+                                cdt)
     log_vocab = math.log(float(cfg.vocab_size))
 
     @torch.no_grad()
@@ -64,6 +71,46 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
         r = np.random.default_rng(fseed)
         return {"tokens": r.integers(0, cfg.vocab_size,
                                      size=(n, doc_len)).astype(np.int32)}
+
+    return evaluate, make_features
+
+
+# Neighbours of each item's node in the GCN evaluator's star subgraphs.
+GNN_DEGREE = 8
+
+
+def _gnn_evaluator(cfg: GNNConfig, seed: int, trust_scale: float, params,
+                   dev) -> Tuple[Callable, Callable]:
+    """Per-chunk star subgraphs: each item's node and its GNN_DEGREE
+    neighbours, trust propagated from the neighbours' features. The edge
+    ids are absolute node ids of the ``make_features`` batch, as the
+    reference's: a chunk gathered out of a larger batch has ids past its
+    own nodes, which ``models.gnn`` clamps and drops as the reference
+    does."""
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gparams = G.init_params(cfg, gen, device=dev)
+    else:
+        gparams = G.params_from_jax(params, device=dev)
+    deg = GNN_DEGREE
+
+    @torch.no_grad()
+    def evaluate(chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
+        n = chunk["x"].shape[0]
+        x = chunk["x"].reshape(-1, cfg.d_feat)          # (n * (deg+1), F)
+        ei = torch.stack([chunk["edge_src"].reshape(-1),
+                          chunk["edge_dst"].reshape(-1)])
+        scores = G.trust_scores(gparams, cfg, x, ei,
+                                trust_scale=trust_scale)
+        return scores[torch.arange(n, device=x.device) * (deg + 1)]
+
+    def make_features(n: int, fseed: int = 0) -> Dict[str, np.ndarray]:
+        r = np.random.default_rng(fseed)
+        x = r.normal(size=(n, deg + 1, cfg.d_feat)).astype(np.float32)
+        base = (np.arange(n) * (deg + 1))[:, None]
+        src = (base + 1 + np.arange(deg)[None]).astype(np.int32)
+        dst = np.broadcast_to(base, (n, deg)).astype(np.int32)
+        return {"x": x, "edge_src": src, "edge_dst": dst}
 
     return evaluate, make_features
 

@@ -161,6 +161,137 @@ def test_smollm_evaluator_parity_stream(smollm_pair):
     assert res["fused_t"].n_cached >= 80        # the repeat mostly hits
 
 
+# ---------------------------------------------------------------------------
+# ServingEngine fused on a SimClock with the other evaluator families
+# ---------------------------------------------------------------------------
+
+ENGINE_CFG = dict(u_capacity=96, u_threshold=96, deadline_s=0.5,
+                  overload_deadline_s=1.0, chunk_size=16, cache_slots=1024,
+                  cache_ways=2)
+
+
+def _jax_params(arch):
+    from repro.models import gnn as G_j
+    cfg_j = get_config_j(arch, smoke=True)
+    model = G_j if arch == "gcn-cora" else T_j
+    return jax.tree.map(np.asarray, model.init_params(
+        jax.random.PRNGKey(0), cfg_j))
+
+
+# A float32 near-tie between an MoE token's k-th and (k+1)-th router
+# probabilities is broken by rounding, which the two frameworks do at
+# other places: such a token may take another expert (and another
+# capacity rank) on each side.
+ROUTER_TIE_GAP = 1e-5
+
+
+def _router_tie_docs(monkeypatch, evaluate, seq_len):
+    """``evaluate`` wrapped to note the documents (token rows, as bytes)
+    in which some MoE layer's top-k choice sits within ROUTER_TIE_GAP of
+    the next expert's probability."""
+    from repro_torch.models import moe as M
+    ties, apply = set(), M.apply
+    seen = []
+
+    def noting(p, x, cfg, **kw):
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        seen.append((top[:, -2] - top[:, -1]) < ROUTER_TIE_GAP)
+        return apply(p, x, cfg, **kw)
+
+    monkeypatch.setattr(M, "apply", noting)
+
+    def wrapped(chunk):
+        seen.clear()
+        out = evaluate(chunk)
+        rows = torch.stack(seen).any(0).reshape(-1, seq_len).any(1)
+        for row in torch.nonzero(rows)[:, 0].tolist():
+            ties.add(chunk["tokens"][row].numpy().tobytes())
+        return out
+
+    return wrapped, ties
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-moe-30b-a3b",
+                                  "gcn-cora"])
+def test_engine_fused_parity_on_other_evaluators(arch, monkeypatch):
+    """The smoke gemma2 (window, softcaps), qwen3-moe (capacity counted
+    over every row of the fused step) and GCN (absolute edge ids in
+    gathered chunks) through the port's and the reference's fused
+    ``ServingEngine`` on shared parameters: regimes, tiers, counts and
+    the Trust DB's keys and ages exactly equal, trust allclose 1e-4
+    (for qwen3-moe, on every document without a router near-tie, which
+    must be rare)."""
+    from repro.core import SimClock as SimClock_j2
+    from repro.scheduling import Priority as Priority_j
+    from repro.scheduling import SchedulerConfig as SchedulerConfig_j
+    from repro.serving.engine import ServingEngine as ServingEngine_j
+    from repro_torch.scheduling import Priority, SchedulerConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    ev_j, mk = make_evaluator_j(arch, smoke=True, seed=0)
+    ev_t, _ = make_evaluator(arch, smoke=True, params=_jax_params(arch),
+                             device="cpu")
+    ties = set()
+    if arch == "qwen3-moe-30b-a3b":
+        ev_t, ties = _router_tie_docs(monkeypatch, ev_t, seq_len=31)
+    rate = ENGINE_CFG["u_capacity"] / ENGINE_CFG["deadline_s"]
+    sched = dict(max_batch_items=192, queue_capacity_requests=6)
+    eng_j = ServingEngine_j(TrustIRConfig_j(**ENGINE_CFG), ev_j,
+                            sim_clock=SimClock_j2(rate),
+                            sched_cfg=SchedulerConfig_j(**sched),
+                            drain_mode="fused", evaluate_batch=ev_j)
+    eng_t = ServingEngine(TrustIRConfig(**ENGINE_CFG), ev_t,
+                          sim_clock=SimClock(rate),
+                          sched_cfg=SchedulerConfig(**sched),
+                          drain_mode="fused", device="cpu")
+    r = np.random.default_rng(5)
+    sent = {}
+    for i in range(10):
+        n = int(r.integers(16, 120))
+        keys = r.integers(1, 600, n).astype(np.uint32)
+        buckets = r.integers(0, 4, n).astype(np.int32)
+        feats = mk(n, fseed=i)
+        prio = int(r.choice(4, p=[0.1, 0.2, 0.5, 0.2]))
+        for eng, pcls in ((eng_t, Priority), (eng_j, Priority_j)):
+            rid = eng.enqueue(keys, buckets, feats, priority=pcls(prio),
+                              tenant=f"t{i % 3}")
+        sent[rid] = (keys, feats)
+        if i % 4 == 3:
+            for eng in (eng_t, eng_j):
+                eng.drain(1)
+    for eng in (eng_t, eng_j):
+        eng.drain()
+    resp_t, resp_j = eng_t.completed, eng_j.completed
+    assert [a.request_id for a in resp_t] == [b.request_id for b in resp_j]
+    tie_keys, n_items = set(), 0
+    for a, b in zip(resp_t, resp_j):
+        assert (a.admitted, a.reason) == (b.admitted, b.reason)
+        assert int(a.shed.regime) == int(b.shed.regime)
+        np.testing.assert_array_equal(a.tier, b.tier)
+        assert (a.shed.n_evaluated, a.shed.n_cached, a.shed.n_prior) == (
+            b.shed.n_evaluated, b.shed.n_cached, b.shed.n_prior)
+        assert (a.tier != TIER_INVALID).all()
+        keys, feats = sent[a.request_id]
+        free = np.ones(len(a.trust), bool)
+        if ties:
+            free = np.array([row.tobytes() not in ties
+                             for row in feats["tokens"]])
+            tie_keys |= set(keys[~free].tolist())
+        n_items += len(free)
+        np.testing.assert_allclose(a.trust[free], b.trust[free], atol=1e-4)
+    assert len(tie_keys) <= 0.02 * n_items
+    assert sum(a.shed.n_evaluated for a in resp_t if a.admitted) > 0
+    assert len({int(a.shed.regime) for a in resp_t if a.admitted}) >= 2
+    ct, cj = eng_t.shedder.cache, eng_j.shedder.cache
+    keys_t = ct["keys"].numpy().view(np.uint32)
+    np.testing.assert_array_equal(keys_t, np.asarray(cj["keys"]))
+    np.testing.assert_array_equal(ct["age"].numpy(), np.asarray(cj["age"]))
+    free = ~np.isin(keys_t, np.array(sorted(tie_keys), np.uint32))
+    np.testing.assert_allclose(ct["values"].numpy()[free],
+                               np.asarray(cj["values"])[free], atol=1e-4)
+
+
 def test_max_evals_overflow_demotes_to_prior_never_drops():
     cfg = TrustIRConfig(**CFG)
     fused = FusedLoadShedder(cfg, _ev_t, max_evals=32, device="cpu",

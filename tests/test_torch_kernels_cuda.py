@@ -229,6 +229,37 @@ def test_flash_attention_kernel_packed_rows_close_to_plain(
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", [
+    (64, 31, 8, 4, 256, 4096, 50.0, True),   # gemma2's evaluator, local
+    (64, 31, 8, 4, 256, 0, 50.0, True),      # gemma2's evaluator, global
+    (1, 700, 8, 4, 256, 256, 50.0, True),    # the window bites
+    (2, 300, 8, 1, 256, 0, 0.0, True),       # G = 8: tiles of 4 warps
+    (1, 130, 8, 4, 256, 0, 0.0, False),
+    (32, 31, 40, 8, 128, 0, 0.0, True),      # qwen2.5-14b's heads
+    (32, 31, 32, 4, 128, 0, 0.0, True),      # qwen3-moe's heads
+    (5, 31, 8, 2, 12, 0, 0.0, True),         # qwen2.5 smoke: D 12 padded
+    (2, 40, 8, 2, 12, 16, 30.0, True),
+])
+def test_flash_attention_kernel_new_head_dims_close_to_plain(
+        dev, B, S, Hq, Hkv, D, window, softcap, causal, dtype, atol):
+    """D 256 with Gemma-2's softcap and window, the D 128 heads of the
+    Qwen models, and the D 12 smoke head zero-padded to 16 (one launch,
+    output cut back to D 12)."""
+    g = torch.Generator(device=dev).manual_seed(B + S + D)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=0.0625 if D == 256 else None)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.randn((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -519,6 +550,36 @@ def test_flash_decode_kernel_length_spreads(dev, spread, G, dtype, atol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,window,softcap", [
+    (16, 8192, 8, 4, 256, 4096, 50.0),     # gemma2's decode, local layer
+    (16, 8192, 8, 4, 256, 0, 50.0),        # gemma2's decode, global layer
+    (3, 700, 8, 1, 256, 100, 0.0),
+    (4, 64, 8, 2, 12, 0, 0.0),             # qwen2.5 smoke: D 12 padded
+    (4, 96, 8, 8, 128, 7, 0.0),            # moonshot's MHA heads
+])
+def test_flash_decode_kernel_new_head_dims_close_to_plain(
+        dev, B, L, Hq, Hkv, D, window, softcap, dtype, atol):
+    """D 256 with Gemma-2's window and softcap over rows both shorter and
+    longer than the window, and the D 12 smoke head padded to 16."""
+    g = torch.Generator(device=dev).manual_seed(L + B + D)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, L, max(window, 1)], device=dev)[:B]
+    kw = dict(window=window, softcap=softcap,
+              sm_scale=0.0625 if D == 256 else None)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, lengths, **kw)
+    want = flash_decode_ref(q, k, v, lengths, **kw)
+    assert flash_decode.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
 def test_flash_decode_kernel_respects_lengths(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((2, 4, 64), generator=g, device=dev)
@@ -595,6 +656,27 @@ def test_recsys_evaluators_on_card_match_cpu(dev, arch):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-14b",
+                                  "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                                  "gcn-cora"])
+def test_new_evaluators_on_card_match_cpu(dev, arch):
+    """The smoke-width evaluators of the other families (float32;
+    attention at D 16, D 12 padded to 16) on the card and on the CPU,
+    one set of weights: trust within 1e-4."""
+    from repro_torch.models import gnn as G
+    model = G if arch == "gcn-cora" else T
+    cfg = get_config(arch, smoke=True)
+    params = _numpy_params(model.init_params(
+        cfg, torch.Generator().manual_seed(3)))
+    ev_c, mk = make_evaluator(arch, smoke=True, device="cpu", params=params)
+    ev_g, _ = make_evaluator(arch, smoke=True, device=dev, params=params)
+    feats = mk(300, fseed=1)
+    want = ev_c({k: torch.from_numpy(v) for k, v in feats.items()})
+    got = ev_g({k: torch.from_numpy(v).to(dev) for k, v in feats.items()})
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
 def test_mirror_shard_retrieve_equals_primary_on_card(dev):
     """A fan-out mirror built by the export -> absorb round trip on the
     card ranks exactly as its primary: ids and float64 score bits."""
@@ -633,3 +715,24 @@ def test_ragged_embedding_bag_repeats_its_bits_on_card(dev, combiner):
     cpu = E.ragged_embedding_bag(table, flat, seg, 701, combiner=combiner)
     torch.testing.assert_close(outs[0].cpu(), cpu, atol=1e-5, rtol=0)
     assert not outs[0][700].any()                          # an empty bag
+
+
+@pytest.mark.parametrize("aggregator", ["sum", "max"])
+def test_gcn_propagate_repeats_its_bits_on_card(dev, aggregator):
+    """The GCN's ordered segment sums give the same bits run after run
+    on the card, with one node taking thousands of edges (as the fused
+    step's padded rows give it) and ids past the graph dropped; the
+    CPU's within float32 rounding."""
+    from repro_torch.models import gnn as G
+    g = torch.Generator().manual_seed(7)
+    n = 3000
+    x = torch.randn(n, 48, generator=g)
+    ei = torch.randint(0, n, (2, 30_000), generator=g)
+    ei[1, :8000] = 17                                  # a skewed segment
+    ei[:, -50:] += n                                   # out of range
+    outs = [G.propagate(x.to(dev), ei.to(dev), aggregator=aggregator)
+            for _ in range(3)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    cpu = G.propagate(x, ei, aggregator=aggregator)
+    torch.testing.assert_close(outs[0].cpu(), cpu, atol=1e-5, rtol=0)

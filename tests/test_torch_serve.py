@@ -54,6 +54,35 @@ def test_sync_serve_dlrm_on_cpu_prints_its_scoreboard(extra):
     assert sum(l.lstrip().startswith("req ") for l in lines) == 3
     assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
 
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen2.5-14b", []),
+    ("gemma2-2b", ["--drain-mode", "fused"]),
+    ("moonshot-v1-16b-a3b", []),
+    ("qwen3-moe-30b-a3b", ["--drain-mode", "fused"]),
+    ("gcn-cora", ["--drain-mode", "fused"]),
+])
+def test_sync_serve_each_new_arch_on_cpu(arch, extra):
+    """Every ``--arch`` of the reference's launcher is served: the dense
+    Gemma-2 and Qwen2.5 fields, the two MoE models and the GCN trust
+    propagator, at smoke width over a small corpus."""
+    out = _serve("--sync", "--device", "cpu", "--corpus", "192",
+                 "--n-requests", "3", "--arch", arch, *extra)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(f"{arch} on cpu:")
+    assert sum(l.lstrip().startswith("req ") for l in lines) == 3
+    assert any(l.startswith("retrieval: 4 searches") for l in lines)
+    assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
+
+
+def test_unknown_arch_exits_2_naming_the_choices(capsys):
+    from repro_torch.launch.serve import main
+    with pytest.raises(SystemExit) as exc:
+        main(["--device", "cpu", "--arch", "llama-3-70b"])
+    assert exc.value.code == 2
+    assert "gcn-cora" in capsys.readouterr().err
+
+
 def _assert_fleet_run(out, n_requests):
     lines = out.splitlines()
     assert "[scheduled x" in lines[0]
