@@ -78,9 +78,11 @@ products are full float32 and the tolerances below hold.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -124,6 +126,7 @@ from repro_torch.kernels.topk_select import (  # noqa: E402
     NEG_INF, TILE, launch_floor, staged_capacity, topk_select,
     topk_select_ref)
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.recsys import dlrm as dlrm_model  # noqa: E402
 from repro_torch.models.recsys import embedding as E  # noqa: E402
@@ -228,13 +231,34 @@ GEMMA_DECODE_STEPS = 16
 # smollm's, over 26 layers; a wrong position or cache row moves them by
 # O(1).
 GEMMA_DECODE_LOGIT_ATOL = 0.25
-# The other evaluators on the fused drain, each with its evaluator batch
-# cut by fused_max_evals (a cut of traffic: the rest of a micro-batch takes
-# the prior tier, no item is dropped). The 14-30 B models leave 19-50 GB
-# of the card for activations, and MoE dispatch buffers take ~128 KB a
-# token at qwen3-moe's width; 0 = the whole micro-batch.
-BIG_EVALUATORS = (("qwen2.5-14b", 1024), ("qwen3-moe-30b-a3b", 512),
-                  ("moonshot-v1-16b-a3b", 1024), ("gcn-cora", 0))
+# The other evaluators on the fused drain. The fused drain runs its
+# evaluator on max_evals rows of each 4096-item micro-batch; each cap is
+# the largest multiple of 1024 rows whose evaluator call fits on the card
+# beside the weights, as src/repro_torch/launch/evaluator_memory.py
+# measured it (peaks 50.2 GiB for qwen2.5 at 4096 rows; 70.3 GiB for
+# qwen3-moe at 2048, out of memory at 3072; 72.9 GiB for moonshot at
+# 3072, out of memory at 4096). A cut of traffic: the rest of a batch
+# takes the prior tier, no item is dropped. 0 = the whole micro-batch.
+BIG_EVALUATORS = (("qwen2.5-14b", 0), ("qwen3-moe-30b-a3b", 2048),
+                  ("moonshot-v1-16b-a3b", 3072), ("gcn-cora", 0))
+# Full-width checks of the big evaluators. The first MoE layer, bf16, at
+# MOE_CHECK_ROWS tokens against a plain float32 MoE on the same weights
+# and inputs, once on the drain's documents and once on Zipf-skewed
+# tokens that overflow the hottest experts: bf16 rounds each of the
+# GLU's three products and the combine, a relative error of 4.5e-3 to
+# 4.8e-3 on an H100, while a wrong slot, expert or weight moves a token's
+# output by O(1). A dense model's trust of DENSE_CHECK_ITEMS documents
+# against the same weights in float32: 48 bf16 layers of qwen2.5-14b
+# move it by 2.6e-2 on an H100; the limit is the main path's fused-vs-host
+# trust tolerance.
+MOE_CHECK_ROWS = 64
+MOE_ZIPF_A = 1.2
+MOE_REL_TOL = 2e-2
+DENSE_CHECK_ITEMS = 32
+DENSE_TRUST_ATOL = TRUST_ATOL
+# q times BITE_Q gives logits of spread ~40 at scale D^-0.5: past a softcap
+# of 50, which randn inputs (logits ~1) never reach.
+BITE_Q = 40.0
 BIG_BATCHES = 4
 NEW_ARCHS = ("gemma2-2b", "qwen2.5-14b", "qwen3-moe-30b-a3b",
              "moonshot-v1-16b-a3b", "gcn-cora")
@@ -1034,98 +1058,123 @@ def phase_regime_parity(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
         f"{TRUST_ATOL}")
 
 
-def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev) -> dict:
-    """DrainExecutor(depth=2) serves seeded micro-batches on the wall
-    clock, then flushes. The launch counts are read around this run."""
-    r = np.random.default_rng(SEED)
-    n_batches = 8
+class DrainBatch:
+    """One micro-batch as ``DrainExecutor`` takes it."""
+
+    def __init__(self, i, keys, buckets, feats, n):
+        self.i, self.item_keys, self.buckets = i, keys, buckets
+        self.features, self.n_valid = feats, n
+
+
+def drain_batches(mk, n_batches: int, seed: int, fseed: int) -> list:
+    """Seeded micro-batches of BATCH // 2 to BATCH valid items; a third of
+    each batch repeats keys already served."""
+    r = np.random.default_rng(seed)
     batches = []
     for i in range(n_batches):
         n = int(r.integers(BATCH // 2, BATCH + 1))
         keys = np.zeros(BATCH, np.uint32)
-        # a third of each batch repeats keys already served
         keys[:n] = np.where(r.random(n) < 1 / 3,
                             r.integers(1, 1 + 4 * BATCH, n),
                             r.integers(1 << 20, 1 << 31, n)).astype(np.uint32)
         batches.append((i, keys, np.zeros(BATCH, np.int32),
-                        mk(BATCH, fseed=1000 + i), n))
+                        mk(BATCH, fseed=fseed + i), n))
+    return batches
 
-    class Batch:
-        def __init__(self, i, keys, buckets, feats, n):
-            self.i, self.item_keys, self.buckets = i, keys, buckets
-            self.features, self.n_valid = feats, n
 
-    # Dispatch must never wait for the card: under sync debug mode
-    # "error" any implicit host-device sync in dispatch_staged raises.
-    probe = FusedLoadShedder(cfg, evaluate, device=dev)
-    _, keys, buckets, feats, n = batches[0]
-    staged = probe.stage(keys, buckets, feats, n_valid=n)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pending = probe.dispatch_staged(staged)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    pending.result()
-    log("dispatch_staged: no host-device sync under sync debug mode "
-        "'error'")
+def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
+                  label: str = "serving", n_attn: int = N_LAYERS,
+                  n_batches: int = 8, max_evals: int = 0, seed: int = SEED,
+                  fseed: int = 1000, probe_sync: bool = True,
+                  warm_up: bool = False):
+    """DrainExecutor(depth=2) serves ``n_batches`` seeded micro-batches on
+    the wall clock, then flushes; every kernel's launches are read around
+    this run (``n_attn`` flash_attention launches a batch). ``max_evals``
+    caps the evaluator's rows (0 = the whole batch). ``probe_sync`` first
+    checks that dispatch never waits for the card; ``warm_up`` runs one
+    more batch before the clock starts. Returns (stats, the shedder)."""
+    batches = drain_batches(mk, n_batches + warm_up, seed, fseed)
+    if probe_sync:
+        # Under sync debug mode "error" any implicit host-device sync in
+        # dispatch_staged raises.
+        probe = FusedLoadShedder(cfg, evaluate, device=dev)
+        _, keys, buckets, feats, n = batches[0]
+        staged = probe.stage(keys, buckets, feats, n_valid=n)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = probe.dispatch_staged(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pending.result()
+        log(f"{label}: dispatch_staged: no host-device sync under sync "
+            f"debug mode 'error'")
 
-    fused = FusedLoadShedder(cfg, evaluate, device=dev)
+    fused = FusedLoadShedder(cfg, evaluate, max_evals=max_evals or None,
+                             device=dev)
+    if warm_up:
+        _, keys, buckets, feats, n = batches.pop()
+        fused.process(keys, buckets, feats, n_valid=n)
     results = {}
 
     def finalize(batch, shed):
         if batch.i in results:
-            raise AssertionError(f"batch {batch.i} answered twice")
+            raise AssertionError(f"{label}: batch {batch.i} answered twice")
         results[batch.i] = shed
         return [batch.i]
 
     ex = DrainExecutor(fused, finalize, depth=2)
     torch.cuda.synchronize()
-    shed_partition.launches = 0
-    flash_attention.launches = 0
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
     t0 = time.monotonic()
     for b in batches:
-        ex.submit(Batch(*b))
+        ex.submit(DrainBatch(*b))
     ex.flush()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"shed_partition": shed_partition.launches,
-                "flash_attention": flash_attention.launches}
+    launches = {name: w.launches for name, w in KERNELS.items()}
+    want = {name: 0 for name in KERNELS}
+    want["shed_partition"] = n_batches
+    want["flash_attention"] = n_attn * n_batches
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
 
     if sorted(results) != list(range(n_batches)):
-        raise AssertionError(f"answered {sorted(results)}")
-    items = 0
+        raise AssertionError(f"{label}: answered {sorted(results)}")
+    items = evals = 0
     for i, _keys, _b, _f, n in batches:
         res = results[i]
         if (res.tier[:n] == TIER_INVALID).any() \
                 or (res.tier[n:] != TIER_INVALID).any():
-            raise AssertionError(f"batch {i} dropped an item")
-        if not np.isfinite(res.trust).all() or res.trust.shape != (BATCH,):
-            raise AssertionError(f"batch {i} trust malformed")
+            raise AssertionError(f"{label}: batch {i} dropped an item")
+        if res.trust.shape != (BATCH,) or not np.isfinite(res.trust).all() \
+                or res.trust.min() < 0 or res.trust.max() > cfg.trust_scale:
+            raise AssertionError(f"{label}: batch {i} trust malformed or "
+                                 f"outside [0, {cfg.trust_scale}]")
+        if max_evals and res.n_evaluated > max_evals:
+            raise AssertionError(f"{label}: {res.n_evaluated} evaluations "
+                                 f"over the cap {max_evals}")
         items += n
-    if launches["shed_partition"] != n_batches:
-        raise AssertionError(f"shed_partition launched "
-                             f"{launches['shed_partition']} times for "
-                             f"{n_batches} batches")
-    if launches["flash_attention"] != N_LAYERS * n_batches:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times, "
-                             f"expected {N_LAYERS * n_batches}")
+        evals += res.n_evaluated
     lat = np.array([results[i].response_time_s for i in range(n_batches)])
     stats = {"batches": n_batches, "items": items, "wall_s": wall,
-             "items_per_s": items / wall,
+             "items_per_s": items / wall, "evals_per_s": evals / wall,
              "p50_batch_latency_s": float(np.percentile(lat, 50)),
              "p99_batch_latency_s": float(np.percentile(lat, 99)),
              "regimes": [results[i].regime.name for i in range(n_batches)],
              "n_evaluated": [results[i].n_evaluated
                              for i in range(n_batches)],
              "n_cached": [results[i].n_cached for i in range(n_batches)],
-             "launches": launches}
-    log(f"serving (DrainExecutor depth 2, wall clock): {n_batches} batches, "
-        f"{items} items in {wall:.3f} s = {stats['items_per_s']:.1f} items/s,"
-        f" p50 batch latency {stats['p50_batch_latency_s'] * 1e3:.1f} ms, "
-        f"p99 {stats['p99_batch_latency_s'] * 1e3:.1f} ms; regimes "
+             "launches": launches, "max_evals": max_evals}
+    log(f"{label} (DrainExecutor depth 2, wall clock): {n_batches} batches, "
+        f"{items} items ({evals} evaluated, at most {max_evals or 'all'} a "
+        f"batch) in {wall:.3f} s = {stats['items_per_s']:.1f} items/s, "
+        f"{stats['evals_per_s']:.1f} evaluated/s, p50 batch latency "
+        f"{stats['p50_batch_latency_s'] * 1e3:.1f} ms, p99 "
+        f"{stats['p99_batch_latency_s'] * 1e3:.1f} ms; regimes "
         f"{stats['regimes']}; launches {launches}")
-    return stats
+    return stats, fused
 
 
 KERNEL_GROUPS = (
@@ -2364,38 +2413,67 @@ def phase_decode(dev) -> dict:
 # drain
 # ---------------------------------------------------------------------------
 
+def softcap_moves(plain, kw: dict, atol: float, label: str) -> float:
+    """How far the softcap moves the plain output on these inputs (capped
+    vs uncapped); it must be more than ten tolerances, so that a kernel
+    that skipped or misplaced the cap could not pass."""
+    capped = plain(**kw)
+    uncapped = plain(**{**kw, "softcap": 0.0})
+    moved = max_err(capped, uncapped)
+    if not moved > 10 * atol:
+        raise AssertionError(f"{label}: the softcap moves the plain output "
+                             f"by only {moved}")
+    return moved
+
+
 def phase_new_head_dims(dev) -> dict:
     """``flash_attention`` and ``flash_decode`` at the heads the new
     evaluators give them, each against its plain version, then timed
     beside its bound and SDPA: D 256 with gemma2's softcap 50 and
     1/sqrt(256) scale (window 4096 on local layers) at the evaluator's
     batch, the longest prefill and the decode shape; the qwen2.5 heads
-    (40/8, D 128) at its fused batch; and the qwen2.5 smoke head (D 12,
-    zero-padded to 16) in float32."""
+    (40/8, D 128), qwen3-moe's (32/4, D 128) and moonshot's (16/16, D 128)
+    at their fused batches; and the qwen2.5 smoke head (D 12, zero-padded
+    to 16) in float32. The cases marked to bite scale q by BITE_Q, so that
+    the logits reach 30-100 and the softcap moves the plain output by more
+    than ten tolerances (checked) while the kernel stays within one."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     g2, qw = get_config(GEMMA), get_config("qwen2.5-14b")
+    q3, ms = get_config("qwen3-moe-30b-a3b"), get_config("moonshot-v1-16b-a3b")
     qs = get_config("qwen2.5-14b", smoke=True)
     S, bf, f32 = DOC_LEN - 1, torch.bfloat16, torch.float32
     scale = g2.query_pre_attn_scalar ** -0.5
     cap, win = g2.attn_logit_softcap, g2.sliding_window
-    qwen_evals = dict(BIG_EVALUATORS)["qwen2.5-14b"]
+    evals = {arch: cap_ or BATCH for arch, cap_ in BIG_EVALUATORS}
     flush = l2_flusher(dev)
-    # label, B, S, config, dtype, window, softcap, scale, time it
+    # label, B, S, config, dtype, window, softcap, scale, time it, bite
     cases = [("gemma2 evaluator, local layer", BATCH, S, g2, bf, win, cap,
-              scale, True),
+              scale, True, False),
              ("gemma2 evaluator, global layer", BATCH, S, g2, bf, 0, cap,
-              scale, False),
+              scale, False, False),
+             ("gemma2 evaluator, local layer, softcap biting", BATCH, S, g2,
+              bf, win, cap, scale, False, True),
              ("gemma2 longest prefill, local layer", 1, GEMMA_MAX_PROMPT,
-              g2, bf, win, cap, scale, True),
-             ("gemma2 f32", 64, S, g2, f32, win, cap, scale, False),
-             ("qwen2.5-14b evaluator", qwen_evals, S, qw, bf, 0, 0.0, None,
-              True),
+              g2, bf, win, cap, scale, True, False),
+             ("gemma2 longest prefill, softcap biting", 1, GEMMA_MAX_PROMPT,
+              g2, bf, win, cap, scale, False, True),
+             ("gemma2 f32", 64, S, g2, f32, win, cap, scale, False, False),
+             ("gemma2 f32, softcap biting", 64, S, g2, f32, win, cap, scale,
+              False, True),
+             ("qwen2.5-14b evaluator", evals["qwen2.5-14b"], S, qw, bf, 0,
+              0.0, None, True, False),
+             ("qwen3-moe-30b-a3b evaluator", evals["qwen3-moe-30b-a3b"], S,
+              q3, bf, 0, 0.0, None, True, False),
+             ("moonshot-v1-16b-a3b evaluator", evals["moonshot-v1-16b-a3b"],
+              S, ms, bf, 0, 0.0, None, True, False),
              ("qwen2.5-14b smoke, D 12 padded", 64, S, qs, f32, 0, 0.0,
-              None, False)]
+              None, False, False)]
     attn, worst_attn = [], 0.0
-    for label, B, s_len, c, dt, w, sc, scl, timed in cases:
+    for label, B, s_len, c, dt, w, sc, scl, timed, bite in cases:
         q, k, v = attention_inputs(B, s_len, c.n_heads, c.n_kv_heads,
                                    c.d_head, dt, gen, dev)
+        if bite:
+            q = (q.float() * BITE_Q).to(dt)
         kw = dict(causal=True, window=w, softcap=sc, sm_scale=scl)
         before = flash_attention.launches
         got = flash_attention(q, k, v, **kw)
@@ -2412,6 +2490,12 @@ def phase_new_head_dims(dev) -> dict:
                         f"{c.n_kv_heads} heads D={c.d_head} {dt} window={w}"
                         f" softcap={sc}", "max_abs_err": err}
         msg = f"flash_attention {row['shape']}: max abs err {err:.3e}"
+        if bite:
+            row["softcap_moves_plain"] = softcap_moves(
+                lambda **kw_: flash_attention_ref(q, k, v, **kw_), kw, atol,
+                f"flash_attention {label}")
+            msg += (f"; the softcap moves the plain output by "
+                    f"{row['softcap_moves_plain']:.3e}")
         if timed:
             t = attention_timing(q, k, v, flush, plain_iters=3 if B > 1
                                  else 0, window=w, softcap=sc, scale=scl)
@@ -2431,15 +2515,22 @@ def phase_new_head_dims(dev) -> dict:
     decode, worst_dec = [], 0.0
     L_, B_ = GEMMA_MAX_LEN, GEMMA_DECODE_SLOTS
     dcases = [("gemma2 decode, local layer", B_, L_, g2, bf, win, cap, scale,
-               True),
+               True, False),
               ("gemma2 decode, global layer", B_, L_, g2, bf, 0, cap, scale,
-               True),
-              ("gemma2 decode f32", 4, L_, g2, f32, win, cap, scale, False),
+               True, False),
+              ("gemma2 decode, local layer, softcap biting", B_, L_, g2, bf,
+               win, cap, scale, False, True),
+              ("gemma2 decode f32", 4, L_, g2, f32, win, cap, scale, False,
+               False),
+              ("gemma2 decode f32, softcap biting", 4, L_, g2, f32, win, cap,
+               scale, False, True),
               ("qwen2.5-14b smoke, D 12 padded", 64, 256, qs, f32, 0, 0.0,
-               None, False)]
-    for label, B, L, c, dt, w, sc, scl, timed in dcases:
+               None, False, False)]
+    for label, B, L, c, dt, w, sc, scl, timed, bite in dcases:
         q, k, v = decode_inputs(B, L, c.n_heads, c.n_kv_heads, c.d_head, dt,
                                 gen, dev)
+        if bite:
+            q = (q.float() * BITE_Q).to(dt)
         lengths = torch.randint(1, min(L, GEMMA_MAX_PROMPT
                                        + GEMMA_DECODE_STEPS) + 1, (B,),
                                 generator=gen, device=dev, dtype=torch.int32)
@@ -2462,6 +2553,13 @@ def phase_new_head_dims(dev) -> dict:
                         f"heads D={c.d_head} {dt} window={w} softcap={sc}",
                "max_abs_err": err}
         msg = f"flash_decode {row['shape']}: max abs err {err:.3e}"
+        if bite:
+            row["softcap_moves_plain"] = softcap_moves(
+                lambda **kw_: flash_decode_ref(q, k, v, lengths, **kw_),
+                dict(window=w, softcap=sc, sm_scale=scl), atol,
+                f"flash_decode {label}")
+            msg += (f"; the softcap moves the plain output by "
+                    f"{row['softcap_moves_plain']:.3e}")
         if timed:
             t = decode_timing(q, k, v, lengths, flush, plain_iters=5,
                               window=w, softcap=sc, scale=scl)
@@ -2697,107 +2795,201 @@ def phase_gemma2_decode(dev) -> dict:
     return stats
 
 
+def f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [f32_tree(v) for v in tree]
+    return tree.to(torch.float32)
+
+
+def moe_plain_routing(p, x, mcfg):
+    """The plain MoE's routing of x (T, D): the router in float32 over every
+    token of the call, each expert taking its first ``capacity`` (token,
+    choice) pairs in token order, counted with a running sum of one-hot
+    choices (not the port's sort). Returns (weights (T, K), experts (T, K),
+    kept (T, K))."""
+    T_, _ = x.shape
+    E, K = mcfg.n_experts, mcfg.top_k
+    probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+    w, idx = torch.topk(probs, K, dim=-1)
+    if mcfg.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True)
+    c = math.ceil(mcfg.capacity_factor * K * T_ / E)
+    cap = max(8, (c + 7) // 8 * 8)
+    flat = idx.reshape(-1)
+    place = F.one_hot(flat, E).to(torch.int32).cumsum(0, dtype=torch.int32)
+    kept = (place.gather(1, flat[:, None])[:, 0] <= cap).reshape(T_, K)
+    return w, idx, kept
+
+
+def moe_plain_rows(p, x, routing, act: str, rows) -> torch.Tensor:
+    """The plain MoE's output at the tokens ``rows``: each kept choice's
+    expert GLU, weighted, and the shared experts, all in float32 from the
+    same weights."""
+    w, idx, kept = routing
+    xr = x[rows].float()
+    out = torch.zeros_like(xr)
+    for j, (ks, es, ws) in enumerate(zip(kept[rows].tolist(),
+                                         idx[rows].tolist(), w[rows])):
+        for k_ok, e, wt in zip(ks, es, ws):
+            if k_ok:
+                h = L.glu(xr[j] @ p["w_gate"][e].float(),
+                          xr[j] @ p["w_up"][e].float(), act)
+                out[j] += wt * (h @ p["w_down"][e].float())
+    if "shared" in p:
+        out += L.glu_ffn_apply(f32_tree(p["shared"]), xr, act=act)
+    return out
+
+
+def check_moe_layer(arch: str, params, full, tokens, label: str,
+                    must_drop: bool) -> dict:
+    """The first MoE layer of the full-width bf16 evaluator on one
+    evaluator call's tokens (``tokens`` (rows, DOC_LEN), of which the
+    trunk sees the first 31 positions; capacity counts every token of the
+    call), normed as the layer sees its input: ``moe_apply`` against the
+    plain MoE at MOE_CHECK_ROWS tokens, half of them with a dropped
+    choice and half spread over the call. The dropped fractions must be
+    equal and the outputs within MOE_REL_TOL (norm of the difference over
+    the norm of the plain); with ``must_drop`` some choice must have been
+    dropped."""
+    bp = params["blocks"][0]
+    dev = bp["ln2"]["scale"].device
+    toks = torch.from_numpy(tokens[:, :-1]).to(dev)
+    x = L.rmsnorm_apply(bp["ln2"], L.embed_apply(params["embed"], toks,
+                                                 torch.bfloat16),
+                        full.norm_eps).reshape(-1, full.d_model)
+    got, metrics = M.moe_apply(bp["moe"], x, full.moe, act=full.act,
+                               compute_dtype=torch.bfloat16)
+    routing = moe_plain_routing(bp["moe"], x, full.moe)
+    kept = routing[2]
+    T_, K = kept.shape
+    frac = 1.0 - kept.sum() / (T_ * K)
+    half = MOE_CHECK_ROWS // 2
+    with_drop = (~kept).any(dim=1).nonzero()[:, 0]
+    with_drop = with_drop[torch.linspace(0, len(with_drop) - 1, half,
+                                         device=dev).long()] \
+        if len(with_drop) else with_drop
+    spread = torch.linspace(0, T_ - 1, MOE_CHECK_ROWS - len(with_drop),
+                            device=dev).long()
+    rows = torch.unique(torch.cat([with_drop, spread]))
+    want = moe_plain_rows(bp["moe"], x, routing, full.act, rows)
+    diff = got[rows].float() - want
+    rel = float(diff.norm() / want.norm())
+    err = float(diff.abs().max())
+    port_frac = float(metrics["moe_drop_frac"])
+    stats = {"tokens": T_, "rows": len(rows), "rows_with_drop":
+             len(with_drop), "drop_frac": float(frac),
+             "port_drop_frac": port_frac, "rel_err": rel,
+             "max_abs_err": err, "ref_max_abs": float(want.abs().max())}
+    log(f"{arch}: first MoE layer at full width on one evaluator call of "
+        f"{label} ({T_} tokens, {full.moe.n_experts} experts, top {K}): moe_apply "
+        f"bf16 vs plain f32 at {len(rows)} tokens ({len(with_drop)} with a "
+        f"dropped choice): rel err {rel:.3e}, max abs err {err:.3e} (plain "
+        f"max |out| {stats['ref_max_abs']:.3e}); dropped fraction "
+        f"{port_frac} (plain {float(frac)})")
+    if abs(port_frac - float(frac)) > 0.5 / (T_ * K) or not rel <= \
+            MOE_REL_TOL or not torch.isfinite(got).all() \
+            or (must_drop and not len(with_drop)):
+        raise AssertionError(f"{arch}: moe_apply vs plain: {stats}")
+    return stats
+
+
+def score_f32_by_layer(params, cfg, tokens: torch.Tensor,
+                       trust_scale: float) -> torch.Tensor:
+    """The transformer evaluator's trust of ``tokens`` computed in float32
+    from the same bf16 weights, each layer upcast as it runs (a float32
+    copy of the whole model would not fit beside it)."""
+    f32 = torch.float32
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    head = f32_tree({k: params[k] for k in ("embed", "unembed")
+                     if k in params})
+    x = T._embed(head, c32, tokens[:, :-1], f32)
+    for bp, w in zip(T._layers(params), T.layer_windows(cfg)):
+        x = T._block_fwd(f32_tree(bp), c32, x, pos, w, f32, DOC_LEN)[0]
+    x = L.rmsnorm_apply(f32_tree(params["final_norm"]), x, cfg.norm_eps)
+    lp = T._mean_token_logprob(head, c32, x, tokens[:, 1:],
+                               T._token_chunk(c32))
+    return torch.sigmoid(lp + math.log(cfg.vocab_size)) * trust_scale
+
+
+def check_dense_scores(arch: str, evaluate, full, tokens,
+                       trust_scale: float) -> dict:
+    """DENSE_CHECK_ITEMS documents scored by the full-width bf16
+    evaluator against the same weights in float32, layer by layer: the
+    q/k/v biases, the untied unembed and every other part of the block at
+    published width. Within DENSE_TRUST_ATOL."""
+    dev = evaluate.params["final_norm"]["scale"].device
+    toks = torch.from_numpy(tokens[:DENSE_CHECK_ITEMS]).to(dev)
+    got = evaluate({"tokens": toks})
+    want = score_f32_by_layer(evaluate.params, full, toks, trust_scale)
+    err = float((got.float() - want).abs().max())
+    log(f"{arch}: {len(toks)} documents, bf16 evaluator vs the same weights "
+        f"in float32 layer by layer: max |trust diff| {err:.3e} (trust "
+        f"{float(want.min()):.4f}..{float(want.max()):.4f})")
+    if not err <= DENSE_TRUST_ATOL:
+        raise AssertionError(f"{arch}: bf16 vs float32 trust {err} > "
+                             f"{DENSE_TRUST_ATOL}")
+    return {"items": len(toks), "max_abs_err": err}
+
+
 def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
     """One evaluator at its published width and depth, seeded weights
-    built on the card, on the fused drain (``TrustIRConfig()``,
-    ``DrainExecutor`` depth 2): BIG_BATCHES seeded micro-batches of 2048
-    to 4096 items on the wall clock, ``max_evals`` items evaluated at
-    most per batch (0 = all). Launch counts are read around the run; then
-    one profiled fused step."""
+    built on the card, served by ``phase_serving`` (``TrustIRConfig()``,
+    ``DrainExecutor`` depth 2, BIG_BATCHES micro-batches after a warm-up,
+    ``max_evals`` evaluator rows a batch, 0 = all); then one profiled
+    fused step, and the full-width check of the model: its first MoE layer
+    against a plain float32 MoE, or a dense model's scores against the
+    same weights in float32."""
     cfg = TrustIRConfig()
     full = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.monotonic()
-    evaluate, mk = make_evaluator(arch, smoke=False, seed=SEED, device=dev)
+    evaluate, mk = make_evaluator(arch, smoke=False, seed=SEED, device=dev,
+                                  trust_scale=cfg.trust_scale)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - before
     build_s = time.monotonic() - t0
-    r = np.random.default_rng(SEED + 23)
-    batches = []
-    for i in range(BIG_BATCHES + 2):          # + a warm-up and a profiled
-        n = int(r.integers(BATCH // 2, BATCH + 1))
-        keys = np.zeros(BATCH, np.uint32)
-        keys[:n] = r.integers(1 << 20, 1 << 31, n).astype(np.uint32)
-        batches.append((i, keys, np.zeros(BATCH, np.int32),
-                        mk(BATCH, fseed=3000 + i), n))
-
-    class Batch:
-        def __init__(self, i, keys, buckets, feats, n):
-            self.i, self.item_keys, self.buckets = i, keys, buckets
-            self.features, self.n_valid = feats, n
-
-    fused = FusedLoadShedder(cfg, evaluate, max_evals=max_evals or None,
-                             device=dev)
-    _, keys, buckets, feats, n = batches[-2]
-    fused.process(keys, buckets, feats, n_valid=n)          # warm-up
-    results = {}
-
-    def finalize(batch, shed):
-        if batch.i in results:
-            raise AssertionError(f"{arch}: batch {batch.i} answered twice")
-        results[batch.i] = shed
-        return [batch.i]
-
-    ex = DrainExecutor(fused, finalize, depth=2)
-    torch.cuda.synchronize()
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
-    t1 = time.monotonic()
-    for b in batches[:BIG_BATCHES]:
-        ex.submit(Batch(*b))
-    ex.flush()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t1
-    launches = {n_: w.launches for n_, w in KERNELS.items()}
     n_attn = full.n_layers if hasattr(full, "n_heads") else 0
-    want = {n_: 0 for n_ in KERNELS}
-    want["shed_partition"] = BIG_BATCHES
-    want["flash_attention"] = n_attn * BIG_BATCHES
-    if launches != want:
-        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
-    if sorted(results) != list(range(BIG_BATCHES)):
-        raise AssertionError(f"{arch}: answered {sorted(results)}")
-    items = evals = 0
-    for i, _k, _b, _f, n in batches[:BIG_BATCHES]:
-        res = results[i]
-        if (res.tier[:n] == TIER_INVALID).any() \
-                or (res.tier[n:] != TIER_INVALID).any():
-            raise AssertionError(f"{arch}: batch {i} dropped an item")
-        if not np.isfinite(res.trust).all() or res.trust.min() < 0 \
-                or res.trust.max() > cfg.trust_scale:
-            raise AssertionError(f"{arch}: batch {i} trust outside [0, "
-                                 f"{cfg.trust_scale}]")
-        if max_evals and res.n_evaluated > max_evals:
-            raise AssertionError(f"{arch}: {res.n_evaluated} evaluations "
-                                 f"over the cap {max_evals}")
-        items += n
-        evals += res.n_evaluated
-    lat = np.array([results[i].response_time_s for i in range(BIG_BATCHES)])
-    _, keys, buckets, feats, n = batches[-1]
+    stats, fused = phase_serving(cfg, evaluate, mk, dev, label=arch,
+                                 n_attn=n_attn, n_batches=BIG_BATCHES,
+                                 max_evals=max_evals, seed=SEED + 23,
+                                 fseed=3000, probe_sync=False, warm_up=True)
+    _, keys, buckets, feats, n = drain_batches(mk, 1, SEED + 24, 3100)[0]
     profile = device_profile(f"one fused {arch} step",
                              lambda: fused.process(keys, buckets, feats,
                                                    n_valid=n))
     peak = torch.cuda.max_memory_allocated()
-    stats = {"items_per_s": items / wall, "evals_per_s": evals / wall,
-             "p50_batch_latency_s": float(np.percentile(lat, 50)),
-             "p99_batch_latency_s": float(np.percentile(lat, 99)),
-             "launches": launches, "weights_bytes": held,
-             "peak_bytes": peak, "build_s": build_s, "profile": profile,
-             "max_evals": max_evals}
+    del fused
+    if getattr(full, "moe", None) is not None:
+        rows = max_evals or BATCH
+        # the drain's own documents (uniform tokens route evenly: nothing
+        # overflows at capacity factor 1.25), then Zipf-skewed tokens,
+        # whose hottest experts overflow, so that drops are held too
+        zipf = np.minimum(np.random.default_rng(SEED + 25).zipf(
+            MOE_ZIPF_A, size=(rows, DOC_LEN)), full.vocab_size) - 1
+        stats["moe_check"] = [
+            check_moe_layer(arch, evaluate.params, full,
+                            feats["tokens"][:rows], "the drain's documents",
+                            must_drop=False),
+            check_moe_layer(arch, evaluate.params, full,
+                            zipf.astype(np.int32), f"Zipf({MOE_ZIPF_A}) "
+                            f"tokens", must_drop=True)]
+    elif n_attn:
+        stats["dense_check"] = check_dense_scores(arch, evaluate, full,
+                                                  feats["tokens"],
+                                                  cfg.trust_scale)
+    stats.update({"weights_bytes": held, "peak_bytes": peak,
+                  "build_s": build_s, "profile": profile})
     share = f"{profile['busy_share']:.3f}" if profile else "not measured"
-    log(f"{arch} (fused drain, depth 2, wall clock): weights "
-        f"{held / 1e9:.2f} GB built on the card in {build_s:.1f} s; "
-        f"{BIG_BATCHES} batches, {items} items ({evals} evaluated, at most "
-        f"{max_evals or 'all'} a batch) in {wall:.3f} s = "
-        f"{stats['items_per_s']:.1f} items/s, {stats['evals_per_s']:.1f} "
-        f"evaluated/s; p50 batch latency "
-        f"{stats['p50_batch_latency_s'] * 1e3:.1f} ms, p99 "
-        f"{stats['p99_batch_latency_s'] * 1e3:.1f} ms; regimes "
-        f"{[results[i].regime.name for i in range(BIG_BATCHES)]}; device "
-        f"busy share of one step {share}; launches {launches}; peak device "
-        f"memory {peak / 2 ** 30:.2f} GiB")
+    log(f"{arch}: weights {held / 1e9:.2f} GB built on the card in "
+        f"{build_s:.1f} s; device busy share of one step {share}; peak "
+        f"device memory while serving {peak / 2 ** 30:.2f} GiB, with the "
+        f"check {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return stats
 
 

@@ -296,19 +296,17 @@ def _mean_token_logprob(params: Dict, cfg: TransformerConfig,
 
 
 def score_tokens(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
-                 q_chunk: int = 1024,
-                 row_chunk: Optional[int] = None) -> torch.Tensor:
+                 q_chunk: int = 1024) -> torch.Tensor:
     """Sequence log-likelihood score, the LM trust-evaluator head:
     per-sequence mean token logprob (B,).
 
     The same function as the reference's, computed a chunk of positions
-    at a time after the trunk (``SCORE_LOGIT_BYTES`` of float32 logits,
-    or ``row_chunk`` whole sequences), so the (B, S, V) logits and their
-    float32 log-softmax never exist whole."""
+    at a time after the trunk (``SCORE_LOGIT_BYTES`` of float32 logits),
+    so the (B, S, V) logits and their float32 log-softmax never exist
+    whole."""
     x = hidden_states(params, cfg, tokens[:, :-1], q_chunk)
-    chunk = (row_chunk * (tokens.shape[1] - 1) if row_chunk
-             else _token_chunk(cfg))
-    return _mean_token_logprob(params, cfg, x, tokens[:, 1:], max(chunk, 1))
+    return _mean_token_logprob(params, cfg, x, tokens[:, 1:],
+                               _token_chunk(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,9 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
     (or cast once to) the compute dtype. ``max_table_rows`` (recommenders only) caps
     every embedding table at that many rows, as MLPerf DLRM's
     ``--max-ind-range`` does where the tables outgrow the card; 0 keeps
-    the published rows."""
+    the published rows. A transformer's ``evaluate`` carries its weights
+    as ``evaluate.params``, for checks that hold a layer of them against
+    a plain version."""
     dev = resolve(device)
     cfg = get_config(arch_id, smoke=smoke)
     if isinstance(cfg, RecsysConfig):
@@ -66,6 +68,8 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
         # mean token logprob -> squashed to [0, trust_scale]
         lp = T.score_tokens(tparams, cfg, chunk["tokens"], q_chunk=doc_len)
         return torch.sigmoid(lp + log_vocab) * trust_scale
+
+    evaluate.params = tparams
 
     def make_features(n: int, fseed: int = 0) -> Dict[str, np.ndarray]:
         r = np.random.default_rng(fseed)

@@ -239,6 +239,7 @@ def test_flash_attention_kernel_packed_rows_close_to_plain(
     (1, 130, 8, 4, 256, 0, 0.0, False),
     (32, 31, 40, 8, 128, 0, 0.0, True),      # qwen2.5-14b's heads
     (32, 31, 32, 4, 128, 0, 0.0, True),      # qwen3-moe's heads
+    (32, 31, 16, 16, 128, 0, 0.0, True),     # moonshot's MHA heads: G = 1
     (5, 31, 8, 2, 12, 0, 0.0, True),         # qwen2.5 smoke: D 12 padded
     (2, 40, 8, 2, 12, 16, 30.0, True),
 ])
@@ -256,6 +257,67 @@ def test_flash_attention_kernel_new_head_dims_close_to_plain(
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# q scaled so that q.k * scale has a spread of about 40: logits of 30 to
+# 100+, where a softcap of 50 changes the softmax by far more than the
+# tolerance (with unit q the logits stay near 1 and the cap barely moves)
+BITE_Q = 40.0
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap", [
+    (16, 31, 8, 4, 256, 4096, 50.0),     # gemma2's evaluator, local layer
+    (16, 31, 8, 4, 256, 0, 50.0),        # gemma2's evaluator, global layer
+    (1, 700, 8, 4, 256, 256, 50.0),      # the window bites as well
+    (4, 77, 9, 3, 64, 0, 30.0),
+    (2, 150, 8, 1, 128, 40, 20.0),
+])
+def test_flash_attention_kernel_softcap_bites(dev, B, S, Hq, Hkv, D, window,
+                                              softcap, dtype, atol):
+    """Logits far past the cap: the capped plain version moves by more
+    than ten tolerances from the uncapped one, and the kernel stays
+    within one of the capped."""
+    g = torch.Generator(device=dev).manual_seed(B + S + D + 1)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
+               for h in (Hq, Hkv, Hkv))
+    q, k, v = (q * BITE_Q).to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=True, window=window, sm_scale=D ** -0.5)
+    want = flash_attention_ref(q, k, v, softcap=softcap, **kw)
+    uncapped = flash_attention_ref(q, k, v, softcap=0.0, **kw)
+    assert (want.float() - uncapped.float()).abs().max() > 10 * atol
+    got = flash_attention(q, k, v, softcap=softcap, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,window,softcap", [
+    (16, 8192, 8, 4, 256, 4096, 50.0),   # gemma2's decode, local layer
+    (16, 8192, 8, 4, 256, 0, 50.0),      # gemma2's decode, global layer
+    (3, 512, 8, 1, 128, 100, 30.0),
+    (3, 100, 6, 3, 32, 7, 5.0),
+])
+def test_flash_decode_kernel_softcap_bites(dev, B, L, Hq, Hkv, D, window,
+                                           softcap, dtype, atol):
+    """As the attention case above, for one query over a KV cache whose
+    rows end before, at and past the window."""
+    g = torch.Generator(device=dev).manual_seed(L + B + D + 1)
+    q = (torch.randn((B, Hq, D), generator=g, device=dev) * BITE_Q).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([L, max(window, 1), 1], device=dev)[:B]
+    kw = dict(window=window, sm_scale=D ** -0.5)
+    want = flash_decode_ref(q, k, v, lengths, softcap=softcap, **kw)
+    uncapped = flash_decode_ref(q, k, v, lengths, softcap=0.0, **kw)
+    assert (want.float() - uncapped.float()).abs().max() > 10 * atol
+    got = flash_decode(q, k, v, lengths, softcap=softcap, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 

@@ -34,7 +34,7 @@ def _tokens(n, vocab, doc_len=32, seed=3):
 
 @pytest.mark.parametrize("scan_layers,n_layers", [(False, 2), (True, 2),
                                                   (True, 3)])
-def test_score_tokens_matches_jax(scan_layers, n_layers):
+def test_score_tokens_matches_jax(scan_layers, n_layers, monkeypatch):
     cfg_j = reduced_j(get_config_j("smollm-135m", smoke=True),
                       scan_layers=scan_layers, n_layers=n_layers)
     cfg = reduced(get_config("smollm-135m", smoke=True), n_layers=n_layers)
@@ -46,8 +46,10 @@ def test_score_tokens_matches_jax(scan_layers, n_layers):
     toks = _tokens(6, cfg.vocab_size)
     want = T_j.score_tokens(jax.tree.map(jnp.asarray, params), cfg_j,
                             jnp.asarray(toks), q_chunk=32)
-    got = T.score_tokens(tp, cfg, torch.from_numpy(toks), q_chunk=32,
-                         row_chunk=4)       # two row chunks, one ragged
+    # a budget of 4 rows' positions: two chunks of logits, one ragged
+    monkeypatch.setattr(T, "SCORE_LOGIT_BYTES",
+                        4 * cfg.vocab_size * 4 * (toks.shape[1] - 1))
+    got = T.score_tokens(tp, cfg, torch.from_numpy(toks), q_chunk=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     logits_j, _ = T_j.forward(jax.tree.map(jnp.asarray, params), cfg_j,
                               jnp.asarray(toks[:, :-1]), q_chunk=32)

@@ -81,7 +81,7 @@ def test_full_configs_match_the_reference_field_for_field(arch):
 
 @pytest.mark.parametrize("scan_layers", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_forward_and_score_match_jax(arch, scan_layers):
+def test_forward_and_score_match_jax(arch, scan_layers, monkeypatch):
     cfg_j, pj, cfg, pt, params = _pair(arch, scan_layers)
     if scan_layers:
         assert params["blocks"]["ln1"]["scale"].shape[0] == cfg.n_layers
@@ -95,9 +95,11 @@ def test_forward_and_score_match_jax(arch, scan_layers):
     logits = T.forward(pt, cfg, torch.from_numpy(toks[:, :-1]), q_chunk=32)
     _close(logits, logits_j)
     want = T_j.score_tokens(pj, cfg_j, jnp.asarray(toks), q_chunk=32)
-    for row_chunk in (None, 2):        # the token budget, or 2 rows a chunk
-        got = T.score_tokens(pt, cfg, torch.from_numpy(toks), q_chunk=32,
-                             row_chunk=row_chunk)
+    # the default budget (one chunk here), then 37 positions a chunk:
+    # chunks that straddle rows, the last one ragged
+    for budget in (T.SCORE_LOGIT_BYTES, 4 * cfg.vocab_size * 37):
+        monkeypatch.setattr(T, "SCORE_LOGIT_BYTES", budget)
+        got = T.score_tokens(pt, cfg, torch.from_numpy(toks), q_chunk=32)
         _close(got, want)
     x, metrics = T.hidden_states(pt, cfg, torch.from_numpy(toks),
                                  q_chunk=32, with_metrics=True)
