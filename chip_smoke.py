@@ -5,17 +5,19 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels from ``src/repro_torch/csrc`` in
+It builds the port's seven CUDA kernels from ``src/repro_torch/csrc`` in
 parallel and holds each against its plain PyTorch version at the shapes
 its path gives it:
 
 * ``shed_partition``: Trust-DB probe, regime tiers, eval budget and
   compacted eval rank of one micro-batch (exact);
 * ``flash_attention``: causal GQA attention of the transformer
-  evaluator and of ``prefill``;
+  evaluator, of ``prefill`` and of training (with its row log-sum-exp);
 * ``topk_select``: the candidate set of one query (exact);
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
-* ``flash_decode``: one-token attention against the KV cache.
+* ``flash_decode``: one-token attention against the KV cache;
+* ``flash_attention_bwd`` and ``dot_interaction_bwd``: the gradients of
+  the two forward kernels on the training path.
 
 Then it drives these paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
@@ -58,7 +60,18 @@ launch counts set to 0 just before it and read just after:
   4096-key window of its local layers biting); ``qwen2.5-14b``,
   ``qwen3-moe-30b-a3b``, ``moonshot-v1-16b-a3b`` and ``gcn-cora`` each
   on the fused drain, a few micro-batches, each model's weights freed
-  before the next is built.
+  before the next is built;
+* training (``phase_train``): smollm-135m at its published width and
+  depth (float32 master weights, bf16 compute, remat), 6 steps of 4 x 8
+  x 4096 tokens with an ``AsyncCheckpointer`` save at step 3 and a
+  restart from it that must reproduce the straight run bit for bit, its
+  step-0 loss and one microbatch's gradient held against the float32
+  run with the plain attention; then dlrm-mlperf at its published widths
+  (tables capped at 4M rows) on batches of 65536, its gradient held
+  against ``dot_interaction_ref``; then (``phase_train_smoke``) every
+  arch at smoke width through the training launcher's code path on the
+  card and on the CPU, loss histories compared, and the launcher itself
+  on the card.
 
 Beside the kernel checks, the two attention kernels are held against
 their plain versions and timed at the new evaluators' heads (D 256 with
@@ -83,8 +96,10 @@ import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,7 +114,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.chaos import response_fingerprint  # noqa: E402
 from repro_torch.cluster import (ClusterConfig,  # noqa: E402
                                  ClusterCoordinator)
-from repro_torch.configs import TrustIRConfig, get_config  # noqa: E402
+from repro_torch.configs import (TransformerConfig,  # noqa: E402
+                                 TrustIRConfig, get_config)
 from repro_torch.configs import trust_ir  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.core.baselines import RLSEDA, ProcessAll  # noqa: E402
@@ -114,10 +130,14 @@ from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
 from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
-    dot_interaction, dot_interaction_ref, group_size, triu_pairs)
+    dot_interaction, dot_interaction_bwd, dot_interaction_bwd_ref,
+    dot_interaction_ref, group_size, triu_pairs)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_ref, piece_length)
 from repro_torch.kernels.shed_partition import (  # noqa: E402
@@ -125,6 +145,7 @@ from repro_torch.kernels.shed_partition import (  # noqa: E402
 from repro_torch.kernels.topk_select import (  # noqa: E402
     NEG_INF, TILE, launch_floor, staged_capacity, topk_select,
     topk_select_ref)
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -138,6 +159,13 @@ from repro_torch.scheduling.executor import DrainExecutor  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
 from repro_torch.serving.kv_cache import KVCachePool  # noqa: E402
+from repro_torch.configs.registry import arch_ids  # noqa: E402
+from repro_torch.training import checkpoint as CK  # noqa: E402
+from repro_torch.training import data as TD  # noqa: E402
+from repro_torch.training import optimizer as O  # noqa: E402
+from repro_torch.training import train_loop as TL  # noqa: E402
+from repro_torch.training.tree import (leaves,  # noqa: E402
+                                       leaves_with_paths, tree_map)
 from repro_torch.serving.simulator import (  # noqa: E402
     ChurnEvent, MultiTenantWorkload, TenantSpec, make_arrivals,
     run_churn_workload, run_cluster_workload, run_scheduled_workload)
@@ -147,7 +175,11 @@ KERNELS = {"shed_partition": shed_partition,
            "flash_attention": flash_attention,
            "topk_select": topk_select,
            "dot_interaction": dot_interaction,
-           "flash_decode": flash_decode}
+           "flash_decode": flash_decode,
+           "flash_attention_bwd": flash_attention_bwd,
+           "dot_interaction_bwd": dot_interaction_bwd}
+# What the serving paths launch of the training kernels.
+NO_BACKWARD = {"flash_attention_bwd": 0, "dot_interaction_bwd": 0}
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, float32 FLOP/s outside the tensor cores. The bound of a kernel
@@ -266,6 +298,32 @@ NEW_ARCHS = ("gemma2-2b", "qwen2.5-14b", "qwen3-moe-30b-a3b",
 # paper's Nutch setup (benchmarks/bench_response_time.py).
 PAPER_QUERY, PAPER_RESULTS = "study in USA", 89_141
 PROCESS_ALL_MAX_S = 30.0         # ProcessAll's time cap: the count is cut
+
+
+# phase_train: smollm-135m at its published width and depth, float32
+# master weights, bf16 compute, remat; microbatches of 8 x 4096 tokens
+# (train_4k's sequence length), 4 accumulated: 131,072 tokens a step (the
+# global batch cut from 256 to 32 sequences by one card and the time
+# limit). AdamW with the launcher's defaults; a checkpoint at step 3, a
+# restart from it, and the checks below.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUM = 8, 4096, 4
+TRAIN_STEPS, TRAIN_CKPT_STEP = 6, 3
+TRAIN_LR = 3e-3                  # the training launcher's default --lr
+TRAIN_LOSS_ATOL = 2e-2           # step 0's bf16 loss vs the f32 plain run
+TRAIN_GRAD_COS = 0.99            # per leaf, bf16 kernels vs f32 plain
+TRAIN_NORM_RTOL = 0.05           # global gradient norms
+# dlrm-mlperf training at its published widths, every table capped at 4M
+# rows (12.3 GB; 49.3 GB with gradients and both AdamW moments), the
+# reference's train_batch of 65536.
+DLRM_TRAIN_ROW_CAP = 4_000_000
+DLRM_TRAIN_BATCH = 65536
+DLRM_TRAIN_STEPS = 4
+DLRM_GRAD_COS = 0.999
+# phase_train_smoke: every arch at smoke width, card vs CPU.
+SMOKE_TRAIN_STEPS = 3
+SMOKE_TRAIN_ATOL = 1e-4
+BWD_REL_TOL = {torch.bfloat16: BF16_ATOL, torch.float32: F32_ATOL}
 
 
 def log(msg: str) -> None:
@@ -555,6 +613,13 @@ def phase_flash_attention(dev) -> dict:
 
     flush = l2_flusher(dev)            # the main path finds q, k, v cold
     timing = attention_timing(q, k, v, flush, plain_iters=5)
+    lse_ms = {}
+    for name, (qq, kk, vv) in (("evaluator", (q, k, v)),
+                               ("prefill", (q5, k5, v5))):
+        lse = torch.empty((qq.shape[0], Hq, qq.shape[1]),
+                          dtype=torch.float32, device=dev)
+        lse_ms[name] = timed_ms(lambda: FA._forward(
+            qq, kk, vv, True, 0, 0.0, D ** -0.5, lse), 20, flush)
     log(f"flash_attention @evaluator shape: kernel {timing['ms']:.4f} ms, "
         f"plain {timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} "
         f"ms (sdpa max abs err {max_err(timing['library_out'], want):.3e}), "
@@ -566,16 +631,55 @@ def phase_flash_attention(dev) -> dict:
         f"max abs err {max_err(prefill['library_out'], want5):.3e}), bound "
         f"{prefill['bound_ms']:.6f} ms ({prefill['bound_by']}: "
         f"{prefill['bytes']} B, {prefill['flops']} FLOP)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:97",
-            "max_abs_err": err, "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"],
-            "prefill_ms": prefill["ms"],
-            "prefill_library_ms": prefill["library_ms"],
-            "prefill_bound_ms": prefill["bound_ms"]}
+    log(f"flash_attention with the lse output (training's forward): "
+        f"{lse_ms['evaluator']:.4f} ms at the evaluator shape (without: "
+        f"{timing['ms']:.4f}), {lse_ms['prefill']:.4f} ms at the prefill "
+        f"shape (without: {prefill['ms']:.4f})")
+
+    # training: smollm-135m's microbatch, (8, 4096, 9/3, 64) bf16, causal
+    tq, tk, tv, tdo = attention_inputs(TRAIN_MICRO, TRAIN_SEQ, Hq, Hkv, D,
+                                       torch.bfloat16, gen, dev) + (
+        torch.randn((TRAIN_MICRO, TRAIN_SEQ, Hq, D), generator=gen,
+                    device=dev).to(torch.bfloat16),)
+    brow = attention_bwd_check(tq, tk, tv, tdo, dict(causal=True, window=0,
+                                                     softcap=0.0),
+                               "training microbatch")
+    bt = attention_bwd_timing(tq, tk, tv, tdo, flush, plain_iters=1)
+    log(f"flash_attention_bwd {brow['shape']}: dq/dk/dv within "
+        f"{brow['dq_rel_err']:.3e}/{brow['dk_rel_err']:.3e}/"
+        f"{brow['dv_rel_err']:.3e} of the plain output's max (<= "
+        f"{BF16_ATOL}), lse max abs err {brow['lse_max_abs_err']:.3e}; "
+        f"kernel {bt['ms']:.4f} ms, plain {bt['plain_ms']:.4f} ms, sdpa "
+        f"backward {bt['library_ms']:.4f} ms, bound {bt['bound_ms']:.4f} ms "
+        f"({bt['bound_by']}: {bt['bytes']} B, {bt['flops']} FLOP); the "
+        f"forward at this shape {bt['fwd_ms']:.4f} ms, with the lse "
+        f"{bt['fwd_lse_ms']:.4f} ms, sdpa {bt['fwd_library_ms']:.4f} ms, "
+        f"bound {bt['fwd_bound_ms']:.4f} ms")
+    del tq, tk, tv, tdo, flush
+    fwd = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:97",
+           "max_abs_err": err, "ms": timing["ms"],
+           "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+           "bound_by": timing["bound_by"],
+           "library_ms": timing["library_ms"],
+           "prefill_ms": prefill["ms"],
+           "prefill_library_ms": prefill["library_ms"],
+           "prefill_bound_ms": prefill["bound_ms"],
+           "lse_ms": lse_ms["evaluator"], "prefill_lse_ms": lse_ms["prefill"],
+           "train_ms": bt["fwd_ms"], "train_lse_ms": bt["fwd_lse_ms"],
+           "train_library_ms": bt["fwd_library_ms"],
+           "train_bound_ms": bt["fwd_bound_ms"]}
+    bwd = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:97 (its "
+                       "gradient: jax.grad of the jnp attention)",
+           "max_abs_err": brow["max_abs_err"], "rel_err": brow["rel_err"],
+           "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+           "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+           "library_ms": bt["library_ms"],
+           "shape": brow["shape"]}
+    return fwd, bwd
 
 
 def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,
@@ -615,6 +719,114 @@ def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,
         "bound_ms": max(by_bytes, by_ops) * 1e3,
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "bytes": n_bytes, "flops": flops}
+
+
+def rel_err(got, want) -> tuple:
+    """(max abs error, that over the plain output's max abs)."""
+    err = max_err(got, want)
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def attention_bwd_check(q, k, v, do, kw: dict, label: str,
+                        dead_rows: int = 0) -> dict:
+    """The forward kernel's lse against the plain log-sum-exp, then the
+    backward kernel against ``flash_attention_bwd_ref`` on the kernel's o
+    and lse, each of dq, dk, dv within BWD_REL_TOL of its plain output's
+    max abs. ``dead_rows`` rows are handed an lse of -inf (what the
+    forward writes for a row that saw no key): their dq must be zero."""
+    B, S, Hq, D = q.shape
+    kw = dict(kw, sm_scale=kw.get("sm_scale") or D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    o = FA._forward(q, k, v, lse=lse, **kw)
+    lse_err = max_err(lse, flash_attention_lse_ref(q, k, **kw))
+    if dead_rows:
+        gen = torch.Generator(device=q.device).manual_seed(SEED + 23)
+        rows = torch.randperm(B * Hq * S, generator=gen,
+                              device=q.device)[:dead_rows]
+        lse.view(-1)[rows] = float("-inf")
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    tol = BWD_REL_TOL[q.dtype]
+    row = {"shape": f"{label}: B={B} S={S} {Hq}/{k.shape[2]} heads D={D} "
+                    f"{q.dtype} window={kw['window']} "
+                    f"softcap={kw['softcap']}",
+           "lse_max_abs_err": lse_err, "max_abs_err": 0.0, "rel_err": 0.0}
+    lse_tol = 1e-3 if q.dtype == torch.bfloat16 else F32_ATOL
+    if lse_err > lse_tol:
+        raise AssertionError(f"flash_attention lse {label}: max abs err "
+                             f"{lse_err} > {lse_tol}")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, rel = rel_err(g, w)
+        if g.dtype != q.dtype or not torch.isfinite(g.float()).all() \
+                or rel > tol:
+            raise AssertionError(f"flash_attention_bwd {label} {name}: max "
+                                 f"abs err {err} = {rel} of the plain "
+                                 f"output's max > {tol}")
+        row[f"{name}_rel_err"] = rel
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["rel_err"] = max(row["rel_err"], rel)
+    if dead_rows:
+        dead = (lse == float("-inf")).permute(0, 2, 1)      # (B, S, Hq)
+        zero = float(got[0][dead].float().abs().max())
+        if zero != 0.0:
+            raise AssertionError(f"flash_attention_bwd {label}: a row with "
+                                 f"lse -inf got dq {zero}")
+        row["rows_without_key"] = int(dead.sum())
+    return row
+
+
+def attention_bwd_timing(q, k, v, do, flush, plain_iters: int,
+                         window: int = 0, softcap: float = 0.0) -> dict:
+    """The causal backward at one shape: the kernel (given the forward's
+    o and lse), the plain version, and the library's time for the same
+    function, the backward of ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` (timing only; no softcap), each with
+    L2 flushed; the bound from the bytes of q, k, v, o, do, lse in and dq,
+    dk, dv out and the FLOPs of five products over the visible pairs."""
+    B, S, Hq, D = q.shape
+    kw = dict(causal=True, window=window, softcap=softcap, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    o = FA._forward(q, k, v, lse=lse, **kw)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    size = q.element_size()
+    n_bytes = size * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                      + do.numel()) + 4 * lse.numel()
+    seen = np.minimum(np.arange(1, S + 1), window if window > 0 else S)
+    flops = 10 * B * Hq * D * int(seen.sum())         # S, dP, dV, dQ, dK
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    t = {"ms": timed_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw), 10, flush),
+         "plain_ms": (timed_ms(lambda: flash_attention_bwd_ref(
+             q, k, v, o, lse, do, **kw), plain_iters, flush)
+             if plain_iters else None),
+         "library_ms": timed_ms(library, 10, flush),
+         "bound_ms": max(by_bytes, by_ops) * 1e3,
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+         "bytes": n_bytes, "flops": flops,
+         "fwd_ms": timed_ms(lambda: flash_attention(q, k, v, **kw), 10,
+                            flush),
+         "fwd_lse_ms": timed_ms(lambda: FA._forward(q, k, v, lse=lse, **kw),
+                                10, flush)}
+    with torch.no_grad():
+        t["fwd_library_ms"] = timed_ms(
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 10, flush)
+    t["fwd_bound_ms"] = max(
+        size * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S,
+        0.4 * flops / peak) * 1e3                     # two of the five
+    del out, qt, kt, vt
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -838,14 +1050,82 @@ def phase_dot_interaction(dev) -> dict:
             f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} "
             f"B, {flops} FLOP)")
     t = rows[ENGINE_BATCH]             # the DLRM engine's micro-batch
-    return {"name": "dot_interaction", "route": "cuda",
-            "source": "src/repro_torch/csrc/dot_interaction.cu",
-            "replaces": "src/repro/kernels/dot_interaction.py:48",
-            "max_abs_err": max(worst.values()), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "b4096_ms": rows[BATCH]["ms"],
-            "yardstick_ms": t["yardstick_ms"], "read_ms": t["read_ms"]}
+    fwd = {"name": "dot_interaction", "route": "cuda",
+           "source": "src/repro_torch/csrc/dot_interaction.cu",
+           "replaces": "src/repro/kernels/dot_interaction.py:48",
+           "max_abs_err": max(worst.values()), "ms": t["ms"],
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": None,
+           "b4096_ms": rows[BATCH]["ms"],
+           "yardstick_ms": t["yardstick_ms"], "read_ms": t["read_ms"]}
+    return fwd, dot_interaction_backward(inputs, flush, gen, dev)
+
+
+def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
+    """``dot_interaction_bwd`` against its plain version at the kernel
+    phase's shapes in both types and at DLRM's training batch (65536, 27,
+    128) f32, each within BWD_REL_TOL of the plain output's max abs; then
+    timed at the training batch beside its bound, the plain version and
+    the library's time for the same function (the autograd backward of
+    ``torch.bmm`` plus the triangle gather, timing only)."""
+    B = DLRM_TRAIN_BATCH
+    x = (torch.randn((B, DLRM_F, DLRM_D), generator=gen, device=dev)
+         * DLRM_D ** -0.5)
+    cases = dict(inputs)
+    cases[(B, DLRM_F, DLRM_D, torch.float32)] = x
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_abs = 0.0
+    for (b, n_f, d, dtype), xx in cases.items():
+        g = torch.randn((b, n_f * (n_f - 1) // 2), generator=gen,
+                        device=dev).to(dtype)
+        got = dot_interaction_bwd(xx, g)
+        err, rel = rel_err(got, dot_interaction_bwd_ref(xx, g))
+        if got.shape != xx.shape or got.dtype != dtype \
+                or not torch.isfinite(got.float()).all() \
+                or rel > BWD_REL_TOL[dtype]:
+            raise AssertionError(f"dot_interaction_bwd {dtype} B={b} F={n_f}"
+                                 f" D={d}: max abs err {err} = {rel} of the "
+                                 f"plain output's max")
+        worst[dtype] = max(worst[dtype], rel)
+        worst_abs = max(worst_abs, err)
+    g = torch.randn((B, DLRM_F * (DLRM_F - 1) // 2), generator=gen,
+                    device=dev)
+    iu, ju = triu_pairs(DLRM_F, dev)
+    xl = x.detach().requires_grad_(True)
+    tri = torch.bmm(xl, xl.transpose(1, 2))[:, iu, ju]
+
+    def library():
+        return torch.autograd.grad(tri, xl, g, retain_graph=True)
+
+    n_pairs = DLRM_F * (DLRM_F - 1) // 2
+    n_bytes = (2 * x.numel() + B * n_pairs) * 4
+    flops = 2 * B * DLRM_F * (DLRM_F - 1) * DLRM_D
+    t = {"ms": timed_ms(lambda: dot_interaction_bwd(x, g), 50, flush),
+         "plain_ms": timed_ms(lambda: dot_interaction_bwd_ref(x, g), 10,
+                              flush),
+         "library_ms": timed_ms(library, 20, flush),
+         "fwd_ms": timed_ms(lambda: dot_interaction(x), 50, flush),
+         "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                         flops / F32_FLOP_PER_S) * 1e3,
+         "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                      >= flops / F32_FLOP_PER_S else "operations")}
+    log(f"dot_interaction_bwd: {len(cases)} shapes within tolerance of the "
+        f"plain version (of its max abs: f32 {worst[torch.float32]:.3e} <= "
+        f"{F32_ATOL}, bf16 {worst[torch.bfloat16]:.3e} <= {BF16_ATOL}); @B="
+        f"{B} F={DLRM_F} D={DLRM_D} f32: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, autograd of torch.bmm + triangle gather "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {n_bytes} B, {flops} FLOP); the forward at this "
+        f"batch {t['fwd_ms']:.4f} ms")
+    del tri, xl
+    return {"name": "dot_interaction_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/dot_interaction_bwd.cu",
+            "replaces": "src/repro/kernels/dot_interaction.py:48 (its "
+                        "gradient: jax.grad of the einsum and gather)",
+            "max_abs_err": worst_abs, "rel_err": max(worst.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "fwd_b65536_ms": t["fwd_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1178,6 +1458,11 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
 
 
 KERNEL_GROUPS = (
+    ("flash_attention backward kernels", ("dq_bf16_kernel",
+                                          "dkdv_bf16_kernel",
+                                          "dq_f32_kernel", "dkdv_f32_kernel",
+                                          "di_kernel")),
+    ("dot_interaction backward kernel", ("dot_interaction_bwd_kernel",)),
     ("shed_partition kernel", ("shed_partition_kernel",)),
     ("flash_attention kernel", ("flash_attention_bf16_kernel",
                                 "flash_attention_f32_kernel")),
@@ -1596,7 +1881,7 @@ def phase_fleet(fcfg: TrustIRConfig, retrieval, shard, evaluate, mk,
     n_items = st["n_batched_items"] - base["n_batched_items"]
     want = {"topk_select": want_topk, "shed_partition": n_batches,
             "flash_attention": N_LAYERS * n_batches, "dot_interaction": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, **NO_BACKWARD}
     if launches != want:
         raise AssertionError(f"fleet: launches {launches}, expected {want}")
     answered = [r.request_id for r in coord.completed]
@@ -1892,7 +2177,7 @@ def phase_fanout(fcfg: TrustIRConfig, retrieval, evaluate, dev) -> dict:
             + fs["n_shard_hedge_wins"] + len(built),
             "shed_partition": st["n_batches"],
             "flash_attention": N_LAYERS * st["n_batches"],
-            "dot_interaction": 0, "flash_decode": 0}
+            "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
     if launches != want:
         raise AssertionError(f"fan-out: launches {launches}, expected {want}"
                              f" ({len(live)} live shards x {FANOUT_QUERIES} "
@@ -2176,7 +2461,7 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     def expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": 0, "dot_interaction": counted.calls,
-                "flash_decode": 0}
+                "flash_decode": 0, **NO_BACKWARD}
 
     stats = phase_engine(cfg, make_searcher(), counted, dev, "dlrm engine",
                          expect)
@@ -2258,7 +2543,7 @@ def phase_recsys(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
         def expect(n_searches, n_batches):
             return {"topk_select": n_searches, "shed_partition": n_batches,
                     "flash_attention": 0, "dot_interaction": 0,
-                    "flash_decode": 0}
+                    "flash_decode": 0, **NO_BACKWARD}
 
         stats = phase_engine(cfg, make_searcher(), evaluate, dev,
                              f"{arch} engine", expect)
@@ -2512,6 +2797,49 @@ def phase_new_head_dims(dev) -> dict:
         attn.append(row)
         del q, k, v, got, want
 
+    # the backward at every head dimension the forward has, in both
+    # types, with windows and biting softcaps, and rows handed an lse of
+    # -inf (no causal or windowed mask leaves a row without a key)
+    # label, B, S, Hq, Hkv, D, dtype, window, softcap, bite, dead rows
+    bcases = [("smoke heads", 8, 64, 4, 2, 16, f32, 0, 0.0, False, 0),
+              ("D 16, window", 4, 300, 4, 2, 16, bf, 64, 0.0, False, 0),
+              ("qwen2.5-14b heads, window", 2, 512, 40, 8, 128, bf, 128, 0.0,
+               False, 0),
+              ("D 128 f32", 2, 200, 8, 2, 128, f32, 0, 0.0, False, 0),
+              ("gemma2 heads, window, softcap biting", 2, 600, 8, 4, 256, bf,
+               256, cap, True, 0),
+              ("gemma2 heads f32, window, softcap biting", 2, 200, 8, 4, 256,
+               f32, 64, cap, True, 0),
+              ("smollm heads, rows without a key", 2, 300, 9, 3, 64, bf, 0,
+               0.0, False, 50),
+              ("gemma2 heads, rows without a key", 1, 200, 8, 4, 256, bf, 32,
+               cap, False, 20)]
+    bwd, worst_bwd = [], 0.0
+    for label, B, s_len, hq, hkv, d, dt, w, sc, bite, dead in bcases:
+        q, k, v, do = attention_inputs(B, s_len, hq, hkv, d, dt, gen, dev) \
+            + (torch.randn((B, s_len, hq, d), generator=gen,
+                           device=dev).to(dt),)
+        if bite:
+            q = (q.float() * BITE_Q).to(dt)
+        kw = dict(causal=True, window=w, softcap=sc)
+        row = attention_bwd_check(q, k, v, do, kw, label, dead_rows=dead)
+        msg = (f"flash_attention_bwd {row['shape']}: dq/dk/dv within "
+               f"{row['dq_rel_err']:.3e}/{row['dk_rel_err']:.3e}/"
+               f"{row['dv_rel_err']:.3e} of the plain output's max, lse "
+               f"{row['lse_max_abs_err']:.3e}")
+        if bite:
+            row["softcap_moves_plain"] = softcap_moves(
+                lambda **kw_: flash_attention_ref(q, k, v, **kw_), kw,
+                BWD_REL_TOL[dt], f"flash_attention_bwd {label}")
+            msg += (f"; the softcap moves the plain forward by "
+                    f"{row['softcap_moves_plain']:.3e}")
+        if dead:
+            msg += f"; {row['rows_without_key']} rows without a key: dq 0"
+        log(msg)
+        bwd.append(row)
+        worst_bwd = max(worst_bwd, row["max_abs_err"])
+        del q, k, v, do
+
     decode, worst_dec = [], 0.0
     L_, B_ = GEMMA_MAX_LEN, GEMMA_DECODE_SLOTS
     dcases = [("gemma2 decode, local layer", B_, L_, g2, bf, win, cap, scale,
@@ -2580,7 +2908,8 @@ def phase_new_head_dims(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash_attention": (attn, worst_attn),
-            "flash_decode": (decode, worst_dec)}
+            "flash_decode": (decode, worst_dec),
+            "flash_attention_bwd": (bwd, worst_bwd)}
 
 
 def numpy_tree(tree):
@@ -2661,7 +2990,7 @@ def phase_gemma2_engine(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     def expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": full.n_layers * n_batches,
-                "dot_interaction": 0, "flash_decode": 0}
+                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
 
     stats = phase_engine(cfg, make_searcher(), evaluate, dev,
                          f"{GEMMA} engine", expect)
@@ -2993,6 +3322,352 @@ def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 16-18: training on the card
+# ---------------------------------------------------------------------------
+
+def reset_launches() -> None:
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention in its plain chunked form on the card, for
+    the float32 reference runs of the checks only."""
+    saved = A.attention
+    A.attention = A.chunked_attention
+    try:
+        yield
+    finally:
+        A.attention = saved
+
+
+def accum_batches(stream, n: int):
+    """A stream of global batches as ``n`` stacked microbatches each."""
+    for b in stream:
+        yield {k: v.reshape(n, -1, *v.shape[1:]) for k, v in b.items()}
+
+
+def step_timer(times: list):
+    """A ``TL.train`` hook that records the wall clock after each step,
+    with the card synchronized."""
+    def hook(i, state, metrics):
+        torch.cuda.synchronize()
+        times.append(time.monotonic())
+    return hook
+
+
+def cosines(got: list, want: list) -> list:
+    return [float(torch.dot(a.flatten().double(), b.flatten().double())
+                  / (a.double().norm() * b.double().norm()).clamp(min=1e-300))
+            for a, b in zip(got, want)]
+
+
+def grads_of(params, loss_fn, batch) -> list:
+    """Every leaf's gradient of ``loss_fn(params, batch)`` (detached), the
+    leaves' ``.grad`` cleared after."""
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = loss_fn(params, batch)
+    (loss[0] if isinstance(loss, tuple) else loss).backward()
+    out = [p.grad for p in flat]
+    for p in flat:
+        p.grad = None
+    return out
+
+
+def phase_train_lm(dev) -> dict:
+    """smollm-135m at its published width and depth through the training
+    stack on the card (see TRAIN_*): its checks first (step 0's loss and
+    one microbatch's gradient against the float32 plain-attention run),
+    then TRAIN_STEPS steps with an ``AsyncCheckpointer`` save at step
+    TRAIN_CKPT_STEP, and a restart from that checkpoint through the last
+    steps, which must give the straight run's parameters and AdamW
+    moments bit for bit. The launch counts are read around the two runs."""
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = reduced(cfg, dtype="float32")
+    n_glob = TRAIN_MICRO * TRAIN_ACCUM
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params0 = T.init_params(cfg, gen, device=dev)        # float32 masters
+    opt = train_launch.opt_config(TRAIN_LR, TRAIN_STEPS)
+    n_params = sum(p.numel() for p in leaves(params0))
+    log(f"train: {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e6:.1f}M float32 master weights, "
+        f"{cfg.dtype} compute, remat={cfg.remat}); microbatch "
+        f"{TRAIN_MICRO} x {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}: "
+        f"{n_glob * TRAIN_SEQ} tokens a step; AdamW lr {opt.lr}, warmup "
+        f"{opt.warmup_steps}, {opt.total_steps} steps")
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, cfg, b["tokens"], b["labels"])
+
+    def loss32(p, b):
+        return T.lm_loss(p, cfg32, b["tokens"], b["labels"])
+
+    first = TL.to_device(next(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1)),
+                         dev)
+    micro = [{k: v[i * TRAIN_MICRO:(i + 1) * TRAIN_MICRO]
+              for k, v in first.items()} for i in range(TRAIN_ACCUM)]
+    t0 = time.monotonic()
+    with torch.no_grad(), plain_attention():
+        loss0_32 = float(sum(loss32(params0, mb)[0] for mb in micro)
+                         / TRAIN_ACCUM)
+    g_bf = grads_of(tree_map(lambda t: t.detach().clone(), params0),
+                    loss_fn, micro[0])
+    with plain_attention():
+        g_32 = grads_of(tree_map(lambda t: t.detach().clone(), params0),
+                        loss32, micro[0])
+    cos = cosines(g_bf, g_32)
+    n_bf = float(torch.sqrt(sum(g.double().square().sum() for g in g_bf)))
+    n_32 = float(torch.sqrt(sum(g.double().square().sum() for g in g_32)))
+    worst = int(np.argmin(cos))
+    paths = [p for p, _ in leaves_with_paths(params0)]
+    log(f"train: one microbatch's gradient, bf16 through both attention "
+        f"kernels vs float32 with the plain attention: cosine per leaf min "
+        f"{cos[worst]:.6f} ({paths[worst]}), median "
+        f"{float(np.median(cos)):.6f} (>= {TRAIN_GRAD_COS}); global norms "
+        f"{n_bf:.6f} vs {n_32:.6f} (rel {abs(n_bf - n_32) / n_32:.3e} <= "
+        f"{TRAIN_NORM_RTOL}); checks {time.monotonic() - t0:.1f} s")
+    if min(cos) < TRAIN_GRAD_COS or abs(n_bf - n_32) > TRAIN_NORM_RTOL * n_32:
+        raise AssertionError(f"train: gradient cosines {cos} / norms "
+                             f"{n_bf} vs {n_32}")
+    del g_bf, g_32, micro, first
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        step_fn = TL.make_train_step(loss_fn, opt, grad_accum=TRAIN_ACCUM)
+        state = TL.init_state(tree_map(lambda t: t.detach().clone(),
+                                       params0))
+        ck = CK.AsyncCheckpointer(ckdir)
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.monotonic()
+        straight, hist = TL.train(
+            state, step_fn, accum_batches(TD.lm_batches(
+                cfg, n_glob, TRAIN_SEQ, seed=1), TRAIN_ACCUM), TRAIN_STEPS,
+            log_every=1, checkpointer=ck, ckpt_every=TRAIN_CKPT_STEP,
+            hooks=(step_timer(times),))
+        peak = torch.cuda.max_memory_allocated()
+        walls = np.diff([t0] + times)
+        fresh = TL.init_state(tree_map(torch.zeros_like, params0))
+        restored, extra = CK.restore(ckdir, fresh, step=TRAIN_CKPT_STEP)
+        again, hist2 = TL.train(
+            restored, step_fn, accum_batches(TD.lm_batches(
+                cfg, n_glob, TRAIN_SEQ, seed=1, start_step=TRAIN_CKPT_STEP),
+                TRAIN_ACCUM), TRAIN_STEPS - TRAIN_CKPT_STEP, log_every=1,
+            start_step=TRAIN_CKPT_STEP)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    losses = [h["loss"] for h in hist]
+    lrs = " ".join(f"{h['lr']:.2e}" for h in hist)
+    norms = " ".join(f"{h['grad_norm']:.3f}" for h in hist)
+    log(f"train: {TRAIN_STEPS} steps, loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}, lr {lrs}, grad_norm "
+        f"{norms}; the f32 plain "
+        f"run's step-0 loss {loss0_32:.6f} (|diff| "
+        f"{abs(losses[0] - loss0_32):.3e} <= {TRAIN_LOSS_ATOL})")
+    if abs(losses[0] - loss0_32) > TRAIN_LOSS_ATOL or not \
+            losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses {losses}, f32 step 0 {loss0_32}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves((again.params, again.opt)), leaves((straight.params,
+                                                    straight.opt))))
+    restart_losses = [h["loss"] for h in hist2]
+    log(f"train: restart from the step-{extra['step']} checkpoint: losses "
+        f"{' '.join(f'{x:.4f}' for x in restart_losses)}; params and AdamW "
+        f"moments {'equal the straight run bit for bit' if same else 'DIFFER'}")
+    if not same or restart_losses != losses[TRAIN_CKPT_STEP:]:
+        bad = [p for (p, a), b in zip(
+            leaves_with_paths((again.params, again.opt)),
+            leaves((straight.params, straight.opt))) if not torch.equal(a, b)]
+        raise AssertionError(f"train: the restart differs at {bad[:8]} "
+                             f"({len(bad)} leaves); losses {restart_losses} "
+                             f"vs {losses[TRAIN_CKPT_STEP:]}")
+    n_micro = TRAIN_ACCUM * (TRAIN_STEPS + TRAIN_STEPS - TRAIN_CKPT_STEP)
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention"] = cfg.n_layers * n_micro * (2 if cfg.remat else 1)
+    want["flash_attention_bwd"] = cfg.n_layers * n_micro
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    tokens = n_glob * TRAIN_SEQ
+    step_s = float(np.mean(walls[1:]))
+    log(f"train ({card_line()}): step wall "
+        f"{' '.join(f'{w:.3f}' for w in walls)} s; steady "
+        f"{step_s:.3f} s = {tokens / step_s:.1f} tokens/s; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} == {want} "
+        f"({cfg.n_layers} layers x {n_micro} microbatches, the forward "
+        f"twice under remat)")
+    batch = next(accum_batches(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1,
+                                             start_step=TRAIN_STEPS),
+                               TRAIN_ACCUM))
+    prof = device_profile(f"one {TRAIN_ARCH} training step, {tokens} tokens",
+                          lambda: step_fn(again, batch))
+    grads = tree_map(torch.ones_like, again.params)
+    opt_ms = timed_ms(lambda: O.adamw_update(grads, again.opt, again.params,
+                                             opt), 3)
+    log(f"train: the AdamW update alone (inside the elementwise group "
+        f"above): {opt_ms:.3f} ms")
+    del straight, again, restored, fresh, state, grads, params0
+    return {"launches": launches, "step_s": step_s,
+            "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+            "losses": losses, "loss0_f32": loss0_32, "min_cos": min(cos),
+            "profile": prof, "adamw_ms": opt_ms}
+
+
+def phase_train_dlrm(dev) -> dict:
+    """dlrm-mlperf at its published widths, tables capped at
+    DLRM_TRAIN_ROW_CAP rows, trained on the reference's train_batch
+    (DLRM_TRAIN_BATCH) from ``recsys_batches``: one step's gradient
+    against the float32 run with ``dot_interaction_ref`` on the card
+    (cosine per leaf), then DLRM_TRAIN_STEPS steps whose loss must fall,
+    each launching both ``dot_interaction`` kernels once."""
+    full = get_config("dlrm-mlperf")
+    cfg = cap_table_rows(full, DLRM_TRAIN_ROW_CAP)
+    rows = sum(E.padded_rows(t.vocab) for t in cfg.tables)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = dlrm_model.init_params(cfg, gen, device=dev)
+    log(f"train: dlrm-mlperf, {len(cfg.tables)} tables of dim "
+        f"{cfg.embed_dim} capped at {DLRM_TRAIN_ROW_CAP} rows: {rows} rows, "
+        f"{rows * cfg.embed_dim * 4 / 1e9:.2f} GB float32; batch "
+        f"{DLRM_TRAIN_BATCH}")
+
+    def loss_fn(p, b):
+        return dlrm_model.loss_fn(p, cfg, b)
+
+    batch0 = TL.to_device(next(TD.recsys_batches(cfg, DLRM_TRAIN_BATCH,
+                                                 seed=1)), dev)
+    g_k = grads_of(params, loss_fn, batch0)
+    kernel = dlrm_model.dot_interaction
+    dlrm_model.dot_interaction = dot_interaction_ref
+    try:
+        g_r = grads_of(params, loss_fn, batch0)
+    finally:
+        dlrm_model.dot_interaction = kernel
+    cos = cosines(g_k, g_r)
+    log(f"train: dlrm gradient through both dot_interaction kernels vs "
+        f"dot_interaction_ref (f32 both): cosine per leaf min "
+        f"{min(cos):.8f} (>= {DLRM_GRAD_COS})")
+    if min(cos) < DLRM_GRAD_COS:
+        raise AssertionError(f"train: dlrm gradient cosines {cos}")
+    del g_k, g_r
+    step_fn = TL.make_train_step(loss_fn, train_launch.opt_config(
+        TRAIN_LR, DLRM_TRAIN_STEPS))
+    state = TL.init_state(params)
+    times = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    state, hist = TL.train(state, step_fn, TD.recsys_batches(
+        cfg, DLRM_TRAIN_BATCH, seed=1), DLRM_TRAIN_STEPS, log_every=1,
+        hooks=(step_timer(times),))
+    launches = read_launches()
+    walls = np.diff([t0] + times)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    want = {n: 0 for n in KERNELS}
+    want["dot_interaction"] = want["dot_interaction_bwd"] = DLRM_TRAIN_STEPS
+    log(f"train ({card_line()}): dlrm {DLRM_TRAIN_STEPS} steps, loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; step wall "
+        f"{' '.join(f'{w:.3f}' for w in walls)} s; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+    if launches != want or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: dlrm launches {launches} (expected "
+                             f"{want}), losses {losses}")
+    batch = next(TD.recsys_batches(cfg, DLRM_TRAIN_BATCH, seed=1,
+                                   start_step=DLRM_TRAIN_STEPS))
+    prof = device_profile(f"one dlrm-mlperf training step, batch "
+                          f"{DLRM_TRAIN_BATCH}", lambda: step_fn(state, batch))
+    del state, params
+    return {"launches": launches, "losses": losses, "peak_bytes": peak,
+            "step_s": float(np.mean(walls[1:])), "min_cos": min(cos),
+            "profile": prof}
+
+
+def phase_train(dev) -> dict:
+    """The training path: smollm-135m, then dlrm-mlperf (its tables freed
+    after). Returns the launches of both runs summed."""
+    lm = phase_train_lm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dl = phase_train_dlrm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: dlrm tables freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB still allocated")
+    return {"lm": lm, "dlrm": dl,
+            "launches": {n: lm["launches"][n] + dl["launches"][n]
+                         for n in KERNELS}}
+
+
+def phase_train_smoke(dev) -> dict:
+    """Every arch of the registry at smoke width through the training
+    launcher's code path (``train.build``, ``opt_config``,
+    ``make_train_step``, ``train``) for SMOKE_TRAIN_STEPS steps on the card
+    and on the CPU from the same weights (the CPU's, copied); the loss
+    histories agree within SMOKE_TRAIN_ATOL (float32 configs). Then the
+    launcher itself on the card for one arch. Returns the card runs'
+    launches summed."""
+    total = {n: 0 for n in KERNELS}
+    worst = {}
+    for arch in arch_ids():
+        cfg, p_cpu, loss_cpu, data_cpu = train_launch.build(arch,
+                                                            device="cpu")
+        _, _, loss_dev, data_dev = train_launch.build(arch, device=dev)
+        p_dev = tree_map(lambda t: t.detach().clone().to(dev), p_cpu)
+        opt = train_launch.opt_config(TRAIN_LR, SMOKE_TRAIN_STEPS)
+        hist = {}
+        for name, p, lf, data in (("cpu", p_cpu, loss_cpu, data_cpu),
+                                  ("cuda", p_dev, loss_dev, data_dev)):
+            if name == "cuda":
+                reset_launches()
+            _, hist[name] = TL.train(TL.init_state(p), TL.make_train_step(
+                lf, opt), data, SMOKE_TRAIN_STEPS, log_every=1)
+        launches = read_launches()
+        a = np.array([h["loss"] for h in hist["cuda"]])
+        b = np.array([h["loss"] for h in hist["cpu"]])
+        worst[arch] = float(np.abs(a - b).max())
+        want = {n: 0 for n in KERNELS}
+        if isinstance(cfg, TransformerConfig):
+            n_fwd = cfg.n_layers * SMOKE_TRAIN_STEPS
+            want["flash_attention"] = n_fwd * (2 if cfg.remat else 1)
+            want["flash_attention_bwd"] = n_fwd
+        if arch == "dlrm-mlperf":
+            want["dot_interaction"] = SMOKE_TRAIN_STEPS
+            want["dot_interaction_bwd"] = SMOKE_TRAIN_STEPS
+        log(f"train smoke {arch}: card losses {' '.join(f'{x:.6f}' for x in a)}"
+            f", cpu {' '.join(f'{x:.6f}' for x in b)} (max diff "
+            f"{worst[arch]:.3e} <= {SMOKE_TRAIN_ATOL}); launches {launches}")
+        if worst[arch] > SMOKE_TRAIN_ATOL or launches != want:
+            raise AssertionError(f"train smoke {arch}: losses {a} vs {b}, "
+                                 f"launches {launches} (expected {want})")
+        for n in KERNELS:
+            total[n] += launches[n]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--steps", str(SMOKE_TRAIN_STEPS)],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or \
+            not lines[-1].startswith("final loss"):
+        raise AssertionError(f"train launcher on the card: exit "
+                             f"{out.returncode}\n{out.stdout}\n{out.stderr}")
+    log(f"train launcher on the card (no --device): {lines[0]} ... "
+        f"{lines[-1]}")
+    return {"launches": total, "worst": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3008,9 +3683,12 @@ def main() -> int:
     phase_build()
 
     cfg = TrustIRConfig()
-    kernels = [phase_shed_partition(cfg, dev), phase_flash_attention(dev),
-               phase_topk_select(dev), phase_dot_interaction(dev),
-               phase_flash_decode(dev)]
+    shed = phase_shed_partition(cfg, dev)
+    attn, attn_bwd = phase_flash_attention(dev)
+    topk = phase_topk_select(dev)
+    inter, inter_bwd = phase_dot_interaction(dev)
+    kernels = [shed, attn, topk, inter, phase_flash_decode(dev), attn_bwd,
+               inter_bwd]
     new_shapes = phase_new_head_dims(dev)
     phase_smoke_evaluators(dev)
     torch.cuda.empty_cache()
@@ -3036,7 +3714,7 @@ def main() -> int:
     def smollm_expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": N_LAYERS * n_batches,
-                "dot_interaction": 0, "flash_decode": 0}
+                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
 
     engine = phase_engine(ecfg, retrieval.searcher([shard]), evaluate, dev,
                           "engine", smollm_expect)
@@ -3101,6 +3779,16 @@ def main() -> int:
         big[arch] = phase_big_evaluator(arch, max_evals, dev)
         fam_seconds[arch] = time.monotonic() - t0
     log(f"evaluator families: seconds {json.dumps(fam_seconds)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_seconds = {}
+    t0 = time.monotonic()
+    train = phase_train(dev)
+    train_seconds["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    train_smoke = phase_train_smoke(dev)
+    train_seconds["train_smoke"] = time.monotonic() - t0
+    log(f"training phases: seconds {json.dumps(train_seconds)}")
 
     by_path = {"engine": engine["launches"], "fleet": fleet_launches,
                "fanout": fanout["launches"], "dlrm": dlrm["launches"],
@@ -3109,7 +3797,9 @@ def main() -> int:
                f"{GEMMA} engine": gemma["launches"],
                f"{GEMMA} prefill": gemma_decode["prefill_launches"],
                f"{GEMMA} decode": gemma_decode["launches"],
-               **{arch: st["launches"] for arch, st in big.items()}}
+               **{arch: st["launches"] for arch, st in big.items()},
+               "train": train["launches"],
+               "train_smoke": train_smoke["launches"]}
     path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
     for kern in kernels:

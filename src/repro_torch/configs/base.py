@@ -58,6 +58,7 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"            # compute type
     param_dtype: str = "float32"
+    remat: bool = True                 # activation checkpointing per block
 
     @property
     def q_per_kv(self) -> int:

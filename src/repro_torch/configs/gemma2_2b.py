@@ -47,5 +47,6 @@ def smoke_config() -> TransformerConfig:
         vocab_size=256,
         sliding_window=16,
         query_pre_attn_scalar=16.0,
+        remat=False,
         dtype="float32",
     )

@@ -63,5 +63,6 @@ def smoke_config() -> TransformerConfig:
             d_ff_dense=128,
             capacity_factor=1.5,
         ),
+        remat=False,
         dtype="float32",
     )

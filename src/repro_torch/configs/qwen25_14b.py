@@ -37,5 +37,6 @@ def smoke_config() -> TransformerConfig:
         d_head=12,
         d_ff=256,
         vocab_size=256,
+        remat=False,
         dtype="float32",
     )

@@ -51,5 +51,6 @@ def smoke_config() -> TransformerConfig:
             d_expert=96,
             capacity_factor=1.5,
         ),
+        remat=False,
         dtype="float32",
     )

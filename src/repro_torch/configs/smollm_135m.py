@@ -36,5 +36,6 @@ def smoke_config() -> TransformerConfig:
         d_head=16,
         d_ff=128,
         vocab_size=256,
+        remat=False,
         dtype="float32",
     )

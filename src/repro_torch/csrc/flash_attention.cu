@@ -64,6 +64,15 @@
 //
 // Both accept any S (rows and keys past S are masked) and D in {16, 64,
 // 128, 256}; a row that sees no key writes zeros.
+//
+// Training: given an `lse` pointer, both kernels also write each row's
+// natural log-sum-exp of its scaled, softcapped, masked scores, (B, Hq, S)
+// float32 (-inf for a row that sees no key), which the backward
+// (flash_attention_bwd.cu) reads to rebuild the softmax: one float a row,
+// from the statistics the online softmax already holds. It is a template
+// flag, so the serving path (a null pointer) runs the same instance as
+// before; the write kept live across the key loop took the D 256 bf16
+// instance from a 24-byte spill to 48.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,6 +83,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores, GQA group packed into the rows of a tile
@@ -112,12 +122,13 @@ size_t bf16_smem_bytes(int n_warps, int S) {
          (16 * n_warps + stages * 2 * kKeys);
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int B, int S,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int B, int S,
                             int Hq, int Hkv, int n_tiles, float scale,
                             int causal, int window, float softcap) {
   constexpr int DP = kPaddedRow<D>;
@@ -329,6 +340,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const float den = tc::quad_sum(l[h]);
     inv[h] = den > 0.f ? 1.f / den : 0.f;
+    // m is in the units of s, m * c_exp in log2 units
+    const int r = wr0 + grp + 8 * h;
+    if (kLse && tig == 0 && r < rows)
+      lse[(b * Hq + hk * G + r % G) * static_cast<long long>(S) + r / G] =
+          den > 0.f ? (m[h] * c_exp + log2f(den)) * kLn2 : -INFINITY;
   }
   __nv_bfloat16* os = Qs + 16 * warp * DP;
 #pragma unroll
@@ -348,10 +364,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Hq, int Hkv, float scale, int causal, int window,
-                float softcap, cudaStream_t stream) {
-  auto kernel = flash_attention_bf16_kernel<D>;
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Hq, int Hkv, float scale,
+                int causal, int window, float softcap, cudaStream_t stream) {
+  auto kernel = lse != nullptr ? flash_attention_bf16_kernel<D, true>
+                               : flash_attention_bf16_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bf16_smem_bytes<D>(kMaxWarps, kStages<D> * kKeys)));
@@ -372,7 +389,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      B, S, Hq, Hkv, static_cast<int>(n_tiles), scale, causal, window,
+      lse, B, S, Hq, Hkv, static_cast<int>(n_tiles), scale, causal, window,
       softcap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -398,13 +415,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int Hq, int Hkv, float scale, int causal,
-                           int window, float softcap) {
+                           float* __restrict__ lse, int S, int Hq, int Hkv,
+                           float scale, int causal, int window,
+                           float softcap) {
   constexpr int DP = D + 4;        // padded K row: conflict-free float4 reads
   constexpr int C = (D + 31) / 32; // output columns per lane
   extern __shared__ __align__(16) float fsmem[];
@@ -510,6 +528,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= S) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (kLse && lane == 0)
+      lse[(b * Hq + h) * S + qpos] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
 #pragma unroll
     for (int c = 0; c < C; ++c)
       if (D % 32 == 0 || lane + 32 * c < D)
@@ -518,11 +539,12 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Hq, int Hkv, float scale, int causal, int window,
-               float softcap, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int Hq, int Hkv, float scale,
+               int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
-  auto kernel = flash_attention_f32_kernel<D>;
+  auto kernel = lse != nullptr ? flash_attention_f32_kernel<D, true>
+                               : flash_attention_f32_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -534,7 +556,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq, Hkv,
       scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -544,16 +566,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). D
 // must be 16, 64, 128 or 256 (the wrapper checks, and zero-pads a head
 // narrower than 16 to 16; 16 is the smoke-width evaluators' head, 256
-// Gemma-2's). Launches on `stream`; returns cudaGetLastError()
-// (0 = ok).
+// Gemma-2's). `lse`: null, or (B, Hq, S) float32 to receive each row's
+// log-sum-exp. Launches on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int Hq, int Hkv, int D, int dtype,
-                                      float scale, int causal, int window,
-                                      float softcap, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int S, int Hq, int Hkv, int D,
+                                      int dtype, float scale, int causal,
+                                      int window, float softcap,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_CASE(FN, DIM) \
-  return FN<DIM>(q, k, v, o, B, S, Hq, Hkv, scale, causal, window, softcap, st)
+  float* ls = static_cast<float*>(lse);
+#define FA_CASE(FN, DIM)                                                  \
+  return FN<DIM>(q, k, v, o, ls, B, S, Hq, Hkv, scale, causal, window,    \
+                 softcap, st)
   if (dtype == 0) {
     if (D == 16) FA_CASE(launch_f32, 16);
     if (D == 64) FA_CASE(launch_f32, 64);

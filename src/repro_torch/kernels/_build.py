@@ -1,5 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
+Also ``refuse_grad``: the wrappers whose kernels have no backward raise
+rather than return a result detached from autograd.
+
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/lib<name>-<source hash>.so`` inside the package
 directory (listed in ``.gitignore``); the hash covers the ``.cu`` and
@@ -98,6 +101,18 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``,
+    which has none: on CUDA its output would carry no ``grad_fn`` and a
+    ``backward()`` would silently give its inputs no gradient."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
+        raise RuntimeError(f"{name} has no backward kernel: call it under "
+                           f"torch.no_grad() or with inputs that do not "
+                           f"require grad")
 
 
 def library_function(name: str, symbol: str, argtypes: List,

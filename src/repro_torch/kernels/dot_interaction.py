@@ -15,6 +15,13 @@ into three TF32 products, hi*hi + hi*lo + lo*hi; bound by
 bytes, B*F*D reads and B*F(F-1)/2 writes) for CUDA tensors, and takes
 the plain version ``dot_interaction_ref`` only for CPU tensors. Both
 take float32 or bfloat16.
+
+Its gradient: dx[b, i] = sum over j != i of g[b, pair(i, j)] x[b, j].
+Where grad is enabled and the features require it, a CUDA call goes
+through ``DotInteractionFn``, whose backward launches
+``dot_interaction_bwd`` (``csrc/dot_interaction_bwd.cu``; plain version
+``dot_interaction_bwd_ref``). The JAX package differentiates its einsum
+and triangle gather with ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -46,23 +53,33 @@ def dot_interaction_ref(feats: torch.Tensor) -> torch.Tensor:
     return z[:, iu, ju].to(feats.dtype)
 
 
-def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
-    """feats: (B, F, D) float32 or bfloat16 -> (B, F(F-1)/2), same type.
+def dot_interaction_bwd_ref(feats: torch.Tensor,
+                            grad: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward: the triangle's gradient ``grad``
+    (B, F(F-1)/2) scattered into a symmetric (B, F, F) matrix with a zero
+    diagonal, times the features, in float32; returned in feats' type."""
+    B, n_f, _ = feats.shape
+    iu, ju = triu_pairs(n_f, feats.device)
+    gm = torch.zeros((B, n_f, n_f), dtype=torch.float32, device=feats.device)
+    gm[:, iu, ju] = grad.to(torch.float32)
+    gm = gm + gm.transpose(1, 2)
+    return torch.bmm(gm, feats.to(torch.float32)).to(feats.dtype)
 
-    CUDA tensors launch the kernel (counted in
-    ``dot_interaction.launches``); CPU tensors take the plain version.
-    """
+
+def _check(feats: torch.Tensor) -> None:
     if feats.dim() != 3:
         raise ValueError(f"feats must be (B, F, D), got "
                          f"{tuple(feats.shape)}")
     if feats.dtype not in _DTYPES:
         raise TypeError(f"dot_interaction takes float32 or bfloat16, got "
                         f"{feats.dtype}")
-    if feats.device.type == "cpu":
-        return dot_interaction_ref(feats)
-    if feats.device.type != "cuda":
+    if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dot_interaction runs on cuda or cpu, not "
                          f"{feats.device}")
+
+
+def _forward(feats: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel."""
     if not feats.is_contiguous():
         raise ValueError("feats must be contiguous")
     B, F, D = feats.shape
@@ -92,7 +109,84 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class DotInteractionFn(torch.autograd.Function):
+    """The forward kernel and ``dot_interaction_bwd`` as one
+    differentiable op on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.save_for_backward(feats)
+        return _forward(feats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, = ctx.saved_tensors
+        return dot_interaction_bwd(feats, grad.contiguous())
+
+
+def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
+    """feats: (B, F, D) float32 or bfloat16 -> (B, F(F-1)/2), same type.
+
+    CUDA tensors launch the kernel (counted in
+    ``dot_interaction.launches``), through ``DotInteractionFn`` where
+    grad is enabled and the features require it; CPU tensors take the
+    plain version (and autograd differentiates it).
+    """
+    _check(feats)
+    if feats.device.type == "cpu":
+        return dot_interaction_ref(feats)
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return DotInteractionFn.apply(feats)
+    return _forward(feats)
+
+
 dot_interaction.launches = 0
+
+
+def dot_interaction_bwd(feats: torch.Tensor,
+                        grad: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``dot_interaction``: dx (B, F, D) in feats' type from
+    the features and the triangle's gradient ``grad`` (B, F(F-1)/2).
+    CUDA tensors launch the kernel (one block a sample, sums in float32,
+    no atomics; counted in ``dot_interaction_bwd.launches``); CPU tensors
+    take ``dot_interaction_bwd_ref``."""
+    _check(feats)
+    B, F, D = feats.shape
+    if grad.shape != (B, F * (F - 1) // 2) or grad.dtype != feats.dtype \
+            or grad.device != feats.device:
+        raise ValueError(f"grad must be ({B}, {F * (F - 1) // 2}) "
+                         f"{feats.dtype} on {feats.device}, got "
+                         f"{tuple(grad.shape)} {grad.dtype} {grad.device}")
+    if feats.device.type == "cpu":
+        return dot_interaction_bwd_ref(feats, grad)
+    if not (feats.is_contiguous() and grad.is_contiguous()):
+        raise ValueError("feats and grad must be contiguous")
+    smem = library_function("dot_interaction_bwd",
+                            "dot_interaction_bwd_smem_bytes",
+                            [ctypes.c_int] * 3,
+                            restype=ctypes.c_longlong)(
+        F, D, _DTYPES[feats.dtype])
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"dot_interaction_bwd: F={F}, D={D} needs {smem} "
+                         f"B of shared memory, more than a block has")
+    if B > 2 ** 31 - 1:
+        raise ValueError(f"dot_interaction_bwd indexes blocks with int32: "
+                         f"B={B} is too large")
+    fn = library_function(
+        "dot_interaction_bwd", "dot_interaction_bwd_launch",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    dx = torch.empty_like(feats)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    err = fn(feats.data_ptr(), grad.data_ptr(), dx.data_ptr(), B, F, D,
+             _DTYPES[feats.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"dot_interaction_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    dot_interaction_bwd.launches += 1
+    return dx
+
+
+dot_interaction_bwd.launches = 0
 
 
 def group_size(n_f: int, d: int, dtype: torch.dtype) -> int:

@@ -1,9 +1,15 @@
-"""Attention forward (causal, sliding window, logit softcap, GQA).
+"""Attention (causal, sliding window, logit softcap, GQA) and its gradient.
 
 Counterpart of ``repro.kernels.flash_attention``. ``flash_attention``
 launches the hand-written CUDA kernel (``csrc/flash_attention.cu``) for
 CUDA tensors and takes the plain version ``flash_attention_ref`` only for
-CPU tensors. bf16 runs on the tensor cores with the GQA group packed into
+CPU tensors. Where grad is enabled and an input requires it, a CUDA call
+goes through ``FlashAttentionFn``: its forward also writes each row's
+log-sum-exp, and its backward launches ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``; plain version
+``flash_attention_bwd_ref``). The JAX package differentiates its jnp
+attention with ``jax.grad`` and has no backward kernel; the port's
+forward on the card is a kernel, so its gradient is one too. bf16 runs on the tensor cores with the GQA group packed into
 the rows of a tile; float32 runs in FP32 FMAs. The kernel accepts any S
 (the ragged edge is masked); it takes D of 16 (the smoke-width
 evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
@@ -63,6 +69,86 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, S, Hq, D).to(q.dtype)
 
 
+def _scores(q, k, b, causal, window, softcap, sm_scale):
+    """Batch row ``b``'s float32 scores after scale and softcap, t (Hkv,
+    G, S, S), and the mask of (query, key) pairs a row sees."""
+    S, Hq, D = q.shape[1:]
+    Hkv = k.shape[2]
+    qg = q[b].reshape(S, Hkv, Hq // Hkv, D).to(torch.float32)
+    t = torch.einsum("shgd,thd->hgst", qg, k[b].to(torch.float32)) * sm_scale
+    if softcap > 0.0:
+        t = softcap * torch.tanh(t / softcap)
+    pos = torch.arange(S, device=q.device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= pos[None, :] > pos[:, None] - window
+    return qg, t, ok
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0,
+                            sm_scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """Plain version of the forward's second output: each row's natural
+    log-sum-exp of its scaled, softcapped, masked scores, (B, Hq, S)
+    float32; ``-inf`` for a row that sees no key."""
+    B, S, Hq, D = q.shape
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    out = []
+    for b in range(B):
+        _, t, ok = _scores(q, k, b, causal, window, softcap, sm_scale)
+        out.append(torch.logsumexp(t.masked_fill(~ok, float("-inf")),
+                                   dim=-1).reshape(Hq, S))
+    return torch.stack(out)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0,
+                            sm_scale: Optional[float] = None):
+    """Plain version of the backward: (dq, dk, dv) of the attention
+    ``o`` = softmax(t) v, t the scaled and softcapped scores, from the
+    forward's ``o`` and ``lse`` (B, Hq, S) and the output gradient ``do``,
+    in explicit float32 formulas, one batch row at a time:
+
+        P = exp(t - lse) on the pairs a row sees, Di = rowsum(do * o),
+        dv = P^T do, dP = do v^T, dT = P (dP - Di),
+        dS = dT (1 - (t / softcap)^2) with a softcap, else dT,
+        dq = scale dS k, dk = scale dS^T q,
+
+    dk and dv summed over the G query heads of their KV head. A row with
+    ``lse == -inf`` (it saw no key) gives and gets no gradient. Returns
+    each in its input's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    dq, dk, dv = [], [], []
+    for b in range(B):
+        qg, t, ok = _scores(q, k, b, causal, window, softcap, sm_scale)
+        lse_b = lse[b].reshape(Hkv, G, S, 1).to(torch.float32)
+        ok = ok & torch.isfinite(lse_b)
+        p = torch.where(ok, torch.exp(t - torch.where(ok, lse_b, 0.0)), 0.0)
+        dog = do[b].reshape(S, Hkv, G, D).to(torch.float32)
+        og = o[b].reshape(S, Hkv, G, D).to(torch.float32)
+        di = (dog * og).sum(-1).permute(1, 2, 0)[..., None]   # (Hkv,G,S,1)
+        dv.append(torch.einsum("hgst,shgd->thd", p, dog))
+        dp = torch.einsum("shgd,thd->hgst", dog, v[b].to(torch.float32))
+        ds = p * (dp - di)
+        if softcap > 0.0:
+            ds = ds * (1.0 - (t / softcap).square())
+        dq.append(torch.einsum("hgst,thd->shgd", ds,
+                               k[b].to(torch.float32)).reshape(S, Hq, D)
+                  * sm_scale)
+        dk.append(torch.einsum("hgst,shgd->thd", ds, qg) * sm_scale)
+    return (torch.stack(dq).to(q.dtype), torch.stack(dk).to(k.dtype),
+            torch.stack(dv).to(v.dtype))
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B,S,Hq,D) and k, v (B,S,Hkv,D); got "
@@ -80,6 +166,69 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must share q's dtype and device")
 
 
+def _kernel_args(name: str, *ts: torch.Tensor):
+    """Type, contiguity and alignment checks of a kernel's tensors."""
+    if ts[0].dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got "
+                        f"{ts[0].dtype}")
+    D = ts[0].shape[-1]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name} takes D in {_HEAD_DIMS}, got {D}")
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous")
+        if t.data_ptr() % 16:            # the kernels read 16-byte chunks
+            raise ValueError(f"{name}: every tensor must be 16-byte "
+                             f"aligned")
+
+
+def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None):
+    """One launch of the forward kernel; writes ``lse`` (B, Hq, S) float32
+    where one is given."""
+    _kernel_args("flash_attention", q, k, v)
+    B, S, Hq, D = q.shape
+    fn = library_function(
+        "flash_attention", "flash_attention_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p])
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
+             B, S, Hq, k.shape[2], D, _DTYPES[q.dtype], float(sm_scale),
+             int(causal), int(window), float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel pair as one differentiable op on CUDA tensors: the
+    forward kernel (writing the row log-sum-exp beside ``o``), and
+    ``flash_attention_bwd`` for the gradient. D must be a kernel's head
+    dimension (``flash_attention`` pads narrower heads first)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, sm_scale):
+        B, S, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        o = _forward(q, k, v, causal, window, softcap, sm_scale, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        sm_scale=sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
@@ -87,7 +236,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
 
     CUDA tensors launch the kernel (counted in
-    ``flash_attention.launches``); CPU tensors take the plain version.
+    ``flash_attention.launches``), through ``FlashAttentionFn`` where grad
+    is enabled and an input requires it; CPU tensors take the plain
+    version (and autograd differentiates it).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -96,7 +247,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, "
                          f"not {q.device}")
-    B, S, Hq, D = q.shape
+    D = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -107,28 +258,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention(qp, kp, vp, causal=causal, window=window,
                                softcap=softcap,
                                sm_scale=sm_scale)[..., :D].contiguous()
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention takes D in {_HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:            # the kernel reads 16-byte chunks
-            raise ValueError(f"{name} must be 16-byte aligned")
-    fn = library_function(
-        "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_void_p])
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, S, Hq, k.shape[2], D, _DTYPES[q.dtype], float(sm_scale),
-             int(causal), int(window), float(softcap), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      sm_scale)
+    return _forward(q, k, v, causal, window, softcap, sm_scale)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        sm_scale: Optional[float] = None):
+    """Gradient of ``flash_attention``: (dq, dk, dv) in the inputs' type
+    from q, k, v, the forward's ``o`` and ``lse`` (B, Hq, S) float32, and
+    ``do`` (B, S, Hq, D). CUDA tensors launch the backward kernels
+    (counted once a call in ``flash_attention_bwd.launches``: the
+    ``rowsum(do * o)`` pass, the dk/dv kernel and the dq kernel); CPU
+    tensors take ``flash_attention_bwd_ref``."""
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and "
+                             f"device")
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be ({B}, {Hq}, {S}) float32 on "
+                         f"{q.device}")
+    _kernel_args("flash_attention_bwd", q, k, v, o, do)
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous")
+    fn = library_function(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p])
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), di.data_ptr(), B, S, Hq, k.shape[2], D,
+             _DTYPES[q.dtype], float(sm_scale), int(causal), int(window),
+             float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

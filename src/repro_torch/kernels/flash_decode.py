@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import library_function
+from repro_torch.kernels._build import library_function, refuse_grad
 from repro_torch.kernels.flash_attention import MIN_HEAD_DIM, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,6 +107,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                                 softcap=softcap, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     B, L, Hkv, D = k_cache.shape
     G = q.shape[1] // Hkv
     if q.dtype not in _DTYPES:

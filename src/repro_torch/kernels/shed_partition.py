@@ -21,7 +21,7 @@ import torch
 from repro_torch.core import trust_cache as TC
 from repro_torch.core.shedder import (TIER_CACHED, TIER_EVAL, TIER_INVALID,
                                       TIER_PRIOR)
-from repro_torch.kernels._build import library_function
+from repro_torch.kernels._build import library_function, refuse_grad
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -106,6 +106,7 @@ def shed_partition(keys: torch.Tensor, valid: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"shed_partition runs on cuda or cpu, "
                          f"not {keys.device}")
+    refuse_grad("shed_partition", cache_values)
     fn = library_function(
         "shed_partition", "shed_partition_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)

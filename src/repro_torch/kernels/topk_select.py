@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import library_function
+from repro_torch.kernels._build import library_function, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 NEG_INF = -2.0e38
@@ -81,6 +81,7 @@ def topk_select(scores: torch.Tensor, k: int
     if scores.device.type != "cuda":
         raise ValueError(f"topk_select runs on cuda or cpu, "
                          f"not {scores.device}")
+    refuse_grad("topk_select", scores)
     if not scores.is_contiguous():
         raise ValueError("scores must be contiguous")
     if n > INT32_MAX:

@@ -7,9 +7,10 @@ heads, d_head)``; grouped-query attention keeps the KV heads grouped (no
 KV repeat).
 
 On CUDA tensors ``attention`` runs the hand-written flash kernel
-(``kernels.flash_attention``) and ``decode_attention`` the flash-decode
-kernel (``kernels.flash_decode``); on CPU tensors they run the plain
-forms below, the torch twins of the reference's jnp paths.
+(``kernels.flash_attention``, differentiable through its backward
+kernel) and ``decode_attention`` the flash-decode kernel
+(``kernels.flash_decode``); on CPU tensors they run the plain forms
+below, the torch twins of the reference's jnp paths.
 """
 from __future__ import annotations
 
@@ -62,12 +63,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
               scale: Optional[float] = None,
               q_chunk: int = 1024) -> torch.Tensor:
-    """Full (prefill) attention. q: (B, S, Hq, D); k, v: (B, S, Hkv, D).
-    Returns (B, S, Hq, D)."""
+    """Full (prefill, training) attention. q: (B, S, Hq, D); k, v: (B, S,
+    Hkv, D). Returns (B, S, Hq, D). On CUDA the flash kernel, whose
+    gradient is the backward kernel; on the CPU ``chunked_attention``,
+    which autograd differentiates."""
     if q.is_cuda:
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window,
                                softcap=softcap, sm_scale=scale)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale, q_chunk=q_chunk)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, scale: Optional[float] = None,
+                      q_chunk: int = 1024) -> torch.Tensor:
+    """The plain form of ``attention`` on any device: the torch twin of
+    the reference's jnp online-softmax attention, ``q_chunk`` query rows
+    at a time in float32."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv

@@ -1,9 +1,13 @@
 """GCN message passing over an edge index: the trust propagator.
 
-Counterpart of ``repro.models.gnn`` for inference: ``init_params``,
-``propagate``, ``forward`` and ``trust_scores`` (``node_loss`` and
-``graph_readout_loss`` are training, ROADMAP.md Queue 1 item 6). Message
-passing is gather -> edge message -> segment sum, the reference's SpMM.
+Counterpart of ``repro.models.gnn``: ``init_params``, ``propagate``,
+``forward``, ``trust_scores`` and the training losses ``node_loss`` and
+``graph_readout_loss`` (no dropout: the reference's launcher passes no
+dropout key). Message passing is gather -> edge message -> segment sum,
+the reference's SpMM; autograd differentiates the ordered segment sums
+(``torch.segment_reduce``'s backward) on both devices, and the max
+aggregator's ``layers.segment_max`` splits its gradient over ties as
+JAX does.
 
 Two details follow the reference where plain torch indexing would not:
 - Out-of-range node ids. The reference gathers ``x[src]``, ``deg[src]``
@@ -107,6 +111,28 @@ def forward(params: Dict, cfg: GNNConfig, x: torch.Tensor,
         if i < n_layers - 1:
             h = torch.relu(h)
     return h
+
+
+def node_loss(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+              edge_index: torch.Tensor, labels: torch.Tensor,
+              label_mask: torch.Tensor,
+              edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked node-classification CE."""
+    logits = forward(params, cfg, x, edge_index, edge_mask)
+    return L.cross_entropy(logits, labels, label_mask)
+
+
+def graph_readout_loss(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+                       edge_index: torch.Tensor, graph_ids: torch.Tensor,
+                       n_graphs: int, labels: torch.Tensor,
+                       edge_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Batched small graphs: node logits mean-pooled per graph, CE."""
+    logits = forward(params, cfg, x, edge_index, edge_mask)
+    pooled = L.segment_sum(logits, graph_ids, n_graphs)
+    counts = L.segment_sum(torch.ones((x.shape[0],), dtype=logits.dtype,
+                                      device=x.device), graph_ids, n_graphs)
+    return L.cross_entropy(pooled / counts.clamp(min=1.0)[:, None], labels)
 
 
 def trust_scores(params: Dict, cfg: GNNConfig, x: torch.Tensor,

@@ -4,6 +4,7 @@ Counterpart of ``repro.models.layers``. Parameters are nested dicts of
 tensors; dense weights are ``(d_in, d_out)`` as in the reference, so a
 JAX parameter pytree loads without transposes. Compute runs in the
 config's ``dtype``; norms and RoPE compute in float32 and cast back.
+The losses (``cross_entropy``, ``bce_with_logits``) compute in float32.
 """
 from __future__ import annotations
 
@@ -190,6 +191,36 @@ def unembed_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level CE with optional z-loss in float32; logits (..., V),
+    labels (...,); with ``mask`` the masked mean (over at least 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss.mean()
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of logits, the reference's stable form."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    return (torch.relu(logits) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+# ---------------------------------------------------------------------------
 # Segment reductions in a fixed order
 # ---------------------------------------------------------------------------
 
@@ -216,12 +247,38 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                                 initial=0.0)[:n_segments]
 
 
+class _SegmentMax(torch.autograd.Function):
+    """``segment_reduce``'s max with JAX's gradient: a segment's output
+    gradient split evenly over the rows that tie at its max.
+    ``segment_reduce``'s own backward divides only positive gradients by
+    the number of ties (a negative one reaches every tied row whole)."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, n_segments):
+        rows, counts = _by_segment(data, segment_ids, n_segments)
+        out = torch.segment_reduce(rows, "max", lengths=counts)[:n_segments]
+        ctx.save_for_backward(data, segment_ids, out)
+        ctx.n_segments = n_segments
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, segment_ids, out = ctx.saved_tensors
+        n = ctx.n_segments
+        seg = segment_ids.reshape(-1).long()
+        valid = ((seg >= 0) & (seg < n)).reshape(-1, *[1] * (data.dim() - 1))
+        at = seg.clamp(0, n - 1)
+        tied = valid & (data == out[at])
+        ties = segment_sum(tied.to(grad.dtype), segment_ids, n)
+        return (torch.where(tied, grad[at] / ties[at].clamp(min=1.0), 0.0),
+                None, None)
+
+
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                 n_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_max``: an empty segment is -inf."""
-    rows, counts = _by_segment(data, segment_ids, n_segments)
-    return torch.segment_reduce(rows, "max",
-                                lengths=counts)[:n_segments]
+    """``jax.ops.segment_max``: an empty segment is -inf; the gradient is
+    split evenly over the rows that tie at a segment's max, as JAX's."""
+    return _SegmentMax.apply(data, segment_ids, n_segments)
 
 
 def segment_counts(segment_ids: torch.Tensor,

@@ -1,7 +1,7 @@
 """BST — Behavior Sequence Transformer. [arXiv:1905.06874]
 
-Counterpart of ``repro.models.recsys.bst`` (inference: ``init_params``,
-``forward``, ``relevance_scores``). Embeds the user behavior sequence
+Counterpart of ``repro.models.recsys.bst`` (``init_params``,
+``forward``, ``loss_fn``, ``relevance_scores``). Embeds the user behavior sequence
 (+ target item), runs ``n_blocks`` transformer blocks over (seq_len + 1)
 positions with learned positional embeddings, flattens, concatenates
 other-feature embeddings, and feeds the 1024-512-256 MLP -> CTR logit.
@@ -97,6 +97,13 @@ def forward(params: Dict, cfg: RecsysConfig, hist: torch.Tensor,
     flat = torch.cat([x.reshape(B, -1)] + others, dim=-1)
     out = L.mlp_apply(params["mlp"], flat, compute_dtype=cdt)
     return out[:, 0].to(torch.float32)
+
+
+def loss_fn(params: Dict, cfg: RecsysConfig, batch: Dict) -> torch.Tensor:
+    """Mean BCE of the CTR logits against ``batch["labels"]``."""
+    logits = forward(params, cfg, batch["hist"], batch["target"],
+                     batch["other"])
+    return L.bce_with_logits(logits, batch["labels"])
 
 
 def relevance_scores(params: Dict, cfg: RecsysConfig, hist, target, other,

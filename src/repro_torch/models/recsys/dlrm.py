@@ -1,11 +1,11 @@
 """DLRM (MLPerf config): bottom MLP + 26 embedding lookups + dot
 interaction + top MLP. [arXiv:1906.00091]
 
-Counterpart of ``repro.models.recsys.dlrm`` (inference: ``init_params``,
-``forward``, ``relevance_scores``; training waits for the training
-slice). The dot interaction runs ``kernels.dot_interaction``: the
-hand-written CUDA kernel on CUDA tensors, its plain version on CPU
-tensors. The MLPs stay ``torch.matmul``, as the reference left them to
+Counterpart of ``repro.models.recsys.dlrm`` (``init_params``,
+``forward``, ``loss_fn``, ``relevance_scores``). The dot interaction
+runs ``kernels.dot_interaction``: the hand-written CUDA kernel on CUDA
+tensors (its backward kernel gives the gradient), its plain version on
+CPU tensors. The MLPs stay ``torch.matmul``, as the reference left them to
 XLA. :func:`params_from_jax` converts the reference's parameter pytree
 (as numpy arrays) into this form.
 """
@@ -61,6 +61,12 @@ def forward(params: Dict, cfg: RecsysConfig, dense: torch.Tensor,
     top_in = torch.cat([bot, inter], dim=-1)
     out = L.mlp_apply(params["top_mlp"], top_in, compute_dtype=cdt)
     return out[:, 0].to(torch.float32)
+
+
+def loss_fn(params: Dict, cfg: RecsysConfig, batch: Dict) -> torch.Tensor:
+    """Mean BCE of the CTR logits against ``batch["labels"]``."""
+    logits = forward(params, cfg, batch["dense"], batch["sparse"])
+    return L.bce_with_logits(logits, batch["labels"])
 
 
 def relevance_scores(params: Dict, cfg: RecsysConfig, dense, sparse_idx,

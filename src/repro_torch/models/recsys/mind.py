@@ -1,7 +1,7 @@
 """MIND — Multi-Interest Network with Dynamic routing. [arXiv:1904.08030]
 
-Counterpart of ``repro.models.recsys.mind`` (inference: ``init_params``,
-``user_interests``, ``relevance_scores``). Behavior-to-Interest (B2I)
+Counterpart of ``repro.models.recsys.mind`` (``init_params``,
+``user_interests``, ``loss_fn``, ``relevance_scores``). Behavior-to-Interest (B2I)
 dynamic routing extracts ``n_interests`` capsules from the user history;
 serving scores an item by the max over interests. The routing runs in
 float32 with the reference's ``-1e30`` history mask and its squash
@@ -71,6 +71,20 @@ def user_interests(params: Dict, cfg: RecsysConfig, hist: torch.Tensor,
     # per-interest nonlinearity (H in the paper)
     return L.mlp_apply(params["interest_mlp"], v.to(cdt), final_act=True,
                        compute_dtype=cdt)
+
+
+def loss_fn(params: Dict, cfg: RecsysConfig, batch: Dict,
+            pow_p: float = 2.0) -> torch.Tensor:
+    """Label-aware attention over the interests, then in-batch sampled
+    softmax. batch: hist (B, L), hist_mask (B, L), target (B,)."""
+    v = user_interests(params, cfg, batch["hist"], batch["hist_mask"])
+    t = E.lookup(params["tables"]["item"], batch["target"], v.dtype)
+    att = (v @ t[:, :, None])[..., 0].to(torch.float32)      # (B, K)
+    w = torch.softmax(pow_p * att, dim=-1)
+    u = (w.to(v.dtype)[:, None, :] @ v)[:, 0]                # (B, d)
+    logits = u.to(torch.float32) @ t.to(torch.float32).T
+    return L.cross_entropy(logits, torch.arange(u.shape[0],
+                                                device=u.device))
 
 
 def relevance_scores(params: Dict, cfg: RecsysConfig, hist, hist_mask,

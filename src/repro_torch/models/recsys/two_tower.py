@@ -1,7 +1,7 @@
 """Two-tower retrieval. [Yi et al., RecSys'19 (YouTube)]
 
-Counterpart of ``repro.models.recsys.two_tower`` (inference:
-``init_params``, ``user_embed``, ``item_embed``, ``retrieval_scores``).
+Counterpart of ``repro.models.recsys.two_tower`` (``init_params``,
+``user_embed``, ``item_embed``, ``loss_fn``, ``retrieval_scores``).
 User and item towers are MLPs over an id embedding beside a mean bag of
 multi-hot feature embeddings; retrieval scores 1..B queries against N
 candidates with one (N, d) matmul. Each tower's output is divided by its
@@ -66,6 +66,19 @@ def item_embed(params: Dict, cfg: RecsysConfig, item_id: torch.Tensor,
                item_feats: torch.Tensor) -> torch.Tensor:
     """item_id: (N,); item_feats: (N, N_ITEM_HOT) -> (N, d) L2-normed."""
     return _tower(params, cfg, "item", item_id, item_feats)
+
+
+def loss_fn(params: Dict, cfg: RecsysConfig, batch: Dict,
+            temperature: float = 0.05) -> torch.Tensor:
+    """In-batch sampled softmax with logQ correction. batch: user_id
+    (B,), user_feats (B, H), item_id (B,), item_feats (B, H), logq (B,),
+    the log sampling probability of each in-batch item."""
+    u = user_embed(params, cfg, batch["user_id"], batch["user_feats"])
+    i = item_embed(params, cfg, batch["item_id"], batch["item_feats"])
+    logits = (u.to(torch.float32) @ i.to(torch.float32).T) / temperature
+    logits = logits - batch["logq"].to(torch.float32)[None, :]
+    return L.cross_entropy(logits, torch.arange(u.shape[0],
+                                                device=u.device))
 
 
 def retrieval_scores(params: Dict, cfg: RecsysConfig, query: Dict,

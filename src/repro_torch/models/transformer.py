@@ -11,9 +11,13 @@ reference, all driven by ``TransformerConfig``:
   sqrt(d_model) embedding scale and the query pre-attention scalar;
 - tied or untied (``unembed``) output embeddings.
 
-The full-sequence forward and scoring head, and the KV-cache path
-(``init_kv_cache``, ``prefill``, ``decode_step``). Layers run in a Python
-loop over lists of block dicts; there is no remat (inference only).
+The full-sequence forward and scoring head, the training loss
+(``lm_loss``), and the KV-cache path (``init_kv_cache``, ``prefill``,
+``decode_step``). Layers run in a Python loop over lists of block dicts.
+Training keeps the weights in ``param_dtype`` (float32 master weights)
+and casts them to ``dtype`` inside the forward, as the reference does;
+with ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint``) whenever its input requires grad.
 
 Parameters are nested dicts of tensors with the reference's names and
 ``(d_in, d_out)`` dense weights; :func:`params_from_jax` converts a JAX
@@ -25,6 +29,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import attention as A
@@ -243,8 +248,13 @@ def _trunk(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens, cdt)
     metrics: Dict = {}
+    remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad
     for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
-        x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk)
+        if remat:
+            x, k, v, m = checkpoint(_block_fwd, bp, cfg, x, positions, w,
+                                    cdt, q_chunk, use_reentrant=False)
+        else:
+            x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk)
         if kv_sink is not None:
             kv_sink(i, k, v)
         metrics = _add_metrics(metrics, m) if m else metrics
@@ -268,6 +278,61 @@ def forward(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     x, metrics = _trunk(params, cfg, tokens, q_chunk)
     logits = unembed(params, cfg, x)
     return (logits, metrics) if with_metrics else logits
+
+
+def _onehot_ce_sum(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked CE sum and mask sum of one chunk of logits, in float32, with
+    the row max held constant (the reference's ``stop_gradient``). The
+    reference selects the label's logit with a one-hot product to keep a
+    vocab-sharded chunk local; on one card ``gather`` is the same sum."""
+    logits = logits.to(torch.float32)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    ll = shifted.gather(-1, labels.long()[..., None])[..., 0] + m[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def _chunk_ce(params: Dict, cfg: TransformerConfig, x: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor):
+    """The reference's ``chunk_fn``: logits of one sequence chunk
+    (``unembed``, its ``_chunk_logits``) and their CE sum."""
+    return _onehot_ce_sum(unembed(params, cfg, x), labels, mask)
+
+
+def lm_loss(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+            q_chunk: int = 1024, loss_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Chunked LM loss: mean masked next-token CE over (B, S) tokens and
+    labels, plus the MoE load-balance loss over ``n_layers``. Returns
+    (loss, MoE metrics). The (B, S, V) logits never exist whole: the
+    unembedding and CE run ``loss_chunk`` positions at a time, each chunk
+    under ``torch.utils.checkpoint`` while training, as the reference's
+    ``jax.checkpoint``-ed ``chunk_fn``."""
+    B, S = tokens.shape
+    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.to(torch.float32)
+    remat = torch.is_grad_enabled() and x.requires_grad
+    if S > loss_chunk and S % loss_chunk:
+        raise ValueError(f"S={S} must be a multiple of "
+                         f"loss_chunk={loss_chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    weight = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, loss_chunk):
+        args = (params, cfg, x[:, lo:lo + loss_chunk],
+                labels[:, lo:lo + loss_chunk], mask[:, lo:lo + loss_chunk])
+        ct, cw = (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                  if remat else _chunk_ce(*args))
+        total = total + ct
+        weight = weight + cw
+    loss = total / weight.clamp(min=1.0)
+    if cfg.moe is not None:
+        loss = loss + metrics["moe_aux_loss"] / cfg.n_layers
+    return loss, metrics
 
 
 def _token_chunk(cfg: TransformerConfig) -> int:

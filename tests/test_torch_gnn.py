@@ -139,3 +139,21 @@ def test_gcn_config_matches_the_reference_field_for_field():
     shapes = [tuple(lp["w"].shape) for lp in G.init_params(
         cfg, torch.Generator().manual_seed(0))["layers"]]
     assert shapes == [(1433, 16), (16, 7)]
+
+
+def test_segment_max_gradient_splits_ties_as_jax():
+    """The gradient of ``segment_max`` splits a segment's output gradient
+    evenly over the rows tied at its max, negative gradients included
+    (``torch.segment_reduce``'s own backward divides only positive ones);
+    ids out of range and empty segments get none."""
+    data = np.array([[1.0, 0.0], [3.0, 0.0], [3.0, 0.0], [2.0, 5.0],
+                     [7.0, 7.0]], np.float32)
+    seg = np.array([0, 0, 0, 1, 9], np.int32)
+    up = np.array([[-1.0, 2.0], [3.0, -4.0], [5.0, 6.0]], np.float32)
+    want = jax.grad(lambda d: (jax.ops.segment_max(d, jnp.asarray(seg), 3)
+                               * jnp.asarray(up)).sum())(jnp.asarray(data))
+    t = torch.from_numpy(data).requires_grad_(True)
+    out = L.segment_max(t, torch.from_numpy(seg), 3)
+    (torch.where(torch.isfinite(out), out, 0.0)
+     * torch.from_numpy(up)).sum().backward()
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))

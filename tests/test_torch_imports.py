@@ -1,8 +1,9 @@
 """Import guard of the torch port, run in a fresh interpreter: importing
 every ``repro_torch`` module (and ``chip_smoke.py``) leaves ``jax`` and
-every ``repro`` module out of ``sys.modules``; and an entry point given
-no ``device`` on a machine with no card raises instead of falling back
-to the CPU."""
+every ``repro`` module out of ``sys.modules`` (the training modules and
+the training launcher among them); and an entry point given no
+``device`` on a machine with no card raises instead of falling back to
+the CPU."""
 import os
 import pathlib
 import subprocess
@@ -28,6 +29,7 @@ bad = sorted(k for k in sys.modules
              or k.startswith("repro."))
 print("MODULES", len(mods))
 print("BAD", bad)
+print("NAMES", " ".join(mods))
 """
 
 
@@ -44,6 +46,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     lines = dict(l.split(" ", 1) for l in out.stdout.splitlines())
     assert int(lines["MODULES"]) >= 40
     assert lines["BAD"] == "[]", lines["BAD"]
+    names = set(lines["NAMES"].split())
+    assert {f"repro_torch.training.{m}" for m in (
+        "optimizer", "compression", "data", "checkpoint", "train_loop",
+        "tree")} | {"repro_torch.launch.train",
+                    "repro_torch.launch.steps"} <= names
 
 
 def test_chip_smoke_source_imports_no_jax():
@@ -116,3 +123,18 @@ def test_dlrm_evaluator_and_kv_pool_raise_without_a_card():
     out = _run(_NO_CARD_DECODE)
     assert out.returncode == 0, out.stderr
     assert "RAISED 2" in out.stdout
+
+
+def test_train_launcher_raises_without_a_card():
+    """``python -m repro_torch.launch.train`` runs on the card by default:
+    with no card and no ``--device cpu`` it raises instead of falling back
+    to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--steps", "1"], env=env, capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr

@@ -10,7 +10,12 @@ exactly; attention, ``flash_decode`` and ``dot_interaction`` within atol
 DLRM, BST, MIND and two-tower evaluators and the KV-cache decode on the
 card against the CPU; a fan-out mirror stripe's retrieve equal to its
 primary's bit for bit on the card; the ragged embedding bag repeating
-its bits run after run on the card."""
+its bits run after run on the card; and training: the forward's
+log-sum-exp, both backward kernels (``flash_attention_bwd`` and
+``dot_interaction_bwd``) against their plain versions within 2e-2 (bf16)
+and 1e-4 (f32) of each output's max abs, and ``loss.backward()`` through
+``attention`` and DLRM on CUDA reaching the weights with the plain
+path's gradients."""
 import numpy as np
 import pytest
 import torch
@@ -21,11 +26,18 @@ from repro_torch.core import trust_cache as TC
 from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import TIER_CACHED, SimClock
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.dot_interaction import (dot_interaction,
+                                                 dot_interaction_bwd,
+                                                 dot_interaction_bwd_ref,
                                                  dot_interaction_ref,
                                                  group_size)
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_ref)
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_lse_ref,
+                                                 flash_attention_ref,
+                                                 pad_head_dim)
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_ref, piece_length)
 from repro_torch.kernels.shed_partition import (shed_partition,
@@ -33,6 +45,7 @@ from repro_torch.kernels.shed_partition import (shed_partition,
 from repro_torch.kernels.topk_select import (NEG_INF, TILE, staged_capacity,
                                              topk_select, topk_select_ref)
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import attention
 from repro_torch.fanout import mirror_shard_of
 from repro_torch.models.recsys import bst as BST
 from repro_torch.models.recsys import dlrm as D
@@ -42,6 +55,7 @@ from repro_torch.models.recsys import two_tower as TWO_TOWER
 from repro_torch.retrieval import (CorpusRetrieval, SyntheticCorpus,
                                    ZipfQueryModel)
 from repro_torch.serving.evaluators import make_evaluator
+from repro_torch.training.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -798,3 +812,202 @@ def test_gcn_propagate_repeats_its_bits_on_card(dev, aggregator):
         assert torch.equal(out, outs[0])
     cpu = G.propagate(x, ei, aggregator=aggregator)
     torch.testing.assert_close(outs[0].cpu(), cpu, atol=1e-5, rtol=0)
+
+
+# --- training: the forward's log-sum-exp and the two backward kernels ------
+# Tolerances relative to each output's max abs: 2e-2 in bf16 (dS and P
+# rounded to bf16 as the products' A operand, outputs rounded to bf16),
+# 1e-4 in f32 (summation order).
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_CASES = [
+    # B, S, Hq, Hkv, D, window, softcap, causal
+    (2, 37, 9, 3, 64, 0, 0.0, True),        # GQA 9/3, ragged tiles
+    (1, 200, 4, 2, 16, 0, 0.0, True),       # smoke heads
+    (1, 300, 8, 4, 128, 40, 0.0, True),     # window
+    (2, 70, 8, 4, 256, 0, 50.0, True),      # D 256, softcap
+    (1, 150, 8, 1, 64, 32, 20.0, True),     # G 8, window + softcap
+    (1, 130, 4, 4, 128, 0, 0.0, False),     # MHA, not causal
+    (1, 40, 8, 2, 12, 16, 30.0, True),      # D 12: padded to 16
+]
+
+
+def _rel_close(got, want, tol, what):
+    scale = max(float(want.float().abs().max()), 1e-6)
+    err = float((got.float() - want.float()).abs().max())
+    assert torch.isfinite(got.float()).all() and err <= tol * scale, (
+        what, err, scale)
+
+
+def _attn_inputs(dev, B, S, Hq, Hkv, D, dtype, seed, q_mult=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev)
+                   for h in (Hq, Hkv, Hkv, Hq))
+    return (q * q_mult).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", BWD_CASES)
+def test_flash_attention_lse_matches_plain(dev, B, S, Hq, Hkv, D, window,
+                                           softcap, causal, dtype):
+    if D < 16:
+        pytest.skip("the kernel sees D 12 padded; covered by the backward")
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, dtype, S)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    before = flash_attention.launches
+    o = FA._forward(q, k, v, lse=lse, **kw)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(o, flash_attention(q, k, v, **kw))
+    want = flash_attention_lse_ref(q, k, **kw)
+    torch.testing.assert_close(lse, want, atol=1e-3 if dtype ==
+                               torch.bfloat16 else 1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,causal", BWD_CASES)
+def test_flash_attention_bwd_kernel_close_to_plain(dev, B, S, Hq, Hkv, D,
+                                                   window, softcap, causal,
+                                                   dtype):
+    """Autograd through ``flash_attention`` on CUDA (the forward kernel
+    with its lse, then the backward kernel) against the plain backward on
+    the same o and lse; the softcap cases scale q so that the cap
+    bites."""
+    q, k, v, do = _attn_inputs(dev, B, S, Hq, Hkv, D, dtype, S + D,
+                               q_mult=8.0 if softcap else 1.0)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention_bwd.launches
+    o = flash_attention(*leaves, **kw)
+    assert o.grad_fn is not None
+    o.backward(do)
+    assert flash_attention_bwd.launches == before + 1
+    qp, kp, vp, dop = pad_head_dim(q, k, v, do)
+    kw_d = dict(kw, sm_scale=D ** -0.5)      # the unpadded head's scale
+    lse = flash_attention_lse_ref(qp, kp, **kw_d)
+    op = pad_head_dim(flash_attention_ref(q, k, v, **kw))[0]
+    want = flash_attention_bwd_ref(qp, kp, vp, op, lse, dop, **kw_d)
+    for t, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        assert t.grad.dtype == dtype
+        _rel_close(t.grad, w[..., :D], BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_flash_attention_bwd_kernel_row_that_saw_no_key(dev, D, dtype):
+    """A row handed an lse of -inf gives and gets no gradient (zeros, not
+    NaN), as the plain version."""
+    B, S, Hq, Hkv = 1, 90, 4, 2
+    q, k, v, do = _attn_inputs(dev, B, S, Hq, Hkv, D, dtype, 7)
+    kw = dict(causal=True, window=24, softcap=0.0)
+    o = flash_attention(q, k, v, **kw)
+    lse = flash_attention_lse_ref(q, k, **kw)
+    lse[0, 1, 50] = float("-inf")
+    lse[0, 3, 0] = float("-inf")
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    assert float(got[0][0, 50, 1].float().abs().max()) == 0.0
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _rel_close(g, w, BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,F,D", [(37, 27, 128), (200, 27, 128),
+                                   (16, 8, 64), (5, 12, 32), (3, 2, 16),
+                                   (4, 1, 8), (33, 27, 127)])
+def test_dot_interaction_bwd_kernel_close_to_plain(dev, B, F, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(B + F + D)
+    x = (torch.randn((B, F, D), generator=g, device=dev) * D ** -0.5).to(dtype)
+    gr = torch.randn((B, F * (F - 1) // 2), generator=g, device=dev).to(dtype)
+    leaf = x.clone().requires_grad_(True)
+    out = dot_interaction(leaf)
+    assert out.grad_fn is not None
+    before = dot_interaction_bwd.launches
+    out.backward(gr)
+    assert dot_interaction_bwd.launches == before + 1
+    want = dot_interaction_bwd_ref(x, gr)
+    assert leaf.grad.dtype == dtype
+    _rel_close(leaf.grad, want, BWD_TOL[dtype], "dx")
+    first = dot_interaction_bwd(x, gr)
+    assert torch.equal(first, dot_interaction_bwd(x, gr))   # repeats its bits
+
+
+def test_attention_backward_reaches_the_projections(dev):
+    """``loss.backward()`` through the model's ``attention`` on CUDA (the
+    kernels) gives wq, wk, wv non-zero gradients equal to the plain path's
+    on the CPU: the wrapper no longer detaches its output."""
+    g = torch.Generator().manual_seed(3)
+    B, S, d, Hq, Hkv, D = 2, 40, 32, 4, 2, 16
+    x = torch.randn((B, S, d), generator=g)
+    ws = [torch.randn((d, h * D), generator=g) * d ** -0.5
+          for h in (Hq, Hkv, Hkv)]
+    w_out = torch.randn((B, S, Hq, D), generator=g)
+    grads = {}
+    for device in ("cpu", dev):
+        leaves = [w.detach().clone().to(device).requires_grad_(True)
+                  for w in ws]
+        xd = x.to(device)
+        q, k, v = (xd @ w for w in leaves)
+        o = attention(q.reshape(B, S, Hq, D), k.reshape(B, S, Hkv, D),
+                      v.reshape(B, S, Hkv, D), causal=True, window=8,
+                      softcap=5.0)
+        (o * w_out.to(device)).sum().backward()
+        grads[str(device)] = [w.grad.cpu() for w in leaves]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        assert float(got.abs().max()) > 0
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_dlrm_backward_reaches_the_bottom_mlp(dev):
+    """``loss.backward()`` through DLRM's ``loss_fn`` on CUDA (both
+    ``dot_interaction`` kernels) gives the bottom MLP and every table the
+    CPU plain path's gradients, non-zero."""
+    cfg = get_config("dlrm-mlperf", smoke=True)
+    params = D.init_params(cfg, torch.Generator().manual_seed(0))
+    r = np.random.default_rng(5)
+    batch = {"dense": r.normal(size=(64, cfg.n_dense)).astype(np.float32),
+             "sparse": np.stack([r.integers(0, t.vocab, size=64)
+                                 for t in cfg.tables], 1).astype(np.int64),
+             "labels": (r.random(64) < 0.5).astype(np.float32)}
+    grads = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().clone().to(device)
+                     .requires_grad_(True), params)
+        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        before = dot_interaction_bwd.launches
+        D.loss_fn(p, cfg, b).backward()
+        if device != "cpu":
+            assert dot_interaction_bwd.launches == before + 1
+        grads[str(device)] = [t.grad.cpu() for layer in p["bot_mlp"]["layers"]
+                              for t in layer.values()] + [
+            t["table"].grad.cpu() for t in p["tables"].values()]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert all(float(g.abs().max()) > 0 for g in grads[str(dev)][:2])
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(dev):
+    """On CUDA no kernel wrapper returns a result without a ``grad_fn``
+    while an input requires grad: the two kernels with a backward go
+    through their ``autograd.Function``, the three without one raise."""
+    q = torch.randn((2, 4, 16), device=dev, requires_grad=True)
+    cache = torch.randn((2, 8, 2, 16), device=dev)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_decode(q, cache, cache, lengths)
+    with torch.no_grad():
+        flash_decode(q, cache, cache, lengths)
+    with pytest.raises(RuntimeError, match="no backward"):
+        topk_select(torch.randn(100, device=dev, requires_grad=True), 4)
+    state = TC.init(64, 4, device=dev)
+    values = state["values"].clone().requires_grad_(True)
+    keys = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        shed_partition(keys, torch.ones(8, dtype=torch.bool, device=dev),
+                       state["keys"], values, 4, 2, 8)
+    qa = torch.randn((1, 8, 4, 16), device=dev, requires_grad=True)
+    kv = torch.randn((1, 8, 2, 16), device=dev)
+    assert flash_attention(qa, kv, kv).grad_fn is not None
+    x = torch.randn((3, 4, 8), device=dev, requires_grad=True)
+    assert dot_interaction(x).grad_fn is not None
