@@ -31,7 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import library_function
+from repro_torch.kernels._build import library_function, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232_448            # an H100 block's shared memory
@@ -161,6 +161,7 @@ def dot_interaction_bwd(feats: torch.Tensor,
         return dot_interaction_bwd_ref(feats, grad)
     if not (feats.is_contiguous() and grad.is_contiguous()):
         raise ValueError("feats and grad must be contiguous")
+    refuse_grad("dot_interaction_bwd", feats, grad)
     smem = library_function("dot_interaction_bwd",
                             "dot_interaction_bwd_smem_bytes",
                             [ctypes.c_int] * 3,

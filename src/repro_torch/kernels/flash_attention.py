@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import library_function
+from repro_torch.kernels._build import library_function, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
@@ -296,6 +296,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"lse must be ({B}, {Hq}, {S}) float32 on "
                          f"{q.device}")
     _kernel_args("flash_attention_bwd", q, k, v, o, do)
+    refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous")
     fn = library_function(

@@ -990,7 +990,8 @@ def test_dlrm_backward_reaches_the_bottom_mlp(dev):
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad(dev):
     """On CUDA no kernel wrapper returns a result without a ``grad_fn``
     while an input requires grad: the two kernels with a backward go
-    through their ``autograd.Function``, the three without one raise."""
+    through their ``autograd.Function``, the three without one and the
+    two backward kernels raise."""
     q = torch.randn((2, 4, 16), device=dev, requires_grad=True)
     cache = torch.randn((2, 8, 2, 16), device=dev)
     lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
@@ -1011,3 +1012,10 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(dev):
     assert flash_attention(qa, kv, kv).grad_fn is not None
     x = torch.randn((3, 4, 8), device=dev, requires_grad=True)
     assert dot_interaction(x).grad_fn is not None
+    # the backward kernels have no backward of their own
+    with pytest.raises(RuntimeError, match="no backward"):
+        dot_interaction_bwd(x, torch.randn((3, 6), device=dev))
+    o = flash_attention(qa.detach(), kv, kv)
+    lse = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_bwd(qa, kv, kv, o, lse, torch.randn_like(o))
