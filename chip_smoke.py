@@ -313,13 +313,14 @@ TRAIN_LR = 3e-3                  # the training launcher's default --lr
 TRAIN_LOSS_ATOL = 2e-2           # step 0's bf16 loss vs the f32 plain run
 TRAIN_GRAD_COS = 0.99            # per leaf, bf16 kernels vs f32 plain
 TRAIN_NORM_RTOL = 0.05           # global gradient norms
+TRAIN_PROFILES = 3               # profiled steps (busy share, breakdown)
 # dlrm-mlperf training at its published widths, every table capped at 4M
 # rows (12.3 GB; 49.3 GB with gradients and both AdamW moments), the
 # reference's train_batch of 65536.
 DLRM_TRAIN_ROW_CAP = 4_000_000
 DLRM_TRAIN_BATCH = 65536
 DLRM_TRAIN_STEPS = 4
-DLRM_GRAD_COS = 0.999
+DLRM_GRAD_COS = 0.99999           # per leaf, f32 kernels vs f32 plain
 # phase_train_smoke: every arch at smoke width, card vs CPU.
 SMOKE_TRAIN_STEPS = 3
 SMOKE_TRAIN_ATOL = 1e-4
@@ -648,7 +649,8 @@ def phase_flash_attention(dev) -> dict:
     log(f"flash_attention_bwd {brow['shape']}: dq/dk/dv within "
         f"{brow['dq_rel_err']:.3e}/{brow['dk_rel_err']:.3e}/"
         f"{brow['dv_rel_err']:.3e} of the plain output's max (<= "
-        f"{BF16_ATOL}), lse max abs err {brow['lse_max_abs_err']:.3e}; "
+        f"{BF16_ATOL}), the lse instance's o {brow['o_rel_err']:.3e}, lse "
+        f"max abs err {brow['lse_max_abs_err']:.3e}; "
         f"kernel {bt['ms']:.4f} ms, plain {bt['plain_ms']:.4f} ms, sdpa "
         f"backward {bt['library_ms']:.4f} ms, bound {bt['bound_ms']:.4f} ms "
         f"({bt['bound_by']}: {bt['bytes']} B, {bt['flops']} FLOP); the "
@@ -729,15 +731,28 @@ def rel_err(got, want) -> tuple:
 
 def attention_bwd_check(q, k, v, do, kw: dict, label: str,
                         dead_rows: int = 0) -> dict:
-    """The forward kernel's lse against the plain log-sum-exp, then the
-    backward kernel against ``flash_attention_bwd_ref`` on the kernel's o
-    and lse, each of dq, dk, dv within BWD_REL_TOL of its plain output's
-    max abs. ``dead_rows`` rows are handed an lse of -inf (what the
-    forward writes for a row that saw no key): their dq must be zero."""
+    """The forward kernel's instance that writes the lse: its o against
+    ``flash_attention_ref`` (one batch row at a time) within BWD_REL_TOL
+    of the plain output's max abs, its lse against the plain
+    log-sum-exp; then the backward kernel against
+    ``flash_attention_bwd_ref`` on the kernel's o and lse, each of dq, dk,
+    dv within BWD_REL_TOL of its plain output's max abs. ``dead_rows``
+    rows are handed an lse of -inf (what the forward writes for a row that
+    saw no key): their dq must be zero."""
     B, S, Hq, D = q.shape
     kw = dict(kw, sm_scale=kw.get("sm_scale") or D ** -0.5)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     o = FA._forward(q, k, v, lse=lse, **kw)
+    o_want = torch.cat([flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                            v[b:b + 1], **kw)
+                        for b in range(B)])
+    o_err, o_rel = rel_err(o, o_want)
+    del o_want
+    if o.dtype != q.dtype or not torch.isfinite(o.float()).all() \
+            or o_rel > BWD_REL_TOL[q.dtype]:
+        raise AssertionError(f"flash_attention (lse instance) {label} o: max"
+                             f" abs err {o_err} = {o_rel} of the plain "
+                             f"output's max > {BWD_REL_TOL[q.dtype]}")
     lse_err = max_err(lse, flash_attention_lse_ref(q, k, **kw))
     if dead_rows:
         gen = torch.Generator(device=q.device).manual_seed(SEED + 23)
@@ -751,7 +766,8 @@ def attention_bwd_check(q, k, v, do, kw: dict, label: str,
     row = {"shape": f"{label}: B={B} S={S} {Hq}/{k.shape[2]} heads D={D} "
                     f"{q.dtype} window={kw['window']} "
                     f"softcap={kw['softcap']}",
-           "lse_max_abs_err": lse_err, "max_abs_err": 0.0, "rel_err": 0.0}
+           "o_rel_err": o_rel, "lse_max_abs_err": lse_err,
+           "max_abs_err": 0.0, "rel_err": 0.0}
     lse_tol = 1e-3 if q.dtype == torch.bfloat16 else F32_ATOL
     if lse_err > lse_tol:
         raise AssertionError(f"flash_attention lse {label}: max abs err "
@@ -1062,15 +1078,21 @@ def phase_dot_interaction(dev) -> dict:
 
 
 def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
-    """``dot_interaction_bwd`` against its plain version at the kernel
-    phase's shapes in both types and at DLRM's training batch (65536, 27,
-    128) f32, each within BWD_REL_TOL of the plain output's max abs; then
+    """``dot_interaction`` at DLRM's training batch (65536, 27, 128) f32
+    and ``dot_interaction_bwd`` at the kernel phase's shapes in both types
+    and at that batch, each against its plain version within BWD_REL_TOL
+    of the plain output's max abs; then
     timed at the training batch beside its bound, the plain version and
     the library's time for the same function (the autograd backward of
     ``torch.bmm`` plus the triangle gather, timing only)."""
     B = DLRM_TRAIN_BATCH
     x = (torch.randn((B, DLRM_F, DLRM_D), generator=gen, device=dev)
          * DLRM_D ** -0.5)
+    fwd_err, fwd_rel = rel_err(dot_interaction(x), dot_interaction_ref(x))
+    if fwd_rel > BWD_REL_TOL[torch.float32]:
+        raise AssertionError(f"dot_interaction B={B} F={DLRM_F} D={DLRM_D}: "
+                             f"max abs err {fwd_err} = {fwd_rel} of the plain "
+                             f"output's max")
     cases = dict(inputs)
     cases[(B, DLRM_F, DLRM_D, torch.float32)] = x
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1116,7 +1138,8 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
         f"{t['plain_ms']:.4f} ms, autograd of torch.bmm + triangle gather "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
         f"({t['bound_by']}: {n_bytes} B, {flops} FLOP); the forward at this "
-        f"batch {t['fwd_ms']:.4f} ms")
+        f"batch {t['fwd_ms']:.4f} ms, within {fwd_rel:.3e} of the plain "
+        f"output's max (<= {F32_ATOL})")
     del tri, xl
     return {"name": "dot_interaction_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/dot_interaction_bwd.cu",
@@ -1125,7 +1148,8 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
             "max_abs_err": worst_abs, "rel_err": max(worst.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "fwd_b65536_ms": t["fwd_ms"]}
+            "library_ms": t["library_ms"], "fwd_b65536_ms": t["fwd_ms"],
+            "fwd_b65536_rel_err": fwd_rel}
 
 
 # ---------------------------------------------------------------------------
@@ -2825,7 +2849,8 @@ def phase_new_head_dims(dev) -> dict:
         row = attention_bwd_check(q, k, v, do, kw, label, dead_rows=dead)
         msg = (f"flash_attention_bwd {row['shape']}: dq/dk/dv within "
                f"{row['dq_rel_err']:.3e}/{row['dk_rel_err']:.3e}/"
-               f"{row['dv_rel_err']:.3e} of the plain output's max, lse "
+               f"{row['dv_rel_err']:.3e} of the plain output's max, the "
+               f"lse instance's o {row['o_rel_err']:.3e}, lse "
                f"{row['lse_max_abs_err']:.3e}")
         if bite:
             row["softcap_moves_plain"] = softcap_moves(
@@ -3499,28 +3524,45 @@ def phase_train_lm(dev) -> dict:
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
     tokens = n_glob * TRAIN_SEQ
-    step_s = float(np.mean(walls[1:]))
+    # the steady step leaves out step 0 (warm-up) and the steps that end
+    # with a checkpoint save (a synchronous copy of params, m and v to the
+    # host before the write goes to its thread)
+    saves = [i for i in range(TRAIN_STEPS) if (i + 1) % TRAIN_CKPT_STEP == 0]
+    steady = [w for i, w in enumerate(walls) if i > 0 and i not in saves]
+    step_s = float(np.mean(steady))
+    save_s = float(np.mean([walls[i] for i in saves])) - step_s
     log(f"train ({card_line()}): step wall "
-        f"{' '.join(f'{w:.3f}' for w in walls)} s; steady "
-        f"{step_s:.3f} s = {tokens / step_s:.1f} tokens/s; peak device "
-        f"memory {peak / 2 ** 30:.2f} GiB; launches {launches} == {want} "
-        f"({cfg.n_layers} layers x {n_micro} microbatches, the forward "
-        f"twice under remat)")
+        f"{' '.join(f'{w:.3f}' for w in walls)} s (steps "
+        f"{[i + 1 for i in saves]} end with a checkpoint save); steady "
+        f"(neither step 1 nor a saving step) {step_s:.3f} s = "
+        f"{tokens / step_s:.1f} tokens/s; a save adds {save_s:.3f} s; peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB; launches {launches} == "
+        f"{want} ({cfg.n_layers} layers x {n_micro} microbatches, the "
+        f"forward twice under remat)")
     batch = next(accum_batches(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1,
                                              start_step=TRAIN_STEPS),
                                TRAIN_ACCUM))
-    prof = device_profile(f"one {TRAIN_ARCH} training step, {tokens} tokens",
-                          lambda: step_fn(again, batch))
+    profs = [device_profile(f"one {TRAIN_ARCH} training step ({n + 1} of "
+                            f"{TRAIN_PROFILES}), {tokens} tokens",
+                            lambda: step_fn(again, batch))
+             for n in range(TRAIN_PROFILES)]
+    seen = [p_ for p_ in profs if p_]
+    if seen:
+        shares = " ".join(f"{p_['busy_share']:.3f}" for p_ in seen)
+        busy_ms = float(np.mean([p_["busy_ms"] for p_ in seen]))
+        log(f"train: device busy share of the profiled steps {shares}; "
+            f"their mean busy time over the unprofiled steady step "
+            f"{busy_ms / (step_s * 1e3):.3f}")
     grads = tree_map(torch.ones_like, again.params)
     opt_ms = timed_ms(lambda: O.adamw_update(grads, again.opt, again.params,
                                              opt), 3)
     log(f"train: the AdamW update alone (inside the elementwise group "
         f"above): {opt_ms:.3f} ms")
     del straight, again, restored, fresh, state, grads, params0
-    return {"launches": launches, "step_s": step_s,
+    return {"launches": launches, "step_s": step_s, "save_s": save_s,
             "tokens_per_s": tokens / step_s, "peak_bytes": peak,
             "losses": losses, "loss0_f32": loss0_32, "min_cos": min(cos),
-            "profile": prof, "adamw_ms": opt_ms}
+            "profiles": profs, "adamw_ms": opt_ms}
 
 
 def phase_train_dlrm(dev) -> dict:

@@ -19,17 +19,19 @@ import torch
 
 
 def build(arch: str, *, full_config: bool = False, batch: int = 8,
-          seq: int = 64, device="cpu", seed: int = 0
+          seq: int = 64, device=None, seed: int = 0
           ) -> Tuple[object, Dict, Callable, Iterator]:
     """(config, params, loss_fn(params, batch), data iterator) of the
     launcher's run of ``arch``: weights from a ``torch.Generator`` seeded
-    with ``seed`` on ``device``, data from the reference's streams
-    (seed 1)."""
+    with ``seed`` on ``device`` (default cuda; raises without a card),
+    data from the reference's streams (seed 1)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (GNNConfig, RecsysConfig,
                                           TransformerConfig)
+    from repro_torch.device import resolve
     from repro_torch.training import data as D
 
+    device = resolve(device)
     cfg = get_config(arch, smoke=not full_config)
     gen = torch.Generator(device=device).manual_seed(seed)
     if isinstance(cfg, TransformerConfig):

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as get_config_j
 from repro.training import data as D_j
@@ -110,3 +111,13 @@ def test_cpu_launcher_resumes_from_its_checkpoint(tmp_path):
 def test_unknown_arch_exits_2_listing_the_registry():
     out = _launch("--arch", "nope", "--steps", "1", timeout=60)
     assert out.returncode == 2 and "smollm-135m" in out.stderr
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host with no "
+                    "CUDA device")
+def test_build_defaults_to_the_card_and_raises_without_one():
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.build("smollm-135m")
+    cfg, params, _, _ = train.build("smollm-135m", device="cpu")
+    assert all(p.device.type == "cpu" for p in leaves(params))
