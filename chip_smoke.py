@@ -17,7 +17,11 @@ its path gives it:
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
 * ``flash_decode``: one-token attention against the KV cache;
 * ``flash_attention_bwd`` and ``dot_interaction_bwd``: the gradients of
-  the two forward kernels on the training path.
+  the two forward kernels on the training path; each must also repeat
+  its bits from one call to the next (the attention backward adds dq
+  in a fixed order), and at the training shape the attention
+  backward's three launches are timed apart by the profiler beside the
+  main kernel's registers and spills from this run's build.
 
 Then it drives these paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
@@ -97,6 +101,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -366,6 +371,37 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bytes."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def ptxas_report(name: str, entry: str) -> dict:
+    """Registers and spill bytes of each instance of kernel ``entry`` in
+    library ``name``, from this run's ``-Xptxas -v`` output, keyed by the
+    mangled name's template argument; empty if the library was not built
+    in this run."""
+    out, cur = {}, None
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if entry in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        arg = re.search(r"ILi(\d+)E", cur)
+        row = out.setdefault(f"D{arg.group(1)}" if arg else cur, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_stores"], row["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 1-2: card and build
 # ---------------------------------------------------------------------------
@@ -378,9 +414,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+BUILD_LOGS: dict = {}               # nvcc -Xptxas -v output of this run
+
+
 def phase_build() -> None:
     t0 = time.monotonic()
     logs = _build.build(list(KERNELS))
+    BUILD_LOGS.update(logs)
     log(f"build: {len(logs)} kernels compiled in "
         f"{time.monotonic() - t0:.1f} s")
     for name, text in logs.items():
@@ -646,6 +686,14 @@ def phase_flash_attention(dev) -> dict:
                                                      softcap=0.0),
                                "training microbatch")
     bt = attention_bwd_timing(tq, tk, tv, tdo, flush, plain_iters=1)
+    shares = attention_bwd_shares(tq, tk, tv, tdo)
+    ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
+    work = FA.workspace_bytes(TRAIN_MICRO, TRAIN_SEQ, Hq, D, torch.bfloat16)
+    log(f"flash_attention_bwd at the training shape: two calls equal bit for"
+        f" bit; launch shares of one profiled call {json.dumps(shares)}; "
+        f"main kernel (ptxas, this run's build) {json.dumps(ptxas)}; "
+        f"workspace {work} B (dq_acc "
+        f"{TRAIN_MICRO * Hq * TRAIN_SEQ * D * 4} B)")
     log(f"flash_attention_bwd {brow['shape']}: dq/dk/dv within "
         f"{brow['dq_rel_err']:.3e}/{brow['dk_rel_err']:.3e}/"
         f"{brow['dv_rel_err']:.3e} of the plain output's max (<= "
@@ -680,7 +728,9 @@ def phase_flash_attention(dev) -> dict:
            "ms": bt["ms"], "plain_ms": bt["plain_ms"],
            "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
            "library_ms": bt["library_ms"],
-           "shape": brow["shape"]}
+           "shape": brow["shape"], "repeat_bits": brow["repeat_bits"],
+           "launch_shares": shares, "main_kernel_ptxas": ptxas,
+           "workspace_bytes": work}
     return fwd, bwd
 
 
@@ -736,7 +786,8 @@ def attention_bwd_check(q, k, v, do, kw: dict, label: str,
     of the plain output's max abs, its lse against the plain
     log-sum-exp; then the backward kernel against
     ``flash_attention_bwd_ref`` on the kernel's o and lse, each of dq, dk,
-    dv within BWD_REL_TOL of its plain output's max abs. ``dead_rows``
+    dv within BWD_REL_TOL of its plain output's max abs, and a second call
+    equal to the first bit for bit (the ordered dQ adds). ``dead_rows``
     rows are handed an lse of -inf (what the forward writes for a row that
     saw no key): their dq must be zero."""
     B, S, Hq, D = q.shape
@@ -760,14 +811,19 @@ def attention_bwd_check(q, k, v, do, kw: dict, label: str,
                               device=q.device)[:dead_rows]
         lse.view(-1)[rows] = float("-inf")
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: two calls gave "
+                             f"different bits")
+    del again
     tol = BWD_REL_TOL[q.dtype]
     row = {"shape": f"{label}: B={B} S={S} {Hq}/{k.shape[2]} heads D={D} "
                     f"{q.dtype} window={kw['window']} "
                     f"softcap={kw['softcap']}",
            "o_rel_err": o_rel, "lse_max_abs_err": lse_err,
-           "max_abs_err": 0.0, "rel_err": 0.0}
+           "max_abs_err": 0.0, "rel_err": 0.0, "repeat_bits": True}
     lse_tol = 1e-3 if q.dtype == torch.bfloat16 else F32_ATOL
     if lse_err > lse_tol:
         raise AssertionError(f"flash_attention lse {label}: max abs err "
@@ -843,6 +899,32 @@ def attention_bwd_timing(q, k, v, do, flush, plain_iters: int,
         0.4 * flops / peak) * 1e3                     # two of the five
     del out, qt, kt, vt
     return t
+
+
+def attention_bwd_shares(q, k, v, do) -> dict:
+    """Each launch's share of one profiled ``flash_attention_bwd`` call's
+    device time (the pre-pass, the main kernel, the post-pass), by kernel
+    name; empty if the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, S, Hq, D = q.shape
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    o = FA._forward(q, k, v, lse=lse, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        for name in ("fa_bwd_prep_kernel", "fa_bwd_main_kernel",
+                     "fa_bwd_post_kernel"):
+            if name in e.key:
+                ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3
+    total = sum(ms.values())
+    return {name: {"ms": t, "share": t / total} for name, t in ms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1112,6 +1194,9 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
         worst_abs = max(worst_abs, err)
     g = torch.randn((B, DLRM_F * (DLRM_F - 1) // 2), generator=gen,
                     device=dev)
+    if not same_bits(dot_interaction_bwd(x, g), dot_interaction_bwd(x, g)):
+        raise AssertionError(f"dot_interaction_bwd B={B}: two calls gave "
+                             f"different bits")
     iu, ju = triu_pairs(DLRM_F, dev)
     xl = x.detach().requires_grad_(True)
     tri = torch.bmm(xl, xl.transpose(1, 2))[:, iu, ju]
@@ -1137,7 +1222,8 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
         f"{B} F={DLRM_F} D={DLRM_D} f32: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, autograd of torch.bmm + triangle gather "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}: {n_bytes} B, {flops} FLOP); the forward at this "
+        f"({t['bound_by']}: {n_bytes} B, {flops} FLOP), two calls equal bit"
+        f" for bit; the forward at this "
         f"batch {t['fwd_ms']:.4f} ms, within {fwd_rel:.3e} of the plain "
         f"output's max (<= {F32_ATOL})")
     del tri, xl
@@ -1149,7 +1235,7 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "fwd_b65536_ms": t["fwd_ms"],
-            "fwd_b65536_rel_err": fwd_rel}
+            "fwd_b65536_rel_err": fwd_rel, "repeat_bits": True}
 
 
 # ---------------------------------------------------------------------------
@@ -1482,7 +1568,10 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
 
 
 KERNEL_GROUPS = (
-    ("flash_attention backward kernels", ("dq_bf16_kernel",
+    ("flash_attention backward kernels", ("fa_bwd_prep_kernel",
+                                          "fa_bwd_main_kernel",
+                                          "fa_bwd_post_kernel",
+                                          "dq_bf16_kernel",
                                           "dkdv_bf16_kernel",
                                           "dq_f32_kernel", "dkdv_f32_kernel",
                                           "di_kernel")),

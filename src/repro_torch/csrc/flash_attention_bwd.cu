@@ -8,8 +8,9 @@
 // jax.grad. The port's forward on the card is the kernel, so its gradient
 // is a kernel too.
 // q, o, do: (B, S, Hq, D); k, v: (B, S, Hkv, D); bf16 or f32, contiguous;
-// lse and the scratch di: (B, Hq, S) float32; dq, dk, dv in the inputs'
-// type, sums in float32.
+// lse: (B, Hq, S) float32; a float32 workspace the wrapper allocates
+// (flash_attention_bwd_workspace_bytes); dq, dk, dv in the inputs' type,
+// sums in float32.
 //
 // With t the scaled (and softcapped) scores and P = exp(t - lse):
 //   Di = rowsum(dO * O),   dV = P^T dO,   dP = dO V^T,
@@ -24,51 +25,79 @@
 // the ~295 FLOP a byte where the tensor cores become the limit: the
 // operations bound it (~0.39 ms at 989 TFLOP/s).
 //
-// Design (simple and deterministic first: no atomics, so a run repeats
-// its bits): three launches.
-// 1. `di_kernel`: Di, one warp a row.
-// 2. `dkdv_*_kernel`: one block per (batch row, KV head, tile of keys),
-//    walking every query row of the group that can see its keys; dK and dV
-//    accumulate in registers and are written once. The G heads of a GQA
-//    group are packed into the rows of the query tiles as in the forward
-//    (packed row r = query head hk * G + r % G at position r / G), so the
-//    sum over the group is the same walk.
-// 3. `dq_*_kernel`: one block per (batch row, KV head, tile of packed query
-//    rows), walking the key tiles it can see; dQ accumulates in registers.
-// S and dP are computed in both 2 and 3 (seven products instead of five):
-// the price of writing each gradient from one block without atomics.
+// bf16 at D 64 and D 128 (the training path): three launches.
+// 1. `fa_bwd_prep_kernel`: Di and the lse in log2 units (+inf for a row
+//    that saw no key, so that its P is 0 with no test per score), padded
+//    to whole query tiles; zeroes the counters. 8 threads a row, 16-byte
+//    loads.
+// 2. `fa_bwd_main_kernel`: the five products, each S and dP computed once.
+//    K/V-stationary: a work tile is (batch row, KV head, 128 keys), whose K
+//    and V stay in shared memory while the kernel walks every query tile
+//    (64 positions of one query head) of the G heads that can see those
+//    keys, so dK and dV, summed over the GQA group, are written once with
+//    no atomics. A persistent grid (one block an SM) takes work tiles from
+//    a global counter, key tile ascending, the longest causal walks first.
+//    Two consumer warpgroups each own 64 of the 128 keys: S^T = K Q^T and
+//    dP^T = V dO^T as wgmma with both operands in shared memory; P^T and
+//    dS^T in registers (mask, softcap, dead rows as in `score_grad` and
+//    `sees`); dV += P^T dO and dK += dS^T Q as wgmma with A from
+//    registers; dS^T to shared memory as bf16, and dQ_partial = dS K over
+//    the 128 keys as one more wgmma (D 128: each warpgroup 64 columns;
+//    D 64: the warpgroups take turns by query tile), staged in shared
+//    memory. A producer warpgroup holds the other roles, one thread each:
+//    the loader streams each tile's K and V and a ring of Q / dO / lse /
+//    Di stages with TMA and mbarriers; two dQ writers, one per consumer
+//    warpgroup, add its staged partials to the float32 dq_acc with bulk
+//    reduce-adds (a query tile's first one a bulk store), two in flight,
+//    in a fixed order, so that a run repeats its bits (a training
+//    restart from a checkpoint must equal the straight run): a counter per
+//    (batch row, query head, query tile) says how many partials have been
+//    added; key tile n's partial goes in once the counter shows every key
+//    tile from the first that sees the query tile up to n - 1, then the
+//    counter is released. Walks run query tiles from the last down, so a
+//    key tile's predecessor reaches each query tile no later than it
+//    does, and a partial waits only on a predecessor that a running block
+//    already holds. dq_acc keeps each partial's tile in the staged order
+//    (one contiguous 16 KB transfer).
+//    setmaxnreg gives the producer's registers to the consumers (40 /
+//    232), the warpgroup index taken from `__shfl_sync` so that the role
+//    test is warp-uniform by construction; with it ptxas allocates the
+//    consumers past the 168 registers of the launch (the D 128 instance
+//    still spills ~1.2 KB: its dK and dV hold 128 accumulators a thread;
+//    ROADMAP keeps that open).
+//    Why the writers (timed on one H100 80GB HBM3 at 700 W, the training
+//    shape): with the adds done by the consumers themselves (a spin and
+//    32 float32 atomics a thread each query tile) the atomics and the
+//    spin's round trips took most of the kernel's time; with one producer
+//    thread doing both the loads and the adds, one reduce at a time, the
+//    staging and adding still showed. PERF.md keeps the current numbers.
+// 3. `fa_bwd_post_kernel`: dq = bf16(scale dq_acc), back in (B, S, Hq, D).
 //
-// bf16: mma.sync m16n8k16 (tensor_core.cuh), fragments exactly as in the
-// forward. Every product is one of the forward's two shapes: X Y^T with X
-// and Y rows in shared memory (S = Q K^T, dP = dO V^T; in the dk/dv kernel
-// S^T = K Q^T and dP^T = V dO^T), or A B with A a float32 accumulator
-// fragment rounded to bf16 in registers and B rows read with
-// ldmatrix.trans (dQ += dS K; dV += P^T dO; dK += dS^T Q). Tiles stream
-// through two shared-memory stages with cp.async. A fragments are read
-// from shared memory at each k-step (no register copy of Q or K), which
-// leaves the float32 accumulators the registers. At D 256 the dk/dv kernel
-// splits the output columns over two blocks (each 2 x 128 accumulators a
-// warp's rows; both recompute S and dP), and from D 128 both kernels take
-// 32-key or 32-row tiles: no instance spills. Measured (chip_smoke.py, one
-// H100 80GB HBM3 at 700 W): computing each packed row's position r / G
-// once per tile instead of once per score took the training shape from
-// 6.85 to 5.42 ms; skipping the mask on tiles that every row sees whole
-// (as the forward does) to 4.00 ms. P is one FMA and one MUFU op, 2^(s c
-// - l2), with c = scale log2(e) and the row's lse held in log2 units
-// (+inf for a row that saw no key, so that its P is 0 without a test per
-// score). Keeping Q, dO, K and V fragments in registers at D 64
-// (with 32-row tiles in the dk/dv kernel to make room) took it to 5.82,
-// and was taken out.
+// bf16 at D 16 and D 256 (the smoke-width and gemma2 heads): the Di pass,
+// then the dk/dv and dq kernels of the first design, on mma.sync
+// m16n8k16 (tensor_core.cuh): `dkdv_bf16_kernel`, one block per (batch
+// row, KV head, 64 keys) walking every query row of the group, the G
+// heads packed into the rows of the query tiles (packed row r = query
+// head hk * G + r % G at position r / G); `dq_bf16_kernel`, one block per
+// (batch row, KV head, tile of packed query rows) walking the key tiles
+// it can see. S and dP are computed in both (seven products for five):
+// the price of writing each gradient from one block without atomics. At
+// D 256 the dk/dv kernel splits the output columns over two blocks, and
+// both kernels take 32-key or 32-row tiles: no instance spills. ROADMAP
+// keeps D 256's backward open.
 //
 // float32 (the smoke-width models): FP32 FMAs, as the forward's float32
 // kernel: one block of 4 warps per (batch row, head, 32 rows), lane j
 // taking key (or query) j of a 32-wide tile, columns lane + 32 c.
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -840,6 +869,708 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D 64 and D 128: a pre-pass, one warpgroup-MMA kernel, a post-pass
+// ---------------------------------------------------------------------------
+
+namespace wgk {
+
+constexpr int kBc = 128;                 // keys a work tile, 64 a consumer
+constexpr int kBr = 64;                  // positions a query tile (one head)
+constexpr int kConsumers = 256;          // two consumer warpgroups
+constexpr int kThreads = 128 + kConsumers; // + the producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTileFloats = kBr * 64;    // a dQ partial: 64 rows x 64 cols
+
+template <int D>
+struct Smem {                            // byte offsets, 1024-aligned tiles
+  static constexpr int kStages = D == 64 ? 3 : 2;     // Q / dO / lse / Di
+  static constexpr int kBufs = D == 64 ? 3 : 2;       // dQ staging, per WG
+  static constexpr int kHalves = D / 64; // 128-byte column blocks of a row
+  static constexpr int kKV = kBc * D * 2, kKVHalf = kBc * 128;
+  static constexpr int kQ = kBr * D * 2, kQHalf = kBr * 128;
+  static constexpr int kDS = kBc * kBr * 2;           // dS^T [key][query]
+  static constexpr int oK = 0, oV = oK + kKV, oQ = oV + kKV;
+  static constexpr int oDO = oQ + kStages * kQ;
+  static constexpr int oDS = oDO + kStages * kQ;      // two buffers
+  static constexpr int oStage = oDS + 2 * kDS;        // [2 WGs][kBufs]
+  static constexpr int oL = oStage + 2 * kBufs * kTileFloats * 4;  // lse2
+  static constexpr int oI = oL + kStages * kBr * 4;   // Di per stage
+  // full[kStages], empty[kStages], kv_full, kv_empty, dq_full[2][kBufs],
+  // dq_empty[2][kBufs]; then the tile slot and the partials' notes
+  static constexpr int oBar = oI + kStages * kBr * 4;
+  static constexpr int kBars = 2 * kStages + 2 + 4 * kBufs;
+  static constexpr int oTile = oBar + kBars * 8;
+  static constexpr int oNote = oTile + 16;
+  static constexpr int kBytes = oNote + 2 * kBufs * 16 + 1024;  // + slack
+};
+
+struct Args {
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* dq_acc;          // (B, Hq, Tq, D / 64) tiles of 4096 floats
+  const float* lse2;      // (B, Hq, S_pad): lse in log2 units, +inf past S
+  const float* di;        // (B, Hq, S_pad), 0 past S
+  int* counters;          // (B, Hq, Tq): dQ partials added per query tile
+  int* next_tile;         // the work-tile dispenser
+  int B, S, Hq, Hkv, Tq, S_pad, n_tiles;
+  float scale, c_exp, softcap;
+  int causal, window;
+};
+
+// What a consumer warpgroup tells the producer about a staged dQ
+// partial: where it goes, which counter orders it and the count to wait
+// for; or that the warpgroup is done.
+struct Note {
+  long long tile;         // float offset of its tile in dq_acc
+  int ctr, target, done, pad;
+};
+
+// A key tile n and a query tile m see each other when some pair (key,
+// query) of theirs is visible: key <= query (causal) and key > query -
+// window (a window). Tile n sees the query tiles [m_first, m_last]; tile m
+// is seen by the key tiles from n_first on, a contiguous run.
+__device__ __forceinline__ int m_first(const Args& a, int n) {
+  return a.causal ? n * kBc / kBr : 0;
+}
+__device__ __forceinline__ int m_last(const Args& a, int n) {
+  if (a.window <= 0) return a.Tq - 1;
+  const int k_last = min(n * kBc + kBc, a.S) - 1;
+  return min(a.Tq - 1, (k_last + a.window - 1) / kBr);
+}
+__device__ __forceinline__ int n_first(const Args& a, int m) {
+  if (a.window <= 0) return 0;
+  const int x = m * kBr - a.window + 1;
+  return x <= 0 ? 0 : x / kBc;
+}
+
+// Di = rowsum(dO * O) and the lse in log2 units (+inf where it is -inf:
+// the row saw no key), both padded to S_pad with 0 / +inf; the counters
+// zeroed. 8 threads a row, 16-byte loads.
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ di,
+                   float* __restrict__ lse2, int* __restrict__ counters,
+                   int B, int S, int Hq,
+                   int S_pad, int n_counters) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long rows = static_cast<long long>(B) * S * Hq;
+  const int sub = threadIdx.x & 7, lane8 = (threadIdx.x & 31) >> 3;
+  // the loop test is the warp's first row, so the shuffles stay whole
+  for (long long r = tid >> 3; r - lane8 < rows; r += threads >> 3) {
+    float acc = 0.f;
+    if (r < rows) {
+#pragma unroll
+      for (int c = sub; c < D / 8; c += 8) {
+        const uint4 x = *reinterpret_cast<const uint4*>(o + r * D + 8 * c);
+        const uint4 y =
+            *reinterpret_cast<const uint4*>(dout + r * D + 8 * c);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+        const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+          const float2 yf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+          acc = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, acc));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (r < rows && sub == 0) {
+      // r = (b * S + s) * Hq + h
+      const int h = static_cast<int>(r % Hq);
+      const long long bs = r / Hq;
+      const long long b = bs / S;
+      const int s = static_cast<int>(bs % S);
+      const long long at = (b * Hq + h) * S_pad + s;
+      di[at] = acc;
+      lse2[at] = lse_log2(lse[(b * Hq + h) * S + s]);
+    }
+  }
+  const long long pad = static_cast<long long>(B) * Hq * (S_pad - S);
+  for (long long i = tid; i < pad; i += threads) {
+    const long long bh = i / (S_pad - S);
+    const long long at = bh * S_pad + S + i % (S_pad - S);
+    di[at] = 0.f;
+    lse2[at] = INFINITY;
+  }
+  for (long long i = tid; i < n_counters; i += threads) counters[i] = 0;
+}
+
+// dq = bf16(scale * dq_acc). A dq_acc tile holds a dQ partial as the
+// consumer warpgroup staged it: float4 (c, t) is thread t's accumulators
+// 4 c .. 4 c + 3, i.e. rows 16 w + grp and + 8, columns 8 c + 2 tig and
+// + 1 of the tile (t = 32 w + 4 grp + tig). A thread takes the 4 float4
+// of one (c, w, grp), tig 0..3 (64 contiguous bytes), and writes the 8
+// columns 8 c .. 8 c + 7 of its two rows as two 16-byte stores; c runs
+// fastest, so 8 neighbouring threads write a row's 64 columns.
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_bwd_post_kernel(const float* __restrict__ acc,
+                   __nv_bfloat16* __restrict__ dq, int B, int S, int Hq,
+                   int Tq, float scale) {
+  constexpr int kItems = kTileFloats / 16;          // a tile's (c, w, grp)
+  const long long n =
+      static_cast<long long>(B) * Hq * Tq * (D / 64) * kItems;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long f = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       f < n; f += threads) {
+    const long long tile = f / kItems;
+    const int within = static_cast<int>(f % kItems);
+    const int c = within % 8, wg = within / 8;       // wg = 8 w + grp
+    const int cb = static_cast<int>(tile % (D / 64));
+    const long long rest = tile / (D / 64);
+    const int m = static_cast<int>(rest % Tq);
+    const long long bh = rest / Tq;
+    const int h = static_cast<int>(bh % Hq);
+    const long long b = bh / Hq;
+    const float4* src = reinterpret_cast<const float4*>(acc) +
+                        tile * (kTileFloats / 4) + c * 128 + 4 * wg;
+    float4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = src[k];
+    const int col = 64 * cb + 8 * c;
+    const int s0 = m * kBr + 16 * (wg >> 3) + (wg & 7);
+    if (s0 < S)
+      *reinterpret_cast<uint4*>(dq + ((b * S + s0) * Hq + h) * D + col) =
+          make_uint4(tc::pack_bf16(v[0].x * scale, v[0].y * scale),
+                     tc::pack_bf16(v[1].x * scale, v[1].y * scale),
+                     tc::pack_bf16(v[2].x * scale, v[2].y * scale),
+                     tc::pack_bf16(v[3].x * scale, v[3].y * scale));
+    if (s0 + 8 < S)
+      *reinterpret_cast<uint4*>(dq + ((b * S + s0 + 8) * Hq + h) * D +
+                                col) =
+          make_uint4(tc::pack_bf16(v[0].z * scale, v[0].w * scale),
+                     tc::pack_bf16(v[1].z * scale, v[1].w * scale),
+                     tc::pack_bf16(v[2].z * scale, v[2].w * scale),
+                     tc::pack_bf16(v[3].z * scale, v[3].w * scale));
+  }
+}
+
+// The loader (one thread of the producer warpgroup): takes work tiles
+// (key tile ascending, then batch row and KV head) from the dispenser,
+// loads each tile's K and V, and streams the Q / dO / lse / Di tiles of
+// its walk through the ring, in the consumers' order.
+template <int D>
+__device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
+                                     const CUtensorMap* tdo,
+                                     const CUtensorMap* tk,
+                                     const CUtensorMap* tv, uint8_t* sm) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::oBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+  uint64_t* kv_empty = kv_full + 1;
+  volatile int* tile_slot = reinterpret_cast<volatile int*>(sm + L::oTile);
+  const int G = a.Hq / a.Hkv, pairs = a.B * a.Hkv;
+  int qt = 0;
+  for (int it = 0;; ++it) {
+    hop::mbar_wait(kv_empty, (it & 1) ^ 1);
+    const int t = atomicAdd(a.next_tile, 1);
+    *tile_slot = t;
+    if (t >= a.n_tiles) {
+      hop::mbar_arrive(kv_full);
+      return;
+    }
+    const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    hop::mbar_expect(kv_full, 2 * L::kKV);
+#pragma unroll
+    for (int c = 0; c < L::kHalves; ++c) {
+      hop::tma_load_4d(sm + L::oK + c * L::kKVHalf, tk, 64 * c, hk,
+                       n * kBc, b, kv_full);
+      hop::tma_load_4d(sm + L::oV + c * L::kKVHalf, tv, 64 * c, hk,
+                       n * kBc, b, kv_full);
+    }
+    const int lo = m_first(a, n);
+    for (int m = m_last(a, n); m >= lo; --m)
+      for (int g = 0; g < G; ++g, ++qt) {
+        const int s = qt % kStages;
+        hop::mbar_wait(empty + s, ((qt / kStages) & 1) ^ 1);
+        const int h = hk * G + g;
+        hop::mbar_expect(full + s, 2 * L::kQ + 2 * kBr * 4);
+#pragma unroll
+        for (int c = 0; c < L::kHalves; ++c) {
+          hop::tma_load_4d(sm + L::oQ + s * L::kQ + c * L::kQHalf, tq,
+                           64 * c, h, m * kBr, b, full + s);
+          hop::tma_load_4d(sm + L::oDO + s * L::kQ + c * L::kQHalf, tdo,
+                           64 * c, h, m * kBr, b, full + s);
+        }
+        const long long row =
+            (static_cast<long long>(b) * a.Hq + h) * a.S_pad + m * kBr;
+        hop::bulk_load(sm + L::oL + s * kBr * 4, a.lse2 + row, kBr * 4,
+                       full + s);
+        hop::bulk_load(sm + L::oI + s * kBr * 4, a.di + row, kBr * 4,
+                       full + s);
+      }
+  }
+}
+
+// A dQ writer (one thread of the producer warpgroup for each consumer
+// warpgroup): takes the warpgroup's staged partials in order; once a
+// partial's counter shows that every earlier key tile of its query tile
+// has added, one bulk reduce-add of the 16 KB into dq_acc (a bulk store
+// for the first). Two are kept in flight: when a third is issued, the
+// oldest has completed, and its counter and staging buffer are released.
+// Before any wait it releases what it has issued, so that a block waiting
+// on this one never waits on work this one holds back.
+template <int D>
+__device__ __forceinline__ void write_dq(const Args& a, uint8_t* sm, int w) {
+  using L = Smem<D>;
+  constexpr int kBufs = L::kBufs;
+  uint64_t* dq_full =
+      reinterpret_cast<uint64_t*>(sm + L::oBar) + 2 * L::kStages + 2 +
+      w * kBufs;
+  uint64_t* dq_empty = dq_full + 2 * kBufs;
+  const volatile Note* notes =
+      reinterpret_cast<const volatile Note*>(sm + L::oNote) + w * kBufs;
+  const uint8_t* stage = sm + L::oStage + w * kBufs * kTileFloats * 4;
+  int* held[2];                          // counters of the partials in flight
+  int n_held = 0, k = 0;
+  auto release = [&](int count) {        // the oldest `count` have completed
+    hop::fence_async_global();
+    __threadfence();
+    for (int i = 0; i < count; ++i) {
+      atomicAdd(held[i], 1);
+      hop::mbar_arrive(dq_empty + (k - n_held + i) % kBufs);
+    }
+    for (int i = count; i < n_held; ++i) held[i - count] = held[i];
+    n_held -= count;
+  };
+  for (;;) {
+    const int buf = k % kBufs;
+    const uint32_t parity = (k / kBufs) & 1;
+    if (!hop::mbar_test(dq_full + buf, parity)) {
+      if (n_held) {
+        hop::bulk_wait_all();
+        release(n_held);
+      }
+      hop::mbar_wait(dq_full + buf, parity);
+    }
+    const volatile Note& note = notes[buf];
+    if (note.done) {
+      if (n_held) {
+        hop::bulk_wait_all();
+        release(n_held);
+      }
+      return;
+    }
+    int* ctr = a.counters + note.ctr;
+    if (hop::ld_acquire(ctr) < note.target) {
+      if (n_held) {
+        hop::bulk_wait_all();
+        release(n_held);
+      }
+      hop::spin_until_at_least(ctr, note.target);
+    }
+    hop::fence_async_global();
+    const uint8_t* src = stage + buf * kTileFloats * 4;
+    if (note.target == 0)                // the query tile's first partial
+      hop::bulk_store(a.dq_acc + note.tile, src, kTileFloats * 4);
+    else
+      hop::bulk_reduce_add(a.dq_acc + note.tile, src, kTileFloats * 4);
+    held[n_held++] = ctr;
+    ++k;                                 // in flight: k - n_held .. k - 1
+    if (n_held == 2) {
+      hop::bulk_wait_one();              // all but the newest completed
+      release(1);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64)
+    hop::wgmma_rs_n64<1>(d, a, db, 1);
+  else
+    hop::wgmma_rs_n128<1>(d, a, db, 1);
+}
+
+// A consumer warpgroup: the 64 keys key0.. of each work tile. Per query
+// tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared
+// memory), P^T and dS^T in registers, dV += P^T dO and dK += dS^T Q
+// (wgmma, A from registers), dS^T to shared memory, and dQ_partial = dS K
+// over the tile's 128 keys (wgmma from shared memory): at D 128 each
+// warpgroup its 64 columns, at D 64 the two take turns by query tile.
+// The partial is staged in shared memory for the producer to add.
+template <int D>
+__device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
+                                        int tid) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int NA = D / 2;              // dK / dV accumulators a thread
+  constexpr int kAdds = D / 64;          // partials a (key, query) tile pair
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::oBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+  uint64_t* kv_empty = kv_full + 1;
+  constexpr int kBufs = L::kBufs;
+  uint64_t* dq_full = kv_empty + 1 + wg * kBufs;  // this warpgroup's ring
+  uint64_t* dq_empty = dq_full + 2 * kBufs;
+  const volatile int* tile_slot =
+      reinterpret_cast<const volatile int*>(sm + L::oTile);
+  Note* notes = reinterpret_cast<Note*>(sm + L::oNote) + wg * kBufs;
+  const uint32_t base = hop::smem_u32(sm);
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int G = a.Hq / a.Hkv, pairs = a.B * a.Hkv;
+  float dk[NA], dv[NA];
+  int qt = 0, staged = 0;
+  // waits for this warpgroup's next staging buffer; returns it
+  auto next_stage = [&]() {
+    const int buf = staged % kBufs;
+    hop::mbar_wait(dq_empty + buf, ((staged / kBufs) & 1) ^ 1);
+    return buf;
+  };
+  for (int it = 0;; ++it) {
+    hop::mbar_wait(kv_full, it & 1);
+    const int t = *tile_slot;
+    if (t >= a.n_tiles) {
+      const int buf = next_stage();
+      if (tid == 0) notes[buf].done = 1;
+      hop::mbar_arrive(dq_full + buf);
+      return;
+    }
+    const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    const int key0 = n * kBc + 64 * wg;  // this warpgroup's first key
+    const int kr = 64 * wg + 16 * warp + grp;  // its rows kr, kr + 8
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+    const int lo = m_first(a, n);
+    for (int m = m_last(a, n); m >= lo; --m)
+      for (int g = 0; g < G; ++g, ++qt) {
+        const int s = qt % kStages;
+        hop::mbar_wait(full + s, (qt / kStages) & 1);
+        const uint32_t qs = base + L::oQ + s * L::kQ;
+        const uint32_t dos = base + L::oDO + s * L::kQ;
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        hop::fence_regs(sc);
+        hop::fence_regs(dp);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * L::kKVHalf + wg * 64 * 128 +
+                               (kk % 4) * 32;
+          const uint32_t qoff = (kk / 4) * L::kQHalf + (kk % 4) * 32;
+          hop::wgmma_ss_n64<0, 0>(sc, hop::desc_sw128(base + L::oK + off, 16),
+                                  hop::desc_sw128(qs + qoff, 16), 1);
+          hop::wgmma_ss_n64<0, 0>(dp, hop::desc_sw128(base + L::oV + off, 16),
+                                  hop::desc_sw128(dos + qoff, 16), 1);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+        hop::fence_regs(dp);
+
+        const int q0 = m * kBr;
+        const float* ls = reinterpret_cast<const float*>(sm + L::oL) + s * kBr;
+        const float* is = reinterpret_cast<const float*>(sm + L::oI) + s * kBr;
+        // every pair of this warpgroup's block visible: no mask
+        const bool open = key0 + 63 < a.S && q0 + kBr <= a.S &&
+                          (!a.causal || q0 >= key0 + 63) &&
+                          (a.window <= 0 || q0 + kBr - 1 - a.window < key0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * tig + (e & 1);
+            const int key = key0 + 16 * warp + grp + 8 * (e >> 1);
+            const int q = q0 + col;
+            const bool ok = open || (key < a.S && q < a.S &&
+                                     sees(key, q, a.causal, a.window));
+            float p, dsv;
+            score_grad(sc[4 * j + e], dp[4 * j + e], is[col], ls[col],
+                       a.scale, a.c_exp, a.softcap, p, dsv);
+            sc[4 * j + e] = ok ? p : 0.f;
+            dp[4 * j + e] = ok ? dsv : 0.f;
+          }
+        uint32_t pa[4][4], da[4][4];     // A of k-step kk: queries 16 kk..
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = tc::pack_bf16(sc[8 * kk + 2 * r],
+                                      sc[8 * kk + 2 * r + 1]);
+            da[kk][r] = tc::pack_bf16(dp[8 * kk + 2 * r],
+                                      dp[8 * kk + 2 * r + 1]);
+          }
+        // dS^T, swizzled as the tiles TMA writes: row = key, 64 queries
+        uint8_t* dsb = sm + L::oDS + (qt & 1) * L::kDS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(dsb + (kr + 8 * h) * 128 +
+                                         ((j ^ grp) << 4) + 4 * tig) =
+                da[j >> 1][(j & 1) * 2 + h];
+        hop::fence_async_smem();
+        hop::named_sync(1, kConsumers);  // both halves of dS^T written
+
+        const bool does_dq = D == 128 || (qt & 1) == wg;
+        const int cb = D == 128 ? wg : 0;  // dQ's 64-column block
+        float dq[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        hop::fence_regs(dq);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        hop::wgmma_fence();
+        // the three products' k-steps interleaved, so that their chains
+        // overlap (faster on the card than one product after another)
+        const uint32_t dsu = hop::smem_u32(dsb);
+        const uint32_t kb = base + L::oK + cb * L::kKVHalf;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<D>(dv, pa[kk],
+                      hop::desc_sw128(dos + kk * 2048, L::kQHalf));
+          wgmma_rs<D>(dk, da[kk], hop::desc_sw128(qs + kk * 2048, L::kQHalf));
+          if (does_dq)
+#pragma unroll
+            for (int k2 = 2 * kk; k2 < 2 * kk + 2; ++k2)
+              hop::wgmma_ss_n64<1, 1>(
+                  dq, hop::desc_sw128(dsu + k2 * 2048, L::kDS),
+                  hop::desc_sw128(kb + k2 * 2048, L::kKVHalf), 1);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dv);
+        hop::fence_regs(dk);
+        hop::fence_regs(dq);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        if (lane == 0) hop::mbar_arrive(empty + s);
+
+        if (does_dq) {
+          // stage the partial (float4 c of thread t at c * 128 + t: no bank
+          // conflicts) with the note the producer orders it by
+          const int buf = next_stage();
+          float4* stage = reinterpret_cast<float4*>(
+              sm + L::oStage + (wg * kBufs + buf) * kTileFloats * 4);
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            stage[c * 128 + tid] = make_float4(dq[4 * c], dq[4 * c + 1],
+                                               dq[4 * c + 2], dq[4 * c + 3]);
+          if (tid == 0) {
+            const int h = hk * G + g;
+            const long long ctr = (static_cast<long long>(b) * a.Hq + h) *
+                                      a.Tq + m;
+            Note& note = notes[buf];
+            note.tile = (ctr * kAdds + cb) * kTileFloats;
+            note.ctr = static_cast<int>(ctr);
+            note.target = kAdds * (n - n_first(a, m));
+            note.done = 0;
+          }
+          hop::fence_async_smem();
+          hop::mbar_arrive(dq_full + buf);
+          ++staged;
+        }
+      }
+    if (lane == 0) hop::mbar_arrive(kv_empty);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key0 + 16 * warp + grp + 8 * h;
+        if (key >= a.S) continue;
+        const long long at =
+            ((static_cast<long long>(b) * a.S + key) * a.Hkv + hk) * D +
+            8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(a.dk + at) = tc::pack_bf16(
+            dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(a.dv + at) =
+            tc::pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// The producer warpgroup (warps 0-3: the loader in warp 0, a dQ writer
+// in each of warps 1 and 2) and two consumer warpgroups (warps 4-11).
+// setmaxnreg moves registers from the producer to the consumers: a
+// quarter of the SM's register file (one sub-partition) holds 3 warps,
+// 40 + 2 x 232 registers a thread.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::oBar);
+    constexpr int kConsumerWarps = kConsumers / 32;
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(bars + s, 1);                            // full
+      hop::mbar_init(bars + kStages + s, kConsumerWarps);     // empty
+    }
+    hop::mbar_init(bars + 2 * kStages, 1);                    // kv_full
+    hop::mbar_init(bars + 2 * kStages + 1, kConsumerWarps);   // kv_empty
+    for (int i = 0; i < 2 * L::kBufs; ++i) {
+      hop::mbar_init(bars + 2 * kStages + 2 + i, 128);        // dq_full
+      hop::mbar_init(bars + 2 * kStages + 2 + 2 * L::kBufs + i, 1);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  // the warpgroup index from lane 0: provably the same across the warp,
+  // which setmaxnreg (.sync.aligned) needs for ptxas to use the new counts
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) load<D>(a, &tq, &tdo, &tk, &tv, sm);
+    if (threadIdx.x == 32) write_dq<D>(a, sm, 0);
+    if (threadIdx.x == 64) write_dq<D>(a, sm, 1);
+  } else {
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    consume<D>(a, sm, wgi - 1, threadIdx.x % 128);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library the process has loaded
+// (PyTorch loads it), so that this library does not link libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as boxes of 64 columns x `rows` positions of
+// one head, 128-byte swizzled; positions past S read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(S) * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Workspace {                       // carved from the wrapper's bytes
+  long long dq_acc, di, lse2, counters, bytes;   // float / int offsets
+};
+
+Workspace workspace(int B, int S, int Hq, int D) {
+  const long long s_pad = (S + kBr - 1) / kBr * kBr;
+  const long long tq = s_pad / kBr;
+  Workspace w;
+  w.dq_acc = 0;
+  w.di = static_cast<long long>(B) * Hq * s_pad * D;
+  w.lse2 = w.di + B * Hq * s_pad;
+  w.counters = w.lse2 + B * Hq * s_pad;
+  w.bytes = 4 * (w.counters + B * Hq * tq + 1);
+  return w;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const float* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* work, int B, int S, int Hq, int Hkv, float scale,
+           int causal, int window, float softcap, cudaStream_t stream) {
+  using L = Smem<D>;
+  const int Tq = (S + kBr - 1) / kBr, Tk = (S + kBc - 1) / kBc;
+  const long long n_tiles = static_cast<long long>(Tk) * B * Hkv;
+  if (n_tiles == 0) return 0;
+  if (n_tiles > 0x7fffffffLL || static_cast<long long>(B) * Hq * Tq >
+                                    0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int sms = sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
+  const Workspace ws = workspace(B, S, Hq, D);
+  float* wf = static_cast<float*>(work);
+  Args a;
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.dq_acc = wf + ws.dq_acc;
+  a.di = wf + ws.di;
+  a.lse2 = wf + ws.lse2;
+  a.counters = reinterpret_cast<int*>(wf + ws.counters);
+  a.next_tile = a.counters + static_cast<long long>(B) * Hq * Tq;
+  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.Tq = Tq; a.S_pad = Tq * kBr;
+  a.n_tiles = static_cast<int>(n_tiles);
+  a.scale = scale; a.c_exp = scale * kLog2e; a.softcap = softcap;
+  a.causal = causal; a.window = window;
+
+  fa_bwd_prep_kernel<D><<<4 * sms, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, wf + ws.di,
+      wf + ws.lse2, a.counters, B, S, Hq, a.S_pad,
+      B * Hq * Tq + 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // after a launch: the runtime has made its context current on this
+  // thread (autograd's backward runs on a worker thread), which the
+  // driver's encoder needs
+  CUtensorMap tq, tdo, tk, tv;
+  if (encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  if (!tensor_map(&tq, q, B, S, Hq, D, kBr) ||
+      !tensor_map(&tdo, dout, B, S, Hq, D, kBr) ||
+      !tensor_map(&tk, k, B, S, Hkv, D, kBc) ||
+      !tensor_map(&tv, v, B, S, Hkv, D, kBc))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  err = cudaFuncSetAttribute(fa_bwd_main_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  fa_bwd_main_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(tq, tdo, tk,
+                                                               tv, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bwd_post_kernel<D><<<4 * sms, 256, 0, stream>>>(
+      a.dq_acc, static_cast<__nv_bfloat16*>(dq), B, S, Hq, Tq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgk
+
 template <typename T>
 int launch_di(const void* o, const void* dout, float* di, int B, int S,
               int Hq, int D, cudaStream_t stream) {
@@ -855,20 +1586,45 @@ int launch_di(const void* o, const void* dout, float* di, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D 64 and D 128 take the warpgroup kernels.
+bool warpgroup_path(int D, int dtype) {
+  return dtype == 1 && (D == 64 || D == 128);
+}
+
 }  // namespace
 
+// Bytes of the float32 workspace the wrapper allocates for one call:
+// (B, Hq, S) of Di for the FMA and mma.sync kernels; for the warpgroup
+// kernels dq_acc (B, Hq, S_pad, D in 64 x 64 tiles), Di and the lse in
+// log2 units (B, Hq, S_pad), and the counters.
+extern "C" long long flash_attention_bwd_workspace_bytes(int B, int S,
+                                                         int Hq, int D,
+                                                         int dtype) {
+  if (warpgroup_path(D, dtype)) return wgk::workspace(B, S, Hq, D).bytes;
+  return 4LL * B * Hq * S;
+}
+
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor cores); D in
-// {16, 64, 128, 256} (the wrapper checks). di: (B, Hq, S) float32 scratch.
-// Launches the Di pass, the dk/dv kernel and the dq kernel on `stream`;
-// returns the first cudaGetLastError() that is not 0 (0 = ok).
+// {16, 64, 128, 256} (the wrapper checks). work: the workspace above.
+// bf16 at D 64 and D 128: the pre-pass, the warpgroup kernel and the
+// post-pass; otherwise the Di pass, the dk/dv kernel and the dq kernel.
+// All on `stream`; returns the first cudaGetLastError() that is not 0
+// (0 = ok).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* di, int B, int S, int Hq, int Hkv, int D, int dtype, float scale,
+    void* work, int B, int S, int Hq, int Hkv, int D, int dtype, float scale,
     int causal, int window, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
-  float* dis = static_cast<float*>(di);
+  if (warpgroup_path(D, dtype)) {
+    if (D == 64)
+      return wgk::launch<64>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
+                             Hq, Hkv, scale, causal, window, softcap, st);
+    return wgk::launch<128>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
+                            Hq, Hkv, scale, causal, window, softcap, st);
+  }
+  float* dis = static_cast<float*>(work);
   int err = dtype == 0 ? launch_di<float>(o, dout, dis, B, S, Hq, D, st)
           : dtype == 1 ? launch_di<__nv_bfloat16>(o, dout, dis, B, S, Hq, D,
                                                   st)
@@ -884,8 +1640,6 @@ extern "C" int flash_attention_bwd_launch(
     if (D == 256) FB_CASE(launch_f32, 256);
   } else {
     if (D == 16) FB_CASE(launch_bf16, 16);
-    if (D == 64) FB_CASE(launch_bf16, 64);
-    if (D == 128) FB_CASE(launch_bf16, 128);
     if (D == 256) FB_CASE(launch_bf16, 256);
   }
 #undef FB_CASE

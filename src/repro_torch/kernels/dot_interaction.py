@@ -147,9 +147,11 @@ def dot_interaction_bwd(feats: torch.Tensor,
                         grad: torch.Tensor) -> torch.Tensor:
     """Gradient of ``dot_interaction``: dx (B, F, D) in feats' type from
     the features and the triangle's gradient ``grad`` (B, F(F-1)/2).
-    CUDA tensors launch the kernel (one block a sample, sums in float32,
-    no atomics; counted in ``dot_interaction_bwd.launches``); CPU tensors
-    take ``dot_interaction_bwd_ref``."""
+    CUDA tensors launch the kernel (one block a sample, each thread a
+    register tile of 7 output rows by 16 bytes of columns, sums in float32
+    in a fixed order, no atomics; counted in
+    ``dot_interaction_bwd.launches``); CPU tensors take
+    ``dot_interaction_bwd_ref``."""
     _check(feats)
     B, F, D = feats.shape
     if grad.shape != (B, F * (F - 1) // 2) or grad.dtype != feats.dtype \

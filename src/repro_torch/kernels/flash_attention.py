@@ -305,11 +305,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_void_p])
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    di = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    work = torch.empty(workspace_bytes(B, S, Hq, D, q.dtype),
+                       dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), di.data_ptr(), B, S, Hq, k.shape[2], D,
+             dv.data_ptr(), work.data_ptr(), B, S, Hq, k.shape[2], D,
              _DTYPES[q.dtype], float(sm_scale), int(causal), int(window),
              float(softcap), stream)
     if err != 0:
@@ -320,3 +321,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0
+
+
+def workspace_bytes(B: int, S: int, Hq: int, D: int,
+                    dtype: torch.dtype) -> int:
+    """Bytes of the float32 workspace one backward call takes: for bf16
+    at D 64 and 128 the dq accumulator (B, S, Hq, D), Di and the lse
+    padded to whole query tiles, and the counters of the ordered adds;
+    otherwise Di (B, Hq, S)."""
+    return library_function(
+        "flash_attention_bwd", "flash_attention_bwd_workspace_bytes",
+        [ctypes.c_int] * 5, restype=ctypes.c_longlong)(
+        B, S, Hq, D, _DTYPES[dtype])

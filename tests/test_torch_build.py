@@ -52,3 +52,12 @@ def test_every_port_kernel_hashes_its_shared_header():
     names = {p.name for p in _build._source_files(
         (_build.CSRC / "flash_decode.cu").resolve(), [])}
     assert names == {"flash_decode.cu", "tensor_core.cuh"}
+
+
+def test_backward_kernel_hashes_both_headers():
+    """The attention backward includes the mma.sync helpers and the
+    wgmma / TMA / mbarrier helpers: an edit to either rebuilds it."""
+    names = {p.name for p in _build._source_files(
+        (_build.CSRC / "flash_attention_bwd.cu").resolve(), [])}
+    assert names == {"flash_attention_bwd.cu", "tensor_core.cuh",
+                     "wgmma.cuh"}

@@ -829,6 +829,18 @@ BWD_CASES = [
     (1, 150, 8, 1, 64, 32, 20.0, True),     # G 8, window + softcap
     (1, 130, 4, 4, 128, 0, 0.0, False),     # MHA, not causal
     (1, 40, 8, 2, 12, 16, 30.0, True),      # D 12: padded to 16
+    # the warpgroup kernel's tile edges (128 keys, 64 query positions)
+    (1, 127, 9, 3, 64, 0, 0.0, True),       # S = Bc - 1
+    (2, 129, 9, 3, 64, 0, 0.0, True),       # S = Bc + 1
+    (1, 257, 4, 4, 64, 0, 0.0, True),       # S = 2 Bc + 1, G 1
+    (1, 257, 6, 2, 128, 0, 0.0, True),      # G 3 at D 128
+    (1, 200, 10, 2, 64, 0, 0.0, True),      # G 5
+    (1, 129, 8, 1, 128, 0, 0.0, True),      # G 8 at D 128
+    (1, 700, 6, 2, 64, 100, 0.0, True),     # window: whole key tiles out
+    (1, 600, 8, 4, 128, 130, 0.0, True),    # the same at D 128
+    (1, 257, 6, 2, 128, 0, 0.0, False),     # D 128, not causal
+    (1, 300, 4, 2, 64, 64, 0.0, False),     # not causal, window
+    (1, 1024, 9, 3, 64, 0, 0.0, True),      # the training shape, B 1 S 1024
 ]
 
 
@@ -912,10 +924,35 @@ def test_flash_attention_bwd_kernel_row_that_saw_no_key(dev, D, dtype):
         _rel_close(g, w, BWD_TOL[dtype], name)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
+    """Two calls give the same bits (dq is added in a fixed order), with a
+    call at another shape in between, so that a counter or an accumulator
+    left set by one call would show in the next."""
+    q, k, v, do = _attn_inputs(dev, 2, 300, 8, 2, D, torch.bfloat16, 11)
+    o = flash_attention(q, k, v, causal=True)
+    lse = flash_attention_lse_ref(q, k, causal=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    q2, k2, v2, do2 = _attn_inputs(dev, 1, 200, 4, 4, D, torch.bfloat16, 12)
+    o2 = flash_attention(q2, k2, v2, causal=False)
+    flash_attention_bwd(q2, k2, v2, o2,
+                        flash_attention_lse_ref(q2, k2, causal=False), do2,
+                        causal=False)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# The row slices of 7 output rows (F 2, 7, 27, 33) and the column widths
+# (D 5 takes the scalar path, 12 and 128 the 16-byte one in f32).
+DOT_BWD_EDGES = [(9, n_f, d) for n_f in (2, 7, 27, 33) for d in (5, 12, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,F,D", [(37, 27, 128), (200, 27, 128),
                                    (16, 8, 64), (5, 12, 32), (3, 2, 16),
-                                   (4, 1, 8), (33, 27, 127)])
+                                   (4, 1, 8), (33, 27, 127)]
+                         + DOT_BWD_EDGES)
 def test_dot_interaction_bwd_kernel_close_to_plain(dev, B, F, D, dtype):
     g = torch.Generator(device=dev).manual_seed(B + F + D)
     x = (torch.randn((B, F, D), generator=g, device=dev) * D ** -0.5).to(dtype)
