@@ -49,6 +49,13 @@ launch counts set to 0 just before it and read just after:
 * the same engine on the full-width ``dlrm-mlperf`` evaluator
   (``dot_interaction``), its 26 tables capped at 20M rows to fit the
   card, and its host-vs-fused parity run;
+* the mesh-sharded path on the card's (1, 1) mesh (``phase_sharded``, a
+  world of one): ``make_sharded_evaluator`` over the full-width
+  smollm-135m weights through ``ServingEngine(feature_sharding=...)``
+  at depth 2 and 4096-item batches, held to the replicated engine bit
+  for bit on SimClocks and timed beside it on the wall clock; the
+  sharded DLRM over the replicated evaluator's own capped tables; and
+  ``serve --sharded --sync --drain-mode fused`` as a user runs it;
 * the same engine on the full-width ``bst``, ``mind`` and
   ``two-tower-retrieval`` evaluators in turn (``shed_partition`` and
   ``topk_select`` only; the two-tower tables capped at 20M rows), each
@@ -159,7 +166,7 @@ from repro_torch.models.recsys import embedding as E  # noqa: E402
 from repro_torch.retrieval import (CorpusRetrieval, CorpusSearcher,  # noqa: E402
                                    IndexShard, SyntheticCorpus,
                                    ZipfQueryModel, topk_py)
-from repro_torch.scheduling import Priority  # noqa: E402
+from repro_torch.scheduling import Priority, SchedulerConfig  # noqa: E402
 from repro_torch.scheduling.executor import DrainExecutor  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.evaluators import make_evaluator  # noqa: E402
@@ -212,6 +219,9 @@ QUERIES_PER_DRAIN = ENGINE_BATCH // TOP_K   # 48 queries fill a batch
 # leaves 53.3 GB.
 DLRM_ROW_CAP = 20_000_000
 DLRM_TRUST_ATOL = 1e-4           # host vs fused drain, both float32
+DLRM_SHARDED_ATOL = 1e-6         # sharded vs replicated DLRM scores
+SHARDED_REQUEST = BATCH // 2     # items a request in the sharded phase
+SHARDED_REQUESTS = 16            # 8 micro-batches of BATCH items
 # The other recommenders at their published widths: BST (arXiv:1905.06874,
 # 5.1M rows x 32, 0.65 GB) and MIND (arXiv:1904.08030, 11.0M rows x 64,
 # 2.82 GB) as published; the two-tower model (RecSys'19) has 62M rows x
@@ -2600,6 +2610,231 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10a: the mesh-sharded serving path on a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+def sharded_requests(mk, n: int, seed: int) -> list:
+    """``n`` seeded requests of SHARDED_REQUEST items (two fill a
+    BATCH-item micro-batch); a third of the keys repeat earlier ones."""
+    r = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        keys = np.where(r.random(SHARDED_REQUEST) < 1 / 3,
+                        r.integers(1, 1 + 4 * BATCH, SHARDED_REQUEST),
+                        r.integers(1 << 20, 1 << 31, SHARDED_REQUEST)
+                        ).astype(np.uint32)
+        out.append((keys, r.integers(0, 64, SHARDED_REQUEST
+                                     ).astype(np.int32),
+                    mk(SHARDED_REQUEST, fseed=seed + i)))
+    return out
+
+
+def sharded_engine(cfg: TrustIRConfig, evaluate, dev, sim: bool,
+                   feature_sharding=None) -> ServingEngine:
+    return ServingEngine(
+        cfg, evaluate, drain_mode="fused", evaluate_batch=evaluate,
+        feature_sharding=feature_sharding, device=dev,
+        sim_clock=SimClock(cfg.u_capacity / cfg.deadline_s) if sim else None,
+        sched_cfg=SchedulerConfig(max_batch_items=BATCH))
+
+
+def drive_engine(eng, requests) -> tuple:
+    """Requests enqueued a micro-batch's worth at a time, each time one
+    batch drained with the window left open; a flush at the end. Returns
+    (request ids, the responses by id); fails if one is answered twice
+    or not at all."""
+    rids = []
+    per_batch = max(BATCH // SHARDED_REQUEST, 1)
+    for i, (keys, buckets, feats) in enumerate(requests):
+        rids.append(eng.enqueue(keys, buckets, feats, slo_s=10.0))
+        if (i + 1) % per_batch == 0:
+            eng.drain(max_batches=1, flush=False)
+    eng.flush()
+    got = [r.request_id for r in eng.completed]
+    if sorted(got) != sorted(rids) or len(set(got)) != len(got):
+        raise AssertionError(f"{len(rids)} requests, answers {got}")
+    return rids, {r.request_id: r for r in eng.completed}
+
+
+def phase_sharded(evaluate, mk, dev) -> dict:
+    """The mesh-sharded serving path on the (1, 1) mesh of this card, a
+    world of one made by ``make_host_mesh``:
+
+    1. full-width smollm-135m, ``make_sharded_evaluator`` over the
+       replicated evaluator's own weights, through
+       ``ServingEngine(drain_mode="fused", feature_sharding=...)`` at
+       depth 2 and BATCH-item micro-batches: on SimClocks the same
+       requests through the replicated and the sharded engine give equal
+       regimes, tiers and counts and trust bit for bit; on the wall
+       clock both serve SHARDED_REQUESTS requests, in turns (replicated,
+       sharded, sharded, replicated), every request answered once; the
+       sharded runs' launches are the path's;
+    2. dlrm-mlperf at its published widths, tables capped at
+       DLRM_ROW_CAP rows (53 GB), sharded over the replicated
+       evaluator's tensors (no copy), scores within DLRM_SHARDED_ATOL of
+       the replicated ones on BATCH items, then a sharded fused engine
+       run whose ``dot_interaction`` launches are the path's;
+    3. ``serve --sharded --sync --drain-mode fused`` at smoke width
+       through the launcher's ``main``, on the card by default, exiting
+       0 and ending the world it made.
+
+    The process group is destroyed before the phase returns."""
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.serving.evaluators import make_sharded_evaluator
+    t_phase = time.monotonic()
+    mesh = make_host_mesh((1, 1))
+    launches = {name: 0 for name in KERNELS}
+    try:
+        if mesh.device_type != "cuda" or tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"host mesh {mesh}")
+        se = make_sharded_evaluator("smollm-135m", mesh=mesh,
+                                    params=evaluate.params)
+        cfg = TrustIRConfig(drain_mode="fused", pipeline_depth=2)
+        requests = sharded_requests(mk, SHARDED_REQUESTS, SEED + 11)
+        # SimClock parity: the same decisions, so the same trust bits
+        runs = {}
+        for name, ev, fs in (("replicated", evaluate, None),
+                             ("sharded", se.evaluate, se.feature_sharding)):
+            rids, resp = drive_engine(sharded_engine(cfg, ev, dev, True, fs),
+                                      requests)
+            runs[name] = [resp[i] for i in rids]
+        worst = 0.0
+        for a, b in zip(runs["replicated"], runs["sharded"]):
+            if (a.admitted, a.reason, int(a.shed.regime), a.shed.n_evaluated,
+                    a.shed.n_cached, a.shed.n_prior) != \
+                    (b.admitted, b.reason, int(b.shed.regime),
+                     b.shed.n_evaluated, b.shed.n_cached, b.shed.n_prior) \
+                    or not np.array_equal(a.tier, b.tier):
+                raise AssertionError(f"request {a.request_id}: sharded and "
+                                     f"replicated engines disagree")
+            worst = max(worst, float(np.abs(a.trust - b.trust).max()))
+        bits = all(np.array_equal(a.trust, b.trust) for a, b in
+                   zip(runs["replicated"], runs["sharded"]))
+        if worst > TRUST_ATOL:
+            raise AssertionError(f"sharded vs replicated trust {worst}")
+        regimes = sorted({r.shed.regime.name for r in runs["sharded"]})
+        log(f"sharded smollm-135m (SimClock, {len(requests)} requests of "
+            f"{SHARDED_REQUEST} items, {BATCH}-item batches): regimes "
+            f"{regimes}, tiers and counts equal to the replicated engine's, "
+            + ("trust equal bit for bit" if bits else
+               f"trust NOT bit-equal: max diff {worst:.3e} <= {TRUST_ATOL} "
+               f"(bf16 evaluator)"))
+        # wall clock, in turns
+        rates = {"replicated": [], "sharded": []}
+        for name in ("replicated", "sharded", "sharded", "replicated"):
+            sharded = name == "sharded"
+            eng = sharded_engine(cfg, se.evaluate if sharded else evaluate,
+                                 dev, False,
+                                 se.feature_sharding if sharded else None)
+            drive_engine(eng, requests[:4])          # warm-up batches
+            eng.completed.clear()
+            base = eng.scheduler.stats.as_dict()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.monotonic()
+            rids, resp = drive_engine(eng, requests)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            got = read_launches()
+            st = eng.scheduler.stats.as_dict()
+            n_batches = st["n_batches"] - base["n_batches"]
+            items = st["n_batched_items"] - base["n_batched_items"]
+            want = {n: 0 for n in KERNELS}
+            want["shed_partition"] = n_batches
+            want["flash_attention"] = N_LAYERS * n_batches
+            if got != want:
+                raise AssertionError(f"{name} engine: launches {got}, "
+                                     f"expected {want}")
+            for r in resp.values():
+                if (r.tier == TIER_INVALID).any() \
+                        or not np.isfinite(r.trust).all():
+                    raise AssertionError(f"{name} engine: request "
+                                         f"{r.request_id} malformed")
+            rates[name].append(items / wall)
+            if sharded:
+                for n in KERNELS:
+                    launches[n] += got[n]
+            log(f"sharded phase, {name} engine (wall clock, depth 2): "
+                f"{len(rids)} requests, {n_batches} batches, {items} items "
+                f"in {wall:.3f} s = {items / wall:.1f} items/s; launches "
+                f"{got}")
+        log(f"sharded smollm-135m items/s {rates['sharded']} beside the "
+            f"replicated drain's {rates['replicated']}")
+        del se, runs
+        gc.collect()
+
+        # dlrm-mlperf at the engine's cap, sharded over the same tables
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        ev_d, mk_d = make_evaluator("dlrm-mlperf", smoke=False, seed=SEED,
+                                    device=dev, max_table_rows=DLRM_ROW_CAP)
+        se_d = make_sharded_evaluator("dlrm-mlperf", mesh=mesh,
+                                      params=ev_d.params,
+                                      max_table_rows=DLRM_ROW_CAP)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        feats = {k: torch.as_tensor(v, device=dev)
+                 for k, v in mk_d(BATCH, fseed=SEED + 12).items()}
+        a, b = ev_d(feats), se_d.evaluate(feats)
+        err = max_err(b, a)
+        if err > DLRM_SHARDED_ATOL or not torch.isfinite(b).all():
+            raise AssertionError(f"sharded dlrm vs replicated: {err}")
+        log(f"sharded dlrm-mlperf ({DLRM_ROW_CAP} rows a table, "
+            f"{held / 1e9:.2f} GB held by both evaluators together): "
+            f"{BATCH} scores, max |diff| {err:.3e} <= {DLRM_SHARDED_ATOL}"
+            + (" (equal bits)" if same_bits(a, b) else ""))
+        eng = sharded_engine(cfg, se_d.evaluate, dev, False,
+                             se_d.feature_sharding)
+        counted = CountedEvaluator(se_d.evaluate)
+        eng.shedder.evaluate_batch = counted
+        dreq = sharded_requests(mk_d, 8, SEED + 13)
+        drive_engine(eng, dreq[:2])                  # warm-up batch
+        eng.completed.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        counted.calls = 0
+        t0 = time.monotonic()
+        drive_engine(eng, dreq)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = read_launches()
+        if got["dot_interaction"] != counted.calls or not counted.calls \
+                or got["flash_attention"]:
+            raise AssertionError(f"sharded dlrm engine: launches {got} for "
+                                 f"{counted.calls} evaluator calls")
+        for n in KERNELS:
+            launches[n] += got[n]
+        log(f"sharded dlrm engine (wall clock): {len(dreq)} requests in "
+            f"{wall:.3f} s, {counted.calls} evaluator calls; launches {got}")
+        del ev_d, se_d, eng, counted, a, b, feats
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        destroy_world()
+
+    # the launcher's entry point, as a user runs it (the card by default);
+    # it makes and ends its own world of one
+    t0 = time.monotonic()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--sharded", "--sync", "--drain-mode", "fused",
+                         "--corpus", "192", "--n-requests", "3"])
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines \
+            or not lines[0].startswith("smollm-135m on cuda") \
+            or sum(l.lstrip().startswith("req ") for l in lines) != 3 \
+            or not lines[-1].startswith("P50 ") \
+            or torch.distributed.is_initialized():
+        raise AssertionError(f"serve --sharded: exit {rc}\n{lines}")
+    log(f"serve --sharded --sync --drain-mode fused on the card: "
+        f"{lines[0]} ... {lines[-1]} ({time.monotonic() - t0:.1f} s)")
+    log(f"sharded phase: {time.monotonic() - t_phase:.1f} s; launches "
+        f"{launches}")
+    return {"launches": launches, "items_per_s": rates,
+            "trust_bits_equal": bits, "dlrm_err": err}
+
+
+# ---------------------------------------------------------------------------
 # phase 10b: the BST, MIND and two-tower evaluators on the main path
 # ---------------------------------------------------------------------------
 
@@ -3882,6 +4117,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"dlrm tables freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB still allocated")
+    sharded = phase_sharded(evaluate, mk, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     recsys = phase_recsys(ecfg, corpus, shard, dev)
     log(f"recsys phases: {time.monotonic() - t0:.1f} s; "
@@ -3923,6 +4161,7 @@ def main() -> int:
 
     by_path = {"engine": engine["launches"], "fleet": fleet_launches,
                "fanout": fanout["launches"], "dlrm": dlrm["launches"],
+               "sharded": sharded["launches"],
                **{arch: st["launches"] for arch, st in recsys.items()},
                "decode": decode["launches"],
                f"{GEMMA} engine": gemma["launches"],

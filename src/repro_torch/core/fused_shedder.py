@@ -54,6 +54,7 @@ from repro_torch.core.shedder import (LoadShedder, ShedResult, SimClock,
                                       TIER_CACHED, TIER_EVAL, TIER_PRIOR,
                                       combine_trust, eval_indices_from_rank,
                                       keys_as_int32)
+from repro_torch.distribution.placement import device_put, full_tensor
 from repro_torch.kernels.shed_partition import shed_partition
 
 
@@ -141,13 +142,22 @@ class FusedLoadShedder(LoadShedder):
                  prior_state: Optional[Dict] = None,
                  sim_clock: Optional[SimClock] = None,
                  max_evals: Optional[int] = None,
-                 device=None, adaptive=None):
+                 device=None, adaptive=None, feature_sharding=None):
+        """``feature_sharding`` (optional) places staged features for a
+        mesh-sharded evaluator: a dict of
+        ``distribution.placement.NamedSharding`` matching the features,
+        or a callable ``features -> that dict`` (what
+        ``serving.evaluators.make_sharded_evaluator`` returns). ``stage``
+        then moves each rank's own piece of each leaf to the device and
+        holds it as a DTensor; the step's gather reads the leaves whole
+        (on one device that is the staged tensor itself)."""
         super().__init__(cfg, evaluate_batch, monitor=monitor,
                          cache_state=cache_state, prior_state=prior_state,
                          sim_clock=sim_clock, device=device,
                          adaptive=adaptive)
         self.evaluate_batch = evaluate_batch
         self.max_evals = max_evals
+        self.feature_sharding = feature_sharding
         # Wall time of the last throughput observation: pipelined
         # batches overlap, so each observation charges only the
         # marginal window since the previous one (see _finish).
@@ -169,7 +179,7 @@ class FusedLoadShedder(LoadShedder):
                            TIER_PRIOR, tier)
         idx, eval_valid = eval_indices_from_rank(rank, max_evals)
         gidx = idx.clamp(max=n - 1)                  # clamp pad slots
-        sub = {k: v[gidx] for k, v in features.items()}
+        sub = {k: full_tensor(v)[gidx] for k, v in features.items()}
         scores = self.evaluate_batch(sub).to(torch.float32)
         # Pad slots scatter into an extra slot n that is sliced off.
         scattered = torch.zeros(n + 1, dtype=torch.float32,
@@ -200,11 +210,19 @@ class FusedLoadShedder(LoadShedder):
         def put(a):
             return torch.as_tensor(a).to(dev, non_blocking=True)
 
+        if self.feature_sharding is None:
+            feats = {k: put(v) for k, v in features.items()}
+        else:
+            sharding = (self.feature_sharding(features)
+                        if callable(self.feature_sharding)
+                        else self.feature_sharding)
+            feats = {k: device_put(v, sharding[k], dev)
+                     for k, v in features.items()}
         return StagedBatch(
             keys_t=put(keys_as_int32(item_keys)),
             buckets_t=put(np.asarray(buckets, np.int32)),
             valid_t=put(valid),
-            feats_t={k: put(v) for k, v in features.items()},
+            feats_t=feats,
             n=n, n_total=n_total, t_start=t_start, wall_start=wall_start,
             item_keys=np.asarray(item_keys))
 

@@ -108,6 +108,22 @@ def shed_plan(valid: torch.Tensor, cache_hit: torch.Tensor,
     }
 
 
+def gather_eval_indices(tier: torch.Tensor, max_evals: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-size gather of EVAL-tier item indices (arrival order).
+
+    Returns (idx (max_evals,) int64, valid (max_evals,) bool). The
+    argsort oracle of the ``shed_partition`` kernel's compacted rank;
+    the fused drain uses :func:`eval_indices_from_rank` (one O(N)
+    scatter) instead."""
+    n = tier.shape[0]
+    is_eval = tier == TIER_EVAL
+    ar = torch.arange(n, device=tier.device)
+    order = torch.argsort(torch.where(is_eval, ar, n + ar), stable=True)
+    idx = order[:max_evals]
+    return idx, is_eval[idx]
+
+
 def eval_indices_from_rank(eval_rank: torch.Tensor, max_evals: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O(N) gather-index compaction from the ``shed_partition`` kernel's
@@ -138,6 +154,45 @@ def combine_trust(tier: torch.Tensor, eval_scores_scattered: torch.Tensor,
                     torch.where(tier == TIER_CACHED, cached_vals,
                                 prior_vals))
     return torch.where(tier == TIER_INVALID, torch.zeros_like(t), t)
+
+
+def fused_shed_eval(cache_state: Dict, prior_state: Dict,
+                    item_keys: torch.Tensor, buckets: torch.Tensor,
+                    valid: torch.Tensor, features: Dict,
+                    evaluate: Callable, max_evals: int,
+                    cfg: TrustIRConfig, u_capacity: int,
+                    u_threshold: int) -> Tuple[torch.Tensor, Dict]:
+    """One shedding step in one call (plan -> gather -> eval -> combine
+    -> fold back), the reference's function on the oracles: the Trust-DB
+    lookup, :func:`shed_plan` and :func:`gather_eval_indices`.
+
+    ``item_keys`` are the int32 bit patterns of the uint32 keys
+    (:func:`keys_as_int32`); ``features`` a dict of tensors with leading
+    dim N; ``evaluate(features_subset) -> (max_evals,) scores``. Returns
+    (trust (N,), aux dict with the new ``cache``/``prior`` states, the
+    ``plan`` and ``n_evald``). The states passed in are not written."""
+    cached_vals, hit = TC.lookup(cache_state, item_keys)
+    plan = shed_plan(valid, hit, u_capacity, u_threshold,
+                     deadline_s=cfg.deadline_s,
+                     overload_deadline_s=cfg.overload_deadline_s,
+                     very_heavy_weight=cfg.very_heavy_weight)
+    tier = plan["tier"]
+    idx, eval_valid = gather_eval_indices(tier, max_evals)
+    scores = evaluate({k: v[idx] for k, v in features.items()})
+    n = tier.shape[0]
+    scattered = torch.zeros(n, dtype=torch.float32, device=tier.device)
+    scattered[idx] = torch.where(eval_valid, scores.to(torch.float32),
+                                 torch.zeros_like(scores,
+                                                  dtype=torch.float32))
+    prior_vals = AT.query(prior_state, buckets)
+    trust = combine_trust(tier, scattered, cached_vals, prior_vals)
+    # Fold fresh evaluations back into the Trust DB + prior.
+    evald = tier == TIER_EVAL
+    new_cache = TC.insert(cache_state, item_keys, trust, evald)
+    new_prior = AT.update(prior_state, buckets, trust, evald,
+                          ewma=cfg.prior_ewma)
+    return trust, {"plan": plan, "cache": new_cache, "prior": new_prior,
+                   "n_evald": evald.sum()}
 
 
 # ---------------------------------------------------------------------------

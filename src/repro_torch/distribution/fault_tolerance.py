@@ -1,13 +1,79 @@
-"""Serving-side hedging policy: bounded hedged dispatch.
+"""Fault tolerance: health tracking, straggler skipping, bounded hedging.
 
-Counterpart of the hedging half of ``repro.distribution.fault_tolerance``
-(``HedgedDispatch`` and ``HedgeBudgetView``), host logic copied. The
-checkpoint, elastic-mesh and heartbeat parts of that module are mesh
-code for a later slice of the port.
+Counterpart of ``repro.distribution.fault_tolerance``, host logic copied:
+``HeartbeatTracker`` (workers dead after ``timeout_s`` without a beat),
+``largest_mesh_shape`` (the biggest (data, model) grid a surviving device
+count allows), ``DeadlineSkipPolicy`` (skip grad-accum chunks that would
+overrun the step deadline, and rescale), and the serving-side
+``HedgedDispatch`` / ``HedgeBudgetView``. ``ElasticMeshManager`` (the
+elastic re-sharding restore) is ROADMAP Queue 1 item 6b.
 """
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+@dataclass
+class HeartbeatTracker:
+    timeout_s: float = 60.0
+    _last: Dict[int, float] = field(default_factory=dict)
+
+    def beat(self, worker_id: int, now: Optional[float] = None) -> None:
+        self._last[worker_id] = time.monotonic() if now is None else now
+
+    def live_workers(self, now: Optional[float] = None) -> List[int]:
+        t = time.monotonic() if now is None else now
+        return sorted(w for w, ts in self._last.items()
+                      if t - ts <= self.timeout_s)
+
+    def dead_workers(self, now: Optional[float] = None) -> List[int]:
+        t = time.monotonic() if now is None else now
+        return sorted(w for w, ts in self._last.items()
+                      if t - ts > self.timeout_s)
+
+
+def largest_mesh_shape(n_devices: int, prefer_model: int = 16
+                       ) -> Tuple[int, ...]:
+    """Biggest (data, model) grid fitting ``n_devices`` (powers of two).
+
+    Keeps the model axis as close to ``prefer_model`` as the device count
+    allows — TP degree changes less often than DP degree on failure.
+    """
+    n = 2 ** int(math.floor(math.log2(max(n_devices, 1))))
+    model = min(prefer_model, n)
+    return (n // model, model)
+
+
+@dataclass
+class DeadlineSkipPolicy:
+    """Straggler mitigation by deadline: work chunks that would overrun
+    the step deadline are skipped and the remainder rescaled — the
+    training-side analogue of the paper's PRIOR tier.
+    """
+    step_deadline_s: float
+    min_fraction: float = 0.5     # never keep less than this
+
+    def plan(self, chunk_times_s: Sequence[float]) -> List[bool]:
+        """Given projected per-chunk times, choose which chunks to run."""
+        keep: List[bool] = []
+        t = 0.0
+        n = len(chunk_times_s)
+        min_keep = math.ceil(self.min_fraction * n)
+        for i, c in enumerate(chunk_times_s):
+            if t + c <= self.step_deadline_s or i < min_keep:
+                keep.append(True)
+                t += c
+            else:
+                keep.append(False)
+        return keep
+
+    def rescale(self, keep: Sequence[bool]) -> float:
+        """Gradient rescale factor: kept chunks stand in for all."""
+        kept = sum(keep)
+        return len(keep) / max(kept, 1)
 
 
 @dataclass

@@ -32,8 +32,11 @@ smoke width: the transformers ``smollm-135m`` (default),
 recommenders ``bst``, ``dlrm-mlperf``, ``two-tower-retrieval`` and
 ``mind``.
 
-The mesh-sharded evaluator (``--sharded``) is not ported yet: it exits
-with status 2 and says where ROADMAP.md queues it.
+``--sharded --drain-mode fused`` serves through the mesh-sharded
+evaluator (``serving.evaluators.make_sharded_evaluator``) on the (1, 1)
+host mesh of ``--device`` — one device is a mesh of one — and stages
+every micro-batch with its ``feature_sharding``; without ``--drain-mode
+fused`` it exits with the reference's message.
 """
 from __future__ import annotations
 
@@ -45,8 +48,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import arch_ids
-
-SHARDED_ITEM = "ROADMAP.md, Queue 1, item 6 (distribution)"
 
 _EPILOG = """\
 chaos trace replay (--trace)
@@ -171,18 +172,20 @@ def _parser() -> argparse.ArgumentParser:
                         "replica r0's shard (straggler demo for "
                         "--quorum-k/--shard-hedge-ms; 0 = off)")
     p.add_argument("--seed", type=int, default=0)
-    later = p.add_argument_group(
-        "not ported yet (exit 2)", f"--sharded waits for {SHARDED_ITEM}")
-    later.add_argument("--sharded", action="store_true")
+    p.add_argument("--sharded", action="store_true",
+                   help="mesh-sharded evaluator on the (1, 1) host mesh "
+                        "of --device, its feature placement through the "
+                        "fused drain (needs --drain-mode fused)")
     return p
 
 
-def calibrate(arch: str, dev):
-    """The smoke-width evaluator of ``arch`` on ``dev`` and its measured
-    throughput in items/s (64 items, after one warm-up call)."""
+def calibrate(arch: str, dev, evaluator=None):
+    """The smoke-width evaluator of ``arch`` on ``dev`` (or the given
+    ``(evaluate, make_features)``) and its measured throughput in items/s
+    (64 items, after one warm-up call)."""
     from repro_torch.serving.evaluators import make_evaluator
 
-    ev, mk = make_evaluator(arch, smoke=True, device=dev)
+    ev, mk = evaluator or make_evaluator(arch, smoke=True, device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -236,23 +239,44 @@ def _print_response(resp, label: str) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.sharded:
-        print(f"serve: --sharded is not ported to repro_torch yet; it "
-              f"waits for {SHARDED_ITEM}", file=sys.stderr)
-        return 2
     if args.trace > 0 and args.sync:
         print("serve: --trace drives a fleet; drop --sync",
               file=sys.stderr)
         return 2
+    if args.sharded and args.drain_mode != "fused":
+        raise SystemExit("--sharded shards the fused evaluator window; "
+                         "add --drain-mode fused")
 
+    from repro_torch.device import resolve
+
+    dev = resolve(args.device)
+    if not args.sharded:
+        return serve(args, dev)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_world
+    from repro_torch.serving.evaluators import make_sharded_evaluator
+
+    own_world = not dist.is_initialized()   # the world of one made here
+    try:
+        se = make_sharded_evaluator(args.arch, smoke=True, device=dev)
+        return serve(args, dev, (se.evaluate, se.make_features),
+                     se.feature_sharding)
+    finally:
+        if own_world:
+            destroy_world()
+
+
+def serve(args, dev, evaluator=None, feature_sharding=None) -> int:
+    """Serve the request stream (or the chaos trace) the flags describe
+    on ``dev`` with ``evaluator`` (default: the smoke evaluator of
+    ``--arch``), staging fused micro-batches with ``feature_sharding``."""
     from repro_torch.cluster import ClusterConfig, ClusterCoordinator
     from repro_torch.core.adaptive import AdaptiveWeightController
-    from repro_torch.device import resolve
     from repro_torch.scheduling import Priority
     from repro_torch.serving.engine import ServingEngine
 
-    dev = resolve(args.device)
-    ev, mk, rate = calibrate(args.arch, dev)
+    ev, mk, rate = calibrate(args.arch, dev, evaluator)
     cfg = serve_config(args, rate)
     dl, odl = cfg.deadline_s, cfg.overload_deadline_s
     n_rep, elastic = cfg.n_replicas, cfg.max_replicas > 0
@@ -314,7 +338,7 @@ def main(argv=None) -> int:
                 [retrieval.build_shard(range(cfg.index_partitions))])
         eng = ServingEngine(cfg, ev, drain_mode=args.drain_mode,
                             evaluate_batch=ev, retriever=retriever,
-                            device=dev)
+                            feature_sharding=feature_sharding, device=dev)
         if args.adaptive:
             eng.shedder.adaptive = AdaptiveWeightController()
         shedders = [eng.shedder]
@@ -331,7 +355,8 @@ def main(argv=None) -> int:
                 forecast=args.forecast,
                 warmup_lead_s=max(args.warmup_lead_s, 0.0)),
             drain_mode=args.drain_mode, evaluate_batch=ev,
-            retrieval=retrieval, fanout_model=fanout_model, device=dev)
+            retrieval=retrieval, fanout_model=fanout_model,
+            feature_sharding=feature_sharding, device=dev)
         if args.adaptive:
             for rep in eng.replicas:
                 rep.engine.shedder.adaptive = AdaptiveWeightController()

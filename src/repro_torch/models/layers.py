@@ -84,11 +84,14 @@ def embed_init(vocab: int, d_model: int, generator: torch.Generator, *,
 
 def to_tensors(tree, device=None):
     """A parameter pytree of numpy arrays (the reference's, converted
-    with ``np.asarray``) as the same nesting of tensors on ``device``."""
+    with ``np.asarray``) as the same nesting of tensors on ``device``. A
+    tensor leaf is kept as it is when it is already there."""
     if isinstance(tree, dict):
         return {k: to_tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_tensors(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree if device is None else tree.to(device)
     return torch.as_tensor(np.array(tree), device=device)
 
 

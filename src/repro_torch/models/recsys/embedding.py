@@ -17,6 +17,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import EmbeddingTableConfig
+from repro_torch.distribution.placement import (all_gather, all_reduce,
+                                                batch_axes, flat_coord,
+                                                split)
 from repro_torch.models import layers as L
 
 ROW_PAD = 512   # table rows padded so row-sharding divides any mesh axis
@@ -41,10 +44,36 @@ def lookup(p: Dict, idx: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
     Indices clip to the table's padded row count, as the reference's
     ``jnp.take(..., mode="clip")`` does. Rows are gathered first and cast
-    after, so only the gathered rows are converted."""
-    t = p["table"]
-    flat = idx.reshape(-1).clamp(0, t.shape[0] - 1)
-    e = t.index_select(0, flat).reshape(*idx.shape, t.shape[1])
+    after, so only the gathered rows are converted.
+
+    A row-sharded table (a DTensor over mesh axes of more than one rank,
+    ``distribution.sharding``'s ``_recsys_rule``): the global index is
+    clipped first, each rank gathers the rows it owns and zeros for the
+    rest, and the pieces are summed over the table's axes. A sum of one
+    row and zeros is exact, so the rows equal the replicated lookup's bit
+    for bit. Where the batch rows are split over one of the table's axes
+    (``distribution.placement.batch_split``), the indices are gathered
+    over it first and each rank keeps its own rows."""
+    t, sh = split(p["table"])
+    rows = t.shape[0] if sh is None else sh.total
+    flat = idx.reshape(-1).clamp(0, rows - 1)
+    if sh is None:
+        e = t.index_select(0, flat)
+    else:
+        # the batch rows split over a table axis: every rank of it looks
+        # up the union of their indices, then keeps its own rows
+        shared = [a for a in batch_axes()
+                  if a.name in {b.name for b in sh.axes}]
+        every = all_gather(flat, shared, dim=0)
+        loc = every - sh.offset
+        mine = (loc >= 0) & (loc < t.shape[0])
+        e = t.index_select(0, loc.clamp(0, t.shape[0] - 1))
+        e = all_reduce(torch.where(mine[:, None], e,
+                                   torch.zeros((), dtype=e.dtype,
+                                               device=e.device)), sh.axes)
+        i, _ = flat_coord(shared)
+        e = e[i * flat.shape[0]:(i + 1) * flat.shape[0]]
+    e = e.reshape(*idx.shape, t.shape[1])
     return e if compute_dtype is None else e.to(compute_dtype)
 
 

@@ -22,6 +22,21 @@ with ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 Parameters are nested dicts of tensors with the reference's names and
 ``(d_in, d_out)`` dense weights; :func:`params_from_jax` converts a JAX
 parameter pytree (as numpy arrays) into this form.
+
+Tensor parallel scoring (``serving.evaluators.make_sharded_evaluator``):
+a weight may be a DTensor sharded by ``distribution.sharding``'s rules
+over a mesh axis of more than one rank. Each rank then computes on its
+own pieces, Megatron style, with explicit collectives where the
+reference constrains: ``wq``/``wk``/``wv`` by columns (this rank's
+heads), ``wo`` by rows and an all-reduce; ``gate``/``up`` by columns,
+``down`` by rows and an all-reduce; a tied embedding by vocab rows (a
+masked local lookup, then an all-reduce) and an untied one by columns
+(an all-gather); vocab-sharded logits in the score take a cross-shard
+log-sum-exp. When the model axis does not divide the KV heads, q/k/v
+are gathered before attention and each rank takes its rows of ``wo``
+after it. Plain tensors (and DTensors on a mesh of one device) take the
+replicated code unchanged. The sharded path covers ``score_tokens``;
+the MoE layers, decode and the loss take plain weights only.
 """
 from __future__ import annotations
 
@@ -32,6 +47,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distribution.placement import (all_gather, all_reduce,
+                                                split)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -159,25 +176,67 @@ def _layers(params: Dict) -> List[Dict]:
     return list(params.get("dense_blocks", [])) + list(params["blocks"])
 
 
+def _local(p: Dict):
+    """A dense layer's dict of this rank's pieces, and the placement of
+    its weight (None when it is whole here)."""
+    w, sh = split(p["w"])
+    lp = {"w": w}
+    if "b" in p:
+        lp["b"] = split(p["b"])[0]
+    return lp, sh
+
+
+def _row_parallel(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A dense layer whose weight may be sharded by rows: the partial
+    products of every rank summed, then the (replicated) bias."""
+    lp, sh = _local(p)
+    if sh is None:
+        return L.dense_apply(lp, x, compute_dtype)
+    y = all_reduce(L.dense_apply({"w": lp["w"]}, x, compute_dtype),
+                   sh.axes)
+    return y + lp["b"].to(y.dtype) if "b" in lp else y
+
+
 def _embed(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
            compute_dtype) -> torch.Tensor:
-    x = L.embed_apply(params["embed"], tokens, compute_dtype)
+    t, sh = split(params["embed"]["table"])
+    if sh is None or sh.dim == 1:
+        x = L.embed_apply({"table": t}, tokens, compute_dtype)
+        if sh is not None:                   # d_model columns
+            x = all_gather(x, sh.axes, dim=-1)
+    else:                                    # vocab rows: masked lookup
+        loc = tokens - sh.offset
+        mine = (loc >= 0) & (loc < t.shape[0])
+        x = L.embed_apply({"table": t}, loc.clamp(0, t.shape[0] - 1),
+                          compute_dtype)
+        x = all_reduce(torch.where(mine[..., None], x,
+                                   torch.zeros((), dtype=x.dtype,
+                                               device=x.device)), sh.axes)
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype,
                              device=x.device)
     return x
 
 
+def _vocab_logits(params: Dict, cfg: TransformerConfig, x: torch.Tensor):
+    """Logits of this rank's vocab columns, in x's dtype, and their
+    placement (None: every column)."""
+    if cfg.tie_embeddings:
+        t, sh = split(params["embed"]["table"])
+        logits = L.unembed_apply({"table": t}, x)
+    else:
+        lp, sh = _local(params["unembed"])
+        logits = L.dense_apply(lp, x, x.dtype)
+    if cfg.final_logit_softcap > 0:
+        logits = L.softcap(logits, cfg.final_logit_softcap)
+    return logits, sh
+
+
 def unembed(params: Dict, cfg: TransformerConfig,
             x: torch.Tensor) -> torch.Tensor:
     """Output logits of final hidden states, in x's dtype."""
-    if cfg.tie_embeddings:
-        logits = L.unembed_apply(params["embed"], x)
-    else:
-        logits = L.dense_apply(params["unembed"], x, x.dtype)
-    if cfg.final_logit_softcap > 0:
-        logits = L.softcap(logits, cfg.final_logit_softcap)
-    return logits
+    logits, sh = _vocab_logits(params, cfg, x)
+    return logits if sh is None else all_gather(logits, sh.axes, dim=-1)
 
 
 def _add_metrics(acc: Dict, m: Dict) -> Dict:
@@ -187,16 +246,29 @@ def _add_metrics(acc: Dict, m: Dict) -> Dict:
 def _qkv(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
          positions: torch.Tensor, compute_dtype):
     """Projections with RoPE. x: (B, S, d) -> q (B, S, Hq, Dh), k and v
-    (B, S, Hkv, Dh)."""
+    (B, S, Hkv, Dh); with the heads sharded, this rank's Hq/m and Hkv/m
+    heads, or all of them gathered when m does not divide Hkv."""
     B, S, _ = x.shape
-    q = L.dense_apply(bp["attn"]["wq"], x, compute_dtype)
-    k = L.dense_apply(bp["attn"]["wk"], x, compute_dtype)
-    v = L.dense_apply(bp["attn"]["wv"], x, compute_dtype)
-    q = L.apply_rope(q.reshape(B, S, cfg.n_heads, cfg.d_head), positions,
-                     cfg.rope_theta)
-    k = L.apply_rope(k.reshape(B, S, cfg.n_kv_heads, cfg.d_head), positions,
-                     cfg.rope_theta)
-    return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    out = []
+    for name in ("wq", "wk", "wv"):
+        lp, sh = _local(bp["attn"][name])
+        y = L.dense_apply(lp, x, compute_dtype)
+        if sh is not None and cfg.n_kv_heads % sh.ways:
+            y = all_gather(y, sh.axes, dim=-1)
+        out.append(y.reshape(B, S, -1, cfg.d_head))
+    q, k, v = out
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _glu_ffn(p: Dict, h: torch.Tensor, act: str,
+             compute_dtype) -> torch.Tensor:
+    """``down(act(gate(h)) * up(h))``, ``gate``/``up`` by columns and
+    ``down`` by rows when sharded."""
+    g = L.dense_apply(_local(p["gate"])[0], h, compute_dtype)
+    u = L.dense_apply(_local(p["up"])[0], h, compute_dtype)
+    return _row_parallel(p["down"], L.glu(g, u, act), compute_dtype)
 
 
 def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
@@ -205,9 +277,11 @@ def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
     """The block after attention: output projection, (post-norm,)
     residual, FFN or MoE, (post-norm,) residual. Returns the new x and
     the MoE metrics ({} for a dense block)."""
-    o = L.dense_apply(bp["attn"]["wo"],
-                      o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head),
-                      compute_dtype)
+    o = o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1])
+    _, sh = split(bp["attn"]["wo"]["w"])
+    if sh is not None and o.shape[-1] == sh.total:   # heads were gathered
+        o = o.narrow(-1, sh.offset, sh.total // sh.ways)
+    o = _row_parallel(bp["attn"]["wo"], o, compute_dtype)
     if cfg.post_norm:
         o = L.rmsnorm_apply(bp["ln1_post"], o, cfg.norm_eps)
     x = x + o
@@ -218,8 +292,7 @@ def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
                              act=cfg.act, compute_dtype=compute_dtype)
         f = f.reshape(h.shape)
     else:
-        f = L.glu_ffn_apply(bp["ffn"], h, act=cfg.act,
-                            compute_dtype=compute_dtype)
+        f = _glu_ffn(bp["ffn"], h, cfg.act, compute_dtype)
     if cfg.post_norm:
         f = L.rmsnorm_apply(bp["ln2_post"], f, cfg.norm_eps)
     return x + f, metrics
@@ -352,11 +425,25 @@ def _mean_token_logprob(params: Dict, cfg: TransformerConfig,
     tf = tgt.reshape(B * T).long()
     tok_lp = torch.empty((B * T,), dtype=torch.float32, device=x.device)
     for lo in range(0, B * T, token_chunk):
-        logits = unembed(params, cfg, xf[lo:lo + token_chunk]
-                         ).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        tok_lp[lo:lo + token_chunk] = logits.gather(
-            -1, tf[lo:lo + token_chunk, None])[:, 0] - lse
+        logits, sh = _vocab_logits(params, cfg, xf[lo:lo + token_chunk])
+        logits = logits.to(torch.float32)
+        tgt = tf[lo:lo + token_chunk]
+        if sh is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            tok_lp[lo:lo + token_chunk] = logits.gather(
+                -1, tgt[:, None])[:, 0] - lse
+            continue
+        # vocab-sharded: max and sum of exponentials across the shards,
+        # the label's logit from the one shard that holds it
+        n = logits.shape[-1]
+        mx = all_reduce(logits.amax(dim=-1), sh.axes, op="max")
+        lse = torch.log(all_reduce(torch.exp(logits - mx[:, None]).sum(
+            dim=-1), sh.axes)) + mx
+        loc = tgt - sh.offset
+        lab = logits.gather(-1, loc.clamp(0, n - 1)[:, None])[:, 0]
+        lab = torch.where((loc >= 0) & (loc < n), lab,
+                          torch.zeros_like(lab))
+        tok_lp[lo:lo + token_chunk] = all_reduce(lab, sh.axes) - lse
     return tok_lp.reshape(B, T).mean(dim=-1)
 
 

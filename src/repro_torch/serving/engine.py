@@ -97,15 +97,14 @@ class ServingEngine:
         out — with the retrieve stage's measured latency folded into
         the LoadMonitor under the WarmupGate rule.
 
-        ``feature_sharding`` (mesh-sharded evaluator windows) is not
-        ported: passing it raises ``NotImplementedError``.
+        ``feature_sharding`` (fused mode only) stages each micro-batch's
+        features with a mesh-sharded evaluator's input placement — pass
+        the callable from
+        ``serving.evaluators.make_sharded_evaluator``; host mode ignores
+        it, as the reference does.
 
         ``device`` (``cuda`` unless named) is where the shedder's state
         and the fused step live."""
-        if feature_sharding is not None:
-            raise NotImplementedError(
-                "feature_sharding (mesh-sharded evaluator windows) is not "
-                "ported yet; see ROADMAP.md, Queue 1, item 6")
         self.cfg = cfg
         self.device = resolve(device)
         self.monitor = LoadMonitor(cfg)
@@ -117,7 +116,8 @@ class ServingEngine:
             shedder = FusedLoadShedder(
                 cfg, evaluate_batch or evaluate_chunk,
                 monitor=self.monitor, sim_clock=sim_clock,
-                max_evals=fused_max_evals, device=self.device)
+                max_evals=fused_max_evals, device=self.device,
+                feature_sharding=feature_sharding)
         else:
             shedder = LoadShedder(cfg, evaluate_chunk,
                                   monitor=self.monitor,

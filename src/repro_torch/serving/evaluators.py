@@ -14,7 +14,7 @@ the same documents.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,38 +29,76 @@ from repro_torch.models import transformer as T
 from repro_torch.models.recsys import bst, dlrm, mind, two_tower
 
 
-def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
-                   trust_scale: float = 5.0, doc_len: int = 32,
-                   params=None, device=None,
-                   max_table_rows: int = 0) -> Tuple[Callable, Callable]:
-    """``params`` (optional) is the reference's parameter pytree with
-    numpy leaves (``params_from_jax`` of the arch's model); without it
-    the port draws its own weights from ``seed`` with a
-    ``torch.Generator`` on ``device``. Transformer weights are built in
-    (or cast once to) the compute dtype. ``max_table_rows`` (recommenders only) caps
-    every embedding table at that many rows, as MLPerf DLRM's
-    ``--max-ind-range`` does where the tables outgrow the card; 0 keeps
-    the published rows. A transformer's ``evaluate`` carries its weights
-    as ``evaluate.params``, for checks that hold a layer of them against
-    a plain version."""
-    dev = resolve(device)
+def _params(cfg, seed: int, params, dev):
+    """The port's parameter tree of ``cfg``: drawn from ``seed`` with a
+    ``torch.Generator`` on ``dev``, or ``params`` converted (the
+    reference's numpy tree; tensors of the port's own are kept as they
+    are); a transformer's in its compute dtype."""
+    if isinstance(cfg, RecsysConfig):
+        if cfg.model not in _RECSYS:
+            raise ValueError(f"no evaluator for recommender {cfg.model!r}")
+        Mdl = _RECSYS[cfg.model][0]
+    else:
+        Mdl = G if isinstance(cfg, GNNConfig) else T
+    if params is not None:
+        if Mdl is T:
+            return T.cast_params(T.params_from_jax(params, cfg, device=dev),
+                                 L.dtype_of(cfg.dtype))
+        return Mdl.params_from_jax(params, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if Mdl is T:
+        return T.init_params(cfg, gen, device=dev,
+                             dtype=L.dtype_of(cfg.dtype))
+    return Mdl.init_params(cfg, gen, device=dev)
+
+
+def _config(arch_id: str, smoke: bool, max_table_rows: int):
     cfg = get_config(arch_id, smoke=smoke)
     if isinstance(cfg, RecsysConfig):
-        if max_table_rows:
-            cfg = cap_table_rows(cfg, max_table_rows)
-        return _recsys_evaluator(cfg, seed, trust_scale, params, dev)
+        return cap_table_rows(cfg, max_table_rows) if max_table_rows \
+            else cfg
     if max_table_rows:
         raise ValueError(f"max_table_rows applies to recommenders, not "
                          f"{arch_id}")
+    return cfg
+
+
+def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
+                   trust_scale: float = 5.0, doc_len: int = 32,
+                   params=None, device=None, max_table_rows: int = 0,
+                   place_params: Optional[Callable] = None
+                   ) -> Tuple[Callable, Callable]:
+    """``params`` (optional) is the reference's parameter pytree with
+    numpy leaves (``params_from_jax`` of the arch's model), or a tree of
+    the port's own tensors, used as they are; without it the port draws
+    its own weights from ``seed`` with a ``torch.Generator`` on
+    ``device``. Transformer weights are built in (or cast once to) the
+    compute dtype. ``max_table_rows`` (recommenders only) caps
+    every embedding table at that many rows, as MLPerf DLRM's
+    ``--max-ind-range`` does where the tables outgrow the card; 0 keeps
+    the published rows. ``place_params(params, cfg) -> params``
+    (optional) re-homes the built parameters — the mesh-sharding hook
+    :func:`make_sharded_evaluator` uses. ``evaluate`` carries the
+    weights it runs on as ``evaluate.params``, for checks that hold a
+    layer of them against a plain version and for a sharded evaluator
+    over the same tensors."""
+    dev = resolve(device)
+    cfg = _config(arch_id, smoke, max_table_rows)
+    tparams = _params(cfg, seed, params, dev)
+    if place_params is not None:
+        tparams = place_params(tparams, cfg)
+    evaluate, make_features = _evaluator(cfg, tparams, trust_scale,
+                                         doc_len)
+    evaluate.params = tparams
+    return evaluate, make_features
+
+
+def _evaluator(cfg, tparams, trust_scale: float, doc_len: int
+               ) -> Tuple[Callable, Callable]:
+    if isinstance(cfg, RecsysConfig):
+        return _recsys_evaluator(cfg, tparams, trust_scale)
     if isinstance(cfg, GNNConfig):
-        return _gnn_evaluator(cfg, seed, trust_scale, params, dev)
-    cdt = L.dtype_of(cfg.dtype)
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        tparams = T.init_params(cfg, gen, device=dev, dtype=cdt)
-    else:
-        tparams = T.cast_params(T.params_from_jax(params, cfg, device=dev),
-                                cdt)
+        return _gnn_evaluator(cfg, tparams, trust_scale)
     log_vocab = math.log(float(cfg.vocab_size))
 
     @torch.no_grad()
@@ -68,8 +106,6 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
         # mean token logprob -> squashed to [0, trust_scale]
         lp = T.score_tokens(tparams, cfg, chunk["tokens"], q_chunk=doc_len)
         return torch.sigmoid(lp + log_vocab) * trust_scale
-
-    evaluate.params = tparams
 
     def make_features(n: int, fseed: int = 0) -> Dict[str, np.ndarray]:
         r = np.random.default_rng(fseed)
@@ -83,19 +119,14 @@ def make_evaluator(arch_id: str, *, smoke: bool = True, seed: int = 0,
 GNN_DEGREE = 8
 
 
-def _gnn_evaluator(cfg: GNNConfig, seed: int, trust_scale: float, params,
-                   dev) -> Tuple[Callable, Callable]:
+def _gnn_evaluator(cfg: GNNConfig, gparams, trust_scale: float
+                   ) -> Tuple[Callable, Callable]:
     """Per-chunk star subgraphs: each item's node and its GNN_DEGREE
     neighbours, trust propagated from the neighbours' features. The edge
     ids are absolute node ids of the ``make_features`` batch, as the
     reference's: a chunk gathered out of a larger batch has ids past its
     own nodes, which ``models.gnn`` clamps and drops as the reference
     does."""
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        gparams = G.init_params(cfg, gen, device=dev)
-    else:
-        gparams = G.params_from_jax(params, device=dev)
     deg = GNN_DEGREE
 
     @torch.no_grad()
@@ -119,16 +150,9 @@ def _gnn_evaluator(cfg: GNNConfig, seed: int, trust_scale: float, params,
     return evaluate, make_features
 
 
-def _recsys_evaluator(cfg: RecsysConfig, seed: int, trust_scale: float,
-                      params, dev) -> Tuple[Callable, Callable]:
-    if cfg.model not in _RECSYS:
-        raise ValueError(f"no evaluator for recommender {cfg.model!r}")
+def _recsys_evaluator(cfg: RecsysConfig, tparams, trust_scale: float
+                      ) -> Tuple[Callable, Callable]:
     Mdl, score, features = _RECSYS[cfg.model]
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        tparams = Mdl.init_params(cfg, gen, device=dev)
-    else:
-        tparams = Mdl.params_from_jax(params, device=dev)
 
     @torch.no_grad()
     def evaluate(chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -211,3 +235,121 @@ _RECSYS = {
     "two_tower": (two_tower, _two_tower_scores, _two_tower_features),
     "mind": (mind, _mind_scores, _mind_features),
 }
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded evaluators
+# ---------------------------------------------------------------------------
+
+class ShardedEvaluator(NamedTuple):
+    """Production-config evaluator bundle for the fused drain:
+    ``evaluate`` (params mesh-sharded per ``distribution.sharding``),
+    ``make_features``, the ``feature_sharding`` callable to hand to
+    :class:`~repro_torch.core.fused_shedder.FusedLoadShedder` (and
+    through ``ServingEngine(feature_sharding=...)``), and the mesh
+    itself. ``evaluate.params`` is the DTensor parameter tree."""
+    evaluate: Callable
+    make_features: Callable
+    feature_sharding: Callable
+    mesh: Any
+
+
+# Feature leaves every rank keeps whole: the two-tower chunk's query is
+# its first user, whichever rank scores which items.
+_WHOLE = {"two_tower": ("user_id", "user_feats")}
+
+
+def make_sharded_evaluator(arch_id: str, *, mesh=None,
+                           smoke: bool = False, seed: int = 0,
+                           trust_scale: float = 5.0, doc_len: int = 32,
+                           device=None, params=None,
+                           max_table_rows: int = 0) -> ShardedEvaluator:
+    """Mesh-sharded evaluator (default ``smoke=False``).
+
+    Parameters are placed as DTensors with the arch family's
+    ``distribution.sharding`` rules — heads, FFN hidden and vocab over
+    the ``model`` axis for transformers, embedding tables row-sharded over
+    (``data``, ``model``) for recommenders, the GCN replicated — and the
+    forward runs on each rank's pieces with explicit collectives
+    (``models.transformer``, ``models.recsys.embedding``). ``evaluate``
+    takes the port's protocol (a dict of tensors, or of DTensors) and
+    returns every item's score on every rank: the batch is split over the
+    DP axes when its leading dim divides them, each rank scores its rows,
+    and the scores are all-gathered. The GCN scores the whole batch on
+    every rank: its star subgraphs carry absolute node ids, so a split
+    would cut edges. ``feature_sharding(features)`` is the matching input
+    placement: every leaf over the DP axes when its leading dim divides
+    them, else replicated (the GCN's always replicated).
+
+    ``mesh=None`` builds the (1, 1) host mesh on ``device`` (``cuda``
+    unless named), creating the world of one if no process group exists
+    (``launch.mesh.make_host_mesh``). ``params`` is a parameter tree of
+    the port's own (the same tensors on every rank; for instance
+    ``make_evaluator(...)[0].params``): it is sharded as it stands,
+    without a copy, so a replicated and a sharded evaluator can share
+    one set of tables. The MoE archs need the expert-parallel dispatch,
+    ROADMAP.md, Queue 1, item 6b."""
+    from repro_torch.distribution.placement import (
+        NamedSharding, PartitionSpec as P, all_gather, batch_split,
+        flat_coord, full_tensor, mesh_axes, split)
+    from repro_torch.distribution.sharding import dp_axes, place_params
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = _config(arch_id, smoke, max_table_rows)
+    if getattr(cfg, "moe", None) is not None:
+        raise NotImplementedError(
+            f"{arch_id}: a sharded MoE evaluator needs the expert-parallel "
+            f"dispatch (moe_apply_ep); see ROADMAP.md, Queue 1, item 6b")
+    dev = resolve(device)
+    if mesh is None:
+        mesh = make_host_mesh((1, 1), device=dev)
+    placed = {}
+
+    def place(params, cfg):
+        # the DTensor tree is kept; the model sees whole leaves as plain
+        # tensors and DTensors only where they are sharded
+        placed["tree"] = place_params(params, cfg, mesh)
+        return local_tree(placed["tree"])
+
+    def local_tree(tree):
+        if isinstance(tree, dict):
+            return {k: local_tree(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [local_tree(v) for v in tree]
+        local, sh = split(tree)
+        return local if sh is None else tree
+
+    inner, make_features = make_evaluator(
+        arch_id, smoke=smoke, seed=seed, trust_scale=trust_scale,
+        doc_len=doc_len, params=params, device=dev,
+        max_table_rows=max_table_rows, place_params=place)
+    dp = dp_axes(mesh)
+    dp_size = int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
+                           for a in dp])) if dp else 1
+    dp_ranks = mesh_axes(mesh, dp)
+    split_dp = not isinstance(cfg, GNNConfig)
+    whole = _WHOLE.get(getattr(cfg, "model", None), ())
+
+    def evaluate(chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
+        chunk = {k: full_tensor(v) for k, v in chunk.items()}
+        n = next(iter(chunk.values())).shape[0]
+        if not (split_dp and dp_ranks and n % dp_size == 0):
+            return inner(chunk)
+        i, ways = flat_coord(dp_ranks)
+        lo, hi = i * n // ways, (i + 1) * n // ways
+        mine = {k: v if k in whole else v[lo:hi] for k, v in chunk.items()}
+        with batch_split(dp_ranks):
+            return all_gather(inner(mine), dp_ranks, dim=0)
+
+    evaluate.params = placed["tree"]
+
+    def feature_sharding(features):
+        def one(a):
+            shape = np.shape(a)
+            ax = dp if (split_dp and dp and len(shape) >= 1
+                        and shape[0] % dp_size == 0) else None
+            return NamedSharding(
+                mesh, P(ax, *([None] * max(len(shape) - 1, 0))))
+        return {k: one(v) for k, v in features.items()}
+
+    return ShardedEvaluator(evaluate, make_features, feature_sharding, mesh)

@@ -230,9 +230,33 @@ def test_enqueue_query_without_retriever_raises():
                         sim_clock=SimClock(RATE), device="cpu")
     with pytest.raises(RuntimeError):
         eng.enqueue_query("term00001")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(TrustIRConfig(**CFG), _stub_t, device="cpu",
-                      feature_sharding=lambda x: x)
+    # a fused engine stages every micro-batch through feature_sharding
+    from repro_torch.distribution.placement import (NamedSharding,
+                                                    PartitionSpec)
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    mesh = make_host_mesh((1, 1), device="cpu")
+    try:
+        calls = []
+
+        def placement(features):
+            calls.append(sorted(features))
+            return {k: NamedSharding(mesh, PartitionSpec("data"))
+                    for k in features}
+        cfg = TrustIRConfig(**dict(CFG, drain_mode="fused"))
+        eng = ServingEngine(cfg, _stub_t, device="cpu",
+                            sim_clock=SimClock(RATE),
+                            feature_sharding=placement)
+        ref = ServingEngine(cfg, _stub_t, device="cpu",
+                            sim_clock=SimClock(RATE))
+        x = np.random.default_rng(0).normal(size=(48, 16)).astype(np.float32)
+        keys = np.arange(1, 49, dtype=np.uint32)
+        got = [e.submit(keys, np.zeros(48, np.int32), {"x": x})
+               for e in (eng, ref)]
+        assert calls == [["x"]]
+        np.testing.assert_array_equal(got[0].tier, got[1].tier)
+        np.testing.assert_array_equal(got[0].trust, got[1].trust)
+    finally:
+        destroy_world()
     with pytest.raises(ValueError):
         ServingEngine(TrustIRConfig(**CFG), _stub_t, device="cpu",
                       drain_mode="sideways")

@@ -1056,3 +1056,24 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(dev):
     lse = torch.zeros((1, 4, 8), device=dev)
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_bwd(qa, kv, kv, o, lse, torch.randn_like(o))
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "dlrm-mlperf", "bst",
+                                  "gcn-cora"])
+def test_cuda_mesh_of_one_gives_the_replicated_scores(dev, arch):
+    """The (1, 1) mesh of one H100 (a world of one, made by
+    ``make_host_mesh``): the sharded evaluator over the replicated one's
+    tensors gives its scores bit for bit, with the same kernels."""
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.serving.evaluators import make_sharded_evaluator
+    ev, mk = make_evaluator(arch, smoke=True, device=dev)
+    mesh = make_host_mesh((1, 1))
+    try:
+        assert mesh.device_type == "cuda"
+        se = make_sharded_evaluator(arch, mesh=mesh, smoke=True,
+                                    params=ev.params)
+        feats = {k: torch.as_tensor(v, device=dev)
+                 for k, v in mk(96, fseed=2).items()}
+        assert torch.equal(se.evaluate(feats), ev(feats))
+    finally:
+        destroy_world()

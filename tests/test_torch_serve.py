@@ -124,16 +124,18 @@ CHAOS = ["--trace", "1", "--replicas", "6", "--chaos-flash", "4",
       "--quorum-k", "2", "--shard-hedge-ms", "5", "--straggle-mult", "8"],
      None),
     (CHAOS, None),
-    (["--sync", "--sharded", "--drain-mode", "fused"], 6),
+    (["--sync", "--sharded", "--drain-mode", "fused", "--corpus", "192",
+      "--n-requests", "3"], None),
 ], ids=["replicas", "trace", "gossip", "hedge", "elastic", "quorum",
         "chaos", "sharded"])
 def test_fleet_flags_exit_2_with_the_roadmap_pointer(args, item, capsys):
-    """Fleet modes used to exit 2 naming ROADMAP Queue 1 item 3; the
-    ported ones (replicas, trace, gossip, hedge, elastic, chaos, and the
-    tail-tolerant fan-out: ``--quorum-k``, ``--shard-hedge-ms``,
-    ``--straggle-mult``) now run on the CPU at smoke width and exit 0,
-    the fan-out printing its ``fanout:`` line. ``--sharded`` still exits
-    2 naming item 6."""
+    """Fleet modes used to exit 2 naming ROADMAP Queue 1 item 3, and
+    ``--sharded`` item 6; all are ported now (replicas, trace, gossip,
+    hedge, elastic, chaos, the tail-tolerant fan-out: ``--quorum-k``,
+    ``--shard-hedge-ms``, ``--straggle-mult``, and the mesh-sharded
+    evaluator on the (1, 1) host mesh) and run on the CPU at smoke width
+    and exit 0, the fan-out printing its ``fanout:`` line and
+    ``--sharded --sync`` one line per request."""
     from repro_torch.launch.serve import main
     rc = main(["--device", "cpu", *args])
     out = capsys.readouterr()
@@ -143,7 +145,13 @@ def test_fleet_flags_exit_2_with_the_roadmap_pointer(args, item, capsys):
         assert out.out == ""
         return
     assert rc == 0, out.err
-    if "--trace" in args:
+    if "--sharded" in args:
+        lines = out.out.splitlines()
+        assert "[sync] [drain=fused depth=2]" in lines[0]
+        assert sum(l.lstrip().startswith("req ") for l in lines) == 3
+        assert lines[-1].startswith("P50 ") and " P99 " in lines[-1]
+        assert "retrieval: " in out.out
+    elif "--trace" in args:
         assert "no-drop OK" in out.out
         assert any(l.startswith("P50 ") for l in out.out.splitlines())
         if args is CHAOS:
