@@ -15,7 +15,10 @@ its path gives it:
   evaluator, of ``prefill`` and of training (with its row log-sum-exp);
 * ``topk_select``: the candidate set of one query (exact);
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
-* ``flash_decode``: one-token attention against the KV cache;
+* ``flash_decode``: one-token attention against the KV cache, and its
+  instance that also writes each head's log-sum-exp (the
+  sequence-sharded decode's), with two halves of a cache merged by their
+  lse against one call over the whole;
 * ``flash_attention_bwd`` and ``dot_interaction_bwd``: the gradients of
   the two forward kernels on the training path; each must also repeat
   its bits from one call to the next (the attention backward adds dq
@@ -71,7 +74,10 @@ launch counts set to 0 just before it and read just after:
   4096-key window of its local layers biting); ``qwen2.5-14b``,
   ``qwen3-moe-30b-a3b``, ``moonshot-v1-16b-a3b`` and ``gcn-cora`` each
   on the fused drain, a few micro-batches, each model's weights freed
-  before the next is built;
+  before the next is built; the two MoE models then also through
+  ``make_sharded_evaluator`` on the card's (1, 1) mesh over the same
+  weights (experts placed by the EP rule, ``moe_apply_ep``), on the same
+  SimClock batches as the replicated evaluator;
 * training (``phase_train``): smollm-135m at its published width and
   depth (float32 master weights, bf16 compute, remat), 6 steps of 4 x 8
   x 4096 tokens with an ``AsyncCheckpointer`` save at step 3 and a
@@ -82,7 +88,14 @@ launch counts set to 0 just before it and read just after:
   against ``dot_interaction_ref``; then (``phase_train_smoke``) every
   arch at smoke width through the training launcher's code path on the
   card and on the CPU, loss histories compared, and the launcher itself
-  on the card.
+  on the card;
+* the mesh cells (``phase_mesh_cells``): smollm-135m's ``train_4k`` cell
+  (``launch.steps.build_cell``) on the card's (1, 1) mesh, its batch cut
+  to 8 x 4096, three steps equal to the replicated train step's bit for
+  bit, its state saved and resumed by ``ElasticMeshManager``; then the
+  dry-run (``python -m repro_torch.launch.dryrun``) of smollm's and
+  qwen3-moe's ``train_4k`` cells on the single-pod mesh of a fake
+  process group, as subprocesses, their records printed.
 
 Beside the kernel checks, the two attention kernels are held against
 their plain versions and timed at the new evaluators' heads (D 256 with
@@ -298,6 +311,7 @@ BIG_EVALUATORS = (("qwen2.5-14b", 0), ("qwen3-moe-30b-a3b", 2048),
 # against the same weights in float32: 48 bf16 layers of qwen2.5-14b
 # move it by 2.6e-2 on an H100; the limit is the main path's fused-vs-host
 # trust tolerance.
+SHARDED_MOE_BATCHES = 4         # SimClock batches, replicated vs sharded
 MOE_CHECK_ROWS = 64
 MOE_ZIPF_A = 1.2
 MOE_REL_TOL = 2e-2
@@ -338,6 +352,8 @@ DLRM_TRAIN_STEPS = 4
 DLRM_GRAD_COS = 0.99999           # per leaf, f32 kernels vs f32 plain
 # phase_train_smoke: every arch at smoke width, card vs CPU.
 SMOKE_TRAIN_STEPS = 3
+MESH_CELL_BATCH = 8              # sequences a step (the cell's 256, cut)
+MESH_CELL_STEPS = 3
 SMOKE_TRAIN_ATOL = 1e-4
 BWD_REL_TOL = {torch.bfloat16: BF16_ATOL, torch.float32: F32_ATOL}
 
@@ -1336,26 +1352,77 @@ def phase_flash_decode(dev) -> dict:
         f"{full['library_ms']:.4f} ms (max abs err "
         f"{full['library_err']:.3e}), bound {full['bound_ms']:.6f} ms "
         f"({full['bound_by']}: {full['bytes']} B)")
+    lse = decode_lse_check(q, k, v, lengths, flush)
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:83",
-            "max_abs_err": worst, "ms": t["ms"],
+            "max_abs_err": max(worst, lse["max_abs_err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "full_ms": full["ms"], "full_library_ms": full["library_ms"],
-            "full_bound_ms": full["bound_ms"]}
+            "full_bound_ms": full["bound_ms"], "lse": lse}
+
+
+def decode_lse_check(q, k, v, lengths, flush) -> dict:
+    """The lse instance at the decode shape (row 0 at length 0): its o
+    equals the serving instance's bit for bit; its lse is within
+    BF16_ATOL of the plain version's, -inf where the plain one is; and
+    the two halves of the cache, each through the kernel with its lse,
+    merged by their lse (the sequence-sharded decode's merge), are
+    within BF16_ATOL of one call over the whole cache. Then its time
+    beside the plain version's, SDPA's and its bound."""
+    lens = lengths.clone()
+    lens[0] = 0
+    L = k.shape[1]
+    o1 = flash_decode(q, k, v, lens)
+    o2, lse = flash_decode(q, k, v, lens, return_lse=True)
+    _, lse_ref = flash_decode_ref(q, k, v, lens, return_lse=True)
+    fin = torch.isfinite(lse_ref)
+    if not torch.equal(o1, o2) or not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError("flash_decode lse instance: o differs from the "
+                             "serving instance's, or -inf rows differ")
+    lse_err = max_err(lse[fin], lse_ref[fin])
+    parts = [flash_decode(q, k[:, lo:lo + L // 2].contiguous(),
+                          v[:, lo:lo + L // 2].contiguous(),
+                          (lens - lo).clamp(0, L // 2).to(torch.int32),
+                          return_lse=True) for lo in (0, L // 2)]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = [torch.exp(s - m) for _, s in parts]
+    den = w[0] + w[1]
+    merged = (w[0][..., None] * parts[0][0].float()
+              + w[1][..., None] * parts[1][0].float()) \
+        / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    merge_err = max_err(merged, o1)
+    if not (lse_err <= BF16_ATOL and merge_err <= BF16_ATOL):
+        raise AssertionError(f"flash_decode lse: lse err {lse_err}, merge "
+                             f"err {merge_err} > {BF16_ATOL}")
+    t = decode_timing(q, k, v, lengths, flush, 0, return_lse=True)
+    log(f"flash_decode lse instance @decode shape: lse max abs err "
+        f"{lse_err:.3e} vs the plain version (length-0 row -inf on both), o "
+        f"equal to the serving instance's; two halves merged by their lse "
+        f"vs one call: max abs err {merge_err:.3e} (<= {BF16_ATOL}); kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_lse_ms']:.4f} ms, sdpa "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP)")
+    return {"max_abs_err": max(lse_err, merge_err), "lse_err": lse_err,
+            "merge_err": merge_err, "ms": t["ms"],
+            "plain_ms": t["plain_lse_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
 
 
 def decode_timing(q, k, v, lengths, flush, plain_iters: int,
-                  window: int = 0, softcap: float = 0.0, scale=None) -> dict:
-    """The decode kernel, SDPA with a boolean length (and window) mask
-    and, with ``plain_iters``, the plain version at one set of lengths,
-    L2 flushed between launches; the bound from the valid cache rows'
-    bytes. SDPA has no softcap: with one, its error is against the plain
-    version without it."""
+                  window: int = 0, softcap: float = 0.0, scale=None,
+                  return_lse: bool = False) -> dict:
+    """The decode kernel (its lse instance with ``return_lse``), SDPA with
+    a boolean length (and window) mask and, with ``plain_iters``, the
+    plain version at one set of lengths, L2 flushed between launches; the
+    bound from the valid cache rows' bytes. SDPA has no softcap: with
+    one, its error is against the plain version without it."""
     B, L, Hkv, D = k.shape
     Hq = q.shape[1]
-    kw = dict(window=window, softcap=softcap, sm_scale=scale)
+    kw = dict(window=window, softcap=softcap, sm_scale=scale,
+              return_lse=return_lse)
     pos = torch.arange(L, device=q.device)
     ok = pos[None, :] < lengths[:, None]
     if window > 0:
@@ -1370,7 +1437,8 @@ def decode_timing(q, k, v, lengths, flush, plain_iters: int,
     n_valid = int(ok.sum())
     size = q.element_size()
     n_bytes = (n_valid * Hkv * D * 2 * size        # valid k and v rows
-               + 2 * q.numel() * size + B * 4)     # q, o, lengths
+               + 2 * q.numel() * size + B * 4      # q, o, lengths
+               + (B * Hq * 4 if return_lse else 0))
     flops = 4 * n_valid * Hq * D                    # QK and PV
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
@@ -1383,6 +1451,8 @@ def decode_timing(q, k, v, lengths, flush, plain_iters: int,
         "library_ms": timed_ms(library, 100, flush),
         "library_err": max_err(library(), flash_decode_ref(
             q, k, v, lengths, window=window, sm_scale=scale)),
+        "plain_lse_ms": (timed_ms(lambda: flash_decode_ref(
+            q, k, v, lengths, **kw), 20, flush) if return_lse else None),
         "piece": piece_length(B, Hkv, L, q.dtype, D),
         "mean_length": n_valid / B,
         "bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -3661,6 +3731,9 @@ def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
         stats["dense_check"] = check_dense_scores(arch, evaluate, full,
                                                   feats["tokens"],
                                                   cfg.trust_scale)
+    if getattr(full, "moe", None) is not None:
+        stats["sharded"] = moe_sharded_check(arch, evaluate, mk, full,
+                                             max_evals, zipf, dev)
     stats.update({"weights_bytes": held, "peak_bytes": peak,
                   "build_s": build_s, "profile": profile})
     share = f"{profile['busy_share']:.3f}" if profile else "not measured"
@@ -3669,6 +3742,98 @@ def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
         f"device memory while serving {peak / 2 ** 30:.2f} GiB, with the "
         f"check {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return stats
+
+
+def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
+                      zipf: np.ndarray, dev) -> dict:
+    """The sharded MoE evaluator on this card's (1, 1) mesh (a world of
+    one): ``make_sharded_evaluator`` over the replicated evaluator's own
+    weights (no second set), its experts placed by the EP rule and its
+    forward taking ``moe_apply_ep``. The same SHARDED_MOE_BATCHES
+    fused-drain batches on SimClocks through both, with the same
+    ``max_evals``: regimes, tiers and counts equal, trust within
+    TRUST_ATOL; the sharded run's launches are the path's. Then the first
+    MoE layer on one call of the Zipf-skewed tokens ``zipf`` (whose
+    hottest experts overflow): ``moe_apply_ep``'s keep set (read off its
+    dispatch plan) equals ``moe_apply``'s (its own sort, recomputed here),
+    some choice is dropped, and their outputs are equal bit for bit."""
+    from repro_torch.distribution.constraints import use_mesh
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.serving.evaluators import make_sharded_evaluator
+    cfg = TrustIRConfig()
+    rate = float(cfg.u_capacity) / cfg.deadline_s
+    mesh = make_host_mesh((1, 1))
+    try:
+        se = make_sharded_evaluator(arch, mesh=mesh, params=evaluate.params)
+        batches = drain_batches(mk, SHARDED_MOE_BATCHES, SEED + 26, 3200)
+        runs, launches = {}, None
+        for name, ev in (("replicated", evaluate), ("sharded", se.evaluate)):
+            fused = FusedLoadShedder(cfg, ev, max_evals=max_evals or None,
+                                     device=dev, sim_clock=SimClock(rate))
+            torch.cuda.synchronize()
+            reset_launches()
+            runs[name] = [fused.process(keys, b, feats, n_valid=n)
+                          for _, keys, b, feats, n in batches]
+            torch.cuda.synchronize()
+            launches = read_launches()
+            del fused
+        worst = 0.0
+        for a, b in zip(runs["replicated"], runs["sharded"]):
+            counts = [(r.n_evaluated, r.n_cached, r.n_prior, r.uload)
+                      for r in (a, b)]
+            if a.regime != b.regime or not np.array_equal(a.tier, b.tier) \
+                    or counts[0] != counts[1]:
+                raise AssertionError(f"{arch} sharded: regime {a.regime}/"
+                                     f"{b.regime}, counts {counts}")
+            worst = max(worst, float(np.abs(a.trust - b.trust).max()))
+        want = {n: 0 for n in KERNELS}
+        want["shed_partition"] = SHARDED_MOE_BATCHES
+        want["flash_attention"] = full.n_layers * SHARDED_MOE_BATCHES
+        if worst > TRUST_ATOL or launches != want:
+            raise AssertionError(f"{arch} sharded: max |trust diff| {worst}"
+                                 f", launches {launches} (expected {want})")
+        # the first MoE layer: keep sets and outputs
+        bp = next(b for b in evaluate.params["blocks"] if "moe" in b)
+        toks = torch.from_numpy(zipf[:, :-1]).to(dev)
+        x = L.rmsnorm_apply(bp["ln2"], L.embed_apply(
+            evaluate.params["embed"], toks, torch.bfloat16),
+            full.norm_eps).reshape(-1, full.d_model)
+        mcfg = full.moe
+        with torch.no_grad():
+            with use_mesh(mesh):
+                ep, _ = M.moe_apply_ep(bp["moe"], x, mcfg, act=full.act)
+            ref, metrics = M.moe_apply(bp["moe"], x, mcfg, act=full.act)
+        _, _, idx = M._router(bp["moe"], x, mcfg)
+        C = M.capacity(x.shape[0], mcfg)
+        keep_ep = M.slot_keep(idx, 0, mcfg.n_experts, C)
+        flat = idx.reshape(-1)
+        sorted_e, order = torch.sort(flat, stable=True)
+        pos = torch.arange(flat.numel(), device=dev) - torch.searchsorted(
+            sorted_e, sorted_e, side="left")
+        keep_ref = torch.empty_like(flat, dtype=torch.bool)
+        keep_ref[order] = pos < C
+        keep_ref = keep_ref.reshape(idx.shape)
+        dropped = int((~keep_ref).sum())
+        if not torch.equal(keep_ep, keep_ref) or not torch.equal(ep, ref) \
+                or not dropped:
+            raise AssertionError(f"{arch}: moe_apply_ep vs moe_apply on the "
+                                 f"(1, 1) mesh: keep sets equal "
+                                 f"{torch.equal(keep_ep, keep_ref)}, "
+                                 f"outputs equal {torch.equal(ep, ref)}")
+    finally:
+        destroy_world()
+    log(f"{arch} sharded (the card's (1, 1) mesh, experts placed by the EP "
+        f"rule, moe_apply_ep): {SHARDED_MOE_BATCHES} SimClock fused-drain "
+        f"batches (max_evals {max_evals or 'all'}) through the replicated "
+        f"and the sharded evaluator: regimes, tiers and counts equal, max "
+        f"|trust diff| {worst:.3e} (<= {TRUST_ATOL}); launches {launches}; "
+        f"first MoE layer on {x.shape[0]} Zipf({MOE_ZIPF_A}) tokens: keep "
+        f"sets equal "
+        f"({dropped} of {idx.numel()} choices dropped at capacity {C}), "
+        f"moe_apply_ep == moe_apply bit for bit")
+    return {"launches": launches, "max_trust_diff": worst,
+            "dropped": dropped, "choices": idx.numel(), "capacity": C,
+            "regimes": [r.regime.name for r in runs["sharded"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3976,6 +4141,158 @@ def phase_train(dev) -> dict:
                          for n in KERNELS}}
 
 
+def dryrun_records(archs, shape: str, out_dir: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each arch's ``shape``
+    cell on the single-pod mesh, as subprocesses run side by side: their
+    fake process groups of 256 ranks must not meet this process's.
+    Returns the records they wrote, by arch."""
+    t0 = time.monotonic()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--arch", arch, "--shape", shape, "--out",
+         f"{out_dir}/{arch}"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        for arch in archs}
+    recs = {}
+    try:
+        for arch, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            path = Path(out_dir) / arch / "single" / f"{arch}__{shape}.json"
+            if proc.returncode != 0 or not path.exists():
+                raise AssertionError(f"dryrun {arch} {shape}: exit "
+                                     f"{proc.returncode}\n{out[-2000:]}\n"
+                                     f"{err[-3000:]}")
+            rec = json.loads(path.read_text())
+            rec["wall_s"] = time.monotonic() - t0
+            if not rec["ok"] or set(rec["kernel_launches"].values()) != {0}:
+                raise AssertionError(f"dryrun {arch} {shape}: {rec}")
+            recs[arch] = rec
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def phase_mesh_cells(dev) -> dict:
+    """The mesh cells on this card's (1, 1) mesh (a world of one):
+
+    1. ``build_cell("smollm-135m", "train_4k", mesh)`` at published width
+       and depth, its global batch of 256 x 4096 cut to MESH_CELL_BATCH
+       sequences of 4096 (one card; the training phase's microbatch): the
+       cell's ``step_fn`` for MESH_CELL_STEPS steps beside
+       ``TL.make_train_step`` with the same loss on the same seeded state
+       and batches; the loss and every parameter equal bit for bit after
+       each step. The cell's run's launches are the path's.
+    2. The cell's state saved (``training.checkpoint``), then
+       ``ElasticMeshManager().resume`` onto the (1, 1) mesh: every leaf
+       equal to the saved one bit for bit.
+    3. ``python -m repro_torch.launch.dryrun --mesh single`` for smollm's
+       and qwen3-moe's train_4k cells, as subprocesses side by side; their
+       records print, ``ok``, with no kernel launched.
+
+    The process group is destroyed before the phase returns."""
+    from repro_torch.distribution.fault_tolerance import ElasticMeshManager
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    cfg = get_config(TRAIN_ARCH)
+    out = {}
+    mesh = make_host_mesh((1, 1))
+    try:
+        cell = ST.build_cell(TRAIN_ARCH, "train_4k", mesh)
+        shape = cell.shape
+        log(f"mesh cells: {TRAIN_ARCH} x {shape.name} on the card's (1, 1) "
+            f"mesh: global batch cut from {shape.global_batch} x "
+            f"{shape.seq_len} to {MESH_CELL_BATCH} x {shape.seq_len} (one "
+            f"card), {cfg.n_layers} layers at published width, AdamW "
+            f"{ST.OPT_CFG}")
+
+        def loss_fn(p, b):
+            return T.lm_loss(p, cfg, b["tokens"], b["labels"], b["mask"],
+                             q_chunk=1024, loss_chunk=512)
+
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+        params = T.init_params(cfg, gen, device=dev)     # float32 masters
+        states = {"cell": TL.init_state(params),
+                  "replicated": TL.init_state(tree_map(
+                      lambda x: x.detach().clone(), params))}
+        steps = {"cell": cell.step_fn,
+                 "replicated": TL.make_train_step(loss_fn, ST.OPT_CFG)}
+        batches = [TL.to_device(b, dev) for b, _ in zip(TD.lm_batches(
+            cfg, MESH_CELL_BATCH, shape.seq_len, seed=3),
+            range(MESH_CELL_STEPS))]
+        launches = {n: 0 for n in KERNELS}
+        walls = {"cell": [], "replicated": []}
+        for i, b in enumerate(batches):
+            b = dict(b, mask=torch.ones(b["tokens"].shape,
+                                        dtype=torch.float32, device=dev))
+            losses = {}
+            for name in ("cell", "replicated"):
+                torch.cuda.synchronize()
+                if name == "cell":
+                    reset_launches()
+                t0 = time.monotonic()
+                states[name], m = steps[name](states[name], b)
+                torch.cuda.synchronize()
+                walls[name].append(time.monotonic() - t0)
+                if name == "cell":
+                    for n, c in read_launches().items():
+                        launches[n] += c
+                losses[name] = m["loss"]
+            same = [torch.equal(x, y) for x, y in zip(
+                leaves(states["cell"].params),
+                leaves(states["replicated"].params))]
+            log(f"mesh cells: step {i}: loss cell {float(losses['cell']):.6f}"
+                f" replicated {float(losses['replicated']):.6f} (equal bits "
+                f"{torch.equal(losses['cell'], losses['replicated'])}); "
+                f"{sum(same)} of {len(same)} parameter leaves equal bit for "
+                f"bit; step wall cell {walls['cell'][-1]:.3f} s, replicated "
+                f"{walls['replicated'][-1]:.3f} s")
+            if not torch.equal(losses["cell"], losses["replicated"]) \
+                    or not all(same):
+                raise AssertionError(f"mesh cells: step {i} differs from the "
+                                     f"replicated step")
+        want = {n: 0 for n in KERNELS}
+        want["flash_attention"] = cfg.n_layers * MESH_CELL_STEPS * 2
+        want["flash_attention_bwd"] = cfg.n_layers * MESH_CELL_STEPS
+        if launches != want:
+            raise AssertionError(f"mesh cells: launches {launches}, "
+                                 f"expected {want}")
+        out["launches"] = launches
+        out["walls"] = walls
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cell_") as d:
+            saved = states["cell"]._replace(ef=None)
+            t0 = time.monotonic()
+            CK.save(d, MESH_CELL_STEPS, saved)
+            m2, _, got, _ = ElasticMeshManager(device=dev).resume(
+                d, saved, cell.in_shardings[0])
+            torch.cuda.synchronize()
+            resume_s = time.monotonic() - t0
+        pairs = list(zip(leaves(got), leaves(saved)))
+        if tuple(m2.shape) != (1, 1) or not all(
+                torch.equal(a.to_local(), b) for a, b in pairs):
+            raise AssertionError("mesh cells: the elastic resume differs from "
+                                 "the saved state")
+        log(f"mesh cells: the cell's state saved and resumed onto the "
+            f"{tuple(m2.shape)} mesh by ElasticMeshManager: {len(pairs)} "
+            f"leaves equal bit for bit ({resume_s:.1f} s)")
+        del states, got, saved, pairs
+    finally:
+        destroy_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        out["dryrun"] = dryrun_records((TRAIN_ARCH, "qwen3-moe-30b-a3b"),
+                                       "train_4k", d)
+        for arch, rec in out["dryrun"].items():
+            log(f"dryrun record {arch} train_4k ({rec['wall_s']:.1f} s with "
+                f"the interpreter, both run side by side): "
+                f"{json.dumps(rec)}")
+    return out
+
+
 def phase_train_smoke(dev) -> dict:
     """Every arch of the registry at smoke width through the training
     launcher's code path (``train.build``, ``opt_config``,
@@ -4157,6 +4474,11 @@ def main() -> int:
     t0 = time.monotonic()
     train_smoke = phase_train_smoke(dev)
     train_seconds["train_smoke"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    cells = phase_mesh_cells(dev)
+    train_seconds["mesh_cells"] = time.monotonic() - t0
     log(f"training phases: seconds {json.dumps(train_seconds)}")
 
     by_path = {"engine": engine["launches"], "fleet": fleet_launches,
@@ -4168,8 +4490,11 @@ def main() -> int:
                f"{GEMMA} prefill": gemma_decode["prefill_launches"],
                f"{GEMMA} decode": gemma_decode["launches"],
                **{arch: st["launches"] for arch, st in big.items()},
+               **{f"{arch.split('-')[0]} sharded": st["sharded"]["launches"]
+                  for arch, st in big.items() if "sharded" in st},
                "train": train["launches"],
-               "train_smoke": train_smoke["launches"]}
+               "train_smoke": train_smoke["launches"],
+               "train cell": cells["launches"]}
     path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
     for kern in kernels:

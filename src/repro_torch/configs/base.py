@@ -1,20 +1,70 @@
 """The port's own copy of the config dataclasses it reads.
 
-Counterpart of ``repro.configs.base``, cut to the fields the port
-reads: the transformer of the trust evaluators (dense, with Gemma-2's
-and Qwen2.5's fields, and MoE), the GCN trust propagator, the
-recommenders (DLRM, BST, MIND and the two-tower retrieval model), the
-load shedder's parameters, the drain executor, the scheduler's quarantine,
-the serving fleet (replicas, gossip, autoscaling, forecasting, and the
-fan-out fields ``configs.trust_ir`` sets), and the retrieval front end.
-Later slices add the fields their modules read.
+Counterpart of ``repro.configs.base``: the shape layer of the mesh
+cells (``SHAPE_KINDS``, ``ShapeSpec``, ``LM_SHAPES`` / ``RECSYS_SHAPES``
+/ ``GNN_SHAPES``), the architecture configs with their ``family``,
+``n_params`` and ``n_active_params`` (the transformer of the trust
+evaluators, dense with Gemma-2's and Qwen2.5's fields or MoE, the GCN
+trust propagator, the recommenders), ``ArchBundle`` (what the registry
+returns), and the serving pipeline's ``TrustIRConfig``: the load
+shedder, the drain executor, the scheduler's quarantine, the serving
+fleet and the retrieval front end. The reference's JAX-only switches
+(``use_pallas``, ``scan_layers``) are left out: the port picks its
+kernels by device and runs its layers in a Python loop.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
+
+# ---------------------------------------------------------------------------
+# Shape specs (one per dry-run cell)
+# ---------------------------------------------------------------------------
+
+# Kinds determine which step function a cell runs.
+SHAPE_KINDS = (
+    "train",            # train_step: full fwd+bwd+optimizer
+    "prefill",          # prefill_step: forward, fills KV cache
+    "decode",           # serve_step: one new token against a KV cache
+    "serve",            # serve_step: pure forward scoring (recsys / gnn inference)
+    "retrieval",        # serve_step: 1 query vs n_candidates scoring
+    "graph_full",       # full-batch graph train_step
+    "graph_minibatch",  # sampled-subgraph train_step
+    "graph_batched",    # batched small graphs train_step
+)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell for an architecture."""
+
+    name: str
+    kind: str
+    # LM shapes
+    seq_len: int = 0
+    global_batch: int = 0
+    # recsys shapes
+    batch: int = 0
+    n_candidates: int = 0
+    # graph shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    nodes_per_graph: int = 0
+    edges_per_graph: int = 0
+
+    def __post_init__(self) -> None:
+        if self.kind not in SHAPE_KINDS:
+            raise ValueError(f"unknown shape kind {self.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -61,8 +111,51 @@ class TransformerConfig:
     remat: bool = True                 # activation checkpointing per block
 
     @property
+    def family(self) -> str:
+        return "moe" if self.moe is not None else "dense"
+
+    @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        return self.n_layers * (self.n_heads * self.d_head * d * 2
+                                + self.n_kv_heads * self.d_head * d * 2)
+
+    def _ffn_params(self, experts: int) -> int:
+        """FFN parameters with ``experts`` routed experts a MoE layer."""
+        d, L = self.d_model, self.n_layers
+        if self.moe is None:
+            return L * 3 * d * self.d_ff
+        m = self.moe
+        moe_layers = L - m.first_k_dense
+        return (m.first_k_dense * 3 * d * (m.d_ff_dense or self.d_ff)
+                + moe_layers * (experts * 3 * d * m.d_expert
+                                + m.n_shared_experts * 3 * d
+                                * (m.d_shared or m.d_expert)
+                                + d * m.n_experts))       # router
+
+    def _rest_params(self) -> int:
+        """Embeddings (once if tied) and norms."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + self.n_layers * 2 * d + d
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings included once if
+        tied), the reference's formula."""
+        experts = self.moe.n_experts if self.moe is not None else 0
+        return (self._attn_params() + self._ffn_params(experts)
+                + self._rest_params())
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameter count: a MoE layer activates
+        top_k experts."""
+        if self.moe is None:
+            return self.n_params()
+        return (self._attn_params() + self._ffn_params(self.moe.top_k)
+                + self._rest_params())
 
 
 @dataclass(frozen=True)
@@ -78,13 +171,25 @@ class GNNConfig:
     dtype: str = "float32"
     param_dtype: str = "float32"
 
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+    def n_params(self) -> int:
+        p = self.d_feat * self.d_hidden + self.d_hidden
+        for _ in range(self.n_layers - 2):
+            p += self.d_hidden * self.d_hidden + self.d_hidden
+        p += self.d_hidden * self.n_classes + self.n_classes
+        return p
+
 
 @dataclass(frozen=True)
 class EmbeddingTableConfig:
-    """One sparse embedding table."""
+    """One sparse embedding table (or a stack of same-shape tables)."""
     name: str
     vocab: int
     dim: int
+    count: int = 1                 # number of identical tables stacked
 
 
 @dataclass(frozen=True)
@@ -112,6 +217,37 @@ class RecsysConfig:
     user_vocab: int = 0
     dtype: str = "float32"
     param_dtype: str = "float32"
+
+    @property
+    def family(self) -> str:
+        return "recsys"
+
+    def n_params(self) -> int:
+        p = sum(t.vocab * t.dim * t.count for t in self.tables)
+
+        def mlp_params(dims: Tuple[int, ...], d_in: int) -> int:
+            total, d = 0, d_in
+            for h in dims:
+                total += d * h + h
+                d = h
+            return total
+        if self.model == "dlrm":
+            p += mlp_params(self.bot_mlp[1:], self.bot_mlp[0])
+            n_f = len(self.tables) + 1
+            d_int = n_f * (n_f - 1) // 2 + self.bot_mlp[-1]
+            p += mlp_params(self.top_mlp, d_int)
+        elif self.model == "bst":
+            d = self.embed_dim
+            p += self.n_blocks * (4 * d * d + 8 * d * d)   # attn + ffn approx
+            p += mlp_params(self.mlp + (1,), d * (self.seq_len + 1))
+        elif self.model == "two_tower":
+            p += 2 * mlp_params(self.tower_mlp + (self.embed_dim,),
+                                self.embed_dim)
+        elif self.model == "mind":
+            d = self.embed_dim
+            p += d * d  # routing bilinear
+            p += mlp_params((4 * d, d), d)
+        return p
 
 
 @dataclass(frozen=True)
@@ -206,6 +342,19 @@ class TrustIRConfig:
     fanout_max_mirrors: int = 2
 
 
+# ---------------------------------------------------------------------------
+# Arch bundle: what the registry returns
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ArchBundle:
+    arch_id: str
+    config: Any                         # TransformerConfig | GNNConfig | RecsysConfig
+    smoke: Any                          # reduced same-family config
+    shapes: Tuple[ShapeSpec, ...]
+    source: str = ""                    # provenance note
+
+
 def reduced(cfg, **overrides):
     """Return a copy of a frozen dataclass config with overrides applied."""
     return dataclasses.replace(cfg, **overrides)
@@ -219,3 +368,32 @@ def cap_table_rows(cfg: RecsysConfig, max_rows: int) -> RecsysConfig:
         raise ValueError(f"max_rows must be positive, got {max_rows}")
     return reduced(cfg, tables=tuple(
         reduced(t, vocab=min(t.vocab, max_rows)) for t in cfg.tables))
+
+
+# LM shape set shared by the five LM-family archs.
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_4k", kind="train", seq_len=4096, global_batch=256),
+    ShapeSpec(name="prefill_32k", kind="prefill", seq_len=32768, global_batch=32),
+    ShapeSpec(name="decode_32k", kind="decode", seq_len=32768, global_batch=128),
+    ShapeSpec(name="long_500k", kind="decode", seq_len=524288, global_batch=1),
+)
+
+RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_batch", kind="train", batch=65536),
+    ShapeSpec(name="serve_p99", kind="serve", batch=512),
+    ShapeSpec(name="serve_bulk", kind="serve", batch=262144),
+    ShapeSpec(name="retrieval_cand", kind="retrieval", batch=1, n_candidates=1_000_000),
+)
+
+GNN_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="full_graph_sm", kind="graph_full",
+              n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeSpec(name="minibatch_lg", kind="graph_minibatch",
+              n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024,
+              fanout=(15, 10), d_feat=602),
+    ShapeSpec(name="ogb_products", kind="graph_full",
+              n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    ShapeSpec(name="molecule", kind="graph_batched",
+              n_nodes=30, n_edges=64, batch=128, d_feat=32,
+              nodes_per_graph=30, edges_per_graph=64),
+)

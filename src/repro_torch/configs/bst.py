@@ -4,7 +4,8 @@
 mlp=1024-512-256 interaction=transformer-seq. Item vocab sized to the
 Taobao-scale setting used in the paper's production deployment.
 """
-from repro_torch.configs.base import (EmbeddingTableConfig, RecsysConfig,
+from repro_torch.configs.base import (ArchBundle, RECSYS_SHAPES,
+                                      EmbeddingTableConfig, RecsysConfig,
                                       reduced)
 
 ARCH_ID = "bst"
@@ -46,3 +47,12 @@ def smoke_config() -> RecsysConfig:
         ),
     )
 
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=RECSYS_SHAPES,
+        source='arXiv:1905.06874',
+    )

@@ -5,7 +5,8 @@ bot_mlp=13-512-256-128 top_mlp=1024-1024-512-256-1 interaction=dot.
 Table row counts are the published Criteo-Terabyte per-field cardinalities
 used by the MLPerf reference implementation.
 """
-from repro_torch.configs.base import (EmbeddingTableConfig, RecsysConfig,
+from repro_torch.configs.base import (ArchBundle, RECSYS_SHAPES,
+                                      EmbeddingTableConfig, RecsysConfig,
                                       reduced)
 
 ARCH_ID = "dlrm-mlperf"
@@ -50,3 +51,12 @@ def smoke_config() -> RecsysConfig:
         top_mlp=(32, 16, 1),
     )
 
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=RECSYS_SHAPES,
+        source='arXiv:1906.00091 (MLPerf reference)',
+    )

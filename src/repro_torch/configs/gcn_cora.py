@@ -6,7 +6,7 @@ Cora: 2708 nodes, 10556 edges, 1433 features, 7 classes.
 In the serving engine this backbone doubles as the trust-propagation
 evaluator: TrustRank-style smoothing of trust over the web link graph.
 """
-from repro_torch.configs.base import GNNConfig, reduced
+from repro_torch.configs.base import ArchBundle, GNN_SHAPES, GNNConfig, reduced
 
 ARCH_ID = "gcn-cora"
 
@@ -32,4 +32,14 @@ def smoke_config() -> GNNConfig:
         d_hidden=8,
         n_classes=3,
         dropout=0.0,
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=GNN_SHAPES,
+        source='arXiv:1609.02907',
     )

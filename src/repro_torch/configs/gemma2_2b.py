@@ -5,7 +5,8 @@ Local layers use sliding window 4096; attention logits softcapped at 50,
 final logits at 30; GeGLU; pre+post RMSNorm; sqrt(d_model) embedding scale;
 query scaled by 1/sqrt(256).
 """
-from repro_torch.configs.base import TransformerConfig, reduced
+from repro_torch.configs.base import (ArchBundle, LM_SHAPES,
+                                      TransformerConfig, reduced)
 
 ARCH_ID = "gemma2-2b"
 
@@ -49,4 +50,14 @@ def smoke_config() -> TransformerConfig:
         query_pre_attn_scalar=16.0,
         remat=False,
         dtype="float32",
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=LM_SHAPES,
+        source='arXiv:2408.00118',
     )

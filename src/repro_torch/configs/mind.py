@@ -4,7 +4,8 @@
 interaction=multi-interest. Behavior-to-Interest (B2I) dynamic routing over
 the user history; label-aware attention at train time.
 """
-from repro_torch.configs.base import (EmbeddingTableConfig, RecsysConfig,
+from repro_torch.configs.base import (ArchBundle, RECSYS_SHAPES,
+                                      EmbeddingTableConfig, RecsysConfig,
                                       reduced)
 
 ARCH_ID = "mind"
@@ -41,3 +42,12 @@ def smoke_config() -> RecsysConfig:
         ),
     )
 
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=RECSYS_SHAPES,
+        source='arXiv:1904.08030',
+    )

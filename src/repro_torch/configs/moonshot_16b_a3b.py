@@ -8,7 +8,8 @@ The numbers are the reference's (``repro.configs.moonshot_16b_a3b``),
 copied as they are; ROADMAP.md (Queue 3) notes where they part from the
 published checkpoint's config.
 """
-from repro_torch.configs.base import MoEConfig, TransformerConfig, reduced
+from repro_torch.configs.base import (ArchBundle, LM_SHAPES,
+                                      MoEConfig, TransformerConfig, reduced)
 
 ARCH_ID = "moonshot-v1-16b-a3b"
 
@@ -65,4 +66,14 @@ def smoke_config() -> TransformerConfig:
         ),
         remat=False,
         dtype="float32",
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=LM_SHAPES,
+        source='hf:moonshotai/Moonlight-16B-A3B',
     )

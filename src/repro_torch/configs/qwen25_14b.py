@@ -3,7 +3,8 @@
 [hf:Qwen/Qwen2.5-14B; hf] 48L d_model=5120 40H (GQA kv=8) d_ff=13824
 vocab=152064, QKV bias, RoPE theta 1e6.
 """
-from repro_torch.configs.base import TransformerConfig, reduced
+from repro_torch.configs.base import (ArchBundle, LM_SHAPES,
+                                      TransformerConfig, reduced)
 
 ARCH_ID = "qwen2.5-14b"
 
@@ -39,4 +40,14 @@ def smoke_config() -> TransformerConfig:
         vocab_size=256,
         remat=False,
         dtype="float32",
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=LM_SHAPES,
+        source='hf:Qwen/Qwen2.5-14B',
     )

@@ -3,7 +3,8 @@
 [hf:Qwen/Qwen3-30B-A3B; hf] 48L d_model=2048 32H (GQA kv=4) d_expert=768
 vocab=151936, MoE 128 experts top-8, no shared experts, norm_topk_prob.
 """
-from repro_torch.configs.base import MoEConfig, TransformerConfig, reduced
+from repro_torch.configs.base import (ArchBundle, LM_SHAPES,
+                                      MoEConfig, TransformerConfig, reduced)
 
 ARCH_ID = "qwen3-moe-30b-a3b"
 
@@ -53,4 +54,14 @@ def smoke_config() -> TransformerConfig:
         ),
         remat=False,
         dtype="float32",
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=LM_SHAPES,
+        source='hf:Qwen/Qwen3-30B-A3B',
     )

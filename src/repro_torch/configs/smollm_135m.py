@@ -3,7 +3,8 @@
 [hf:HuggingFaceTB/SmolLM-135M; hf] 30L d_model=576 9H (GQA kv=3) d_ff=1536
 vocab=49152, tied embeddings, RoPE theta 10k.
 """
-from repro_torch.configs.base import TransformerConfig, reduced
+from repro_torch.configs.base import (ArchBundle, LM_SHAPES,
+                                      TransformerConfig, reduced)
 
 ARCH_ID = "smollm-135m"
 
@@ -38,4 +39,14 @@ def smoke_config() -> TransformerConfig:
         vocab_size=256,
         remat=False,
         dtype="float32",
+    )
+
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=LM_SHAPES,
+        source='hf:HuggingFaceTB/SmolLM-135M',
     )

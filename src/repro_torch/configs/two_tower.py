@@ -4,7 +4,8 @@
 tower_mlp=1024-512-256 interaction=dot, in-batch sampled softmax with
 logQ correction.
 """
-from repro_torch.configs.base import (EmbeddingTableConfig, RecsysConfig,
+from repro_torch.configs.base import (ArchBundle, RECSYS_SHAPES,
+                                      EmbeddingTableConfig, RecsysConfig,
                                       reduced)
 
 ARCH_ID = "two-tower-retrieval"
@@ -41,3 +42,12 @@ def smoke_config() -> RecsysConfig:
         ),
     )
 
+
+def bundle() -> ArchBundle:
+    return ArchBundle(
+        arch_id=ARCH_ID,
+        config=config(),
+        smoke=smoke_config(),
+        shapes=RECSYS_SHAPES,
+        source="RecSys'19 (YouTube two-tower)",
+    )

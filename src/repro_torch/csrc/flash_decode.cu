@@ -530,13 +530,16 @@ flash_decode_pieces_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kCombineWarps = 4;
 constexpr int kCombineCols = 8;    // columns a lane holds: D <= 256
 
-template <typename T>
+// With kLse, each (row, head) also gets its log-sum-exp over the keys
+// it saw, in natural-log units (-inf where it saw none): the sequence-
+// sharded decode merges the pieces of several ranks with it.
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 flash_decode_combine_kernel(const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
                             const float* __restrict__ part_acc,
-                            T* __restrict__ o, Shape sh, int G, int D,
-                            int max_pieces) {
+                            T* __restrict__ o, float* __restrict__ lse,
+                            Shape sh, int G, int D, int max_pieces) {
   const int lane = threadIdx.x & 31;
   const int Hq = sh.Hkv * G;
   const long long task =
@@ -579,6 +582,12 @@ flash_decode_combine_kernel(const float* __restrict__ part_m,
   for (int c = 0; c < kCombineCols; ++c)
     if (lane + 32 * c < D)
       out[lane + 32 * c] = from_float<T>(den > 0.f ? num[c] / den : 0.f);
+  if constexpr (kLse) {
+    // mx is in log2 units of the scaled scores
+    if (lane == 0)
+      lse[b * Hq + h] = den > 0.f ? mx * 0.69314718055994531f + logf(den)
+                                  : -INFINITY;
+  }
 }
 
 int sm_count() {
@@ -631,8 +640,9 @@ int piece_len(int B, int Hkv, int L) {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const Shape& sh,
-           float* part_m, float* part_l, float* part_acc, void* o, int G,
-           int max_pieces, float scale, float softcap, cudaStream_t stream) {
+           float* part_m, float* part_l, float* part_acc, void* o,
+           float* lse, int G, int max_pieces, float scale, float softcap,
+           cudaStream_t stream) {
   using Lay = Layout<T, D>;
   int resident = 0;
   const int status = resident_blocks<T, D>(&resident);
@@ -651,11 +661,12 @@ int launch(const void* q, const void* k, const void* v, const Shape& sh,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long tasks = static_cast<long long>(sh.B) * sh.Hkv * G;
-  flash_decode_combine_kernel<T>
-      <<<static_cast<unsigned>((tasks + kCombineWarps - 1) / kCombineWarps),
-         kCombineWarps * 32, 0, stream>>>(part_m, part_l, part_acc,
-                                          static_cast<T*>(o), sh, G, D,
-                                          max_pieces);
+  auto combine = lse != nullptr ? flash_decode_combine_kernel<T, true>
+                                : flash_decode_combine_kernel<T, false>;
+  combine<<<static_cast<unsigned>((tasks + kCombineWarps - 1) / kCombineWarps),
+            kCombineWarps * 32, 0, stream>>>(part_m, part_l, part_acc,
+                                             static_cast<T*>(o), lse, sh, G,
+                                             D, max_pieces);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -689,12 +700,14 @@ extern "C" int flash_decode_piece_len(int B, int Hkv, int L, int dtype,
 // dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128, 256}; G <= 8;
 // piece_len from flash_decode_piece_len; max_pieces = ceil(L / piece_len);
 // part_m, part_l: (B, Hkv, max_pieces, G) and part_acc: (B, Hkv,
-// max_pieces, G, D) float32 scratch. Launches both passes on `stream`;
+// max_pieces, G, D) float32 scratch; lse: null, or (B, Hq) float32 to
+// receive each row's log-sum-exp. Launches both passes on `stream`;
 // returns cudaGetLastError() (0 = ok).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* lengths,
                                    float* part_m, float* part_l,
-                                   float* part_acc, void* o, int B, int L,
+                                   float* part_acc, void* o, float* lse,
+                                   int B, int L,
                                    int Hkv, int G, int D, int piece_len,
                                    int max_pieces, int dtype, float scale,
                                    int window, float softcap, void* stream) {
@@ -704,8 +717,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{lengths, B, L, Hkv, window, piece_len};
 #define FD_LAUNCH(TYPE, DIM)                                              \
-  launch<TYPE, DIM>(q, k, v, sh, part_m, part_l, part_acc, o, G, max_pieces, \
-                    scale, softcap, st)
+  launch<TYPE, DIM>(q, k, v, sh, part_m, part_l, part_acc, o, lse, G,   \
+                    max_pieces, scale, softcap, st)
   FD_DISPATCH(FD_LAUNCH)
 #undef FD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -39,6 +39,21 @@ def use_mesh(mesh):
         _MESH.reset(token)
 
 
+def recompute_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: the recomputation
+    in the backward pass (which may run on autograd's own thread, where
+    this thread's context variables are unset) sees the ambient mesh and
+    the batch split (``placement.batch_split``) of the forward."""
+    from repro_torch.distribution.placement import batch_axes, batch_split
+    mesh, axes = ambient_mesh(), batch_axes()
+
+    @contextlib.contextmanager
+    def again():
+        with use_mesh(mesh), batch_split(axes):
+            yield
+    return contextlib.nullcontext(), again()
+
+
 def axis_in_mesh(name: str) -> bool:
     m = ambient_mesh()
     return bool(m is not None and name in m.mesh_dim_names)

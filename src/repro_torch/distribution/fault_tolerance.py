@@ -5,8 +5,10 @@ Counterpart of ``repro.distribution.fault_tolerance``, host logic copied:
 ``largest_mesh_shape`` (the biggest (data, model) grid a surviving device
 count allows), ``DeadlineSkipPolicy`` (skip grad-accum chunks that would
 overrun the step deadline, and rescale), and the serving-side
-``HedgedDispatch`` / ``HedgeBudgetView``. ``ElasticMeshManager`` (the
-elastic re-sharding restore) is ROADMAP Queue 1 item 6b.
+``HedgedDispatch`` / ``HedgeBudgetView``; and ``ElasticMeshManager``,
+which picks a (data, model) mesh for the ranks that survive and restores
+the last checkpoint onto it, each leaf re-sharded by its spec
+(``training.checkpoint.restore(..., shardings=)``).
 """
 from __future__ import annotations
 
@@ -45,6 +47,37 @@ def largest_mesh_shape(n_devices: int, prefer_model: int = 16
     n = 2 ** int(math.floor(math.log2(max(n_devices, 1))))
     model = min(prefer_model, n)
     return (n // model, model)
+
+
+class ElasticMeshManager:
+    """Rebuild (mesh, shardings) for the surviving device set."""
+
+    def __init__(self, prefer_model: int = 16, device=None):
+        self.prefer_model = prefer_model
+        self.device = device
+
+    def make_mesh(self, devices: Optional[Sequence[int]] = None):
+        """The largest (data, model) mesh over ``devices`` (global ranks;
+        every rank of the process group by default)."""
+        from repro_torch.launch import mesh as mesh_lib
+        devs = list(devices if devices is not None
+                    else range(mesh_lib.world_size()))
+        shape = largest_mesh_shape(len(devs), self.prefer_model)
+        n_used = shape[0] * shape[1]
+        return mesh_lib.mesh_from_devices(devs[:n_used], shape,
+                                          ("data", "model"), self.device)
+
+    def resume(self, ckpt_dir: str, tree_like, specs, devices=None):
+        """Elastic restore: new mesh + shardings + state from the last
+        checkpoint (leaves are saved unsharded; each rank keeps its own
+        pieces of them). Returns (mesh, shardings, state, extra)."""
+        from repro_torch.distribution.sharding import shardings_of
+        from repro_torch.training import checkpoint as CK
+        m = self.make_mesh(devices)
+        sh = shardings_of(specs, m)
+        state, extra = CK.restore(ckpt_dir, tree_like, shardings=sh,
+                                  device=self.device)
+        return m, sh, state, extra
 
 
 @dataclass

@@ -17,6 +17,18 @@ ever see plain local tensors. A mesh axis of size 1 has no collective: on
 one device the sharded forward runs the replicated forward's operations.
 Every sharded dim must divide its axes evenly (``ValueError``
 otherwise).
+
+Gradients. A sum's backward is a sum over the same axes and a gather's
+backward sums the cotangent over its axes and keeps this rank's slice,
+the transposes of ``psum`` and ``all_gather`` under the reference's
+``shard_map``: the cotangent of a tensor every rank of an axis holds
+the same is kept as per-rank partial sums, and every collective's
+backward completes them. A training step that runs a replicated loss on
+every rank therefore backpropagates its loss divided by the ranks and
+sums the gradients of the leaves replicated over an axis over it
+(``launch.steps``). Without grad (serving) both run the plain in-place
+collectives, unchanged. :func:`collective_trace` hands every collective's
+result bytes to a callback (``launch.hlo_analysis``).
 """
 from __future__ import annotations
 
@@ -196,26 +208,103 @@ def split(t) -> Tuple[torch.Tensor, Optional[Sharded]]:
                           axes)
 
 
+# the ``collective_trace`` callback: a process-wide slot, not a context
+# variable, so that a backward pass on autograd's own thread reports too
+_TRACE: list = []
+
+
+@contextlib.contextmanager
+def collective_trace(note):
+    """Call ``note(kind, result_bytes)`` for every collective of the
+    ``with`` block (``kind`` is ``"all-reduce"`` or ``"all-gather"``),
+    backward passes included, on any thread."""
+    _TRACE.append(note)
+    try:
+        yield
+    finally:
+        _TRACE.remove(note)
+
+
+def _noted(kind: str, t: torch.Tensor) -> None:
+    if _TRACE:
+        _TRACE[-1](kind, t.numel() * t.element_size())
+
+
+def _reduce_(x: torch.Tensor, axes: Sequence[Axis], red) -> None:
+    for a in axes:
+        _noted("all-reduce", x)
+        dist.all_reduce(x, op=red, group=a.group)
+
+
+def _gather(x: torch.Tensor, axes: Sequence[Axis], dim: int) -> torch.Tensor:
+    for a in reversed(axes):
+        parts = [torch.empty_like(x) for _ in range(a.size)]
+        dist.all_gather(parts, x.contiguous(), group=a.group)
+        x = torch.cat(parts, dim=dim)
+        _noted("all-gather", x)
+    return x
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``axes``; its backward sums the cotangent over them."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        y = x.contiguous().clone()
+        _reduce_(y, axes, dist.ReduceOp.SUM)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _reduce_(g, ctx.axes, dist.ReduceOp.SUM)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Gather over ``axes``; its backward sums the cotangent over them and
+    keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim, ctx.n = axes, dim, x.shape[dim]
+        return _gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _reduce_(g, ctx.axes, dist.ReduceOp.SUM)
+        i, _ = flat_coord(ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
+def _differentiable(x: torch.Tensor, axes) -> bool:
+    return bool(axes) and torch.is_grad_enabled() and x.requires_grad
+
+
 def all_reduce(x: torch.Tensor, axes: Sequence[Axis],
                op: str = "sum") -> torch.Tensor:
-    """``x`` reduced over ``axes``, in place when ``x`` is contiguous
-    (pass a temporary)."""
-    x = x.contiguous()
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    for a in axes:
-        dist.all_reduce(x, op=red, group=a.group)
+    """``x`` reduced over ``axes``. Without grad it is reduced in place
+    when ``x`` is contiguous (pass a temporary); a sum that needs a
+    gradient runs on a copy, with the backward of the module note. A
+    max passes no gradient."""
+    if op == "sum" and _differentiable(x, axes):
+        return _AllReduce.apply(x, tuple(axes))
+    x = x.detach().contiguous() if x.requires_grad else x.contiguous()
+    _reduce_(x, axes, {"sum": dist.ReduceOp.SUM,
+                       "max": dist.ReduceOp.MAX}[op])
     return x
 
 
 def all_gather(x: torch.Tensor, axes: Sequence[Axis],
                dim: int) -> torch.Tensor:
     """The pieces of ``axes`` concatenated along ``dim`` in mesh order:
-    the inner axis first, then the outer."""
-    for a in reversed(axes):
-        parts = [torch.empty_like(x) for _ in range(a.size)]
-        dist.all_gather(parts, x.contiguous(), group=a.group)
-        x = torch.cat(parts, dim=dim)
-    return x
+    the inner axis first, then the outer (the backward of the module
+    note when ``x`` needs a gradient)."""
+    if _differentiable(x, axes):
+        return _AllGather.apply(x, tuple(axes), dim)
+    return _gather(x, axes, dim)
 
 
 def full_tensor(t) -> torch.Tensor:

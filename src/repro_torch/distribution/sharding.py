@@ -1,12 +1,13 @@
 """Sharding rules: parameter and optimizer PartitionSpecs per arch family
 on the ``(pod, data, model)`` production mesh.
 
-Counterpart of ``repro.distribution.sharding`` (its parameter half; the
-batch specs take the configs' shape layer, ROADMAP Queue 1 item 6b).
-Conventions, as the reference's:
+Counterpart of ``repro.distribution.sharding``: the parameter specs and
+the batch specs of each shape kind. Conventions, as the reference's:
   * DP axes  = ("pod", "data") — batch/tokens/nodes/bags.
   * TP axis  = "model" — attention heads, FFN hidden, vocab rows/cols.
   * EP       = MoE expert dim over "model".
+  * SP       = KV-cache sequence dim over "model" (long-context decode
+    shards over ("data", "model") so a batch-1 cache spreads 256-wide).
   * RecSys embedding tables row-shard over ("data", "model") while
     activations stay on ("pod", "data").
 
@@ -21,25 +22,42 @@ placement.PartitionSpec`; :func:`shardings_of` makes them
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
-from repro_torch.configs.base import (GNNConfig, RecsysConfig,
+from repro_torch.configs.base import (GNNConfig, RecsysConfig, ShapeSpec,
                                       TransformerConfig)
 from repro_torch.distribution.placement import (NamedSharding,
                                                 PartitionSpec as P,
                                                 device_put)
 
 
+def axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of a ``DeviceMesh``, or of any mesh-like object
+    with the reference's ``axis_names`` (a shape-only stand-in)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    """Ranks along the axis ``name`` (1 when the mesh lacks it)."""
+    names = axis_names(mesh)
+    if name not in names:
+        return 1
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh.size(names.index(name))
+    return int(mesh.shape[name])
+
+
 def dp_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
 
 
 def table_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in mesh.mesh_dim_names if a in ("data", "model"))
+    return tuple(a for a in axis_names(mesh) if a in ("data", "model"))
 
 
 def all_axes(mesh) -> Tuple[str, ...]:
-    return tuple(mesh.mesh_dim_names)
+    return axis_names(mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +154,9 @@ def param_specs(cfg: Any, params: Any, mesh) -> Any:
 def shardings_of(specs: Any, mesh) -> Any:
     """Each spec as a :class:`NamedSharding` over ``mesh`` (its
     ``placements`` are the DTensor placements ``distribute_tensor``
-    takes)."""
-    return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs)
+    takes); a ``None`` stays ``None``."""
+    return tree_map_with_path(
+        lambda _, s: None if s is None else NamedSharding(mesh, s), specs)
 
 
 def opt_state_specs(param_spec_tree: Any, opt_state_shape: Any = None):
@@ -160,3 +179,80 @@ def place_params(params: Any, cfg: Any, mesh) -> Any:
         return device_put(leaf, sh)
 
     return tree_map_with_path(put, params)
+
+
+# ---------------------------------------------------------------------------
+# Batch / activation specs per shape kind
+# ---------------------------------------------------------------------------
+
+def lm_batch_specs(shape: ShapeSpec, mesh) -> Any:
+    dp = dp_axes(mesh)
+    if shape.kind == "train":
+        return {"tokens": P(dp, None), "labels": P(dp, None),
+                "mask": P(dp, None)}
+    if shape.kind == "prefill":
+        return {"tokens": P(dp, None)}
+    if shape.kind == "decode":
+        if shape.global_batch == 1:
+            # SP: batch-1 long-context cache spreads over (data, model)
+            cache_seq = table_axes(mesh)
+            batch_ax: Optional[Tuple[str, ...]] = None
+        else:
+            cache_seq = ("model",)
+            batch_ax = dp
+        return {
+            "token": P(batch_ax),
+            "cache": {
+                "k": P(None, batch_ax, cache_seq, None, None),
+                "v": P(None, batch_ax, cache_seq, None, None),
+                "lengths": P(batch_ax),
+            },
+        }
+    raise ValueError(shape.kind)
+
+
+def recsys_batch_specs(cfg: RecsysConfig, shape: ShapeSpec, mesh) -> Any:
+    dp = dp_axes(mesh)
+    if cfg.model == "dlrm":
+        base = {"dense": P(dp, None), "sparse": P(dp, None)}
+    elif cfg.model == "bst":
+        base = {"hist": P(dp, None), "target": P(dp),
+                "other": P(dp, None)}
+    elif cfg.model == "two_tower":
+        base = {"user_id": P(dp), "user_feats": P(dp, None),
+                "item_id": P(dp), "item_feats": P(dp, None)}
+    elif cfg.model == "mind":
+        base = {"hist": P(dp, None), "hist_mask": P(dp, None),
+                "target": P(dp)}
+    else:
+        raise ValueError(cfg.model)
+    if shape.kind == "train":
+        if cfg.model in ("dlrm", "bst"):
+            base["labels"] = P(dp)
+        if cfg.model == "two_tower":
+            base["logq"] = P(dp)
+    if shape.kind == "retrieval":
+        # 1 query replicated; candidates sharded over everything usable
+        return {"query": {k: P() for k in base},
+                "cand_item_id": P(dp),
+                "cand_item_feats": P(dp, None)}
+    return base
+
+
+def gnn_batch_specs(shape: ShapeSpec, mesh) -> Any:
+    dp = dp_axes(mesh)
+    if shape.name == "full_graph_sm":
+        # cora is tiny: replicate
+        return {"x": P(), "edge_index": P(), "labels": P(),
+                "label_mask": P()}
+    if shape.kind == "graph_full":
+        return {"x": P(dp, None), "edge_index": P(None, dp),
+                "labels": P(dp), "label_mask": P(dp)}
+    if shape.kind == "graph_minibatch":
+        return {"x": P(dp, None), "edge_index": P(None, dp),
+                "edge_mask": P(dp), "labels": P(dp),
+                "label_mask": P(dp)}
+    if shape.kind == "graph_batched":
+        return {"x": P(dp, None), "edge_index": P(None, dp),
+                "graph_ids": P(dp), "labels": P(dp)}
+    raise ValueError(shape.kind)

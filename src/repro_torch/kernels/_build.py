@@ -1,7 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Also ``refuse_grad``: the wrappers whose kernels have no backward raise
-rather than return a result detached from autograd.
+rather than return a result detached from autograd; and ``is_fake`` /
+``fake_launch``: a wrapper given fake CUDA tensors (a
+``FakeTensorMode`` trace, ``launch.hlo_analysis``) launches nothing,
+returns fake outputs of the kernel's shapes and types, and reports the
+kernel's operations and bytes (the formulas of its bound) to
+``kernel_costs``. Only a ``FakeTensor`` takes that branch: a real CUDA
+tensor launches the kernel or raises.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/lib<name>-<source hash>.so`` inside the package
@@ -12,12 +18,14 @@ once. Nothing is compiled when a module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Tuple
 
@@ -127,3 +135,35 @@ def library_function(name: str, symbol: str, argtypes: List,
         fn.restype = restype
         _functions[key] = fn
     return _functions[key]
+
+
+def is_fake(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``FakeTensor`` (a shape-and-type
+    stand-in that holds no memory); False for every real tensor, and
+    without importing the fake-tensor module in a process that made
+    none."""
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return mod is not None and any(isinstance(t, mod.FakeTensor)
+                                   for t in tensors)
+
+
+# the ``kernel_costs`` callback: a process-wide slot, not a context
+# variable, so that a backward pass on autograd's own thread reports too
+_COSTS: List[Callable] = []
+
+
+@contextlib.contextmanager
+def kernel_costs(note):
+    """Call ``note(name, flops, bytes)`` for every kernel call on fake
+    tensors in the ``with`` block, on any thread."""
+    _COSTS.append(note)
+    try:
+        yield
+    finally:
+        _COSTS.remove(note)
+
+
+def fake_launch(name: str, flops: float, nbytes: float) -> None:
+    """What a kernel would cost, reported in place of a launch."""
+    if _COSTS:
+        _COSTS[-1](name, float(flops), float(nbytes))

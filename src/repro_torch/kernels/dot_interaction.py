@@ -31,7 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import library_function, refuse_grad
+from repro_torch.kernels._build import (fake_launch, is_fake,
+                                        library_function, refuse_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232_448            # an H100 block's shared memory
@@ -73,16 +74,22 @@ def _check(feats: torch.Tensor) -> None:
     if feats.dtype not in _DTYPES:
         raise TypeError(f"dot_interaction takes float32 or bfloat16, got "
                         f"{feats.dtype}")
-    if feats.device.type not in ("cpu", "cuda"):
+    if feats.device.type not in ("cpu", "cuda") and not is_fake(feats):
         raise ValueError(f"dot_interaction runs on cuda or cpu, not "
                          f"{feats.device}")
 
 
 def _forward(feats: torch.Tensor) -> torch.Tensor:
     """One launch of the forward kernel."""
+    B, F, D = feats.shape
+    if is_fake(feats):
+        n_pairs = F * (F - 1) // 2
+        fake_launch("dot_interaction", 2 * B * n_pairs * D,
+                    (feats.numel() + B * n_pairs) * feats.element_size())
+        return torch.empty((B, n_pairs), dtype=feats.dtype,
+                           device=feats.device)
     if not feats.is_contiguous():
         raise ValueError("feats must be contiguous")
-    B, F, D = feats.shape
     smem = library_function("dot_interaction", "dot_interaction_smem_bytes",
                             [ctypes.c_int] * 3,
                             restype=ctypes.c_longlong)(
@@ -133,7 +140,7 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     plain version (and autograd differentiates it).
     """
     _check(feats)
-    if feats.device.type == "cpu":
+    if feats.device.type == "cpu" and not is_fake(feats):
         return dot_interaction_ref(feats)
     if torch.is_grad_enabled() and feats.requires_grad:
         return DotInteractionFn.apply(feats)
@@ -159,8 +166,13 @@ def dot_interaction_bwd(feats: torch.Tensor,
         raise ValueError(f"grad must be ({B}, {F * (F - 1) // 2}) "
                          f"{feats.dtype} on {feats.device}, got "
                          f"{tuple(grad.shape)} {grad.dtype} {grad.device}")
-    if feats.device.type == "cpu":
+    if feats.device.type == "cpu" and not is_fake(feats, grad):
         return dot_interaction_bwd_ref(feats, grad)
+    if is_fake(feats, grad):
+        fake_launch("dot_interaction_bwd", 2 * B * F * (F - 1) * D,
+                    (2 * feats.numel() + grad.numel())
+                    * feats.element_size())
+        return torch.empty_like(feats)
     if not (feats.is_contiguous() and grad.is_contiguous()):
         raise ValueError("feats and grad must be contiguous")
     refuse_grad("dot_interaction_bwd", feats, grad)

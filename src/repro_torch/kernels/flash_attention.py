@@ -25,7 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import library_function, refuse_grad
+from repro_torch.kernels._build import (fake_launch, is_fake,
+                                        library_function, refuse_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
@@ -182,9 +183,35 @@ def _kernel_args(name: str, *ts: torch.Tensor):
                              f"aligned")
 
 
+def seen_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head sees in a sequence of S positions."""
+    if not causal:
+        return S * S if window <= 0 else sum(
+            min(S, i + window) - max(0, i - window + 1) for i in range(S))
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _fake_cost(name: str, q, k, v, causal, window, passes: int,
+               tensors: int) -> None:
+    """A fake call's operations (``passes`` products of 2 B Hq D pairs
+    each: 2 forward, 5 backward) and bytes (``tensors`` q-sized tensors
+    read or written, k and v once each in the forward, twice backward,
+    and the lse)."""
+    B, S, Hq, D = q.shape
+    flops = 2 * passes * B * Hq * D * seen_pairs(S, causal, window)
+    kv = (k.numel() + v.numel()) * (1 if passes == 2 else 2)
+    fake_launch(name, flops, (tensors * q.numel() + kv) * q.element_size()
+                + 4 * B * Hq * S)
+
+
 def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None):
     """One launch of the forward kernel; writes ``lse`` (B, Hq, S) float32
     where one is given."""
+    if is_fake(q, k, v):
+        _fake_cost("flash_attention", q, k, v, causal, window, 2, 2)
+        return torch.empty_like(q)
     _kernel_args("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
     fn = library_function(
@@ -241,10 +268,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version (and autograd differentiates it).
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, sm_scale=sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not is_fake(q, k, v):
         raise ValueError(f"flash_attention runs on cuda or cpu, "
                          f"not {q.device}")
     D = q.shape[-1]
@@ -282,9 +309,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         sm_scale = D ** -0.5
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q, k, v, do):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not is_fake(q, k, v, do):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
     for name, t in (("o", o), ("do", do)):
@@ -295,6 +322,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             or lse.device != q.device:
         raise ValueError(f"lse must be ({B}, {Hq}, {S}) float32 on "
                          f"{q.device}")
+    if is_fake(q, k, v, o, lse, do):
+        _fake_cost("flash_attention_bwd", q, k, v, causal, window, 5, 3)
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     _kernel_args("flash_attention_bwd", q, k, v, o, do)
     refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     if not lse.is_contiguous():

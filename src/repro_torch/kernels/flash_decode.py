@@ -6,6 +6,12 @@ cache); position t of row b is seen when ``t < lengths[b]`` and, with
 ``window > 0``, ``t >= lengths[b] - window``. A row that sees no
 position (``lengths[b] == 0``) gives zeros, as the TPU kernel does
 (the reference's ``flash_decode_ref`` gives the mean of V there).
+With ``return_lse`` each (row, query head) also gets the log-sum-exp of
+the scaled (and capped) scores it saw, in float32, -inf where it saw
+none: a decode whose cache's sequence is sharded over ranks merges the
+ranks' partial outputs with it (``models.transformer``). The kernel
+writes it from its combine pass, an instance chosen by a template flag,
+so the serving calls run the same code as before.
 
 ``flash_decode`` launches the hand-written CUDA kernel
 (``csrc/flash_decode.cu``, replacing the TPU kernel ``_decode_kernel``:
@@ -24,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import library_function, refuse_grad
+from repro_torch.kernels._build import (fake_launch, is_fake,
+                                        library_function, refuse_grad)
 from repro_torch.kernels.flash_attention import MIN_HEAD_DIM, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,9 +43,11 @@ NEG_INF = -2.0e38
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
-                     sm_scale: Optional[float] = None) -> torch.Tensor:
+                     sm_scale: Optional[float] = None,
+                     return_lse: bool = False):
     """Plain version: the reference's ``kernels.ref.flash_decode_ref`` in
-    float32, except that a row with no visible position gives zeros."""
+    float32, except that a row with no visible position gives zeros (and
+    an lse of -inf)."""
     B, L, Hkv, D = k_cache.shape
     Hq = q.shape[1]
     G = Hq // Hkv
@@ -57,7 +66,12 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, None]
     o = torch.einsum("bhgt,bthd->bhgd", p, v_cache.to(torch.float32))
-    return o.reshape(B, Hq, D).to(q.dtype)
+    o = o.reshape(B, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hq)
+    return o, torch.where(ok.any(-1)[:, None], lse,
+                          torch.full_like(lse, float("-inf")))
 
 
 def piece_length(B: int, Hkv: int, L: int, dtype: torch.dtype,
@@ -94,21 +108,32 @@ def _check(q, k_cache, v_cache, lengths) -> None:
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
                  window: int = 0, softcap: float = 0.0,
-                 sm_scale: Optional[float] = None) -> torch.Tensor:
+                 sm_scale: Optional[float] = None,
+                 return_lse: bool = False):
     """q: (B, Hq, D); caches: (B, L, Hkv, D); lengths: (B,) int32.
-    Returns (B, Hq, D) in q's type.
+    Returns (B, Hq, D) in q's type, and with ``return_lse`` also the
+    (B, Hq) float32 log-sum-exp of the module note.
 
     CUDA tensors launch the kernel (counted in ``flash_decode.launches``,
     once per call); CPU tensors take the plain version.
     """
     _check(q, k_cache, v_cache, lengths)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q, k_cache, v_cache):
         return flash_decode_ref(q, k_cache, v_cache, lengths, window=window,
-                                softcap=softcap, sm_scale=sm_scale)
-    if q.device.type != "cuda":
+                                softcap=softcap, sm_scale=sm_scale,
+                                return_lse=return_lse)
+    if q.device.type != "cuda" and not is_fake(q, k_cache, v_cache):
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     refuse_grad("flash_decode", q, k_cache, v_cache)
     B, L, Hkv, D = k_cache.shape
+    if is_fake(q, k_cache, v_cache, lengths):
+        # the lengths are data: a trace counts the whole cache
+        fake_launch("flash_decode", 4 * B * q.shape[1] * D * L,
+                    (2 * q.numel() + k_cache.numel() + v_cache.numel())
+                    * q.element_size() + 4 * B)
+        o = torch.empty_like(q)
+        return (o, torch.empty(q.shape[:2], dtype=torch.float32,
+                               device=q.device)) if return_lse else o
     G = q.shape[1] // Hkv
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
@@ -117,9 +142,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         sm_scale = D ** -0.5
     if D < MIN_HEAD_DIM:
         qp, kp, vp = pad_head_dim(q, k_cache, v_cache)
-        return flash_decode(qp, kp, vp, lengths, window=window,
-                            softcap=softcap,
-                            sm_scale=sm_scale)[..., :D].contiguous()
+        out = flash_decode(qp, kp, vp, lengths, window=window,
+                           softcap=softcap, sm_scale=sm_scale,
+                           return_lse=return_lse)
+        if return_lse:
+            return out[0][..., :D].contiguous(), out[1]
+        return out[..., :D].contiguous()
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_decode takes D in {_HEAD_DIMS}, got {D}")
     if G > MAX_GROUP:
@@ -142,7 +170,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{max_pieces} pieces per row")
     fn = library_function(
         "flash_decode", "flash_decode_launch",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     dev = q.device
     # partial state of every piece a row could have (the worst case)
@@ -151,17 +179,20 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     part_acc = torch.empty((B, Hkv, max_pieces, G, D), dtype=torch.float32,
                            device=dev)
     out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev) \
+        if return_lse else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), B, L, Hkv, G, D, piece,
+             part_acc.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), B, L, Hkv, G, D, piece,
              max_pieces, _DTYPES[q.dtype], float(sm_scale), int(window),
              float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"cudaError {err}")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

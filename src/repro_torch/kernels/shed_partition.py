@@ -21,7 +21,8 @@ import torch
 from repro_torch.core import trust_cache as TC
 from repro_torch.core.shedder import (TIER_CACHED, TIER_EVAL, TIER_INVALID,
                                       TIER_PRIOR)
-from repro_torch.kernels._build import library_function, refuse_grad
+from repro_torch.kernels._build import (fake_launch, is_fake,
+                                        library_function, refuse_grad)
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -99,18 +100,25 @@ def shed_partition(keys: torch.Tensor, valid: torch.Tensor,
     ``shed_partition.launches``); CPU tensors take the plain version.
     """
     _check(keys, valid, cache_keys, cache_values)
-    if keys.device.type == "cpu":
+    if keys.device.type == "cpu" and not is_fake(keys):
         return shed_partition_ref(keys, valid, cache_keys, cache_values,
                                   u_capacity, u_threshold, budget,
                                   budget_is_total)
-    if keys.device.type != "cuda":
+    if keys.device.type != "cuda" and not is_fake(keys):
         raise ValueError(f"shed_partition runs on cuda or cpu, "
                          f"not {keys.device}")
     refuse_grad("shed_partition", cache_values)
+    n = keys.shape[0]
+    if is_fake(keys, valid, cache_keys, cache_values):
+        # keys and valid read, every way of a probe, three outputs
+        ways = min(cache_keys.shape)
+        fake_launch("shed_partition", 0, n * (5 + 8 * ways + 12))
+        return (torch.empty(n, dtype=torch.int32, device=keys.device),
+                torch.empty(n, dtype=torch.float32, device=keys.device),
+                torch.empty(n, dtype=torch.int32, device=keys.device))
     fn = library_function(
         "shed_partition", "shed_partition_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
-    n = keys.shape[0]
     n_slots, n_ways, ways_leading = TC.dims(tuple(cache_keys.shape))
     tier = torch.empty(n, dtype=torch.int32, device=keys.device)
     cval = torch.empty(n, dtype=torch.float32, device=keys.device)

@@ -27,7 +27,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import library_function, refuse_grad
+from repro_torch.kernels._build import (fake_launch, is_fake,
+                                        library_function, refuse_grad)
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 NEG_INF = -2.0e38
@@ -76,12 +77,17 @@ def topk_select(scores: torch.Tensor, k: int
     n = scores.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"k must be in [1, {n}], got {k}")
-    if scores.device.type == "cpu":
+    if scores.device.type == "cpu" and not is_fake(scores):
         return topk_select_ref(scores, k)
-    if scores.device.type != "cuda":
+    if scores.device.type != "cuda" and not is_fake(scores):
         raise ValueError(f"topk_select runs on cuda or cpu, "
                          f"not {scores.device}")
     refuse_grad("topk_select", scores)
+    if is_fake(scores):
+        size = scores.element_size()
+        fake_launch("topk_select", 0, n * size + k * (size + 4))
+        return (torch.empty(k, dtype=scores.dtype, device=scores.device),
+                torch.empty(k, dtype=torch.int32, device=scores.device))
     if not scores.is_contiguous():
         raise ValueError("scores must be contiguous")
     if n > INT32_MAX:

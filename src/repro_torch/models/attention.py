@@ -9,7 +9,8 @@ KV repeat).
 On CUDA tensors ``attention`` runs the hand-written flash kernel
 (``kernels.flash_attention``, differentiable through its backward
 kernel) and ``decode_attention`` the flash-decode kernel
-(``kernels.flash_decode``); on CPU tensors they run the plain forms
+(``kernels.flash_decode``), as on fake tensors (a trace: the kernels'
+fake branches); on CPU tensors they run the plain forms
 below, the torch twins of the reference's jnp paths.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._build import is_fake
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import NEG_INF, flash_decode
 
@@ -67,7 +69,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, D). Returns (B, S, Hq, D). On CUDA the flash kernel, whose
     gradient is the backward kernel; on the CPU ``chunked_attention``,
     which autograd differentiates."""
-    if q.is_cuda:
+    if q.is_cuda or is_fake(q):
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window,
                                softcap=softcap, sm_scale=scale)
@@ -107,18 +109,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """One-token attention against a KV cache.
 
     q: (B, Hq, D); k_cache, v_cache: (B, L, Hkv, D); lengths: (B,) int32,
     the valid cache positions *including* the new token (written at
-    lengths - 1). Returns (B, Hq, D). A row with no valid position gives
-    zeros on both devices (the TPU kernel's behaviour; the reference's
-    jnp form gives the mean of V there)."""
-    if q.is_cuda:
+    lengths - 1). Returns (B, Hq, D), and with ``return_lse`` the (B, Hq)
+    float32 log-sum-exp of the scores each head saw (-inf where none). A
+    row with no valid position gives zeros on both devices (the TPU
+    kernel's behaviour; the reference's jnp form gives the mean of V
+    there)."""
+    if q.is_cuda or is_fake(q):
         return flash_decode(q.contiguous(), k_cache, v_cache,
                             lengths.to(torch.int32).contiguous(),
-                            window=window, softcap=softcap, sm_scale=scale)
+                            window=window, softcap=softcap, sm_scale=scale,
+                            return_lse=return_lse)
     B, L, Hkv, D = k_cache.shape
     G = q.shape[1] // Hkv
     if scale is None:
@@ -136,7 +142,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1) * ok.any(-1)[:, None, None, None]
     out = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, Hkv * G, D).to(q.dtype)
+    out = out.reshape(B, Hkv * G, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hkv * G)
+    return out, torch.where(ok.any(-1)[:, None], lse,
+                            torch.full_like(lse, float("-inf")))
 
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -2,8 +2,12 @@
 
 Counterpart of ``repro.models.gnn``: ``init_params``, ``propagate``,
 ``forward``, ``trust_scores`` and the training losses ``node_loss`` and
-``graph_readout_loss`` (no dropout: the reference's launcher passes no
-dropout key). Message passing is gather -> edge message -> segment sum,
+``graph_readout_loss``. ``forward`` and ``node_loss`` take the
+reference's dropout: given a ``dropout_rng`` (a ``torch.Generator`` on
+the features' device) and ``cfg.dropout`` p > 0, each hidden layer's
+activations are kept with probability 1 - p and scaled by 1 / (1 - p);
+``graph_readout_loss`` and the trust head run without it, as the
+reference's. Message passing is gather -> edge message -> segment sum,
 the reference's SpMM; autograd differentiates the ordered segment sums
 (``torch.segment_reduce``'s backward) on both devices, and the max
 aggregator's ``layers.segment_max`` splits its gradient over ties as
@@ -97,10 +101,20 @@ def propagate(x: torch.Tensor, edge_index: torch.Tensor, *,
     return agg + x * self_coef[:, None].to(x.dtype)
 
 
+def _keep_mask(shape, keep_prob: float,
+               generator: torch.Generator, device) -> torch.Tensor:
+    """Bernoulli(keep_prob) draws of ``shape`` (``jax.random.bernoulli``:
+    a uniform draw below ``keep_prob``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < keep_prob
+
+
 def forward(params: Dict, cfg: GNNConfig, x: torch.Tensor,
             edge_index: torch.Tensor,
-            edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Node logits (N, n_classes); inference, so no dropout."""
+            edge_mask: Optional[torch.Tensor] = None,
+            dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Node logits (N, n_classes); dropout on the hidden layers with a
+    ``dropout_rng`` (see the module note)."""
     cdt = L.dtype_of(cfg.dtype)
     h = x.to(cdt)
     n_layers = len(params["layers"])
@@ -110,15 +124,23 @@ def forward(params: Dict, cfg: GNNConfig, x: torch.Tensor,
         h = L.dense_apply(lp, h, cdt)
         if i < n_layers - 1:
             h = torch.relu(h)
+            if cfg.dropout > 0 and dropout_rng is not None:
+                keep = _keep_mask(h.shape, 1 - cfg.dropout, dropout_rng,
+                                  h.device)
+                h = torch.where(keep, h / (1 - cfg.dropout),
+                                torch.zeros((), dtype=h.dtype,
+                                            device=h.device))
     return h
 
 
 def node_loss(params: Dict, cfg: GNNConfig, x: torch.Tensor,
               edge_index: torch.Tensor, labels: torch.Tensor,
               label_mask: torch.Tensor,
-              edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              edge_mask: Optional[torch.Tensor] = None,
+              dropout_rng: Optional[torch.Generator] = None
+              ) -> torch.Tensor:
     """Masked node-classification CE."""
-    logits = forward(params, cfg, x, edge_index, edge_mask)
+    logits = forward(params, cfg, x, edge_index, edge_mask, dropout_rng)
     return L.cross_entropy(logits, labels, label_mask)
 
 

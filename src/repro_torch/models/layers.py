@@ -236,7 +236,15 @@ def _by_segment(data: torch.Tensor, segment_ids: torch.Tensor,
     seg = torch.where((seg >= 0) & (seg < n_segments), seg,
                       torch.full_like(seg, n_segments))
     seg, order = torch.sort(seg, stable=True)
-    return data[order], torch.bincount(seg, minlength=n_segments + 1)
+    return data[order], _counts(seg, n_segments + 1)
+
+
+def _counts(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(seg, minlength=n)`` for ids in [0, n): an integer
+    scatter-add of fixed size n (a shape a fake-tensor trace can
+    follow)."""
+    return torch.zeros((n,), dtype=torch.int64, device=seg.device
+                       ).scatter_add_(0, seg, torch.ones_like(seg))
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -289,5 +297,5 @@ def segment_counts(segment_ids: torch.Tensor,
     """Rows in each segment (ids out of range not counted)."""
     seg = segment_ids.reshape(-1).long()
     keep = (seg >= 0) & (seg < n_segments)
-    return torch.bincount(torch.where(keep, seg, torch.full_like(
-        seg, n_segments)), minlength=n_segments + 1)[:n_segments]
+    return _counts(torch.where(keep, seg, torch.full_like(
+        seg, n_segments)), n_segments + 1)[:n_segments]

@@ -35,8 +35,15 @@ masked local lookup, then an all-reduce) and an untied one by columns
 log-sum-exp. When the model axis does not divide the KV heads, q/k/v
 are gathered before attention and each rank takes its rows of ``wo``
 after it. Plain tensors (and DTensors on a mesh of one device) take the
-replicated code unchanged. The sharded path covers ``score_tokens``;
-the MoE layers, decode and the loss take plain weights only.
+replicated code unchanged. The sharded path covers the whole model: the
+score, the loss (its collectives carry gradients,
+``distribution.placement``), the MoE layers (``models.moe.
+moe_apply_ep``), ``prefill`` and ``decode_step``. With ``seq_axes`` the
+KV cache holds this rank's piece of the sequence for every head (the
+reference's SP layout, ``distribution.sharding.lm_batch_specs``):
+``prefill`` keeps its piece, and ``decode_step`` writes the new token
+where it falls, attends over its piece, and merges the ranks' partial
+outputs by their log-sum-exps.
 """
 from __future__ import annotations
 
@@ -47,8 +54,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distribution.constraints import recompute_context
 from repro_torch.distribution.placement import (all_gather, all_reduce,
-                                                split)
+                                                flat_coord, split)
+from repro_torch.kernels._build import is_fake
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -325,7 +334,8 @@ def _trunk(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
         if remat:
             x, k, v, m = checkpoint(_block_fwd, bp, cfg, x, positions, w,
-                                    cdt, q_chunk, use_reentrant=False)
+                                    cdt, q_chunk, use_reentrant=False,
+                                    context_fn=recompute_context)
         else:
             x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk)
         if kv_sink is not None:
@@ -376,14 +386,17 @@ def _chunk_ce(params: Dict, cfg: TransformerConfig, x: torch.Tensor,
 
 def lm_loss(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
             labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
-            q_chunk: int = 1024, loss_chunk: int = 1024
+            q_chunk: int = 1024, loss_chunk: int = 1024,
+            weight: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Chunked LM loss: mean masked next-token CE over (B, S) tokens and
     labels, plus the MoE load-balance loss over ``n_layers``. Returns
     (loss, MoE metrics). The (B, S, V) logits never exist whole: the
     unembedding and CE run ``loss_chunk`` positions at a time, each chunk
     under ``torch.utils.checkpoint`` while training, as the reference's
-    ``jax.checkpoint``-ed ``chunk_fn``."""
+    ``jax.checkpoint``-ed ``chunk_fn``. ``weight`` (optional) replaces
+    the mask sum the CE sum is divided by: a DP rank of a sharded step
+    divides by the whole batch's mean weight a rank."""
     B, S = tokens.shape
     x, metrics = _trunk(params, cfg, tokens, q_chunk)
     if mask is None:
@@ -393,16 +406,19 @@ def lm_loss(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     if S > loss_chunk and S % loss_chunk:
         raise ValueError(f"S={S} must be a multiple of "
                          f"loss_chunk={loss_chunk}")
+    mask_weight = weight
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     weight = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, loss_chunk):
         args = (params, cfg, x[:, lo:lo + loss_chunk],
                 labels[:, lo:lo + loss_chunk], mask[:, lo:lo + loss_chunk])
-        ct, cw = (checkpoint(_chunk_ce, *args, use_reentrant=False)
+        ct, cw = (checkpoint(_chunk_ce, *args, use_reentrant=False,
+                             context_fn=recompute_context)
                   if remat else _chunk_ce(*args))
         total = total + ct
         weight = weight + cw
-    loss = total / weight.clamp(min=1.0)
+    loss = total / (weight if mask_weight is None
+                    else mask_weight).clamp(min=1.0)
     if cfg.moe is not None:
         loss = loss + metrics["moe_aux_loss"] / cfg.n_layers
     return loss, metrics
@@ -466,25 +482,89 @@ def score_tokens(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  device=None) -> Dict:
+                  device=None, n_kv_heads: Optional[int] = None) -> Dict:
     """Zeroed cache: k, v (n_layers, batch, max_len, Hkv, Dh) in the
-    compute dtype; lengths (batch,) int32."""
+    compute dtype (``n_kv_heads`` of them, all by default); lengths
+    (batch,) int32."""
     cdt = L.dtype_of(cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    shape = (cfg.n_layers, batch, max_len, n_kv_heads or cfg.n_kv_heads,
+             cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device),
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
 
+def _all_heads(bp: Dict, cfg: TransformerConfig, t: torch.Tensor
+               ) -> torch.Tensor:
+    """q, k or v (..., heads, Dh) with every head: this rank's heads
+    gathered over the projection's axes (unless ``_qkv`` gathered them
+    already)."""
+    _, sh = split(bp["attn"]["wq"]["w"])
+    if sh is None or cfg.n_kv_heads % sh.ways:
+        return t
+    return all_gather(t, sh.axes, dim=-2)
+
+
+def _seq_offset(seq_axes, length: int) -> int:
+    """First global position of this rank's piece of the sequence."""
+    return flat_coord(seq_axes)[0] * length
+
+
+def _piece_attention(q, k_c, v_c, new_len, off: int, window: int,
+                     softcap: float, scale: float):
+    """Attention of the newest token over this rank's piece [off, off +
+    L) of each row's cache: (o, lse) of the positions the row sees
+    there. The kernel takes a row's valid positions as [len - w, len);
+    a piece that ends before the row does ends its valid range at L, so
+    its w differs row by row: rows of one w are one call (on fake tensors
+    one call stands for them)."""
+    L_loc = k_c.shape[1]
+    hi = (new_len.to(torch.int64) - off).clamp(0, L_loc)
+    if window <= 0:
+        return A.decode_attention(q, k_c, v_c, hi.to(torch.int32),
+                                  softcap=softcap, scale=scale,
+                                  return_lse=True)
+    lo = (new_len.to(torch.int64) - window - off).clamp(0, L_loc)
+    lens = torch.where(hi > lo, hi, torch.zeros_like(hi)).to(torch.int32)
+    wins = torch.where(lo > 0, hi - lo, torch.full_like(hi, L_loc))
+    if is_fake(q):
+        return A.decode_attention(q, k_c, v_c, lens, window=window,
+                                  softcap=softcap, scale=scale,
+                                  return_lse=True)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    for w in sorted(set(wins.tolist())):
+        rows = (wins == w).nonzero()[:, 0]
+        o[rows], lse[rows] = A.decode_attention(
+            q[rows], k_c[rows], v_c[rows], lens[rows], window=int(w),
+            softcap=softcap, scale=scale, return_lse=True)
+    return o, lse
+
+
+def _merge_pieces(o: torch.Tensor, lse: torch.Tensor, seq_axes):
+    """One output from every rank's (o, lse) over its piece: the pieces
+    weighed by exp(lse - max lse), summed over ``seq_axes``; a head that
+    saw nothing anywhere gives zeros."""
+    m = all_reduce(lse.clone(), seq_axes, op="max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)
+    num = all_reduce(o.to(torch.float32) * w[..., None], seq_axes)
+    den = all_reduce(w, seq_axes)
+    return (num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+            ).to(o.dtype)
+
+
 @torch.no_grad()
 def decode_step(params: Dict, cfg: TransformerConfig, token: torch.Tensor,
-                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+                cache: Dict, seq_axes=()) -> Tuple[torch.Tensor, Dict]:
     """One decoding step.
 
     token: (B,) integer, the newest token; cache: see ``init_kv_cache``
     (``lengths`` counts tokens already in the cache). Returns
-    (logits (B, V), cache).
+    (logits (B, V), cache). With ``seq_axes`` (``placement.Axis`` es,
+    outer first) the cache holds this rank's piece of the sequence for
+    every head: see the module note.
 
     Unlike the reference, which returns new arrays, the new token's k and
     v are written **in place** into ``cache["k"]`` and ``cache["v"]``
@@ -497,14 +577,22 @@ def decode_step(params: Dict, cfg: TransformerConfig, token: torch.Tensor,
     positions = lengths[:, None]                     # new token position
     new_len = lengths + 1
     x = _embed(params, cfg, token, cdt)              # (B, d)
+    off = _seq_offset(seq_axes, cache["k"].shape[2]) if seq_axes else 0
     for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
         k_c, v_c = cache["k"][i], cache["v"][i]
         h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(bp, cfg, h[:, None, :], positions, cdt)
-        A.update_kv_cache(k_c, v_c, k[:, 0], v[:, 0], lengths)
-        o = A.decode_attention(q[:, 0], k_c, v_c, new_len, window=w,
-                               softcap=cfg.attn_logit_softcap,
-                               scale=_attn_scale(cfg))
+        if not seq_axes:
+            A.update_kv_cache(k_c, v_c, k[:, 0], v[:, 0], lengths)
+            o = A.decode_attention(q[:, 0], k_c, v_c, new_len, window=w,
+                                   softcap=cfg.attn_logit_softcap,
+                                   scale=_attn_scale(cfg))
+        else:
+            q, k, v = (_all_heads(bp, cfg, t[:, 0]) for t in (q, k, v))
+            A.update_kv_cache(k_c, v_c, k, v, lengths - off)
+            o = _merge_pieces(*_piece_attention(
+                q, k_c, v_c, new_len, off, w, cfg.attn_logit_softcap,
+                _attn_scale(cfg)), seq_axes)
         x, _ = _attn_out_ffn(bp, cfg, x, o, cdt)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, cfg, x), {**cache, "lengths": new_len}
@@ -512,20 +600,38 @@ def decode_step(params: Dict, cfg: TransformerConfig, token: torch.Tensor,
 
 @torch.no_grad()
 def prefill(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None, q_chunk: int = 1024
-            ) -> Tuple[torch.Tensor, Dict]:
+            max_len: Optional[int] = None, q_chunk: int = 1024,
+            seq_axes=()) -> Tuple[torch.Tensor, Dict]:
     """Prefill scoring pass: returns (per-seq score (B,), KV cache).
 
     The score is the mean next-token logprob over the prompt (0 for a
     one-token prompt), as the reference's; the cache holds every prompt
-    position, zero-padded to ``max_len``, so decode can continue."""
+    position, zero-padded to ``max_len``, so decode can continue. With
+    the heads sharded the cache holds this rank's heads; with
+    ``seq_axes`` it holds this rank's piece of the positions, every head
+    (see the module note)."""
     B, S = tokens.shape
-    cache = init_kv_cache(cfg, B, max_len or S, device=tokens.device)
+    n = max_len or S
+    first = _layers(params)[0]
+    _, sh = split(first["attn"]["wk"]["w"])
+    heads = cfg.n_kv_heads
+    if sh is not None and not seq_axes and cfg.n_kv_heads % sh.ways == 0:
+        heads //= sh.ways
+    ways = math.prod(a.size for a in seq_axes)
+    if n % ways:
+        raise ValueError(f"a cache of {n} positions does not divide over "
+                         f"{ways} ranks")
+    cache = init_kv_cache(cfg, B, n // ways, device=tokens.device,
+                          n_kv_heads=heads)
     cache["lengths"].fill_(S)
+    off = _seq_offset(seq_axes, n // ways) if seq_axes else 0
 
     def keep(i, k, v):
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        if seq_axes:
+            k, v = (_all_heads(first, cfg, t)[:, off:off + n // ways]
+                    for t in (k, v))
+        cache["k"][i, :, :k.shape[1]] = k
+        cache["v"][i, :, :v.shape[1]] = v
 
     x, _ = _trunk(params, cfg, tokens, q_chunk, kv_sink=keep)
     return _mean_token_logprob(params, cfg, x[:, :-1], tokens[:, 1:],

@@ -287,19 +287,20 @@ def make_sharded_evaluator(arch_id: str, *, mesh=None,
     the port's own (the same tensors on every rank; for instance
     ``make_evaluator(...)[0].params``): it is sharded as it stands,
     without a copy, so a replicated and a sharded evaluator can share
-    one set of tables. The MoE archs need the expert-parallel dispatch,
-    ROADMAP.md, Queue 1, item 6b."""
+    one set of tables. The MoE archs' experts are placed by the EP rule
+    (``w_gate``/``w_up``/``w_down`` over ``model``) and the forward runs
+    with the mesh ambient, so that their ``dispatch="ep_shard_map"``
+    takes ``models.moe.moe_apply_ep``: each rank's experts see its own
+    rows at the capacity of its own rows."""
     from repro_torch.distribution.placement import (
         NamedSharding, PartitionSpec as P, all_gather, batch_split,
         flat_coord, full_tensor, mesh_axes, split)
     from repro_torch.distribution.sharding import dp_axes, place_params
     from repro_torch.launch.mesh import make_host_mesh
 
+    from repro_torch.distribution.constraints import use_mesh
+
     cfg = _config(arch_id, smoke, max_table_rows)
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError(
-            f"{arch_id}: a sharded MoE evaluator needs the expert-parallel "
-            f"dispatch (moe_apply_ep); see ROADMAP.md, Queue 1, item 6b")
     dev = resolve(device)
     if mesh is None:
         mesh = make_host_mesh((1, 1), device=dev)
@@ -333,13 +334,15 @@ def make_sharded_evaluator(arch_id: str, *, mesh=None,
     def evaluate(chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
         chunk = {k: full_tensor(v) for k, v in chunk.items()}
         n = next(iter(chunk.values())).shape[0]
-        if not (split_dp and dp_ranks and n % dp_size == 0):
-            return inner(chunk)
-        i, ways = flat_coord(dp_ranks)
-        lo, hi = i * n // ways, (i + 1) * n // ways
-        mine = {k: v if k in whole else v[lo:hi] for k, v in chunk.items()}
-        with batch_split(dp_ranks):
-            return all_gather(inner(mine), dp_ranks, dim=0)
+        with use_mesh(mesh):
+            if not (split_dp and dp_ranks and n % dp_size == 0):
+                return inner(chunk)
+            i, ways = flat_coord(dp_ranks)
+            lo, hi = i * n // ways, (i + 1) * n // ways
+            mine = {k: v if k in whole else v[lo:hi]
+                    for k, v in chunk.items()}
+            with batch_split(dp_ranks):
+                return all_gather(inner(mine), dp_ranks, dim=0)
 
     evaluate.params = placed["tree"]
 

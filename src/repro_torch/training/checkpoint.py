@@ -11,9 +11,13 @@ Counterpart of ``repro.training.checkpoint``, with its on-disk layout:
 Writes go to ``step_<N>.tmp`` and are renamed only after fsync, so a
 crash mid-save leaves the previous checkpoint whole; a checksum mismatch
 on restore raises ``IOError``. Leaves are saved unsharded, in JAX's leaf
-order. ``restore`` places the leaves on a ``device`` (or each on its
-``tree_like`` leaf's); elastic re-sharding onto another mesh
-(``shardings=``) waits for the distribution slice.
+order: a DTensor leaf is gathered whole first (every rank of its mesh
+calls ``save``; global rank 0 writes). ``restore`` places the leaves on
+a ``device`` (or each on its ``tree_like`` leaf's), or, elastic, with
+``shardings=`` (a tree of ``distribution.placement.NamedSharding``
+matching ``tree_like``) as DTensors of those shardings: each rank keeps
+its own pieces of the saved values, on a mesh other than the one that
+saved them.
 """
 from __future__ import annotations
 
@@ -33,24 +37,45 @@ _LEAVES_PER_FILE = 64
 
 
 def _host(leaf: Any) -> np.ndarray:
+    from repro_torch.distribution.placement import full_tensor, is_dtensor
+    if is_dtensor(leaf):
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _writer() -> bool:
+    """Whether this process writes: global rank 0, or no process
+    group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: Optional[Dict] = None, keep_last: int = 3) -> str:
-    """Atomic checkpoint save. Returns the final checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic checkpoint save. Returns the final checkpoint path. With a
+    process group of several ranks, every rank calls it (a DTensor leaf
+    is gathered), rank 0 writes, and all return once it has."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    pairs = leaves_with_paths(tree)
+    paths = [p for p, _ in pairs]
+    host_leaves = [_host(leaf) for _, leaf in pairs]
+    if _writer():
+        _write(ckpt_dir, final, step, paths, host_leaves, extra, keep_last)
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, paths, host_leaves,
+           extra: Optional[Dict], keep_last: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    pairs = leaves_with_paths(tree)
-    paths = [p for p, _ in pairs]
-    host_leaves = [_host(leaf) for _, leaf in pairs]
 
     manifest: Dict[str, Any] = {
         "step": step, "extra": extra or {},
@@ -85,7 +110,6 @@ def save(ckpt_dir: str, step: int, tree: Any,
     os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
 
     _retain(ckpt_dir, keep_last)
-    return final
 
 
 def _retain(ckpt_dir: str, keep_last: int) -> None:
@@ -107,10 +131,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
-            verify: bool = True, device=None) -> Tuple[Any, Dict]:
-    """Restore into the structure of ``tree_like`` (a tree of tensors),
-    each leaf in its ``tree_like`` leaf's dtype, on ``device`` or, when
-    none is given, on that leaf's device. Returns (tree, extra)."""
+            verify: bool = True, shardings: Any = None,
+            device=None) -> Tuple[Any, Dict]:
+    """Restore into the structure of ``tree_like`` (a tree of tensors, or
+    of anything with a ``shape`` and ``dtype``), each leaf in its
+    ``tree_like`` leaf's dtype, on ``device`` or, when none is given, on
+    that leaf's device. Elastic: with ``shardings`` (a tree of
+    ``NamedSharding`` matching ``tree_like``) each leaf is placed as a
+    DTensor of its sharding (``placement.device_put``: this rank's
+    pieces only, on ``device``) — onto a mesh other than the one that
+    saved. Returns (tree, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -140,14 +170,20 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
         raise ValueError(
             f"checkpoint has {len(host_leaves)} leaves, expected "
             f"{len(ref_leaves)}: structure mismatch")
+    from repro_torch.distribution.placement import (NamedSharding,
+                                                    device_put)
+    shard_leaves = ([None] * len(ref_leaves) if shardings is None else
+                    leaves(shardings, is_leaf=lambda s: isinstance(
+                        s, NamedSharding)))
     out_leaves = []
-    for ref, arr in zip(ref_leaves, host_leaves):
+    for ref, arr, sh in zip(ref_leaves, host_leaves, shard_leaves):
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf shape mismatch: ckpt {arr.shape} vs "
                              f"model {tuple(ref.shape)}")
-        out_leaves.append(torch.as_tensor(arr).to(
-            device=device if device is not None else ref.device,
-            dtype=ref.dtype))
+        a = torch.as_tensor(arr).to(ref.dtype)
+        dev = device if device is not None else ref.device
+        out_leaves.append(a.to(dev) if sh is None
+                          else device_put(a, sh, dev))
     return unflatten(tree_like, out_leaves), manifest["extra"]
 
 

@@ -5,9 +5,11 @@ Counterpart of ``repro.training.compression``: ``_quant_leaf``,
 ``_dequant_leaf``, ``ef_init`` and ``compress_decompress`` (quantize ->
 dequantize with error feedback, in the train step before the
 optimizer). The codes round half to even, as ``jnp.round`` does, so
-they equal the reference's. ``compressed_pod_mean`` (the int8 payload
-all-gathered over a mesh's ``pod`` axis) needs a mesh and waits for the
-distribution slice (ROADMAP Queue 1 item 6).
+they equal the reference's. ``compressed_pod_mean`` is the explicit
+form of the cross-pod mean: the int8 codes and float32 per-chunk scales
+are all-gathered over a mesh axis (``pod``) of the ambient mesh
+(``distribution.constraints.use_mesh``), then dequantised and averaged
+on each rank, so the wire carries about 1 byte an element instead of 4.
 """
 from __future__ import annotations
 
@@ -62,3 +64,21 @@ def compress_decompress(grads: Any, ef: Any) -> Tuple[Any, Any, Dict]:
     total = sum(g.numel() for g in flat_g)
     return (unflatten(grads, [o[0] for o in outs]),
             unflatten(grads, [o[1] for o in outs]), {"ef_l1": err / total})
+
+
+@torch.no_grad()
+def compressed_pod_mean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Mean of ``x`` over the ranks of the ambient mesh's axis
+    ``axis_name``, int8 on the wire. On an axis of one rank (or none)
+    nothing is sent, but ``x`` is still quantised and dequantised, as
+    the reference's."""
+    from repro_torch.distribution.constraints import ambient_mesh
+    from repro_torch.distribution.placement import all_gather, mesh_axes
+
+    mesh = ambient_mesh()
+    axes = [] if mesh is None else mesh_axes(mesh, [axis_name])
+    q, s = _quant_leaf(x)
+    qg = all_gather(q[None], axes, dim=0)        # (pods, chunks, CHUNK) i8
+    sg = all_gather(s[None], axes, dim=0)        # (pods, chunks, 1) f32
+    mean = (qg.to(torch.float32) * sg).mean(dim=0)
+    return mean.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)

@@ -65,30 +65,47 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves(tree)))
+def global_norm(tree: Any, axes=None) -> torch.Tensor:
+    """The L2 norm over every leaf. ``axes`` (optional, one list of
+    ``distribution.placement.Axis`` per leaf) names the mesh axes a leaf
+    is a piece over: the squares of the leaves of one set of axes are
+    summed over those ranks, so that every rank gets the norm of the
+    whole tree."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)]
+    if not axes or not any(axes):
+        return torch.sqrt(sum(sq))
+    from repro_torch.distribution.placement import all_reduce
+    groups: Dict[tuple, list] = {}
+    for s, ax in zip(sq, axes):
+        groups.setdefault(tuple(a.name for a in ax), [ax, []])[1].append(s)
+    total = sum(all_reduce(sum(ss), ax) if ax else sum(ss)
+                for ax, ss in groups.values())
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, axes=None
                         ) -> Tuple[Any, torch.Tensor]:
     """Scales every leaf by min(1, max_norm / norm), in place where a
-    leaf is float32. Returns (grads, norm)."""
-    norm = global_norm(grads)
+    leaf is float32 (``axes`` as ``global_norm``'s). Returns (grads,
+    norm)."""
+    norm = global_norm(grads, axes)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.mul_(scale.to(g.dtype)), grads), norm
 
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: AdamWState, params: Any,
-                 cfg: AdamWConfig) -> Tuple[Any, AdamWState, Dict]:
+                 cfg: AdamWConfig, norm_axes=None
+                 ) -> Tuple[Any, AdamWState, Dict]:
     """Returns (new_params, new_state, metrics ``lr``, ``grad_norm``);
-    see the module note: params, m and v are updated in place."""
+    see the module note: params, m and v are updated in place. On a
+    rank's pieces of a sharded tree, ``norm_axes`` (``global_norm``'s
+    ``axes``) makes the clipping norm the whole tree's."""
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     if cfg.clip_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_axes)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, norm_axes)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)

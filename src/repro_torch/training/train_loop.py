@@ -10,10 +10,16 @@ microbatch's gradient comes from ``loss.backward()``; gradients are
 summed in float32 and averaged over ``grad_accum``, as the reference's
 ``lax.scan``. A batch of numpy arrays is moved to the parameters'
 device in the step.
+
+``sync`` (a :class:`GradSync`) makes the step one rank's step of a
+sharded training step (``launch.steps``' mesh cells): the loss is
+backpropagated times ``scale``, the gradients and the loss are reduced
+over the mesh by its callables, and the clipping norm is taken over
+every rank's pieces. Without it the step is the replicated one.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,14 @@ class TrainState(NamedTuple):
     params: Any
     opt: O.AdamWState
     ef: Any                      # error-feedback state or None
+
+
+class GradSync(NamedTuple):
+    """How one rank's step joins the others' (see the module note)."""
+    scale: float                 # the loss factor of the backward
+    grads: Callable              # list of gradient leaves -> reduced list
+    loss: Callable               # the rank's loss -> the reported loss
+    norm_axes: Any               # per leaf, the axes it is a piece over
 
 
 def init_state(params: Any, compress: bool = False) -> TrainState:
@@ -43,7 +57,8 @@ def to_device(batch: Dict, device) -> Dict:
 
 def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor],
                     opt_cfg: O.AdamWConfig, *, grad_accum: int = 1,
-                    compress_grads: bool = False) -> Callable:
+                    compress_grads: bool = False,
+                    sync: Optional[GradSync] = None) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> scalar`` (may return (loss, aux)). With
@@ -71,7 +86,7 @@ def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor],
             mb = batch if grad_accum == 1 else {k: v[i]
                                                 for k, v in batch.items()}
             loss, aux = _loss(params, mb)
-            loss.backward()
+            (loss if sync is None else loss * sync.scale).backward()
             for j, p in enumerate(flat):
                 g = (p.grad if p.grad is not None
                      else torch.zeros_like(p)).to(torch.float32)
@@ -84,6 +99,9 @@ def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor],
             acc = [g.div_(grad_accum) for g in acc]
             loss = loss_sum / grad_accum
             aux = {}
+        if sync is not None:
+            acc = sync.grads(acc)
+            loss = sync.loss(loss)
         grads = unflatten(params, acc)
 
         ef = state.ef
@@ -91,8 +109,9 @@ def make_train_step(loss_fn: Callable[[Any, Dict], torch.Tensor],
         if compress_grads:
             grads, ef, cm = C.compress_decompress(grads, ef)
             metrics.update(cm)
-        new_params, new_opt, om = O.adamw_update(grads, state.opt, params,
-                                                 opt_cfg)
+        new_params, new_opt, om = O.adamw_update(
+            grads, state.opt, params, opt_cfg,
+            None if sync is None else sync.norm_axes)
         metrics.update(om)
         for k, v in (aux.items() if isinstance(aux, dict) else []):
             metrics[f"aux/{k}"] = v.detach()

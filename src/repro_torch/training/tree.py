@@ -21,21 +21,23 @@ def _is_node(tree: Any) -> bool:
     return isinstance(tree, (dict, list, tuple))
 
 
-def leaves_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+def leaves_with_paths(tree: Any, prefix: str = "", is_leaf=None
+                      ) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in order; paths read like ``jax.tree_util``'s
-    ``keystr``."""
+    ``keystr``. ``is_leaf(node)`` may stop the descent at a node (a
+    ``NamedSharding``, say)."""
     if tree is None:
         return []
-    if not _is_node(tree):
+    if not _is_node(tree) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     out = []
     for key, child in _children(tree):
-        out.extend(leaves_with_paths(child, prefix + key))
+        out.extend(leaves_with_paths(child, prefix + key, is_leaf))
     return out
 
 
-def leaves(tree: Any) -> List[Any]:
-    return [leaf for _, leaf in leaves_with_paths(tree)]
+def leaves(tree: Any, is_leaf=None) -> List[Any]:
+    return [leaf for _, leaf in leaves_with_paths(tree, is_leaf=is_leaf)]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

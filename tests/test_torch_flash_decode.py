@@ -4,7 +4,12 @@ and its oracle ``ref.flash_decode_ref``, at the cases of
 ``tests/test_kernels.py::test_flash_decode_matches_ref`` with its
 ``tol(dtype)``; the poison check of
 ``test_flash_decode_respects_lengths``; and a row of length 0, where the
-port follows the TPU kernel (zeros), not the oracle (the mean of V)."""
+port follows the TPU kernel (zeros), not the oracle (the mean of V).
+The lse output (``return_lse``): the log-sum-exp of the scores each head
+sees, against ``jax.nn.logsumexp`` of the reference oracle's masked
+scores within 1e-5 (-inf at length 0), and the merge of two halves of a
+cache by their lse against one call over the whole cache, within
+``tol``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,3 +106,60 @@ def test_wrapper_rejects_mismatched_shapes(shapes):
     with pytest.raises(ValueError):
         flash_decode(torch.zeros(qs), torch.zeros(cs), torch.zeros(cs),
                      torch.zeros(ls, dtype=torch.int32))
+
+
+def _lse_j(q, kc, lengths, window, softcap):
+    """The oracle's scores (``ref.flash_decode_ref``'s), masked, and their
+    log-sum-exp per (row, head)."""
+    B, L, Hkv, D = kc.shape
+    G = q.shape[1] // Hkv
+    s = jnp.einsum("bhgd,bthd->bhgt",
+                   q.reshape(B, Hkv, G, D).astype(jnp.float32),
+                   kc.astype(jnp.float32)) * D ** -0.5
+    if softcap > 0:
+        s = softcap * jnp.tanh(s / softcap)
+    pos = jnp.arange(L)[None, :]
+    ok = pos < lengths[:, None]
+    if window > 0:
+        ok &= pos > lengths[:, None] - 1 - window
+    s = jnp.where(ok[:, None, None, :], s, -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(B, -1)
+
+
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,win,cap", [
+    (3, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 8, 1, 128, 100, 30.0),
+    (1, 1024, 9, 3, 64, 0, 0.0),
+])
+def test_flash_decode_lse_matches_the_oracle(B, L, Hq, Hkv, D, win, cap):
+    q, kc, vc = _inputs(B, L, Hq, Hkv, D, jnp.float32)
+    lengths = np.asarray(np.arange(B) * (L // B) % L + 1, np.int32)
+    lengths[-1] = 0 if B > 1 else lengths[-1]
+    o, lse = flash_decode(_t(q), _t(kc), _t(vc), torch.from_numpy(lengths),
+                          window=win, softcap=cap, return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, Hq)
+    np.testing.assert_array_equal(
+        o.numpy(), flash_decode(_t(q), _t(kc), _t(vc),
+                                torch.from_numpy(lengths), window=win,
+                                softcap=cap).numpy())
+    want = _lse_j(q, kc, jnp.asarray(lengths), win, cap)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-5)
+    if B > 1:
+        assert np.isneginf(lse[-1].numpy()).all()
+
+
+def test_two_halves_merged_by_lse_equal_one_call():
+    B, L, Hq, Hkv, D = 4, 512, 8, 2, 64
+    q, kc, vc = (_t(a) for a in _inputs(B, L, Hq, Hkv, D, jnp.float32))
+    lengths = torch.tensor([1, 200, 256, 500], dtype=torch.int32)
+    whole = flash_decode(q, kc, vc, lengths)
+    parts = [flash_decode(q, kc[:, lo:lo + L // 2].contiguous(),
+                          vc[:, lo:lo + L // 2].contiguous(),
+                          (lengths - lo).clamp(0, L // 2).to(torch.int32),
+                          return_lse=True) for lo in (0, L // 2)]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(lse - m) for _, lse in parts]
+    merged = sum(wi[..., None] * o for wi, (o, _) in zip(w, parts)) \
+        / sum(w)[..., None]
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(),
+                               **tol(jnp.float32))

@@ -1,7 +1,8 @@
 """Import guard of the torch port, run in a fresh interpreter: importing
 every ``repro_torch`` module (and ``chip_smoke.py``) leaves ``jax`` and
-every ``repro`` module out of ``sys.modules`` (the training modules and
-the training launcher among them); and an entry point given no
+every ``repro`` module out of ``sys.modules`` (the training modules, the
+training launcher, the mesh cells and the dry-run among them); every
+reference module has its counterpart; and an entry point given no
 ``device`` on a machine with no card raises instead of falling back to
 the CPU."""
 import os
@@ -49,8 +50,20 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     names = set(lines["NAMES"].split())
     assert {f"repro_torch.training.{m}" for m in (
         "optimizer", "compression", "data", "checkpoint", "train_loop",
-        "tree")} | {"repro_torch.launch.train",
-                    "repro_torch.launch.steps"} <= names
+        "tree")} | {f"repro_torch.launch.{m}" for m in (
+            "train", "steps", "dryrun", "hlo_analysis")} <= names
+
+
+def test_every_reference_module_has_its_counterpart():
+    """The module tree of ``src/repro`` has its counterpart in
+    ``src/repro_torch``, apart from ``kernels/ops.py`` and
+    ``kernels/ref.py``, whose contents live beside each kernel."""
+    ref = {p.relative_to(SRC / "repro") for p in (SRC / "repro").rglob(
+        "*.py")}
+    port = {p.relative_to(SRC / "repro_torch") for p in (
+        SRC / "repro_torch").rglob("*.py")}
+    missing = {str(p) for p in ref - port}
+    assert missing == {"kernels/ops.py", "kernels/ref.py"}, missing
 
 
 def test_chip_smoke_source_imports_no_jax():

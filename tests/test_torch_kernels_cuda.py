@@ -1077,3 +1077,69 @@ def test_cuda_mesh_of_one_gives_the_replicated_scores(dev, arch):
         assert torch.equal(se.evaluate(feats), ev(feats))
     finally:
         destroy_world()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,Hq,Hkv,D,window,softcap", [
+    (3, 512, 4, 2, 64, 0, 0.0),
+    (2, 512, 8, 1, 128, 100, 30.0),
+    (4, 64, 8, 2, 12, 0, 0.0),             # D 12 padded to 16
+    (16, 2048, 8, 4, 256, 700, 50.0),
+    (64, 1500, 6, 2, 64, 0, 0.0),
+])
+def test_flash_decode_lse_close_to_plain(dev, B, L, Hq, Hkv, D, window,
+                                         softcap, dtype, atol):
+    """The lse instance (``return_lse``): its o equals the serving
+    instance's bit for bit, its lse is within ``atol`` of the plain
+    version's (-inf at length 0), one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(L + B + D)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:2] = torch.tensor([0, L], device=dev)
+    kw = dict(window=window, softcap=softcap)
+    before = flash_decode.launches
+    o, lse = flash_decode(q, k, v, lengths, return_lse=True, **kw)
+    assert flash_decode.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq)
+    assert torch.equal(o, flash_decode(q, k, v, lengths, **kw))
+    o_ref, lse_ref = flash_decode_ref(q, k, v, lengths, return_lse=True,
+                                      **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
+    assert torch.isneginf(lse[0]).all() and torch.isneginf(lse_ref[0]).all()
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=atol, rtol=0)
+
+
+def test_kernel_wrappers_never_take_the_fake_branch_on_a_card(dev):
+    """A real CUDA tensor is never taken for a fake one: every wrapper's
+    launch counter moves by one a call."""
+    from repro_torch.kernels._build import is_fake
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 64, 4, 64), generator=g, device=dev)
+    kv = torch.randn((2, 64, 2, 64), generator=g, device=dev)
+    assert not is_fake(q, kv)
+    calls = [
+        (flash_attention, lambda: flash_attention(q, kv, kv)),
+        (flash_decode, lambda: flash_decode(
+            q[:, 0].contiguous(), kv, kv,
+            torch.tensor([3, 64], dtype=torch.int32, device=dev))),
+        (topk_select, lambda: topk_select(q.flatten(), 8)),
+        (dot_interaction, lambda: dot_interaction(
+            q[:, :8, 0].contiguous())),
+    ]
+    for wrapper, call in calls:
+        before = wrapper.launches
+        call()
+        assert wrapper.launches == before + 1, wrapper.__name__
+    x = q[:, :8, 0].contiguous()
+    before = dot_interaction_bwd.launches
+    dot_interaction_bwd(x, torch.randn((2, 28), device=dev))
+    assert dot_interaction_bwd.launches == before + 1
+    o = flash_attention(q, kv, kv)
+    lse = torch.zeros((2, 4, 64), device=dev)
+    before = flash_attention_bwd.launches
+    flash_attention_bwd(q, kv, kv, o, lse, torch.randn_like(o))
+    assert flash_attention_bwd.launches == before + 1

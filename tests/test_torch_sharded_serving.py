@@ -129,9 +129,17 @@ def test_default_mesh_is_the_host_mesh_of_one():
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
 def test_moe_archs_raise_naming_item_6b(arch):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue 1, item 6b"):
-        make_sharded_evaluator(arch, smoke=True, device="cpu")
+    """Item 6b is done: the MoE archs no longer raise; on a world of one
+    their sharded evaluators give the replicated scores bit for bit (the
+    multi-rank meshes are ``tests/test_torch_moe_ep.py``'s)."""
+    try:
+        se = make_sharded_evaluator(arch, smoke=True, device="cpu")
+        for n in SIZES:
+            got = se.evaluate(_tensors(se.make_features(n, fseed=n)))
+            np.testing.assert_array_equal(got.numpy(),
+                                          _replicated_scores(arch, n))
+    finally:
+        destroy_world()
     assert not dist.is_initialized()
 
 
