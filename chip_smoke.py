@@ -156,7 +156,11 @@ from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.kernels import dot_interaction as DI  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import flash_decode as FD  # noqa: E402
+from repro_torch.kernels import shed_partition as SP  # noqa: E402
+from repro_torch.kernels import topk_select as TS  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
     dot_interaction, dot_interaction_bwd, dot_interaction_bwd_ref,
     dot_interaction_ref, group_size, triu_pairs)
@@ -213,6 +217,18 @@ NO_BACKWARD = {"flash_attention_bwd": 0, "dot_interaction_bwd": 0}
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+
+
+def bound(cost, dtype) -> dict:
+    """A kernel's bound from its module's ``cost`` (operations, bytes) at
+    this run's inputs: the larger of the bytes over the HBM rate and the
+    operations over the peak rate of ``dtype``."""
+    flops, n_bytes = cost
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": n_bytes, "flops": flops}
 
 SEED = 0
 BATCH = 4096                     # micro-batch capacity of the fused drain
@@ -487,10 +503,9 @@ def shed_bytes(keys, valid, ck, cv) -> int:
     first = match.to(torch.int8).argmax(-1) + 1
     probe = valid & (keys != 0)
     ways_read = torch.where(hit, first, torch.full_like(first, n_ways))
-    n_probe_bytes = int((ways_read * 4 + hit.to(torch.int64) * 4)[probe]
-                        .sum())
-    n = keys.shape[0]
-    return n * (4 + 1) + n * 12 + n_probe_bytes
+    way_reads = int(ways_read[probe].sum())
+    hits = int(hit[probe].sum())
+    return SP.cost(keys.shape[0], way_reads, hits)[1]
 
 
 def shed_inputs(n: int, cached, gen, dev, mask: str = "prefix",
@@ -782,21 +797,14 @@ def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,
             attn_mask=mask, is_causal=mask is None, scale=scale,
             enable_gqa=True)
 
-    size = q.element_size()
-    n_bytes = size * (q.numel() * 2 + k.numel() + v.numel())  # q,o + k,v
-    seen = np.minimum(np.arange(1, S + 1), window if window > 0 else S)
-    flops = 4 * B * Hq * D * int(seen.sum())                  # QK, PV
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    b = bound(FA.cost(B, S, Hq, k.shape[2], D, q.element_size(),
+                      window=window), q.dtype)
     return {
         "ms": timed_ms(lambda: flash_attention(q, k, v, **kw), 20, flush),
         "plain_ms": (timed_ms(lambda: flash_attention_ref(q, k, v, **kw),
                               plain_iters, flush) if plain_iters else None),
         "library_ms": timed_ms(library, 20, flush),
-        "library_out": library().transpose(1, 2),
-        "bound_ms": max(by_bytes, by_ops) * 1e3,
-        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "bytes": n_bytes, "flops": flops}
+        "library_out": library().transpose(1, 2), **b}
 
 
 def rel_err(got, want) -> tuple:
@@ -895,22 +903,14 @@ def attention_bwd_timing(q, k, v, do, flush, plain_iters: int,
     def library():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    size = q.element_size()
-    n_bytes = size * (3 * q.numel() + 2 * (k.numel() + v.numel())
-                      + do.numel()) + 4 * lse.numel()
-    seen = np.minimum(np.arange(1, S + 1), window if window > 0 else S)
-    flops = 10 * B * Hq * D * int(seen.sum())         # S, dP, dV, dQ, dK
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    shape = (B, S, Hq, k.shape[2], D, q.element_size())
     t = {"ms": timed_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                     **kw), 10, flush),
          "plain_ms": (timed_ms(lambda: flash_attention_bwd_ref(
              q, k, v, o, lse, do, **kw), plain_iters, flush)
              if plain_iters else None),
          "library_ms": timed_ms(library, 10, flush),
-         "bound_ms": max(by_bytes, by_ops) * 1e3,
-         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-         "bytes": n_bytes, "flops": flops,
+         **bound(FA.cost(*shape, window=window, backward=True), q.dtype),
          "fwd_ms": timed_ms(lambda: flash_attention(q, k, v, **kw), 10,
                             flush),
          "fwd_lse_ms": timed_ms(lambda: FA._forward(q, k, v, lse=lse, **kw),
@@ -920,9 +920,8 @@ def attention_bwd_timing(q, k, v, do, flush, plain_iters: int,
             lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True), 10, flush)
-    t["fwd_bound_ms"] = max(
-        size * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S,
-        0.4 * flops / peak) * 1e3                     # two of the five
+    t["fwd_bound_ms"] = bound(FA.cost(*shape, window=window),
+                              q.dtype)["bound_ms"]
     del out, qt, kt, vt
     return t
 
@@ -1045,14 +1044,12 @@ def topk_cases(gen, dev):
 
 
 def topk_timing(scores, k, flush) -> dict:
-    n, size = scores.shape[0], scores.element_size()
-    n_bytes = n * size + k * (size + 4)          # read N, write k values+ids
     return {
         "ms": timed_ms(lambda: topk_select(scores, k), 200, flush),
         "plain_ms": timed_ms(lambda: topk_select_ref(scores, k), 50, flush),
         "library_ms": timed_ms(lambda: torch.topk(scores, k), 200, flush),
-        "bytes": n_bytes,
-        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        **bound(TS.cost(scores.shape[0], k, scores.element_size()),
+                scores.dtype),
     }
 
 
@@ -1091,7 +1088,7 @@ def phase_topk_select(dev) -> dict:
             "source": "src/repro_torch/csrc/topk_select.cu",
             "replaces": "src/repro/kernels/topk_select.py:111",
             "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "launch_floor_ms": floor_ms,
             "f32_ms": timings[cases[1][0]]["ms"],
             "f32_1m_ms": timings[cases[2][0]]["ms"]}
@@ -1152,9 +1149,6 @@ def phase_dot_interaction(dev) -> dict:
     rows = {}
     for B in (ENGINE_BATCH, BATCH):
         x = inputs[(B, DLRM_F, DLRM_D, torch.float32)]
-        n_pairs = DLRM_F * (DLRM_F - 1) // 2
-        n_bytes = (x.numel() + B * n_pairs) * 4
-        flops = 2 * B * n_pairs * DLRM_D
         t = {"ms": timed_ms(lambda: dot_interaction(x), 200, flush),
              "plain_ms": timed_ms(lambda: dot_interaction_ref(x), 100,
                                   flush),
@@ -1162,17 +1156,14 @@ def phase_dot_interaction(dev) -> dict:
              # one read-only pass over the input: the floor a kernel that
              # reads these bytes meets under the same flush
              "read_ms": timed_ms(lambda: x.sum(), 100, flush),
-             "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
-                             flops / F32_FLOP_PER_S) * 1e3,
-             "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                          >= flops / F32_FLOP_PER_S else "operations")}
+             **bound(DI.cost(B, DLRM_F, DLRM_D, 4), torch.float32)}
         rows[B] = t
         log(f"dot_interaction @B={B} F={DLRM_F} D={DLRM_D} f32: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm + "
             f"triangle gather (two library calls) {t['yardstick_ms']:.4f} "
             f"ms, one read-only pass over x (torch.sum) {t['read_ms']:.4f} "
-            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} "
-            f"B, {flops} FLOP)")
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']} "
+            f"B, {t['flops']} FLOP)")
     t = rows[ENGINE_BATCH]             # the DLRM engine's micro-batch
     fwd = {"name": "dot_interaction", "route": "cuda",
            "source": "src/repro_torch/csrc/dot_interaction.cu",
@@ -1230,26 +1221,21 @@ def dot_interaction_backward(inputs: dict, flush, gen, dev) -> dict:
     def library():
         return torch.autograd.grad(tri, xl, g, retain_graph=True)
 
-    n_pairs = DLRM_F * (DLRM_F - 1) // 2
-    n_bytes = (2 * x.numel() + B * n_pairs) * 4
-    flops = 2 * B * DLRM_F * (DLRM_F - 1) * DLRM_D
     t = {"ms": timed_ms(lambda: dot_interaction_bwd(x, g), 50, flush),
          "plain_ms": timed_ms(lambda: dot_interaction_bwd_ref(x, g), 10,
                               flush),
          "library_ms": timed_ms(library, 20, flush),
          "fwd_ms": timed_ms(lambda: dot_interaction(x), 50, flush),
-         "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
-                         flops / F32_FLOP_PER_S) * 1e3,
-         "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                      >= flops / F32_FLOP_PER_S else "operations")}
+         **bound(DI.cost(B, DLRM_F, DLRM_D, 4, backward=True),
+                 torch.float32)}
     log(f"dot_interaction_bwd: {len(cases)} shapes within tolerance of the "
         f"plain version (of its max abs: f32 {worst[torch.float32]:.3e} <= "
         f"{F32_ATOL}, bf16 {worst[torch.bfloat16]:.3e} <= {BF16_ATOL}); @B="
         f"{B} F={DLRM_F} D={DLRM_D} f32: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, autograd of torch.bmm + triangle gather "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}: {n_bytes} B, {flops} FLOP), two calls equal bit"
-        f" for bit; the forward at this "
+        f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP), two calls "
+        f"equal bit for bit; the forward at this "
         f"batch {t['fwd_ms']:.4f} ms, within {fwd_rel:.3e} of the plain "
         f"output's max (<= {F32_ATOL})")
     del tri, xl
@@ -1435,13 +1421,6 @@ def decode_timing(q, k, v, lengths, flush, plain_iters: int,
             attn_mask=mask, scale=scale, enable_gqa=True)[:, :, 0]
 
     n_valid = int(ok.sum())
-    size = q.element_size()
-    n_bytes = (n_valid * Hkv * D * 2 * size        # valid k and v rows
-               + 2 * q.numel() * size + B * 4      # q, o, lengths
-               + (B * Hq * 4 if return_lse else 0))
-    flops = 4 * n_valid * Hq * D                    # QK and PV
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return {
         "ms": timed_ms(lambda: flash_decode(q, k, v, lengths, **kw), 200,
                        flush),
@@ -1455,9 +1434,8 @@ def decode_timing(q, k, v, lengths, flush, plain_iters: int,
             q, k, v, lengths, **kw), 20, flush) if return_lse else None),
         "piece": piece_length(B, Hkv, L, q.dtype, D),
         "mean_length": n_valid / B,
-        "bound_ms": max(by_bytes, by_ops) * 1e3,
-        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "bytes": n_bytes, "flops": flops}
+        **bound(FD.cost(B, Hq, Hkv, D, q.element_size(), n_valid,
+                        return_lse), q.dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -3754,9 +3732,10 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
     ``max_evals``: regimes, tiers and counts equal, trust within
     TRUST_ATOL; the sharded run's launches are the path's. Then the first
     MoE layer on one call of the Zipf-skewed tokens ``zipf`` (whose
-    hottest experts overflow): ``moe_apply_ep``'s keep set (read off its
-    dispatch plan) equals ``moe_apply``'s (its own sort, recomputed here),
-    some choice is dropped, and their outputs are equal bit for bit."""
+    hottest experts overflow): the dispatch's keep set on the card equals
+    the same plan's on the CPU and ``moe_apply``'s dropped fraction, some
+    choice is dropped, and ``moe_apply_ep``'s output equals
+    ``moe_apply``'s bit for bit."""
     from repro_torch.distribution.constraints import use_mesh
     from repro_torch.launch.mesh import destroy_world, make_host_mesh
     from repro_torch.serving.evaluators import make_sharded_evaluator
@@ -3805,20 +3784,20 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
             ref, metrics = M.moe_apply(bp["moe"], x, mcfg, act=full.act)
         _, _, idx = M._router(bp["moe"], x, mcfg)
         C = M.capacity(x.shape[0], mcfg)
-        keep_ep = M.slot_keep(idx, 0, mcfg.n_experts, C)
-        flat = idx.reshape(-1)
-        sorted_e, order = torch.sort(flat, stable=True)
-        pos = torch.arange(flat.numel(), device=dev) - torch.searchsorted(
-            sorted_e, sorted_e, side="left")
-        keep_ref = torch.empty_like(flat, dtype=torch.bool)
-        keep_ref[order] = pos < C
-        keep_ref = keep_ref.reshape(idx.shape)
-        dropped = int((~keep_ref).sum())
-        if not torch.equal(keep_ep, keep_ref) or not torch.equal(ep, ref) \
-                or not dropped:
+        # the keep set on the card, against the same plan on the CPU
+        # (which tests/test_torch_moe_ep.py holds to JAX's keep sets) and
+        # against moe_apply's dropped fraction
+        keep = M.slot_keep(idx, 0, mcfg.n_experts, C)
+        keep_cpu = M.slot_keep(idx.cpu(), 0, mcfg.n_experts, C)
+        dropped = int((~keep).sum())
+        frac = float(metrics["moe_drop_frac"])
+        want = float((1.0 - keep.sum() / idx.numel()).to(torch.float32))
+        if not torch.equal(keep.cpu(), keep_cpu) or frac != want \
+                or not torch.equal(ep, ref) or not dropped:
             raise AssertionError(f"{arch}: moe_apply_ep vs moe_apply on the "
-                                 f"(1, 1) mesh: keep sets equal "
-                                 f"{torch.equal(keep_ep, keep_ref)}, "
+                                 f"(1, 1) mesh: keep sets equal the CPU's "
+                                 f"{torch.equal(keep.cpu(), keep_cpu)}, "
+                                 f"{dropped} dropped, moe_drop_frac {frac}, "
                                  f"outputs equal {torch.equal(ep, ref)}")
     finally:
         destroy_world()
@@ -3828,7 +3807,7 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
         f"and the sharded evaluator: regimes, tiers and counts equal, max "
         f"|trust diff| {worst:.3e} (<= {TRUST_ATOL}); launches {launches}; "
         f"first MoE layer on {x.shape[0]} Zipf({MOE_ZIPF_A}) tokens: keep "
-        f"sets equal "
+        f"set equal to the CPU's and to moe_drop_frac "
         f"({dropped} of {idx.numel()} choices dropped at capacity {C}), "
         f"moe_apply_ep == moe_apply bit for bit")
     return {"launches": launches, "max_trust_diff": worst,

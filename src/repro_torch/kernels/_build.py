@@ -5,9 +5,10 @@ rather than return a result detached from autograd; and ``is_fake`` /
 ``fake_launch``: a wrapper given fake CUDA tensors (a
 ``FakeTensorMode`` trace, ``launch.hlo_analysis``) launches nothing,
 returns fake outputs of the kernel's shapes and types, and reports the
-kernel's operations and bytes (the formulas of its bound) to
-``kernel_costs``. Only a ``FakeTensor`` takes that branch: a real CUDA
-tensor launches the kernel or raises.
+kernel's operations and bytes (its module's ``cost``, the formulas of
+its bound) to ``kernel_costs``. A wrapper makes the checks of a launch
+first, so a trace refuses what a launch refuses. Only a ``FakeTensor``
+takes that branch: a real CUDA tensor launches the kernel or raises.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/lib<name>-<source hash>.so`` inside the package
@@ -145,6 +146,15 @@ def is_fake(*tensors) -> bool:
     mod = sys.modules.get("torch._subclasses.fake_tensor")
     return mod is not None and any(isinstance(t, mod.FakeTensor)
                                    for t in tensors)
+
+
+def misaligned(t: torch.Tensor, n: int = 16) -> bool:
+    """Whether ``t``'s first element is off an ``n``-byte boundary: its
+    address for a real tensor; for a fake one, which has none, its byte
+    offset into its storage (a storage starts aligned)."""
+    if is_fake(t):
+        return (t.storage_offset() * t.element_size()) % n != 0
+    return t.data_ptr() % n != 0
 
 
 # the ``kernel_costs`` callback: a process-wide slot, not a context

@@ -67,6 +67,18 @@ def dot_interaction_bwd_ref(feats: torch.Tensor,
     return torch.bmm(gm, feats.to(torch.float32)).to(feats.dtype)
 
 
+def cost(B: int, F: int, D: int, size: int, backward: bool = False):
+    """(operations, bytes) of one call. The forward: the F(F-1)/2 pairs'
+    dot products of D (2 D operations each), the features read and the
+    triangle written. The backward: each pair's gradient times both of
+    its rows, the features and the triangle's gradient read and dx
+    written."""
+    n_pairs = F * (F - 1) // 2
+    if backward:
+        return 4 * B * n_pairs * D, (2 * B * F * D + B * n_pairs) * size
+    return 2 * B * n_pairs * D, (B * F * D + B * n_pairs) * size
+
+
 def _check(feats: torch.Tensor) -> None:
     if feats.dim() != 3:
         raise ValueError(f"feats must be (B, F, D), got "
@@ -82,14 +94,17 @@ def _check(feats: torch.Tensor) -> None:
 def _forward(feats: torch.Tensor) -> torch.Tensor:
     """One launch of the forward kernel."""
     B, F, D = feats.shape
-    if is_fake(feats):
-        n_pairs = F * (F - 1) // 2
-        fake_launch("dot_interaction", 2 * B * n_pairs * D,
-                    (feats.numel() + B * n_pairs) * feats.element_size())
-        return torch.empty((B, n_pairs), dtype=feats.dtype,
-                           device=feats.device)
     if not feats.is_contiguous():
         raise ValueError("feats must be contiguous")
+    if B > 2 ** 31 - 1:
+        raise ValueError(f"dot_interaction indexes blocks with int32: "
+                         f"B={B} is too large")
+    if is_fake(feats):
+        fake_launch("dot_interaction", *cost(B, F, D, feats.element_size()))
+        return torch.empty((B, F * (F - 1) // 2), dtype=feats.dtype,
+                           device=feats.device)
+    # the shared memory a block needs comes from the built library, which
+    # a trace does not have: the one launch check it cannot make
     smem = library_function("dot_interaction", "dot_interaction_smem_bytes",
                             [ctypes.c_int] * 3,
                             restype=ctypes.c_longlong)(
@@ -97,9 +112,6 @@ def _forward(feats: torch.Tensor) -> torch.Tensor:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"dot_interaction: F={F}, D={D} needs {smem} B of "
                          f"shared memory, more than a block has")
-    if B > 2 ** 31 - 1:
-        raise ValueError(f"dot_interaction indexes blocks with int32: "
-                         f"B={B} is too large")
     fn = library_function(
         "dot_interaction", "dot_interaction_launch",
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -168,14 +180,16 @@ def dot_interaction_bwd(feats: torch.Tensor,
                          f"{tuple(grad.shape)} {grad.dtype} {grad.device}")
     if feats.device.type == "cpu" and not is_fake(feats, grad):
         return dot_interaction_bwd_ref(feats, grad)
-    if is_fake(feats, grad):
-        fake_launch("dot_interaction_bwd", 2 * B * F * (F - 1) * D,
-                    (2 * feats.numel() + grad.numel())
-                    * feats.element_size())
-        return torch.empty_like(feats)
     if not (feats.is_contiguous() and grad.is_contiguous()):
         raise ValueError("feats and grad must be contiguous")
     refuse_grad("dot_interaction_bwd", feats, grad)
+    if B > 2 ** 31 - 1:
+        raise ValueError(f"dot_interaction_bwd indexes blocks with int32: "
+                         f"B={B} is too large")
+    if is_fake(feats, grad):
+        fake_launch("dot_interaction_bwd", *cost(
+            B, F, D, feats.element_size(), backward=True))
+        return torch.empty_like(feats)
     smem = library_function("dot_interaction_bwd",
                             "dot_interaction_bwd_smem_bytes",
                             [ctypes.c_int] * 3,
@@ -184,9 +198,6 @@ def dot_interaction_bwd(feats: torch.Tensor,
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"dot_interaction_bwd: F={F}, D={D} needs {smem} "
                          f"B of shared memory, more than a block has")
-    if B > 2 ** 31 - 1:
-        raise ValueError(f"dot_interaction_bwd indexes blocks with int32: "
-                         f"B={B} is too large")
     fn = library_function(
         "dot_interaction_bwd", "dot_interaction_bwd_launch",
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._build import (fake_launch, is_fake,
-                                        library_function, refuse_grad)
+                                        library_function, misaligned,
+                                        refuse_grad)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
@@ -178,7 +179,7 @@ def _kernel_args(name: str, *ts: torch.Tensor):
     for t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous")
-        if t.data_ptr() % 16:            # the kernels read 16-byte chunks
+        if misaligned(t):                # the kernels read 16-byte chunks
             raise ValueError(f"{name}: every tensor must be 16-byte "
                              f"aligned")
 
@@ -193,27 +194,35 @@ def seen_pairs(S: int, causal: bool, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _fake_cost(name: str, q, k, v, causal, window, passes: int,
-               tensors: int) -> None:
-    """A fake call's operations (``passes`` products of 2 B Hq D pairs
-    each: 2 forward, 5 backward) and bytes (``tensors`` q-sized tensors
-    read or written, k and v once each in the forward, twice backward,
-    and the lse)."""
-    B, S, Hq, D = q.shape
-    flops = 2 * passes * B * Hq * D * seen_pairs(S, causal, window)
-    kv = (k.numel() + v.numel()) * (1 if passes == 2 else 2)
-    fake_launch(name, flops, (tensors * q.numel() + kv) * q.element_size()
-                + 4 * B * Hq * S)
+def cost(B: int, S: int, Hq: int, Hkv: int, D: int, size: int, *,
+         causal: bool = True, window: int = 0, lse: bool = False,
+         backward: bool = False):
+    """(operations, bytes) of one call over the (query, key) pairs that
+    the causal window leaves. The forward: QK^T and PV (two products of
+    2 D operations a pair and head), q, k, v read and o written, and with
+    ``lse`` the (B, Hq, S) float32 lse written. The backward: five
+    products (S, dP, dV, dQ, dK), q, o, do read and dq written, k and v
+    read and dk, dv written, and the lse read."""
+    pairs = seen_pairs(S, causal, window)
+    q_el, kv_el = B * S * Hq * D, 2 * B * S * Hkv * D
+    lse_bytes = 4 * B * Hq * S
+    if backward:
+        return (10 * B * Hq * D * pairs,
+                size * (4 * q_el + 2 * kv_el) + lse_bytes)
+    return (4 * B * Hq * D * pairs,
+            size * (2 * q_el + kv_el) + (lse_bytes if lse else 0))
 
 
 def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None):
     """One launch of the forward kernel; writes ``lse`` (B, Hq, S) float32
     where one is given."""
-    if is_fake(q, k, v):
-        _fake_cost("flash_attention", q, k, v, causal, window, 2, 2)
-        return torch.empty_like(q)
     _kernel_args("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
+    if is_fake(q, k, v):
+        fake_launch("flash_attention", *cost(
+            B, S, Hq, k.shape[2], D, q.element_size(), causal=causal,
+            window=window, lse=lse is not None))
+        return torch.empty_like(q)
     fn = library_function(
         "flash_attention", "flash_attention_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -322,13 +331,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             or lse.device != q.device:
         raise ValueError(f"lse must be ({B}, {Hq}, {S}) float32 on "
                          f"{q.device}")
-    if is_fake(q, k, v, o, lse, do):
-        _fake_cost("flash_attention_bwd", q, k, v, causal, window, 5, 3)
-        return tuple(torch.empty_like(t) for t in (q, k, v))
     _kernel_args("flash_attention_bwd", q, k, v, o, do)
     refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous")
+    if is_fake(q, k, v, o, lse, do):
+        fake_launch("flash_attention_bwd", *cost(
+            B, S, Hq, k.shape[2], D, q.element_size(), causal=causal,
+            window=window, backward=True))
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     fn = library_function(
         "flash_attention_bwd", "flash_attention_bwd_launch",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6

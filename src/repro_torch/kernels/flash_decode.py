@@ -31,12 +31,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import (fake_launch, is_fake,
-                                        library_function, refuse_grad)
+                                        library_function, misaligned,
+                                        refuse_grad)
 from repro_torch.kernels.flash_attention import MIN_HEAD_DIM, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8
+MIN_PIECE = 32                  # positions: a piece is whole 32-row tiles
 NEG_INF = -2.0e38
 
 
@@ -105,6 +107,20 @@ def _check(q, k_cache, v_cache, lengths) -> None:
         raise ValueError("lengths must be on q's device")
 
 
+def cost(B: int, Hq: int, Hkv: int, D: int, size: int, seen: int,
+         return_lse: bool = False):
+    """(operations, bytes) of one call that sees ``seen`` cache positions
+    in all its rows: the k and v rows of those positions read, q read, o
+    written, the lengths and, with ``return_lse``, the lse; QK^T and PV
+    over them for every query head. A card run counts the positions its
+    lengths leave visible, a trace (whose lengths are data) every
+    position of the cache."""
+    flops = 4 * seen * Hq * D
+    n_bytes = (seen * Hkv * D * 2 * size + 2 * B * Hq * D * size + 4 * B
+               + (4 * B * Hq if return_lse else 0))
+    return flops, n_bytes
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
                  window: int = 0, softcap: float = 0.0,
@@ -115,25 +131,19 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (B, Hq) float32 log-sum-exp of the module note.
 
     CUDA tensors launch the kernel (counted in ``flash_decode.launches``,
-    once per call); CPU tensors take the plain version.
+    once per call); CPU tensors take the plain version. Fake tensors pass
+    the launch's checks and report ``cost`` instead of launching.
     """
     _check(q, k_cache, v_cache, lengths)
-    if q.device.type == "cpu" and not is_fake(q, k_cache, v_cache):
+    fake = is_fake(q, k_cache, v_cache, lengths)
+    if q.device.type == "cpu" and not fake:
         return flash_decode_ref(q, k_cache, v_cache, lengths, window=window,
                                 softcap=softcap, sm_scale=sm_scale,
                                 return_lse=return_lse)
-    if q.device.type != "cuda" and not is_fake(q, k_cache, v_cache):
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     refuse_grad("flash_decode", q, k_cache, v_cache)
     B, L, Hkv, D = k_cache.shape
-    if is_fake(q, k_cache, v_cache, lengths):
-        # the lengths are data: a trace counts the whole cache
-        fake_launch("flash_decode", 4 * B * q.shape[1] * D * L,
-                    (2 * q.numel() + k_cache.numel() + v_cache.numel())
-                    * q.element_size() + 4 * B)
-        o = torch.empty_like(q)
-        return (o, torch.empty(q.shape[:2], dtype=torch.float32,
-                               device=q.device)) if return_lse else o
     G = q.shape[1] // Hkv
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
@@ -160,14 +170,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.data_ptr() % 16:            # the kernel reads 16-byte chunks
+        if misaligned(t):                # the kernel reads 16-byte chunks
             raise ValueError(f"{name} must be 16-byte aligned")
-    piece = piece_length(B, Hkv, L, q.dtype, D)
+    # the piece length is the card's (its SM count); a trace takes the
+    # shortest, which gives the most pieces a card could need
+    piece = MIN_PIECE if fake else piece_length(B, Hkv, L, q.dtype, D)
     max_pieces = -(-L // piece)
     if max(B * Hkv * max_pieces, B * q.shape[1]) >= 2 ** 31:
         raise ValueError(f"flash_decode takes fewer than 2**31 pieces and "
                          f"(row, head) pairs, got B={B}, Hkv={Hkv}, "
                          f"{max_pieces} pieces per row")
+    if fake:
+        fake_launch("flash_decode", *cost(B, q.shape[1], Hkv, D,
+                                          q.element_size(), B * L,
+                                          return_lse))
+        o = torch.empty_like(q)
+        return (o, torch.empty(q.shape[:2], dtype=torch.float32,
+                               device=q.device)) if return_lse else o
     fn = library_function(
         "flash_decode", "flash_decode_launch",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8

@@ -86,6 +86,15 @@ def _check(keys, valid, cache_keys, cache_values) -> None:
                          "offsets: at most 2**32 - 1 entries")
 
 
+def cost(n: int, way_reads: int, hits: int):
+    """(operations, bytes) of one call on ``n`` items: keys and flags
+    read (5 B an item), three outputs written (12 B), and for each probed
+    item its set's way keys up to its hit (``way_reads`` keys in all,
+    every way on a miss) and each hit's value. Its work is loads and
+    compares: no arithmetic is counted."""
+    return 0, 17 * n + 4 * (way_reads + hits)
+
+
 def shed_partition(keys: torch.Tensor, valid: torch.Tensor,
                    cache_keys: torch.Tensor, cache_values: torch.Tensor,
                    u_capacity: int, u_threshold: int, budget: int, *,
@@ -109,17 +118,17 @@ def shed_partition(keys: torch.Tensor, valid: torch.Tensor,
                          f"not {keys.device}")
     refuse_grad("shed_partition", cache_values)
     n = keys.shape[0]
+    n_slots, n_ways, ways_leading = TC.dims(tuple(cache_keys.shape))
     if is_fake(keys, valid, cache_keys, cache_values):
-        # keys and valid read, every way of a probe, three outputs
-        ways = min(cache_keys.shape)
-        fake_launch("shed_partition", 0, n * (5 + 8 * ways + 12))
+        # the probes are data: a trace counts every item probed, every
+        # way read and a hit's value
+        fake_launch("shed_partition", *cost(n, n * n_ways, n))
         return (torch.empty(n, dtype=torch.int32, device=keys.device),
                 torch.empty(n, dtype=torch.float32, device=keys.device),
                 torch.empty(n, dtype=torch.int32, device=keys.device))
     fn = library_function(
         "shed_partition", "shed_partition_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
-    n_slots, n_ways, ways_leading = TC.dims(tuple(cache_keys.shape))
     tier = torch.empty(n, dtype=torch.int32, device=keys.device)
     cval = torch.empty(n, dtype=torch.float32, device=keys.device)
     rank = torch.empty(n, dtype=torch.int32, device=keys.device)

@@ -60,6 +60,13 @@ def topk_select_ref(scores: torch.Tensor, k: int
     return scores[order], order.to(torch.int32)
 
 
+def cost(n: int, k: int, size: int):
+    """(operations, bytes) of one call: the N scores read once, k values
+    and their int32 indices written. A select compares; no arithmetic is
+    counted."""
+    return 0, n * size + k * (size + 4)
+
+
 def topk_select(scores: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores: (N,) float32 or float64, contiguous; 1 <= k <= N.
@@ -83,16 +90,15 @@ def topk_select(scores: torch.Tensor, k: int
         raise ValueError(f"topk_select runs on cuda or cpu, "
                          f"not {scores.device}")
     refuse_grad("topk_select", scores)
-    if is_fake(scores):
-        size = scores.element_size()
-        fake_launch("topk_select", 0, n * size + k * (size + 4))
-        return (torch.empty(k, dtype=scores.dtype, device=scores.device),
-                torch.empty(k, dtype=torch.int32, device=scores.device))
     if not scores.is_contiguous():
         raise ValueError("scores must be contiguous")
     if n > INT32_MAX:
         raise ValueError(f"topk_select indexes with int32: N={n} is too "
                          f"large")
+    if is_fake(scores):
+        fake_launch("topk_select", *cost(n, k, scores.element_size()))
+        return (torch.empty(k, dtype=scores.dtype, device=scores.device),
+                torch.empty(k, dtype=torch.int32, device=scores.device))
     dtype = _DTYPES[scores.dtype]
     n_bytes = library_function(
         "topk_select", "topk_select_scratch_bytes",

@@ -12,8 +12,10 @@ give the reference's keys where they mean the same thing, per rank:
     the dispatched matrix products (every layer: the loop runs in Python,
     so nothing is counted once for many trips), plus each hand-written
     kernel's operations, which the kernel wrappers report on fake tensors
-    by the formulas of their bound (``kernels._build.fake_launch``; a
-    decode kernel counts its whole cache: the lengths are data);
+    from their modules' ``cost``, the formulas of ``chip_smoke.py``'s
+    bounds (``kernels._build.fake_launch``; where the work depends on
+    data a trace counts the most it could need: a decode kernel its
+    whole cache, ``shed_partition`` every way of every probe);
   * ``hbm_bytes`` — operand and result bytes of every dispatched op that
     is not a view, an allocation or a metadata query, plus the kernels'
     bytes: the eager

@@ -11,10 +11,13 @@ SwiGLU/GeGLU runs as batched matrix products over that buffer. Pairs
 past an expert's capacity are dropped from expert compute: their token
 keeps only the residual path (and the shared experts).
 
-The weighted combine un-sorts the pairs' outputs to (tokens, top_k,
-d_model), a permutation with no repeated index, and sums over top_k in
-order: no atomics, so the same inputs give the same bits run after run on
-the card (the reference adds them with a scatter-add).
+The weighted combine reads each (token, choice) slot's row of the
+expert output in the original slot order, weighs it by its gate (0 when
+dropped) and sums over top_k in order: no atomics, so the same inputs
+give the same bits run after run on the card (the reference adds them
+with a scatter-add). ``_local_dispatch_compute`` is that dispatch for
+one rank's experts; ``moe_apply`` calls it with every expert and the
+whole call's capacity.
 
 Expert parallelism (``moe_apply_ep``, selected by ``MoEConfig.dispatch
 == "ep_shard_map"``): with a mesh ambient (``distribution.constraints.
@@ -26,8 +29,8 @@ outputs combine in the original slot order, then with one sum over
 ``model``. The router, its aux loss and the shared experts run outside
 that region; the router's means are taken over every DP rank's rows, as
 the reference's global means. With no mesh, or no ``model`` axis, it is
-``moe_apply``. On a mesh of one rank it runs ``moe_apply``'s operations:
-the same buffer, the same products, the same bits.
+``moe_apply``. On a mesh of one rank it makes ``moe_apply``'s call of the
+dispatch: the same bits.
 """
 from __future__ import annotations
 
@@ -83,43 +86,20 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
     xc = x.to(compute_dtype)
 
     probs, topk_w, topk_idx = _router(p, x, cfg)               # float32
-
-    # sort-based dispatch plan
-    flat_e = topk_idx.reshape(T * K)
-    sorted_e, sort_idx = torch.sort(flat_e, stable=True)       # group by e
-    seg_start = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos_in_e = torch.arange(T * K, device=x.device) - seg_start
-    token_of = sort_idx // K
-    keep = pos_in_e < C
-    safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C))
-
-    # expert buffer (E, C, D); dropped pairs land in a spare slot C
-    buf = torch.zeros((E, C + 1, D), dtype=compute_dtype, device=x.device)
-    buf[sorted_e, safe_pos] = xc[token_of]
-    buf = buf[:, :C]
-
-    # grouped expert GLU (expert pieces gathered whole: this dispatch
+    # every expert on this rank (pieces gathered whole: this dispatch
     # sees every token's every choice)
     wg, wu, wd = (_whole(p[n]) for n in ("w_gate", "w_up", "w_down"))
-    g = torch.bmm(buf, wg.to(compute_dtype))                   # (E, C, F)
-    u = torch.bmm(buf, wu.to(compute_dtype))
-    out_buf = torch.bmm(L.glu(g, u, act), wd.to(compute_dtype))
-
-    # weighted combine: un-sort to (T, K, D), sum over K in order; a
-    # dropped pair reads a clamped slot (as the reference's gather) and
-    # weighs 0
-    flat_w = topk_w.reshape(T * K)[sort_idx]
-    contrib = out_buf[sorted_e, safe_pos.clamp(max=C - 1)] * (
-        flat_w * keep)[:, None].to(compute_dtype)
-    unsorted = torch.empty_like(contrib)
-    unsorted[sort_idx] = contrib
-    out = unsorted.reshape(T, K, D).sum(dim=1)
+    out = _local_dispatch_compute(x, topk_w, topk_idx, wg, wu, wd,
+                                  e_offset=0, e_local=E, capacity_local=C,
+                                  act=act, compute_dtype=compute_dtype)
+    # pairs kept: each expert keeps its first C
+    kept = L._counts(topk_idx.reshape(T * K), E).clamp(max=C).sum()
 
     if "shared" in p:
         out = out + _shared_apply(p["shared"], xc, act, compute_dtype)
 
     aux = _aux_loss(probs, topk_idx, cfg)
-    dropped = 1.0 - keep.sum() / (T * K)
+    dropped = 1.0 - kept / (T * K)
     return out.to(x.dtype), {"moe_aux_loss": aux,
                              "moe_drop_frac": dropped.to(torch.float32)}
 

@@ -10,6 +10,10 @@ training, a padded GCN graph, MIND retrieval) on fake tensors.
   ``trace_s``.
 - No kernel launched (every launch counter unchanged) while the traced
   steps went through the kernels' fake branches (their calls recorded).
+- A cell whose heads the kernels refuse (9 query heads per KV head in a
+  decode step; a head of 48 in a train step) fails its trace with the
+  launch's own error: a kernel wrapper makes every check of a launch
+  before its fake branch.
 - smollm's train and decode work splits evenly over the 8 ranks (heads,
   FFN and vocab over ``model``, rows over ``data``, the decode cache's
   sequence over ``model``): the per-rank FLOPs times 8 equal the world of
@@ -60,17 +64,33 @@ for world, shape in ((8, (4, 2)), (1, (1, 1))):
             arch, sh.name, f"w{world}", d, mesh=mesh, cfg=cfg, shape=sh)
 with open(f"{out}/all.json", "w") as f:
     json.dump(recs, f)
+# head geometries the kernels refuse on the card: the trace refuses them
+smollm = get_config("smollm-135m", smoke=True)
+REFUSED = {"G9_decode": (dataclasses.replace(smollm, n_heads=18), LM_DECODE),
+           "D48_train": (dataclasses.replace(smollm, d_head=48), LM_TRAIN)}
+refused = {name: DR.run_cell("smollm-135m", sh.name, "w1", f"{out}/w1",
+                             mesh=mesh, cfg=cfg, shape=sh)
+           for name, (cfg, sh) in REFUSED.items()}
+with open(f"{out}/refused.json", "w") as f:
+    json.dump(refused, f)
 '''
 
 
 @pytest.fixture(scope="module")
-def records(tmp_path_factory):
+def traces(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     r = subprocess.run([sys.executable, "-c", _SCRIPT, str(out)], env=ENV,
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     with open(out / "all.json") as f:
-        return json.load(f)
+        recs = json.load(f)
+    with open(out / "refused.json") as f:
+        return recs, json.load(f)
+
+
+@pytest.fixture(scope="module")
+def records(traces):
+    return traces[0]
 
 
 def test_records_have_the_reference_keys(records):
@@ -116,3 +136,15 @@ def test_collectives_only_across_ranks(records):
             assert coll == 0, name
         elif "smollm" in name or "qwen3" in name:
             assert coll > 0, name
+
+
+@pytest.mark.parametrize("case, message", [
+    ("G9_decode", "query heads per KV head"),
+    ("D48_train", "takes D in")])
+def test_trace_refuses_what_a_launch_refuses(traces, case, message):
+    """A cell whose heads a kernel would refuse on the card fails its
+    trace with the launch's error: 9 query heads per KV head in the
+    decode kernel, a head of 48 in the attention kernel."""
+    rec = traces[1][case]
+    assert not rec["ok"], case
+    assert message in rec["error"], rec["error"]

@@ -1120,7 +1120,9 @@ def test_kernel_wrappers_never_take_the_fake_branch_on_a_card(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.randn((2, 64, 4, 64), generator=g, device=dev)
     kv = torch.randn((2, 64, 2, 64), generator=g, device=dev)
-    assert not is_fake(q, kv)
+    keys = torch.arange(1, 9, dtype=torch.int32, device=dev)
+    state = TC.init(64, 4, device=dev)
+    assert not is_fake(q, kv, keys, state["keys"], state["values"])
     calls = [
         (flash_attention, lambda: flash_attention(q, kv, kv)),
         (flash_decode, lambda: flash_decode(
@@ -1129,6 +1131,9 @@ def test_kernel_wrappers_never_take_the_fake_branch_on_a_card(dev):
         (topk_select, lambda: topk_select(q.flatten(), 8)),
         (dot_interaction, lambda: dot_interaction(
             q[:, :8, 0].contiguous())),
+        (shed_partition, lambda: shed_partition(
+            keys, torch.ones(8, dtype=torch.bool, device=dev),
+            state["keys"], state["values"], 4, 2, 8)),
     ]
     for wrapper, call in calls:
         before = wrapper.launches
