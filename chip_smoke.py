@@ -13,6 +13,13 @@ its path gives it:
   compacted eval rank of one micro-batch (exact);
 * ``flash_attention``: causal GQA attention of the transformer
   evaluator, of ``prefill`` and of training (with its row log-sum-exp);
+  in bf16 two instances, the ``mma.sync`` one (the evaluators' S 31,
+  D 16 and 256, windows, softcaps) and the warp-specialised ``wgmma``
+  one that ``long_instance`` gives the long sequences (the prefills,
+  training, and a D 128 training row with qwen2.5's heads), each row
+  printed with its instance, the ``mma.sync`` instance timed beside the
+  ``wgmma`` one, and the new kernel's registers and spills from this
+  run's build;
 * ``topk_select``: the candidate set of one query (exact);
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
 * ``flash_decode``: one-token attention against the KV cache, and its
@@ -24,7 +31,9 @@ its path gives it:
   its bits from one call to the next (the attention backward adds dq
   in a fixed order), and at the training shape the attention
   backward's three launches are timed apart by the profiler beside the
-  main kernel's registers and spills from this run's build.
+  main kernel's registers and spills from this run's build; the
+  backward is also timed at a training length at D 128 (qwen2.5's heads)
+  and D 256 (gemma2's, softcap 50) beside SDPA's backward.
 
 Then it drives these paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
@@ -422,8 +431,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def ptxas_report(name: str, entry: str) -> dict:
     """Registers and spill bytes of each instance of kernel ``entry`` in
     library ``name``, from this run's ``-Xptxas -v`` output, keyed by the
-    mangled name's template argument; empty if the library was not built
-    in this run."""
+    mangled name's head dimension (``_lse`` for the instance that writes
+    the lse); empty if the library was not built in this run."""
     out, cur = {}, None
     for line in BUILD_LOGS.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -432,8 +441,10 @@ def ptxas_report(name: str, entry: str) -> dict:
             continue
         if cur is None:
             continue
-        arg = re.search(r"ILi(\d+)E", cur)
-        row = out.setdefault(f"D{arg.group(1)}" if arg else cur, {})
+        arg = re.search(r"ILi(\d+)E(?:Lb([01])E)?", cur)
+        key = (f"D{arg.group(1)}" + ("_lse" if arg.group(2) == "1" else "")
+               if arg else cur)
+        row = out.setdefault(key, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -702,21 +713,32 @@ def phase_flash_attention(dev) -> dict:
                           dtype=torch.float32, device=dev)
         lse_ms[name] = timed_ms(lambda: FA._forward(
             qq, kk, vv, True, 0, 0.0, D ** -0.5, lse), 20, flush)
-    log(f"flash_attention @evaluator shape: kernel {timing['ms']:.4f} ms, "
+    log(f"flash_attention @evaluator shape ({instance_of(q)}): kernel "
+        f"{timing['ms']:.4f} ms, "
         f"plain {timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} "
         f"ms (sdpa max abs err {max_err(timing['library_out'], want):.3e}), "
         f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
         f"{timing['bytes']} B, {timing['flops']} FLOP)")
     prefill = attention_timing(q5, k5, v5, flush, plain_iters=0)
-    log(f"flash_attention @prefill shape (B=1, S={MAX_PROMPT}): kernel "
-        f"{prefill['ms']:.4f} ms, sdpa {prefill['library_ms']:.4f} ms (sdpa "
+    prefill_old = mma_sync_ms(q5, k5, v5, flush)
+    prefill_check = forward_check(q5, k5, v5, "prefill")
+    log(f"flash_attention @prefill shape (B=1, S={MAX_PROMPT}, "
+        f"{instance_of(q5)}; rule: S >= {FA.LONG_FROM}): kernel "
+        f"{prefill['ms']:.4f} ms (P split), with the lse (bf16 P once) "
+        f"{lse_ms['prefill']:.4f} ms; the mma.sync instance "
+        f"{prefill_old['ms']:.4f} / {prefill_old['lse_ms']:.4f} ms; sdpa "
+        f"{prefill['library_ms']:.4f} ms (sdpa "
         f"max abs err {max_err(prefill['library_out'], want5):.3e}), bound "
         f"{prefill['bound_ms']:.6f} ms ({prefill['bound_by']}: "
-        f"{prefill['bytes']} B, {prefill['flops']} FLOP)")
+        f"{prefill['bytes']} B, {prefill['flops']} FLOP); "
+        f"{json.dumps(prefill_check)}")
     log(f"flash_attention with the lse output (training's forward): "
         f"{lse_ms['evaluator']:.4f} ms at the evaluator shape (without: "
         f"{timing['ms']:.4f}), {lse_ms['prefill']:.4f} ms at the prefill "
         f"shape (without: {prefill['ms']:.4f})")
+    wgmma_ptxas = ptxas_report("flash_attention", "fa_fwd_wgmma_kernel")
+    log(f"flash_attention wgmma instance (ptxas, this run's build): "
+        f"{json.dumps(wgmma_ptxas)}")
 
     # training: smollm-135m's microbatch, (8, 4096, 9/3, 64) bf16, causal
     tq, tk, tv, tdo = attention_inputs(TRAIN_MICRO, TRAIN_SEQ, Hq, Hkv, D,
@@ -726,6 +748,8 @@ def phase_flash_attention(dev) -> dict:
     brow = attention_bwd_check(tq, tk, tv, tdo, dict(causal=True, window=0,
                                                      softcap=0.0),
                                "training microbatch")
+    train_check = forward_check(tq, tk, tv, "training microbatch")
+    train_old = mma_sync_ms(tq, tk, tv, flush)
     bt = attention_bwd_timing(tq, tk, tv, tdo, flush, plain_iters=1)
     shares = attention_bwd_shares(tq, tk, tv, tdo)
     ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
@@ -746,7 +770,48 @@ def phase_flash_attention(dev) -> dict:
         f"forward at this shape {bt['fwd_ms']:.4f} ms, with the lse "
         f"{bt['fwd_lse_ms']:.4f} ms, sdpa {bt['fwd_library_ms']:.4f} ms, "
         f"bound {bt['fwd_bound_ms']:.4f} ms")
-    del tq, tk, tv, tdo, flush
+    log(f"flash_attention at the training shape ({instance_of(tq)}): "
+        f"with the lse (bf16 P once) {bt['fwd_lse_ms']:.4f} ms, serving (P "
+        f"split) {bt['fwd_ms']:.4f} ms; the mma.sync instance "
+        f"{train_old['lse_ms']:.4f} / {train_old['ms']:.4f} ms; sdpa "
+        f"{bt['fwd_library_ms']:.4f} ms; bound {bt['fwd_bound_ms']:.4f} ms; "
+        f"{json.dumps(train_check)}")
+    del tq, tk, tv, tdo
+
+    # a D 128 row at a training length: qwen2.5-14b's heads, 40/8
+    q6, k6, v6, do6 = attention_inputs(2, TRAIN_SEQ, 40, 8, 128,
+                                       torch.bfloat16, gen, dev) + (
+        torch.randn((2, TRAIN_SEQ, 40, 128), generator=gen,
+                    device=dev).to(torch.bfloat16),)
+    d128_check = forward_check(q6, k6, v6, "D 128 training row")
+    d128_old = mma_sync_ms(q6, k6, v6, flush)
+    b128 = attention_bwd_timing(q6, k6, v6, do6, flush, plain_iters=0)
+    log(f"flash_attention D 128 (B=2, S={TRAIN_SEQ}, 40/8, causal, "
+        f"{instance_of(q6)}): with the lse {b128['fwd_lse_ms']:.4f} ms, "
+        f"serving {b128['fwd_ms']:.4f} ms; the mma.sync instance "
+        f"{d128_old['lse_ms']:.4f} / {d128_old['ms']:.4f} ms; sdpa "
+        f"{b128['fwd_library_ms']:.4f} ms; bound {b128['fwd_bound_ms']:.4f} "
+        f"ms; {json.dumps(d128_check)}")
+    log(f"flash_attention_bwd D 128 (the same shape): kernel "
+        f"{b128['ms']:.4f} ms, sdpa backward {b128['library_ms']:.4f} ms, "
+        f"bound {b128['bound_ms']:.4f} ms ({b128['bound_by']}: "
+        f"{b128['bytes']} B, {b128['flops']} FLOP)")
+    del q6, k6, v6, do6
+    # D 256 at a training length: gemma2-2b's heads, 8/4, softcap 50 (SDPA
+    # has no softcap: its backward is timed without)
+    q7, k7, v7, do7 = attention_inputs(2, TRAIN_SEQ, 8, 4, 256,
+                                       torch.bfloat16, gen, dev) + (
+        torch.randn((2, TRAIN_SEQ, 8, 256), generator=gen,
+                    device=dev).to(torch.bfloat16),)
+    b256 = attention_bwd_timing(q7, k7, v7, do7, flush, plain_iters=0,
+                                softcap=50.0)
+    log(f"flash_attention_bwd D 256 (B=2, S={TRAIN_SEQ}, 8/4, causal, "
+        f"softcap 50): kernel {b256['ms']:.4f} ms, sdpa backward (no "
+        f"softcap) {b256['library_ms']:.4f} ms, bound {b256['bound_ms']:.4f} "
+        f"ms ({b256['bound_by']}: {b256['bytes']} B, {b256['flops']} FLOP); "
+        f"the forward ({instance_of(q7, softcap=50.0)}) with the lse "
+        f"{b256['fwd_lse_ms']:.4f} ms")
+    del q7, k7, v7, do7, flush
     fwd = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:97",
@@ -760,7 +825,24 @@ def phase_flash_attention(dev) -> dict:
            "lse_ms": lse_ms["evaluator"], "prefill_lse_ms": lse_ms["prefill"],
            "train_ms": bt["fwd_ms"], "train_lse_ms": bt["fwd_lse_ms"],
            "train_library_ms": bt["fwd_library_ms"],
-           "train_bound_ms": bt["fwd_bound_ms"]}
+           "train_bound_ms": bt["fwd_bound_ms"],
+           "long_from": FA.LONG_FROM,
+           "instances": {"evaluator": instance_of(q),
+                         "prefill": instance_of(q5),
+                         "train": "wgmma" if FA.long_instance(
+                             TRAIN_SEQ, D, torch.bfloat16) else "mma.sync"},
+           "prefill_lse_mma_sync_ms": prefill_old["lse_ms"],
+           "prefill_mma_sync_ms": prefill_old["ms"],
+           "train_mma_sync_ms": train_old["ms"],
+           "train_lse_mma_sync_ms": train_old["lse_ms"],
+           "d128_ms": b128["fwd_ms"], "d128_lse_ms": b128["fwd_lse_ms"],
+           "d128_library_ms": b128["fwd_library_ms"],
+           "d128_bound_ms": b128["fwd_bound_ms"],
+           "d128_mma_sync_ms": d128_old["ms"],
+           "d128_lse_mma_sync_ms": d128_old["lse_ms"],
+           "checks": {"prefill": prefill_check, "train": train_check,
+                      "d128": d128_check},
+           "wgmma_ptxas": wgmma_ptxas}
     bwd = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:97 (its "
@@ -771,8 +853,68 @@ def phase_flash_attention(dev) -> dict:
            "library_ms": bt["library_ms"],
            "shape": brow["shape"], "repeat_bits": brow["repeat_bits"],
            "launch_shares": shares, "main_kernel_ptxas": ptxas,
-           "workspace_bytes": work}
+           "workspace_bytes": work,
+           "d128_ms": b128["ms"], "d128_library_ms": b128["library_ms"],
+           "d128_bound_ms": b128["bound_ms"],
+           "d256_ms": b256["ms"], "d256_library_ms": b256["library_ms"],
+           "d256_bound_ms": b256["bound_ms"]}
     return fwd, bwd
+
+
+def instance_of(q, window: int = 0, softcap: float = 0.0) -> str:
+    """The forward instance ``long_instance`` sends a causal call on
+    ``q`` to."""
+    if q.dtype != torch.bfloat16:
+        return "f32 FMA"
+    return "wgmma" if FA.long_instance(q.shape[1], q.shape[-1], q.dtype,
+                                       window=window,
+                                       softcap=softcap) else "mma.sync"
+
+
+def forward_check(q, k, v, label: str) -> dict:
+    """Both bf16 forward instances' o at one causal shape (serving: P
+    split in two; with the lse: bf16 P once) against
+    ``flash_attention_ref``, one batch row at a time, within BF16_ATOL;
+    the lse against ``flash_attention_lse_ref`` within 1e-3; and a second
+    call of each equal to the first bit for bit (a training restart
+    repeats its bits)."""
+    B, S, Hq, D = q.shape
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(lse)
+    serving, with_lse = FA._forward(q, k, v, **kw), FA._forward(q, k, v,
+                                                               lse=lse, **kw)
+    same = (same_bits(serving, FA._forward(q, k, v, **kw))
+            and same_bits(with_lse, FA._forward(q, k, v, lse=lse2, **kw))
+            and same_bits(lse, lse2))
+    errs = {"serving": 0.0, "lse_instance": 0.0}
+    for b in range(B):
+        want = flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+        errs["serving"] = max(errs["serving"], max_err(serving[b:b + 1], want))
+        errs["lse_instance"] = max(errs["lse_instance"],
+                                   max_err(with_lse[b:b + 1], want))
+        del want
+    lse_err = max_err(lse, flash_attention_lse_ref(q, k, **kw))
+    if not (same and max(errs.values()) <= BF16_ATOL and lse_err <= 1e-3
+            and torch.isfinite(serving.float()).all()):
+        raise AssertionError(f"flash_attention {label}: max abs err {errs}, "
+                             f"lse {lse_err}, repeat bits {same}")
+    return {"instance": instance_of(q), "max_abs_err": errs,
+            "lse_max_abs_err": lse_err, "repeat_bits": same}
+
+
+def mma_sync_ms(q, k, v, flush) -> dict:
+    """The mma.sync instance's time at a shape the rule sends to the wgmma
+    instance (``long_from=NEVER_LONG``), with and without the lse: the
+    earlier design beside the new one in the same run."""
+    B, S, Hq, D = q.shape
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+
+    def call(out_lse):
+        return FA._forward(q, k, v, True, 0, 0.0, D ** -0.5, out_lse,
+                           long_from=FA.NEVER_LONG)
+    return {"ms": timed_ms(lambda: call(None), 10, flush),
+            "lse_ms": timed_ms(lambda: call(lse), 10, flush)}
 
 
 def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,

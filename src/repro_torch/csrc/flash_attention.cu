@@ -11,10 +11,55 @@
 // q, k, v and o for 4.68 GFLOP, ~12 FLOP per byte, far below the ~295 at
 // which the tensor cores would become the limit: the bytes bound it
 // (0.116 ms at 3.35 TB/s). The long causal prefill (B = 1, S = 1984) does
-// ~2000 FLOP per byte and leans on the tensor cores instead.
+// ~2000 FLOP per byte and leans on the tensor cores instead, as does
+// training (B = 8, S = 4096: 1.55e11 FLOP, 0.156 ms at 989 TFLOP/s).
 //
-// bf16 (the evaluator and prefill): `flash_attention_bf16_kernel`, on the
-// tensor cores through mma.sync m16n8k16 (tensor_core.cuh).
+// Two bf16 instances. `long_instance` in kernels/flash_attention.py holds
+// the shape rule, mirrored in `launch_bf16`: D 64 or 128, no window, no
+// softcap and S >= LONG_FROM take `fa_fwd_wgmma_kernel`; everything else
+// (the evaluators' S 31, D 16 and 256, windows, softcaps) takes
+// `flash_attention_bf16_kernel`. A call the rule sends to an instance
+// launches it or fails; neither stands in for the other.
+//
+// bf16, long sequences (training, prefills): `fa_fwd_wgmma_kernel`.
+// - A work tile is 128 query positions of one (batch row, query head), as
+//   two consumer warpgroups of 64 rows. K and V are read per query head:
+//   packing the group into the rows, as the evaluator's instance does,
+//   would give every row its own causal limit and the TMA boxes ragged
+//   rows, and a (batch row, KV head)'s K and V (1 MB at S 4096) stay in
+//   L2 for the G heads that read them.
+// - A persistent grid, one block an SM: tiles ordered longest causal walk
+//   first, dealt to the blocks as a snake (no counter to reset). Tiles
+//   wholly above the diagonal are not loaded; only the diagonal tiles and
+//   the ragged edge are masked.
+// - A producer warp's thread loads each tile's Q once, into one of two
+//   buffers (the next tile's Q lands while this one runs), and streams
+//   K/V tiles of 64, 96 or 128 keys (Cfg::kBN: as many as the registers
+//   allow) with TMA, 128-byte swizzled, through a ring of 64 KB each on
+//   mbarriers; setmaxnreg moves its registers to the consumers.
+// - S = Q K^T is wgmma with both operands in shared memory; the online
+//   softmax runs in float32 registers (p = 2^(s c - m c): one FMA and one
+//   MUFU op a score, the row max and sum as four partial chains); P,
+//   packed to bf16 in registers, is the A operand of O += P V, with V an
+//   MN-major descriptor.
+// - At D 64 the softmax's ex2 count at the training shape (~6.0e8 MUFU
+//   ops, ~0.155 ms at 16 a clock an SM) is as large as the tensor cores'
+//   bound, so the two must overlap: the consumer warpgroups take turns on
+//   named barriers to issue their products, so that one's softmax runs
+//   while the other's products do; and each issues tile j's S with tile
+//   j - 1's P V before it runs tile j's softmax. Measured on an H100, the
+//   loop runs as fast with no K/V loads at all: the consumers bound it,
+//   not the loads or L2. A quarter of the ex2 moved to the FMA pipe (a
+//   cubic) made it slower, so MUFU alone does not bound it either.
+// - P's precision: the instance that writes the lse (training, reached
+//   only through FlashAttentionFn) multiplies bf16 P by V once, as the
+//   reference rounds it (src/repro/models/attention.py:104,
+//   p.astype(v_blk.dtype)). The serving instance (prefills) keeps the
+//   hi/lo split described below, two P V products: with bf16 P alone the
+//   decode logits missed the chip check's 0.1 by 0.1016.
+//
+// bf16, everything else: `flash_attention_bf16_kernel`, on the tensor
+// cores through mma.sync m16n8k16 (tensor_core.cuh).
 // - GQA packing: one block per (batch row, KV head, tile of 16 packed
 //   query rows per warp), packed row r being query head hk * G + r % G at
 //   position r / G. Such rows are D contiguous elements at stride Hq * D,
@@ -43,7 +88,7 @@
 // - Tiles wholly above the causal diagonal or behind the window are not
 //   loaded; a warp skips the 16-key steps past its last row's position.
 //   Blocks are ordered heaviest causal tile first.
-// - Why mma.sync and not wgmma/TMA: the evaluator's shape is bound by
+// - Why mma.sync and not wgmma/TMA here: the evaluator's shape is bound by
 //   bytes, and mma.sync gives far more than the ~40 TFLOP/s that 4.68
 //   GFLOP in 0.12 ms needs; wgmma's 64-row shared-memory operands and
 //   descriptors would buy nothing at 93 rows per pair.
@@ -55,17 +100,17 @@
 // then accumulates output columns lane + 32 c over the tile's keys.
 //
 // D 256 (Gemma-2: 8 query heads over 4, softcap 50, a 4096-key window on
-// alternate layers): the same bf16 kernel with two K/V stages instead of
+// alternate layers): the mma.sync bf16 kernel with two K/V stages instead of
 // three (three would need 270,336 B of shared memory at 8 warps, over the
 // 232,448 a block may have) and the Q fragments read from shared memory at
 // each k-step rather than held in registers, which leaves the 128 float32
 // accumulators of a thread's output rows the registers they need. The
 // float32 kernel takes D 256 as it is (99,328 B of shared memory).
 //
-// Both accept any S (rows and keys past S are masked) and D in {16, 64,
-// 128, 256}; a row that sees no key writes zeros.
+// All accept any S (rows and keys past S are masked) and their D; a row
+// that sees no key writes zeros.
 //
-// Training: given an `lse` pointer, both kernels also write each row's
+// Training: given an `lse` pointer, the kernels also write each row's
 // natural log-sum-exp of its scaled, softcapped, masked scores, (B, Hq, S)
 // float32 (-inf for a row that sees no key), which the backward
 // (flash_attention_bwd.cu) reads to rebuild the softmax: one float a row,
@@ -79,6 +124,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -363,10 +409,490 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D 64 and D 128, long sequences: warp-specialised wgmma on TMA stages
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBM = 128;                   // query rows a work tile
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = 128 + kConsumers; // + the producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// Named barriers 1 and 2: warpgroup w waits at 1 + w for its turn to
+// issue its products, and hands the turn on at 2 - w.
+constexpr int kTurnBar = 1;
+
+// kSplit: P V as two products, P's bf16 hi and lo terms (the serving
+// instance); else bf16 P once (the lse instance).
+template <int D, bool kSplit>
+struct Cfg {
+  // Keys a K/V tile, the most whose S, O and P fit the ~168 registers a
+  // thread that ptxas gave the consumers (the launch's count: it does not
+  // allocate up to setmaxnreg's 232). D 64: 128 keys (S 64 floats a
+  // thread, O 32, P 32), 96 with the split (48 + 32 + 2 x 24; at 128 its
+  // wgmma were serialised and spilled); D 128: 96 (48 + 64 + 24), 64 with
+  // the split (32 + 64 + 2 x 16). Measured on an H100 with
+  // launch/ab_attention.py (PERF.md): 96 keys against 64 took the D 128
+  // lse instance from 0.649 to 0.609 ms at (2, 4096, 40/8), the D 64
+  // split one from 0.0338 to 0.0330 ms at the prefill (1, 1984, 9/3).
+  static constexpr int kBN =
+      D == 64 ? (kSplit ? 96 : 128) : (kSplit ? 64 : 96);
+  static constexpr int kHalves = D / 64;   // 128-byte column blocks of a row
+  static constexpr int kQHalf = kBM * 128, kKVHalf = kBN * 128;
+  static constexpr int kQ = kBM * D * 2;   // bytes of Q, of a K (V) tile
+  static constexpr int kKV = kBN * D * 2;
+  // a ring of 64 KB of K and of V, and at least 3 stages (2 in use)
+  static constexpr int kStages = 65536 / kKV < 3 ? 3 : 65536 / kKV;
+  // two Q buffers (the next tile's loads while this one runs), the ring
+  static constexpr int oQ = 0, oK = 2 * kQ, oV = oK + kStages * kKV;
+  // q_full[2], q_empty[2], full[kStages], empty[kStages]
+  static constexpr int oBar = oV + kStages * kKV;
+  static constexpr int kBytes = oBar + (4 + 2 * kStages) * 8 + 1024;
+  static constexpr int NS = kBN / 2;       // S accumulators a thread
+  static constexpr int NO = D / 2;         // O accumulators a thread
+  static constexpr int KP = kBN / 16;      // k-steps of P V
+  // The consumers take turns to issue their products at D 64, where the
+  // softmax is about as long as the products (without the turns the lse
+  // instance took 0.379 ms at the training shape, with them 0.363); at
+  // D 128, where it is shorter, they slowed the split instance (0.844
+  // against 0.807 ms).
+  static constexpr bool kTurns = D == 64;
+};
+
+struct Args {
+  __nv_bfloat16* o;
+  float* lse;
+  int B, S, Hq, Hkv, Tq, n_tiles;
+  float c_exp;                             // scale * log2(e)
+  int causal;
+};
+
+struct Tile {
+  int b, h, m, n_kv;                       // batch row, query head, tile
+};
+
+// Work tiles are numbered longest causal walk first: query tile Tq - 1 of
+// every (batch row, head), then Tq - 2, ...
+template <int kBN>
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
+  const int bh_n = a.B * a.Hq, bh = t % bh_n;
+  Tile w;
+  w.m = a.Tq - 1 - t / bh_n;
+  w.b = bh / a.Hq;
+  w.h = bh % a.Hq;
+  const int kv_end = a.causal ? min((w.m + 1) * kBM, a.S) : a.S;
+  w.n_kv = (kv_end + kBN - 1) / kBN;
+  return w;
+}
+
+// This block's tile of round r: a snake over the tiles in that order
+// (round r takes r * grid + block, odd rounds from the other end), so
+// that the blocks' sums of walks even out with no counter to reset.
+__device__ __forceinline__ int tile_at(int r) {
+  const int g = gridDim.x;
+  return r * g + ((r & 1) ? g - 1 - static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x));
+}
+
+// The loader (one thread of the producer warpgroup): each tile's Q into
+// its buffer once both consumers are done with the tile before last, then
+// its K/V tiles through the ring, up to the diagonal.
+template <int D, bool kSplit>
+__device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
+                                     const CUtensorMap* tk,
+                                     const CUtensorMap* tv, uint8_t* sm) {
+  using C = Cfg<D, kSplit>;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_full + 4;
+  uint64_t* empty = full + C::kStages;
+  const int G = a.Hq / a.Hkv;
+  int it = 0, ti = 0;
+  for (int r = 0; r * static_cast<int>(gridDim.x) < a.n_tiles; ++r) {
+    const int t = tile_at(r);
+    if (t >= a.n_tiles) continue;
+    const Tile w = tile_of<C::kBN>(a, t);
+    const int qb = ti & 1;
+    hop::mbar_wait(q_empty + qb, ((ti >> 1) & 1) ^ 1);
+    hop::mbar_expect(q_full + qb, C::kQ);
+#pragma unroll
+    for (int c = 0; c < C::kHalves; ++c)
+      hop::tma_load_4d(sm + C::oQ + qb * C::kQ + c * C::kQHalf, tq, 64 * c,
+                       w.h, w.m * kBM, w.b, q_full + qb);
+    const int hk = w.h / G;
+    for (int j = 0; j < w.n_kv; ++j, ++it) {
+      const int s = it % C::kStages;
+      hop::mbar_wait(empty + s, ((it / C::kStages) & 1) ^ 1);
+      hop::mbar_expect(full + s, 2 * C::kKV);
+#pragma unroll
+      for (int c = 0; c < C::kHalves; ++c) {
+        hop::tma_load_4d(sm + C::oK + s * C::kKV + c * C::kKVHalf, tk,
+                         64 * c, hk, j * C::kBN, w.b, full + s);
+        hop::tma_load_4d(sm + C::oV + s * C::kKV + c * C::kKVHalf, tv,
+                         64 * c, hk, j * C::kBN, w.b, full + s);
+      }
+    }
+    ++ti;
+  }
+}
+
+// S = Q K^T for one warpgroup's 64 rows: both operands K-major in shared
+// memory (dq: the descriptor of the warpgroup's first Q row, dk: of the K
+// tile). A descriptor's low 14 bits hold its address / 16, and every
+// address here is below 256 KB, so an offset is added to it as offset /
+// 16 with no carry.
+template <int D, bool kSplit>
+__device__ __forceinline__ void s_product(
+    float (&s)[Cfg<D, kSplit>::NS], uint64_t dq0, uint64_t dk0) {
+  using C = Cfg<D, kSplit>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t dq = dq0 + ((kk / 4) * C::kQHalf + (kk % 4) * 32) / 16;
+    const uint64_t dk = dk0 + ((kk / 4) * C::kKVHalf + (kk % 4) * 32) / 16;
+    if constexpr (C::kBN == 128)
+      hop::wgmma_ss_n128<0, 0>(s, dq, dk, kk > 0);
+    else if constexpr (C::kBN == 96)
+      hop::wgmma_ss_n96<0, 0>(s, dq, dk, kk > 0);
+    else
+      hop::wgmma_ss_n64<0, 0>(s, dq, dk, kk > 0);
+  }
+  hop::wgmma_commit();
+}
+
+// O += P V: P from registers (k-step kk's A fragment p[kk]), V MN-major
+// in shared memory (dv0: the V tile's descriptor); with the split, a
+// second product of the same V with P's low bf16 terms `lo`.
+template <int D, bool kSplit>
+__device__ __forceinline__ void pv_product(
+    float (&o)[Cfg<D, kSplit>::NO],
+    const uint32_t (&p)[Cfg<D, kSplit>::KP][4],
+    const uint32_t (&lo)[Cfg<D, kSplit>::KP][4], uint64_t dv0) {
+  using C = Cfg<D, kSplit>;
+#pragma unroll
+  for (int kk = 0; kk < C::KP; ++kk) {
+    const uint64_t dv = dv0 + kk * 2048 / 16;
+    if constexpr (D == 64) {
+      hop::wgmma_rs_n64<1>(o, p[kk], dv, 1);
+      if constexpr (kSplit) hop::wgmma_rs_n64<1>(o, lo[kk], dv, 1);
+    } else {
+      hop::wgmma_rs_n128<1>(o, p[kk], dv, 1);
+      if constexpr (kSplit) hop::wgmma_rs_n128<1>(o, lo[kk], dv, 1);
+    }
+  }
+  hop::wgmma_commit();
+}
+
+// A consumer warpgroup: rows 64 wg .. 64 wg + 63 of each work tile. Per
+// K/V tile j, in its turn: S_j = Q K_j^T; O rescaled by tile j - 1's
+// correction (only S_j in flight); O += P_{j-1} V_{j-1}. Then, while the
+// other warpgroup issues its products and P_{j-1} V_{j-1} runs, the
+// softmax of S_j once it is in, packed to bf16 into fresh registers,
+// which become P once P_{j-1} V_{j-1} is in. (Packed into P's own
+// registers, ptxas raised that wait above the softmax: 0.385 against
+// 0.363 ms at the training shape; PERF.md.)
+template <int D, bool kLse>
+__device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
+                                        int tid) {
+  constexpr bool kSplit = !kLse;
+  using C = Cfg<D, kSplit>;
+  constexpr int kBN = C::kBN, NS = C::NS, NO = C::NO, KP = C::KP;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_full + 4;
+  uint64_t* empty = full + C::kStages;
+  const uint32_t base = hop::smem_u32(sm);
+  const uint64_t k_desc = hop::desc_sw128(base + C::oK, 16);
+  const uint64_t v_desc = hop::desc_sw128(base + C::oV, C::kKVHalf);
+  constexpr int kStageDesc = C::kKV / 16;  // descriptor step of a stage
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int my_turn = kTurnBar + wg, next_turn = kTurnBar + 1 - wg;
+  auto take_turn = [&]() {
+    if constexpr (C::kTurns) hop::named_sync(my_turn, kConsumers);
+  };
+  auto pass_turn = [&]() {
+    if constexpr (C::kTurns) hop::named_arrive(next_turn, kConsumers);
+  };
+  if (C::kTurns && wg == 1)                // 0 goes first
+    hop::named_arrive(kTurnBar, kConsumers);
+
+  float s[NS], o[NO];
+  uint32_t p[KP][4], lo[KP][4];
+  int it = 0, ti = 0;
+  for (int r = 0; r * static_cast<int>(gridDim.x) < a.n_tiles; ++r) {
+    const int t = tile_at(r);
+    if (t >= a.n_tiles) continue;
+    const Tile w = tile_of<kBN>(a, t);
+    const int qb = ti & 1;
+    const uint64_t q_desc =
+        hop::desc_sw128(base + C::oQ + qb * C::kQ + wg * 64 * 128, 16);
+    const int row0 = w.m * kBM + 64 * wg;  // the warpgroup's first row
+    const int r_lo = row0 + 16 * warp + grp;  // this thread's rows, + 8
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+    // p = 2^(s c - m c) with c = scale log2(e): one FMA and one MUFU op a
+    // score; the causal and ragged-edge masks only off the open tiles;
+    // row max and sum as four partial chains; corr: O's correction.
+    float corr[2];
+    auto softmax = [&](int j) {
+      const int k0 = j * kBN;
+      const bool open =
+          k0 + kBN <= a.S && (!a.causal || k0 + kBN - 1 <= row0);
+      if (!open) {
+#pragma unroll
+        for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * tig + (e & 1);
+            const int row = r_lo + 8 * (e >> 1);
+            if (key >= a.S || (a.causal && key > row))
+              s[4 * n + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < NS / 4; ++n)
+          mx[n % 4] = fmaxf(mx[n % 4],
+                            fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+        const float m_new = fmaxf(
+            m[h], tc::quad_max(fmaxf(fmaxf(mx[0], mx[1]),
+                                     fmaxf(mx[2], mx[3]))));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        corr[h] = tc::exp2_approx((m[h] - m_use) * a.c_exp);
+        const float off = -m_use * a.c_exp;
+        m[h] = m_new;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));
+            sum[n % 4] += s[4 * n + e];
+          }
+        l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+      }
+    };
+    // P as the A fragments of the k-steps of P V (with the split, hi and
+    // lo = bf16(p - hi)), packed into fresh registers (pn, ln) while the
+    // last P V may still read p and lo: copied in after its wait.
+    uint32_t pn[KP][4], ln[KP][4];
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (kSplit)
+            tc::split_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1],
+                           pn[kk][q], ln[kk][q]);
+          else
+            pn[kk][q] =
+                tc::pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+        }
+    };
+    auto take_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          p[kk][q] = pn[kk][q];
+          if constexpr (kSplit) lo[kk][q] = ln[kk][q];
+        }
+    };
+    // O rescaled by the correction of the tile whose P V comes next
+    auto rescale = [&]() {
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+    };
+    // after each wait: the registers an asynchronous product read or
+    // wrote stay put until here
+    auto fence_pv = [&]() {
+      hop::fence_regs(s);
+      hop::fence_regs(o);
+      hop::fence_regs(p);
+      if constexpr (kSplit) hop::fence_regs(lo);
+    };
+    auto release_q = [&]() {
+      if (lane == 0) hop::mbar_arrive(q_empty + qb);
+    };
+    auto release_stage = [&](int stage) {
+      if (lane == 0) hop::mbar_arrive(empty + stage);
+    };
+
+    hop::mbar_wait(q_full + qb, (ti >> 1) & 1);
+    {                                      // S_0
+      const int st = it % C::kStages;
+      hop::mbar_wait(full + st, (it / C::kStages) & 1);
+      take_turn();
+      hop::fence_regs(s);
+      hop::wgmma_fence();
+      s_product<D, kSplit>(s, q_desc, k_desc + st * kStageDesc);
+      pass_turn();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(s);
+      if (w.n_kv == 1) release_q();
+      softmax(0);
+      pack();
+      take_p();
+    }
+    for (int j = 1; j < w.n_kv; ++j) {
+      const int st = (it + j) % C::kStages;
+      const int prev = (it + j - 1) % C::kStages;
+      hop::mbar_wait(full + st, ((it + j) / C::kStages) & 1);
+      take_turn();
+      fence_pv();
+      hop::wgmma_fence();
+      s_product<D, kSplit>(s, q_desc, k_desc + st * kStageDesc);
+      rescale();
+      hop::fence_regs(o);
+      hop::wgmma_fence();
+      pv_product<D, kSplit>(o, p, lo, v_desc + prev * kStageDesc);
+      pass_turn();
+      hop::wgmma_wait<1>();                // S_j is in
+      hop::fence_regs(s);
+      if (j == w.n_kv - 1) release_q();
+      softmax(j);
+      pack();
+      hop::wgmma_wait<0>();                // P_{j-1} V_{j-1} is in
+      fence_pv();
+      release_stage(prev);
+      take_p();
+    }
+    {                                      // the last P V
+      const int last = (it + w.n_kv - 1) % C::kStages;
+      take_turn();
+      rescale();
+      fence_pv();
+      hop::wgmma_fence();
+      pv_product<D, kSplit>(o, p, lo, v_desc + last * kStageDesc);
+      pass_turn();
+      hop::wgmma_wait<0>();
+      fence_pv();
+      release_stage(last);
+    }
+    it += w.n_kv;
+    ++ti;
+
+    // Normalise and store the rows that exist, 4 bytes a column pair; the
+    // lse from the running max and sum (-inf for a row that saw no key).
+    const long long q_pos = static_cast<long long>(a.Hq) * D;
+    __nv_bfloat16* ob = a.o + static_cast<long long>(w.b) * a.S * q_pos +
+                        static_cast<long long>(w.h) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + 8 * h;
+      const float den = tc::quad_sum(l[h]);
+      const float inv = den > 0.f ? 1.f / den : 0.f;
+      if (row >= a.S) continue;
+      if (kLse && tig == 0)
+        a.lse[(static_cast<long long>(w.b) * a.Hq + w.h) * a.S + row] =
+            den > 0.f ? (m[h] * a.c_exp + log2f(den)) * kLn2 : -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n)
+        *reinterpret_cast<uint32_t*>(ob + row * q_pos + 8 * n + 2 * tig) =
+            tc::pack_bf16(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
+    }
+  }
+  // warpgroup 1's hand-over after its last turn
+  if (C::kTurns && wg == 0) hop::named_sync(kTurnBar, kConsumers);
+}
+
+// The producer warpgroup (the loader is its thread 0) and two consumer
+// warpgroups; setmaxnreg moves registers from the producer to the
+// consumers (40 + 2 x 232 a thread in a quarter of the register file).
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a) {
+  using C = Cfg<D, !kLse>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::oBar);
+    for (int i = 0; i < 2; ++i) {
+      hop::mbar_init(bars + i, 1);                            // q_full
+      hop::mbar_init(bars + 2 + i, kConsumerWarps);           // q_empty
+    }
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(bars + 4 + s, 1);                        // full
+      hop::mbar_init(bars + 4 + C::kStages + s, kConsumerWarps);  // empty
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  // the warpgroup index from lane 0: provably the same across the warp,
+  // which setmaxnreg (.sync.aligned) needs
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) load<D, !kLse>(a, &tq, &tk, &tv, sm);
+  } else {
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    consume<D, kLse>(a, sm, wgi - 1, threadIdx.x % 128);
+  }
+}
+
+template <int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, float scale, int causal,
+           cudaStream_t stream) {
+  using C = Cfg<D, !kLse>;
+  const long long Tq = (S + kBM - 1) / kBM;
+  const long long n_tiles = static_cast<long long>(B) * Hq * Tq;
+  if (n_tiles == 0) return 0;
+  if (n_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int sms = hop::sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
+  // a runtime call first: cuTensorMapEncodeTiled wants its context
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_wgmma_kernel<D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tq, tk, tv;
+  if (hop::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBM) ||
+      !hop::tensor_map(&tk, k, B, S, Hkv, D, C::kBN) ||
+      !hop::tensor_map(&tv, v, B, S, Hkv, D, C::kBN))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  Args a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
+  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv;
+  a.Tq = static_cast<int>(Tq);
+  a.n_tiles = static_cast<int>(n_tiles);
+  a.c_exp = scale * kLog2e;
+  a.causal = causal;
+  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  fa_fwd_wgmma_kernel<D, kLse><<<grid, kThreads, C::kBytes, stream>>>(
+      tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Hq, int Hkv, float scale,
-                int causal, int window, float softcap, cudaStream_t stream) {
+                int causal, int window, float softcap, int long_from,
+                cudaStream_t stream) {
+  // The shape rule of `long_instance` in kernels/flash_attention.py.
+  if constexpr (D == 64 || D == 128) {
+    if (window <= 0 && softcap <= 0.f && S >= long_from)
+      return lse != nullptr
+                 ? wg::launch<D, true>(q, k, v, o, lse, B, S, Hq, Hkv,
+                                       scale, causal, stream)
+                 : wg::launch<D, false>(q, k, v, o, lse, B, S, Hq, Hkv,
+                                        scale, causal, stream);
+  }
   auto kernel = lse != nullptr ? flash_attention_bf16_kernel<D, true>
                                : flash_attention_bf16_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -541,7 +1067,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int S, int Hq, int Hkv, float scale,
-               int causal, int window, float softcap, cudaStream_t stream) {
+               int causal, int window, float softcap, int /*long_from*/,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
   auto kernel = lse != nullptr ? flash_attention_f32_kernel<D, true>
                                : flash_attention_f32_kernel<D, false>;
@@ -567,18 +1094,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // must be 16, 64, 128 or 256 (the wrapper checks, and zero-pads a head
 // narrower than 16 to 16; 16 is the smoke-width evaluators' head, 256
 // Gemma-2's). `lse`: null, or (B, Hq, S) float32 to receive each row's
-// log-sum-exp. Launches on `stream`; returns cudaGetLastError() (0 = ok).
+// log-sum-exp. `long_from`: bf16 calls at D 64 or 128 with no window and
+// no softcap take the wgmma instance from this S on (the wrapper passes
+// its LONG_FROM). Launches on `stream`; returns cudaGetLastError() (0 =
+// ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int S, int Hq, int Hkv, int D,
                                       int dtype, float scale, int causal,
                                       int window, float softcap,
-                                      void* stream) {
+                                      int long_from, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
 #define FA_CASE(FN, DIM)                                                  \
   return FN<DIM>(q, k, v, o, ls, B, S, Hq, Hkv, scale, causal, window,    \
-                 softcap, st)
+                 softcap, long_from, st)
   if (dtype == 0) {
     if (D == 16) FA_CASE(launch_f32, 16);
     if (D == 64) FA_CASE(launch_f32, 64);

@@ -89,9 +89,7 @@
 // float32 (the smoke-width models): FP32 FMAs, as the forward's float32
 // kernel: one block of 4 warps per (batch row, head, 32 rows), lane j
 // taking key (or query) j of a 32-wide tile, columns lane + 32 c.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -1440,49 +1438,6 @@ fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver library the process has loaded
-// (PyTorch loads it), so that this library does not link libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(
-          dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor as boxes of 64 columns x `rows` positions of
-// one head, 128-byte swizzled; positions past S read as zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                int D, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2,
-                                 static_cast<cuuint64_t>(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Workspace {                       // carved from the wrapper's bytes
   long long dq_acc, di, lse2, counters, bytes;   // float / int offsets
 };
@@ -1499,15 +1454,6 @@ Workspace workspace(int B, int S, int Hq, int D) {
   return w;
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -1520,7 +1466,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (n_tiles > 0x7fffffffLL || static_cast<long long>(B) * Hq * Tq >
                                     0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int sms = sm_count();
+  const int sms = hop::sm_count();
   if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
   const Workspace ws = workspace(B, S, Hq, D);
   float* wf = static_cast<float*>(work);
@@ -1548,12 +1494,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   // thread (autograd's backward runs on a worker thread), which the
   // driver's encoder needs
   CUtensorMap tq, tdo, tk, tv;
-  if (encode_tiled() == nullptr)
+  if (hop::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
-  if (!tensor_map(&tq, q, B, S, Hq, D, kBr) ||
-      !tensor_map(&tdo, dout, B, S, Hq, D, kBr) ||
-      !tensor_map(&tk, k, B, S, Hkv, D, kBc) ||
-      !tensor_map(&tv, v, B, S, Hkv, D, kBc))
+  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBr) ||
+      !hop::tensor_map(&tdo, dout, B, S, Hq, D, kBr) ||
+      !hop::tensor_map(&tk, k, B, S, Hkv, D, kBc) ||
+      !hop::tensor_map(&tv, v, B, S, Hkv, D, kBc))
     return static_cast<int>(cudaErrorInvalidPitchValue);
   err = cudaFuncSetAttribute(fa_bwd_main_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -9,10 +9,14 @@ log-sum-exp, and its backward launches ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``; plain version
 ``flash_attention_bwd_ref``). The JAX package differentiates its jnp
 attention with ``jax.grad`` and has no backward kernel; the port's
-forward on the card is a kernel, so its gradient is one too. bf16 runs on the tensor cores with the GQA group packed into
-the rows of a tile; float32 runs in FP32 FMAs. The kernel accepts any S
-(the ragged edge is masked); it takes D of 16 (the smoke-width
-evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
+forward on the card is a kernel, so its gradient is one too. bf16 has two
+instances, chosen by the shape rule ``long_instance``: long sequences at D
+64 or 128 with no window or softcap (training, prefills) take a
+warp-specialised ``wgmma`` kernel on TMA stages; the rest (the
+evaluators' S 31, D 16 and 256, windows, softcaps) run on ``mma.sync``
+with the GQA group packed into the rows of a tile. float32 runs in FP32
+FMAs. The kernel accepts any S (the ragged edge is masked); it takes D of
+16 (the smoke-width evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
 qwen2.5 smoke config's 12) is zero-padded to 16 and the output cut back:
 zero columns add nothing to q k^T, and the padded columns of v are
 dropped.
@@ -32,6 +36,24 @@ from repro_torch.kernels._build import (fake_launch, is_fake,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
 MIN_HEAD_DIM = 16                        # narrower heads are zero-padded
+# S from which ``long_instance`` sends a call to the wgmma instance: where
+# it was never slower than the mma.sync instance on an H100 (PERF.md).
+LONG_FROM = 256
+# A ``long_from`` no S reaches: the mma.sync instance for every shape.
+NEVER_LONG = 0x7fffffff
+
+
+def long_instance(S: int, D: int, dtype: torch.dtype, *, window: int = 0,
+                  softcap: float = 0.0, long_from: int = LONG_FROM) -> bool:
+    """Whether a forward call takes the warp-specialised ``wgmma``
+    instance: bf16 at D 64 or 128, no window, no softcap, causal or not,
+    and S (positions, not the packed rows of a GQA group) at least
+    ``long_from``. ``launch_bf16`` in ``csrc/flash_attention.cu`` applies
+    the same rule to the ``long_from`` it is passed. A shape rule, not a
+    fallback: a call it sends to either instance launches it or
+    raises."""
+    return (dtype == torch.bfloat16 and D in (64, 128) and window <= 0
+            and softcap <= 0.0 and S >= long_from)
 
 
 def pad_head_dim(*ts: torch.Tensor):
@@ -213,9 +235,12 @@ def cost(B: int, S: int, Hq: int, Hkv: int, D: int, size: int, *,
             size * (2 * q_el + kv_el) + (lse_bytes if lse else 0))
 
 
-def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None):
+def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None,
+             long_from: int = LONG_FROM):
     """One launch of the forward kernel; writes ``lse`` (B, Hq, S) float32
-    where one is given."""
+    where one is given. ``long_from``: the S from which ``long_instance``
+    takes the wgmma instance (``NEVER_LONG``: never; a timing compares
+    the two instances with it)."""
     _kernel_args("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
     if is_fake(q, k, v):
@@ -227,13 +252,14 @@ def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None):
         "flash_attention", "flash_attention_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
              B, S, Hq, k.shape[2], D, _DTYPES[q.dtype], float(sm_scale),
-             int(causal), int(window), float(softcap), stream)
+             int(causal), int(window), float(softcap), int(long_from),
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -6,7 +6,9 @@ kernel wrapper's plain version (``kernels.flash_attention``) against JAX
 Covers the evaluator's S = 31, GQA 9/3 and 4/2, window and softcap; and
 the gradient: the backward kernel's plain version against ``jax.vjp``
 of the reference's oracle, the forward's log-sum-exp, autograd through
-the CPU model path, and a row that saw no key."""
+the CPU model path, and a row that saw no key; and the forward's shape
+rule, ``long_instance`` (which bf16 instance a call on the card
+takes)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -192,3 +194,84 @@ def test_a_row_that_saw_no_key_gives_and_gets_no_gradient():
     keep = torch.ones_like(dq, dtype=torch.bool)
     keep[0, 9, 1] = False
     torch.testing.assert_close(dq[keep], dq0[keep], atol=1e-6, rtol=0)
+
+
+# --- the forward's shape rule: which bf16 instance a call takes ------------
+# ``long_instance`` sends bf16 calls at D 64 or 128 with no window and no
+# softcap from S = LONG_FROM on to the warp-specialised wgmma kernel; all
+# else stays on the mma.sync (GQA-packed) or float32 kernels. The rule
+# reads S, not the packed rows of a GQA group (S 31 x G 5 = 155 rows for
+# qwen2.5's evaluator), so no S 31 evaluator shape moves.
+
+from repro_torch.configs.registry import arch_ids, get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+
+EVALUATOR_S = 31                 # the trust evaluators' 32 tokens, causal
+TRANSFORMERS = [a for a in arch_ids()
+                if getattr(get_config(a), "d_head", None)]
+
+
+def _layer_windows(cfg):
+    """The windows a model's layers call attention with."""
+    if cfg.sliding_window and cfg.local_global_pattern:
+        return (cfg.sliding_window, 0)
+    return (cfg.sliding_window,)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", TRANSFORMERS)
+def test_every_evaluator_shape_keeps_its_instance(arch, smoke):
+    """Each transformer of the registry at the trust evaluator's S 31, in
+    its compute type, on every layer kind: not the wgmma instance."""
+    cfg = get_config(arch, smoke=smoke)
+    dtype = getattr(torch, cfg.dtype)
+    for window in _layer_windows(cfg):
+        assert not FA.long_instance(EVALUATOR_S, cfg.d_head, dtype,
+                                    window=window,
+                                    softcap=cfg.attn_logit_softcap)
+
+
+@pytest.mark.parametrize("S", [FA.LONG_FROM, 1984, 4096, 8000])
+@pytest.mark.parametrize("D,dtype,window,softcap", [
+    (256, torch.bfloat16, 0, 0.0),          # gemma2's head, no cap
+    (256, torch.bfloat16, 4096, 50.0),      # gemma2's local layer
+    (256, torch.bfloat16, 0, 50.0),         # gemma2's global layer
+    (64, torch.float32, 0, 0.0),            # float32
+    (128, torch.float32, 0, 0.0),
+    (16, torch.bfloat16, 0, 0.0),           # the smoke heads
+    (64, torch.bfloat16, 256, 0.0),         # a window
+    (128, torch.bfloat16, 0, 30.0),         # a softcap
+])
+def test_long_sequences_outside_the_rule_keep_their_instance(S, D, dtype,
+                                                             window,
+                                                             softcap):
+    assert not FA.long_instance(S, D, dtype, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("S,D", [
+    (4096, 64),                             # smollm's training microbatch
+    (1984, 64),                             # the decode phase's longest prompt
+    (FA.LONG_FROM, 64),                     # the shortest prefill it takes
+    (FA.LONG_FROM + 1, 64),
+    (1000, 64),
+    (4096, 128),                            # qwen2.5's heads in training
+    (FA.LONG_FROM, 128),
+])
+def test_training_and_prefills_take_the_wgmma_instance(S, D):
+    assert FA.long_instance(S, D, torch.bfloat16)
+    assert not FA.long_instance(S, D, torch.bfloat16,
+                                long_from=FA.NEVER_LONG)
+
+
+@pytest.mark.parametrize("S", [1, 31, 128, FA.LONG_FROM - 1])
+def test_short_prefills_keep_the_mma_sync_instance(S):
+    """A prompt shorter than LONG_FROM (the decode phase prefills S
+    1..1984) stays where it was faster on the card."""
+    assert not FA.long_instance(S, 64, torch.bfloat16)
+
+
+def test_smollm_training_microbatch_takes_the_wgmma_instance():
+    cfg = get_config("smollm-135m")
+    assert FA.long_instance(4096, cfg.d_head, getattr(torch, cfg.dtype),
+                            window=cfg.sliding_window,
+                            softcap=cfg.attn_logit_softcap)

@@ -10,7 +10,10 @@ exactly; attention, ``flash_decode`` and ``dot_interaction`` within atol
 DLRM, BST, MIND and two-tower evaluators and the KV-cache decode on the
 card against the CPU; a fan-out mirror stripe's retrieve equal to its
 primary's bit for bit on the card; the ragged embedding bag repeating
-its bits run after run on the card; and training: the forward's
+its bits run after run on the card; the forward's warp-specialised
+wgmma instance (long sequences: S around ``LONG_FROM``, odd lengths, D
+64 and 128, G 1, 3 and 5, with and without the lse, two calls equal bit
+for bit, a row whose every score is -inf); and training: the forward's
 log-sum-exp, both backward kernels (``flash_attention_bwd`` and
 ``dot_interaction_bwd``) against their plain versions within 2e-2 (bf16)
 and 1e-4 (f32) of each output's max abs, and ``loss.backward()`` through
@@ -871,7 +874,15 @@ def test_flash_attention_lse_matches_plain(dev, B, S, Hq, Hkv, D, window,
     before = flash_attention.launches
     o = FA._forward(q, k, v, lse=lse, **kw)
     assert flash_attention.launches == before + 1
-    torch.testing.assert_close(o, flash_attention(q, k, v, **kw))
+    if FA.long_instance(S, D, dtype, window=window, softcap=softcap):
+        # the wgmma instance rounds P to bf16 once where it writes the lse
+        # (as the reference does) and splits it where it does not: the two
+        # o differ by P's rounding, each within the tolerance of the plain
+        torch.testing.assert_close(
+            o.float(), flash_attention_ref(q, k, v, **kw).float(),
+            atol=BWD_TOL[dtype], rtol=0)
+    else:
+        torch.testing.assert_close(o, flash_attention(q, k, v, **kw))
     want = flash_attention_lse_ref(q, k, **kw)
     torch.testing.assert_close(lse, want, atol=1e-3 if dtype ==
                                torch.bfloat16 else 1e-4, rtol=0)
@@ -941,6 +952,83 @@ def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
     again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     for a, b in zip(first, again):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# --- the forward's wgmma instance (long sequences) --------------------------
+# S just below, at and above LONG_FROM (below it the mma.sync instance
+# runs: the rule's edge), odd lengths, D 64 and 128, G 1, 3 and 5,
+# causal or not; bf16 within 2e-2 of the plain output, the lse within
+# 1e-3 of the plain log-sum-exp.
+
+LONG_CASES = [
+    # B, S, Hq, Hkv, D, causal
+    (1, FA.LONG_FROM - 1, 9, 3, 64, True),
+    (1, FA.LONG_FROM, 9, 3, 64, True),
+    (2, FA.LONG_FROM + 1, 9, 3, 64, True),
+    (1, 257, 4, 4, 64, False),              # G 1
+    (1, 1000, 10, 2, 64, True),             # G 5, an odd length
+    (2, 1000, 9, 3, 64, False),
+    (1, FA.LONG_FROM - 1, 6, 2, 128, True),
+    (1, FA.LONG_FROM, 6, 2, 128, True),     # G 3 at D 128
+    (1, 257, 8, 8, 128, True),              # G 1
+    (1, 1000, 10, 2, 128, False),           # G 5
+    (2, 1000, 6, 2, 128, True),
+]
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", LONG_CASES)
+def test_flash_attention_long_instance_close_to_plain(dev, B, S, Hq, Hkv, D,
+                                                      causal, with_lse):
+    """The instance the rule picks against the plain version, and two
+    calls equal bit for bit (a training restart repeats its bits)."""
+    assert FA.long_instance(S, D, torch.bfloat16) == (S >= FA.LONG_FROM)
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, torch.bfloat16, S + D)
+    kw = dict(causal=causal, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    given = lse if with_lse else None
+    before = flash_attention.launches
+    got = FA._forward(q, k, v, lse=given, **kw)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=0)
+    if with_lse:
+        first_lse = lse.clone()
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-3, rtol=0)
+    again = FA._forward(q, k, v, lse=given, **kw)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    if with_lse:
+        assert torch.equal(first_lse, lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_long_instance_row_that_sees_no_key(dev, D,
+                                                            with_lse):
+    """A row whose every score is -inf (its q is -inf on a column where
+    every key is 1, as if a mask hid every key from it): zeros and an lse
+    of -inf, as the plain version, and the other rows unmoved. No causal
+    mask leaves a row of this instance without a key: each sees its own
+    position."""
+    B, S, Hq, Hkv = 1, 300, 6, 2
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, torch.bfloat16, 5)
+    k[..., 0] = 1.0
+    q[0, 100, 2] = 0.0
+    q[0, 100, 2, 0] = float("-inf")
+    assert FA.long_instance(S, D, torch.bfloat16)
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    got = FA._forward(q, k, v, lse=lse if with_lse else None, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert float(want[0, 100, 2].float().abs().max()) == 0.0
+    assert torch.equal(got[0, 100, 2], torch.zeros_like(got[0, 100, 2]))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    if with_lse:
+        assert float(lse[0, 2, 100]) == float("-inf")
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-3, rtol=0)
 
 
 # The row slices of 7 output rows (F 2, 7, 27, 33) and the column widths
