@@ -31,9 +31,11 @@ its path gives it:
   its bits from one call to the next (the attention backward adds dq
   in a fixed order), and at the training shape the attention
   backward's three launches are timed apart by the profiler beside the
-  main kernel's registers and spills from this run's build; the
-  backward is also timed at a training length at D 128 (qwen2.5's heads)
-  and D 256 (gemma2's, softcap 50) beside SDPA's backward.
+  main kernel's registers and spills from this run's build (none may
+  spill at D 128 or D 256); the backward is also held to its plain
+  version at a cut training length (B 1, S 1024) and timed at B 2, S
+  4096 at D 128 (qwen2.5's heads) and D 256 (gemma2's, softcap 50)
+  beside SDPA's backward, with the forward that writes the lse.
 
 Then it drives these paths with seeded random weights, each with the
 launch counts set to 0 just before it and read just after:
@@ -94,7 +96,11 @@ launch counts set to 0 just before it and read just after:
   step-0 loss and one microbatch's gradient held against the float32
   run with the plain attention; then dlrm-mlperf at its published widths
   (tables capped at 4M rows) on batches of 65536, its gradient held
-  against ``dot_interaction_ref``; then (``phase_train_smoke``) every
+  against ``dot_interaction_ref``; then gemma2-2b at its published width
+  and depth (the attention backward at D 256 with its softcap), 3 steps
+  of 2 x 4096 tokens, its step-0 loss and gradient held as smollm's and
+  its first step run twice from the same state, bit for bit; then
+  (``phase_train_smoke``) every
   arch at smoke width through the training launcher's code path on the
   card and on the CPU, loss histories compared, and the launcher itself
   on the card;
@@ -136,6 +142,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -367,7 +374,34 @@ TRAIN_LR = 3e-3                  # the training launcher's default --lr
 TRAIN_LOSS_ATOL = 2e-2           # step 0's bf16 loss vs the f32 plain run
 TRAIN_GRAD_COS = 0.99            # per leaf, bf16 kernels vs f32 plain
 TRAIN_NORM_RTOL = 0.05           # global gradient norms
-TRAIN_PROFILES = 3               # profiled steps (busy share, breakdown)
+
+
+class LMRun(NamedTuple):
+    """One LM training run of ``phase_train_lm``, at the arch's published
+    width and depth, sequences of TRAIN_SEQ."""
+    arch: str
+    micro: int                   # sequences a microbatch
+    accum: int                   # microbatches a step
+    steps: int
+    ckpt_step: int               # > 0: a save there and a restart from it;
+                                 # 0: one step repeated from the same state
+    lr: float = TRAIN_LR
+
+
+TRAIN_LM = LMRun(TRAIN_ARCH, TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS,
+                 TRAIN_CKPT_STEP)
+# gemma2-2b (26 layers, d_model 2304, 8/4 heads of 256, softcap 50): ~2.6 B
+# parameters, 16 bytes each of float32 masters, AdamW's m and v and the
+# float32 gradient sum, ~42 GB; one sequence of 4096 a microbatch, 2
+# accumulated: 8,192 tokens a step (the global batch cut from 256
+# sequences to 2), 3 steps. No checkpoint (42 GB to disk): the repeat
+# check runs the first step again from the same state instead. AdamW's
+# peak lr 1e-4: at the launcher's 3e-3 (and at 1e-3) the third step's
+# loss ended above the first's on an H100; at 1e-4 the gradient norm
+# falls 9.59 -> 7.85 over the three steps and the loss with it (each
+# step's loss is on its own batch, and the second batch's is 0.03 higher
+# at the start, whatever the lr).
+GEMMA_TRAIN = LMRun(GEMMA, 1, 2, 3, 0, lr=1e-4)
 # dlrm-mlperf training at its published widths, every table capped at 4M
 # rows (12.3 GB; 49.3 GB with gradients and both AdamW moments), the
 # reference's train_batch of 65536.
@@ -380,6 +414,9 @@ SMOKE_TRAIN_STEPS = 3
 MESH_CELL_BATCH = 8              # sequences a step (the cell's 256, cut)
 MESH_CELL_STEPS = 3
 SMOKE_TRAIN_ATOL = 1e-4
+# the D 128 / D 256 backward rows at a training length are held to the
+# plain version at this cut sequence (B 1), and timed at TRAIN_SEQ
+LONG_CHECK_SEQ = 1024
 BWD_REL_TOL = {torch.bfloat16: BF16_ATOL, torch.float32: F32_ATOL}
 
 
@@ -752,11 +789,9 @@ def phase_flash_attention(dev) -> dict:
     train_old = mma_sync_ms(tq, tk, tv, flush)
     bt = attention_bwd_timing(tq, tk, tv, tdo, flush, plain_iters=1)
     shares = attention_bwd_shares(tq, tk, tv, tdo)
-    ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
     work = FA.workspace_bytes(TRAIN_MICRO, TRAIN_SEQ, Hq, D, torch.bfloat16)
     log(f"flash_attention_bwd at the training shape: two calls equal bit for"
         f" bit; launch shares of one profiled call {json.dumps(shares)}; "
-        f"main kernel (ptxas, this run's build) {json.dumps(ptxas)}; "
         f"workspace {work} B (dq_acc "
         f"{TRAIN_MICRO * Hq * TRAIN_SEQ * D * 4} B)")
     log(f"flash_attention_bwd {brow['shape']}: dq/dk/dv within "
@@ -778,40 +813,67 @@ def phase_flash_attention(dev) -> dict:
         f"{json.dumps(train_check)}")
     del tq, tk, tv, tdo
 
-    # a D 128 row at a training length: qwen2.5-14b's heads, 40/8
-    q6, k6, v6, do6 = attention_inputs(2, TRAIN_SEQ, 40, 8, 128,
-                                       torch.bfloat16, gen, dev) + (
-        torch.randn((2, TRAIN_SEQ, 40, 128), generator=gen,
-                    device=dev).to(torch.bfloat16),)
-    d128_check = forward_check(q6, k6, v6, "D 128 training row")
-    d128_old = mma_sync_ms(q6, k6, v6, flush)
-    b128 = attention_bwd_timing(q6, k6, v6, do6, flush, plain_iters=0)
+    # D 128 and D 256 at a training length: qwen2.5-14b's heads (40/8)
+    # and gemma2-2b's (8/4, softcap 50). Each backward is held to the plain
+    # version at a cut batch (B 1, S LONG_CHECK_SEQ) with two calls equal
+    # bit for bit, then timed at B 2, S TRAIN_SEQ beside SDPA's backward
+    # (without the softcap, which SDPA lacks) and the bound; so is the
+    # forward with the lse, which gemma2's training runs at D 256.
+    long_rows = {}
+    for D, hq, hkv, cap in ((128, 40, 8, 0.0), (256, 8, 4, 50.0)):
+        kw = dict(causal=True, window=0, softcap=cap)
+        cut = attention_inputs(1, LONG_CHECK_SEQ, hq, hkv, D, torch.bfloat16,
+                               gen, dev) + (
+            torch.randn((1, LONG_CHECK_SEQ, hq, D), generator=gen,
+                        device=dev).to(torch.bfloat16),)
+        row = {"check": attention_bwd_check(*cut, kw, f"D {D} training "
+                                            f"row, cut")}
+        del cut
+        full = attention_inputs(2, TRAIN_SEQ, hq, hkv, D, torch.bfloat16,
+                                gen, dev) + (
+            torch.randn((2, TRAIN_SEQ, hq, D), generator=gen,
+                        device=dev).to(torch.bfloat16),)
+        if D == 128:
+            row["fwd_check"] = forward_check(*full[:3], "D 128 training row")
+            row["fwd_mma_sync"] = mma_sync_ms(*full[:3], flush)
+        row["timing"] = attention_bwd_timing(*full, flush, plain_iters=0,
+                                             softcap=cap)
+        row["instance"] = instance_of(full[0], softcap=cap)
+        long_rows[D] = row
+        del full
+    ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
+    spills = {k: r.get("spill_stores") for k, r in ptxas.items()}
+    if any(spills.get(k) != 0 for k in ("D128", "D256")):
+        raise AssertionError(f"flash_attention_bwd: the D 128 / D 256 main "
+                             f"kernel spills (this run's ptxas: {ptxas})")
+    log(f"flash_attention_bwd main kernel (ptxas, this run's build): "
+        f"{json.dumps(ptxas)}; D 128 and D 256 spill no byte")
+    b128, b256 = long_rows[128]["timing"], long_rows[256]["timing"]
+    d128_check, d128_old = long_rows[128]["fwd_check"], \
+        long_rows[128]["fwd_mma_sync"]
     log(f"flash_attention D 128 (B=2, S={TRAIN_SEQ}, 40/8, causal, "
-        f"{instance_of(q6)}): with the lse {b128['fwd_lse_ms']:.4f} ms, "
-        f"serving {b128['fwd_ms']:.4f} ms; the mma.sync instance "
-        f"{d128_old['lse_ms']:.4f} / {d128_old['ms']:.4f} ms; sdpa "
-        f"{b128['fwd_library_ms']:.4f} ms; bound {b128['fwd_bound_ms']:.4f} "
-        f"ms; {json.dumps(d128_check)}")
-    log(f"flash_attention_bwd D 128 (the same shape): kernel "
-        f"{b128['ms']:.4f} ms, sdpa backward {b128['library_ms']:.4f} ms, "
-        f"bound {b128['bound_ms']:.4f} ms ({b128['bound_by']}: "
-        f"{b128['bytes']} B, {b128['flops']} FLOP)")
-    del q6, k6, v6, do6
-    # D 256 at a training length: gemma2-2b's heads, 8/4, softcap 50 (SDPA
-    # has no softcap: its backward is timed without)
-    q7, k7, v7, do7 = attention_inputs(2, TRAIN_SEQ, 8, 4, 256,
-                                       torch.bfloat16, gen, dev) + (
-        torch.randn((2, TRAIN_SEQ, 8, 256), generator=gen,
-                    device=dev).to(torch.bfloat16),)
-    b256 = attention_bwd_timing(q7, k7, v7, do7, flush, plain_iters=0,
-                                softcap=50.0)
-    log(f"flash_attention_bwd D 256 (B=2, S={TRAIN_SEQ}, 8/4, causal, "
-        f"softcap 50): kernel {b256['ms']:.4f} ms, sdpa backward (no "
-        f"softcap) {b256['library_ms']:.4f} ms, bound {b256['bound_ms']:.4f} "
-        f"ms ({b256['bound_by']}: {b256['bytes']} B, {b256['flops']} FLOP); "
-        f"the forward ({instance_of(q7, softcap=50.0)}) with the lse "
-        f"{b256['fwd_lse_ms']:.4f} ms")
-    del q7, k7, v7, do7, flush
+        f"{long_rows[128]['instance']}): with the lse "
+        f"{b128['fwd_lse_ms']:.4f} ms, serving {b128['fwd_ms']:.4f} ms; the "
+        f"mma.sync instance {d128_old['lse_ms']:.4f} / "
+        f"{d128_old['ms']:.4f} ms; sdpa {b128['fwd_library_ms']:.4f} ms; "
+        f"bound {b128['fwd_bound_ms']:.4f} ms; {json.dumps(d128_check)}")
+    log(f"flash_attention D 256 with the lse (B=2, S={TRAIN_SEQ}, 8/4, "
+        f"causal, softcap 50, {long_rows[256]['instance']}; gemma2's "
+        f"training forward): {b256['fwd_lse_ms']:.4f} ms, sdpa (no softcap) "
+        f"{b256['fwd_library_ms']:.4f} ms, bound "
+        f"{b256['fwd_bound_ms']:.4f} ms")
+    for D, bt_, label in ((128, b128, "40/8"), (256, b256,
+                                                "8/4, softcap 50")):
+        ck = long_rows[D]["check"]
+        log(f"flash_attention_bwd D {D} (B=2, S={TRAIN_SEQ}, {label}, "
+            f"causal): kernel {bt_['ms']:.4f} ms, sdpa backward"
+            f"{' (no softcap)' if D == 256 else ''} "
+            f"{bt_['library_ms']:.4f} ms, bound {bt_['bound_ms']:.4f} ms "
+            f"({bt_['bound_by']}: {bt_['bytes']} B, {bt_['flops']} FLOP); at "
+            f"{ck['shape']}: dq/dk/dv within {ck['dq_rel_err']:.3e}/"
+            f"{ck['dk_rel_err']:.3e}/{ck['dv_rel_err']:.3e} of the plain "
+            f"output's max (<= {BF16_ATOL}), two calls equal bit for bit")
+    del flush
     fwd = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:97",
@@ -840,6 +902,9 @@ def phase_flash_attention(dev) -> dict:
            "d128_bound_ms": b128["fwd_bound_ms"],
            "d128_mma_sync_ms": d128_old["ms"],
            "d128_lse_mma_sync_ms": d128_old["lse_ms"],
+           "d256_lse_ms": b256["fwd_lse_ms"],
+           "d256_library_ms": b256["fwd_library_ms"],
+           "d256_bound_ms": b256["fwd_bound_ms"],
            "checks": {"prefill": prefill_check, "train": train_check,
                       "d128": d128_check},
            "wgmma_ptxas": wgmma_ptxas}
@@ -857,7 +922,9 @@ def phase_flash_attention(dev) -> dict:
            "d128_ms": b128["ms"], "d128_library_ms": b128["library_ms"],
            "d128_bound_ms": b128["bound_ms"],
            "d256_ms": b256["ms"], "d256_library_ms": b256["library_ms"],
-           "d256_bound_ms": b256["bound_ms"]}
+           "d256_bound_ms": b256["bound_ms"],
+           "long_checks": {f"d{D}": r["check"] for D, r in
+                           long_rows.items()}}
     return fwd, bwd
 
 
@@ -1831,7 +1898,7 @@ def device_profile(label: str, fn):
             f"{e.key[:90]}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
             "busy_share": busy_ms / (wall * 1e3),
-            "launches": sum(e.count for e in kernels)}
+            "launches": sum(e.count for e in kernels), "groups_ms": groups}
 
 
 def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
@@ -4018,26 +4085,38 @@ def grads_of(params, loss_fn, batch) -> list:
     return out
 
 
-def phase_train_lm(dev) -> dict:
-    """smollm-135m at its published width and depth through the training
-    stack on the card (see TRAIN_*): its checks first (step 0's loss and
-    one microbatch's gradient against the float32 plain-attention run),
-    then TRAIN_STEPS steps with an ``AsyncCheckpointer`` save at step
-    TRAIN_CKPT_STEP, and a restart from that checkpoint through the last
-    steps, which must give the straight run's parameters and AdamW
-    moments bit for bit. The launch counts are read around the two runs."""
-    cfg = get_config(TRAIN_ARCH)
+def state_leaves(state) -> list:
+    return leaves((state.params, state.opt))
+
+
+def phase_train_lm(dev, run: LMRun) -> dict:
+    """``run.arch`` at its published width and depth through the training
+    stack on the card (float32 masters, bf16 compute, remat): its checks
+    first (step 0's loss and one microbatch's gradient against the
+    float32 plain-attention run), then ``run.steps`` steps; with
+    ``run.ckpt_step`` an ``AsyncCheckpointer`` save there and a restart
+    from that checkpoint through the last steps, which must give the
+    straight run's parameters and AdamW moments bit for bit; without, the
+    first step run again from the same state (the parameters rebuilt from
+    the seed), which must give the same parameters and moments bit for bit
+    (the straight run's copied to the host). The launch counts are read
+    around the straight run (and the restart)."""
+    cfg = get_config(run.arch)
     cfg32 = reduced(cfg, dtype="float32")
-    n_glob = TRAIN_MICRO * TRAIN_ACCUM
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params0 = T.init_params(cfg, gen, device=dev)        # float32 masters
-    opt = train_launch.opt_config(TRAIN_LR, TRAIN_STEPS)
+    n_glob = run.micro * run.accum
+    opt = train_launch.opt_config(run.lr, run.steps)
+
+    def init():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return T.init_params(cfg, gen, device=dev)      # float32 masters
+
+    params0 = init()
     n_params = sum(p.numel() for p in leaves(params0))
-    log(f"train: {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"train: {run.arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
         f"{cfg.vocab_size}; {n_params / 1e6:.1f}M float32 master weights, "
         f"{cfg.dtype} compute, remat={cfg.remat}); microbatch "
-        f"{TRAIN_MICRO} x {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}: "
+        f"{run.micro} x {TRAIN_SEQ}, grad_accum {run.accum}: "
         f"{n_glob * TRAIN_SEQ} tokens a step; AdamW lr {opt.lr}, warmup "
         f"{opt.warmup_steps}, {opt.total_steps} steps")
 
@@ -4047,14 +4126,18 @@ def phase_train_lm(dev) -> dict:
     def loss32(p, b):
         return T.lm_loss(p, cfg32, b["tokens"], b["labels"])
 
+    def batches(start=0):
+        return accum_batches(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1,
+                                           start_step=start), run.accum)
+
     first = TL.to_device(next(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1)),
                          dev)
-    micro = [{k: v[i * TRAIN_MICRO:(i + 1) * TRAIN_MICRO]
-              for k, v in first.items()} for i in range(TRAIN_ACCUM)]
+    micro = [{k: v[i * run.micro:(i + 1) * run.micro]
+              for k, v in first.items()} for i in range(run.accum)]
     t0 = time.monotonic()
     with torch.no_grad(), plain_attention():
         loss0_32 = float(sum(loss32(params0, mb)[0] for mb in micro)
-                         / TRAIN_ACCUM)
+                         / run.accum)
     g_bf = grads_of(tree_map(lambda t: t.detach().clone(), params0),
                     loss_fn, micro[0])
     with plain_attention():
@@ -4065,114 +4148,151 @@ def phase_train_lm(dev) -> dict:
     n_32 = float(torch.sqrt(sum(g.double().square().sum() for g in g_32)))
     worst = int(np.argmin(cos))
     paths = [p for p, _ in leaves_with_paths(params0)]
-    log(f"train: one microbatch's gradient, bf16 through both attention "
-        f"kernels vs float32 with the plain attention: cosine per leaf min "
-        f"{cos[worst]:.6f} ({paths[worst]}), median "
+    log(f"train ({run.arch}): one microbatch's gradient, bf16 through both "
+        f"attention kernels vs float32 with the plain attention: cosine "
+        f"per leaf min {cos[worst]:.6f} ({paths[worst]}), median "
         f"{float(np.median(cos)):.6f} (>= {TRAIN_GRAD_COS}); global norms "
         f"{n_bf:.6f} vs {n_32:.6f} (rel {abs(n_bf - n_32) / n_32:.3e} <= "
         f"{TRAIN_NORM_RTOL}); checks {time.monotonic() - t0:.1f} s")
     if min(cos) < TRAIN_GRAD_COS or abs(n_bf - n_32) > TRAIN_NORM_RTOL * n_32:
-        raise AssertionError(f"train: gradient cosines {cos} / norms "
-                             f"{n_bf} vs {n_32}")
+        raise AssertionError(f"train ({run.arch}): gradient cosines {cos} / "
+                             f"norms {n_bf} vs {n_32}")
     del g_bf, g_32, micro, first
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
-        step_fn = TL.make_train_step(loss_fn, opt, grad_accum=TRAIN_ACCUM)
-        state = TL.init_state(tree_map(lambda t: t.detach().clone(),
-                                       params0))
-        ck = CK.AsyncCheckpointer(ckdir)
+    step_fn = TL.make_train_step(loss_fn, opt, grad_accum=run.accum)
+    with contextlib.ExitStack() as stack:
+        ck = None
+        if run.ckpt_step:
+            ckdir = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="chip_smoke_ckpt_"))
+            ck = CK.AsyncCheckpointer(ckdir)
+            state = TL.init_state(tree_map(lambda t: t.detach().clone(),
+                                           params0))
+        else:
+            del params0                  # rebuilt from the seed below
+            state = TL.init_state(init())
+        first_step = []                  # the state after step 0, on the host
+
+        def keep_first(i, st, metrics):
+            if not run.ckpt_step and i == 0:
+                first_step.extend(t.detach().to("cpu", copy=True)
+                                  for t in state_leaves(st))
         times = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.monotonic()
         straight, hist = TL.train(
-            state, step_fn, accum_batches(TD.lm_batches(
-                cfg, n_glob, TRAIN_SEQ, seed=1), TRAIN_ACCUM), TRAIN_STEPS,
-            log_every=1, checkpointer=ck, ckpt_every=TRAIN_CKPT_STEP,
-            hooks=(step_timer(times),))
+            state, step_fn, batches(), run.steps, log_every=1,
+            checkpointer=ck, ckpt_every=run.ckpt_step,
+            hooks=(keep_first, step_timer(times)))
         peak = torch.cuda.max_memory_allocated()
         walls = np.diff([t0] + times)
-        fresh = TL.init_state(tree_map(torch.zeros_like, params0))
-        restored, extra = CK.restore(ckdir, fresh, step=TRAIN_CKPT_STEP)
-        again, hist2 = TL.train(
-            restored, step_fn, accum_batches(TD.lm_batches(
-                cfg, n_glob, TRAIN_SEQ, seed=1, start_step=TRAIN_CKPT_STEP),
-                TRAIN_ACCUM), TRAIN_STEPS - TRAIN_CKPT_STEP, log_every=1,
-            start_step=TRAIN_CKPT_STEP)
+        del state                        # its tensors were updated in place
+        if run.ckpt_step:
+            fresh = TL.init_state(tree_map(torch.zeros_like, params0))
+            restored, extra = CK.restore(ckdir, fresh, step=run.ckpt_step)
+            again, hist2 = TL.train(
+                restored, step_fn, batches(run.ckpt_step),
+                run.steps - run.ckpt_step, log_every=1,
+                start_step=run.ckpt_step)
+            del fresh, restored
         torch.cuda.synchronize()
         launches = read_launches()
     losses = [h["loss"] for h in hist]
     lrs = " ".join(f"{h['lr']:.2e}" for h in hist)
     norms = " ".join(f"{h['grad_norm']:.3f}" for h in hist)
-    log(f"train: {TRAIN_STEPS} steps, loss "
+    log(f"train ({run.arch}): {run.steps} steps, loss "
         f"{' '.join(f'{x:.4f}' for x in losses)}, lr {lrs}, grad_norm "
-        f"{norms}; the f32 plain "
-        f"run's step-0 loss {loss0_32:.6f} (|diff| "
+        f"{norms}; the f32 plain run's step-0 loss {loss0_32:.6f} (|diff| "
         f"{abs(losses[0] - loss0_32):.3e} <= {TRAIN_LOSS_ATOL})")
     if abs(losses[0] - loss0_32) > TRAIN_LOSS_ATOL or not \
             losses[-1] < losses[0] or not np.isfinite(losses).all():
-        raise AssertionError(f"train: losses {losses}, f32 step 0 {loss0_32}")
-    same = all(torch.equal(a, b) for a, b in zip(
-        leaves((again.params, again.opt)), leaves((straight.params,
-                                                    straight.opt))))
-    restart_losses = [h["loss"] for h in hist2]
-    log(f"train: restart from the step-{extra['step']} checkpoint: losses "
-        f"{' '.join(f'{x:.4f}' for x in restart_losses)}; params and AdamW "
-        f"moments {'equal the straight run bit for bit' if same else 'DIFFER'}")
-    if not same or restart_losses != losses[TRAIN_CKPT_STEP:]:
-        bad = [p for (p, a), b in zip(
-            leaves_with_paths((again.params, again.opt)),
-            leaves((straight.params, straight.opt))) if not torch.equal(a, b)]
-        raise AssertionError(f"train: the restart differs at {bad[:8]} "
-                             f"({len(bad)} leaves); losses {restart_losses} "
-                             f"vs {losses[TRAIN_CKPT_STEP:]}")
-    n_micro = TRAIN_ACCUM * (TRAIN_STEPS + TRAIN_STEPS - TRAIN_CKPT_STEP)
+        raise AssertionError(f"train ({run.arch}): losses {losses}, f32 step "
+                             f"0 {loss0_32}")
+    if run.ckpt_step:
+        same = all(torch.equal(a, b) for a, b in zip(state_leaves(again),
+                                                     state_leaves(straight)))
+        restart_losses = [h["loss"] for h in hist2]
+        log(f"train: restart from the step-{extra['step']} checkpoint: "
+            f"losses {' '.join(f'{x:.4f}' for x in restart_losses)}; params "
+            f"and AdamW moments "
+            f"{'equal the straight run bit for bit' if same else 'DIFFER'}")
+        if not same or restart_losses != losses[run.ckpt_step:]:
+            bad = [p for (p, a), b in zip(
+                leaves_with_paths((again.params, again.opt)),
+                state_leaves(straight)) if not torch.equal(a, b)]
+            raise AssertionError(f"train: the restart differs at {bad[:8]} "
+                                 f"({len(bad)} leaves); losses "
+                                 f"{restart_losses} vs "
+                                 f"{losses[run.ckpt_step:]}")
+        n_micro = run.accum * (run.steps + run.steps - run.ckpt_step)
+    else:
+        # the first step again from the same state: parameters from the
+        # seed, zero moments, the same batch
+        del straight
+        gc.collect()
+        torch.cuda.empty_cache()
+        again, _ = step_fn(TL.init_state(init()), next(batches()))
+        got = state_leaves(again)
+        bad = [i for i, (a, b) in enumerate(zip(got, first_step))
+               if not torch.equal(a, b.to(dev))]
+        log(f"train ({run.arch}): the first step run again from the same "
+            f"state: {len(got)} leaves of params and AdamW moments "
+            f"{'equal the first run bit for bit' if not bad else 'DIFFER'}")
+        if bad or len(got) != len(first_step):
+            raise AssertionError(f"train ({run.arch}): the repeated step "
+                                 f"differs at leaves {bad[:8]} ({len(bad)})")
+        del first_step
+        straight = again
+        n_micro = run.accum * run.steps
     want = {n: 0 for n in KERNELS}
     want["flash_attention"] = cfg.n_layers * n_micro * (2 if cfg.remat else 1)
     want["flash_attention_bwd"] = cfg.n_layers * n_micro
     if launches != want:
-        raise AssertionError(f"train: launches {launches}, expected {want}")
+        raise AssertionError(f"train ({run.arch}): launches {launches}, "
+                             f"expected {want}")
     tokens = n_glob * TRAIN_SEQ
-    # the steady step leaves out step 0 (warm-up) and the steps that end
-    # with a checkpoint save (a synchronous copy of params, m and v to the
-    # host before the write goes to its thread)
-    saves = [i for i in range(TRAIN_STEPS) if (i + 1) % TRAIN_CKPT_STEP == 0]
+    # the steady step leaves out step 0 (warm-up, and the host copy of the
+    # state where the repeat check takes one) and the steps that end with
+    # a checkpoint save (a synchronous copy of params, m and v to the host
+    # before the write goes to its thread)
+    saves = [i for i in range(run.steps)
+             if run.ckpt_step and (i + 1) % run.ckpt_step == 0]
     steady = [w for i, w in enumerate(walls) if i > 0 and i not in saves]
     step_s = float(np.mean(steady))
-    save_s = float(np.mean([walls[i] for i in saves])) - step_s
-    log(f"train ({card_line()}): step wall "
-        f"{' '.join(f'{w:.3f}' for w in walls)} s (steps "
-        f"{[i + 1 for i in saves]} end with a checkpoint save); steady "
-        f"(neither step 1 nor a saving step) {step_s:.3f} s = "
-        f"{tokens / step_s:.1f} tokens/s; a save adds {save_s:.3f} s; peak "
-        f"device memory {peak / 2 ** 30:.2f} GiB; launches {launches} == "
-        f"{want} ({cfg.n_layers} layers x {n_micro} microbatches, the "
-        f"forward twice under remat)")
-    batch = next(accum_batches(TD.lm_batches(cfg, n_glob, TRAIN_SEQ, seed=1,
-                                             start_step=TRAIN_STEPS),
-                               TRAIN_ACCUM))
-    profs = [device_profile(f"one {TRAIN_ARCH} training step ({n + 1} of "
-                            f"{TRAIN_PROFILES}), {tokens} tokens",
-                            lambda: step_fn(again, batch))
-             for n in range(TRAIN_PROFILES)]
-    seen = [p_ for p_ in profs if p_]
-    if seen:
-        shares = " ".join(f"{p_['busy_share']:.3f}" for p_ in seen)
-        busy_ms = float(np.mean([p_["busy_ms"] for p_ in seen]))
-        log(f"train: device busy share of the profiled steps {shares}; "
-            f"their mean busy time over the unprofiled steady step "
-            f"{busy_ms / (step_s * 1e3):.3f}")
-    grads = tree_map(torch.ones_like, again.params)
-    opt_ms = timed_ms(lambda: O.adamw_update(grads, again.opt, again.params,
-                                             opt), 3)
-    log(f"train: the AdamW update alone (inside the elementwise group "
-        f"above): {opt_ms:.3f} ms")
-    del straight, again, restored, fresh, state, grads, params0
-    return {"launches": launches, "step_s": step_s, "save_s": save_s,
-            "tokens_per_s": tokens / step_s, "peak_bytes": peak,
-            "losses": losses, "loss0_f32": loss0_32, "min_cos": min(cos),
-            "profiles": profs, "adamw_ms": opt_ms}
+    save_s = (float(np.mean([walls[i] for i in saves])) - step_s
+              if saves else None)
+    log(f"train ({run.arch}; {card_line()}): step wall "
+        f"{' '.join(f'{w:.3f}' for w in walls)} s"
+        + (f" (steps {[i + 1 for i in saves]} end with a checkpoint save)"
+           if saves else "")
+        + f"; steady (neither step 1 nor a saving step) {step_s:.3f} s = "
+        f"{tokens / step_s:.1f} tokens/s"
+        + (f"; a save adds {save_s:.3f} s" if saves else "")
+        + f"; peak device memory {peak / 2 ** 30:.2f} GiB; launches "
+        f"{launches} == {want} ({cfg.n_layers} layers x {n_micro} "
+        f"microbatches, the forward twice under remat)")
+    # one profiled step (smollm's three read within 0.4% of each other on
+    # an H100, at ~30 s each)
+    prof = device_profile(f"one {run.arch} training step, {tokens} tokens",
+                          lambda: step_fn(straight, next(batches(run.steps))))
+    if prof:
+        log(f"train ({run.arch}): the profiled step's device busy time "
+            f"over the unprofiled steady step "
+            f"{prof['busy_ms'] / (step_s * 1e3):.3f}; the attention "
+            f"backward's share of the busy time "
+            f"{prof['groups_ms']['flash_attention backward kernels'] / prof['busy_ms']:.3f}")
+    grads = tree_map(torch.ones_like, straight.params)
+    opt_ms = timed_ms(lambda: O.adamw_update(grads, straight.opt,
+                                             straight.params, opt), 3)
+    log(f"train ({run.arch}): the AdamW update alone (inside the "
+        f"elementwise group above): {opt_ms:.3f} ms")
+    del straight, again, grads
+    return {"arch": run.arch, "launches": launches, "step_s": step_s,
+            "save_s": save_s, "tokens_per_s": tokens / step_s,
+            "peak_bytes": peak, "losses": losses, "loss0_f32": loss0_32,
+            "min_cos": min(cos), "profile": prof, "adamw_ms": opt_ms}
 
 
 def phase_train_dlrm(dev) -> dict:
@@ -4247,19 +4367,21 @@ def phase_train_dlrm(dev) -> dict:
 
 
 def phase_train(dev) -> dict:
-    """The training path: smollm-135m, then dlrm-mlperf (its tables freed
-    after). Returns the launches of both runs summed."""
-    lm = phase_train_lm(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dl = phase_train_dlrm(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"train: dlrm tables freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
-        f" GiB still allocated")
-    return {"lm": lm, "dlrm": dl,
-            "launches": {n: lm["launches"][n] + dl["launches"][n]
-                         for n in KERNELS}}
+    """The training paths: smollm-135m, dlrm-mlperf (its tables freed
+    after), then gemma2-2b (its 42 GB of state freed after). Returns each
+    run and their launches by path."""
+    out = {}
+    for name, phase in (("lm", lambda: phase_train_lm(dev, TRAIN_LM)),
+                        ("dlrm", lambda: phase_train_dlrm(dev)),
+                        ("gemma2", lambda: phase_train_lm(dev, GEMMA_TRAIN))):
+        t0 = time.monotonic()
+        out[name] = phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train: {name} done in {time.monotonic() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+            f"allocated")
+    return out
 
 
 def dryrun_records(archs, shape: str, out_dir: str) -> dict:
@@ -4613,7 +4735,9 @@ def main() -> int:
                **{arch: st["launches"] for arch, st in big.items()},
                **{f"{arch.split('-')[0]} sharded": st["sharded"]["launches"]
                   for arch, st in big.items() if "sharded" in st},
-               "train": train["launches"],
+               "train": {n: train["lm"]["launches"][n]
+                         + train["dlrm"]["launches"][n] for n in KERNELS},
+               f"{GEMMA} train": train["gemma2"]["launches"],
                "train_smoke": train_smoke["launches"],
                "train cell": cells["launches"]}
     path_launches = {name: sum(run[name] for run in by_path.values())

@@ -25,26 +25,40 @@
 // the ~295 FLOP a byte where the tensor cores become the limit: the
 // operations bound it (~0.39 ms at 989 TFLOP/s).
 //
-// bf16 at D 64 and D 128 (the training path): three launches.
+// bf16 at D 64, 128 and 256 (the training paths): three launches.
 // 1. `fa_bwd_prep_kernel`: Di and the lse in log2 units (+inf for a row
 //    that saw no key, so that its P is 0 with no test per score), padded
 //    to whole query tiles; zeroes the counters. 8 threads a row, 16-byte
 //    loads.
-// 2. `fa_bwd_main_kernel`: the five products, each S and dP computed once.
-//    K/V-stationary: a work tile is (batch row, KV head, 128 keys), whose K
-//    and V stay in shared memory while the kernel walks every query tile
-//    (64 positions of one query head) of the G heads that can see those
-//    keys, so dK and dV, summed over the GQA group, are written once with
-//    no atomics. A persistent grid (one block an SM) takes work tiles from
-//    a global counter, key tile ascending, the longest causal walks first.
-//    Two consumer warpgroups each own 64 of the 128 keys: S^T = K Q^T and
-//    dP^T = V dO^T as wgmma with both operands in shared memory; P^T and
-//    dS^T in registers (mask, softcap, dead rows as in `score_grad` and
-//    `sees`); dV += P^T dO and dK += dS^T Q as wgmma with A from
-//    registers; dS^T to shared memory as bf16, and dQ_partial = dS K over
-//    the 128 keys as one more wgmma (D 128: each warpgroup 64 columns;
-//    D 64: the warpgroups take turns by query tile), staged in shared
-//    memory. A producer warpgroup holds the other roles, one thread each:
+// 2. `fa_bwd_main_kernel`: the five products. K/V-stationary: a work
+//    tile is (batch row, KV head, a key tile), whose K and V stay in
+//    shared memory while the kernel walks every query tile (of one query
+//    head) of the G heads that can see those keys, so dK and dV, summed
+//    over the GQA group, are written once with no atomics. A persistent
+//    grid (one block an SM) takes work tiles from a global counter, key
+//    tile ascending, the longest causal walks first. Two consumer
+//    warpgroups share a work tile (`kByRoles`):
+//    - D 64, by keys (`consume`): 128 keys, 64 a warpgroup, 64-position
+//      query tiles. Each forms S^T = K Q^T and dP^T = V dO^T (wgmma, both
+//      operands in shared memory), P^T and dS^T in registers (mask,
+//      softcap, dead rows as in `score_grad` and `sees`), dV += P^T dO and
+//      dK += dS^T Q (wgmma, A from registers), dS^T to shared memory, and
+//      the two take turns at dQ_partial = dS K over the 128 keys.
+//    - D 128 and 256, by roles (`consume_roles`): 64 keys and 128 output
+//      columns (`kColSplit`: D 256's key tile is two work tiles), 64- and
+//      32-position query tiles. Warpgroup 0 forms S^T, P^T and dV and
+//      hands P^T (times the softcap's derivative) on through shared
+//      memory; warpgroup 1 forms dP^T, dS^T, dK and dQ. Each holds 64
+//      accumulators of dK or dV beside one score tile: ptxas keeps a
+//      consumer's wgmmas pipelined only within ~168 registers (not
+//      setmaxnreg's 232), and with both of dK, dV and both score tiles in
+//      one warpgroup (the split by keys, D 128's first design) it spilled
+//      ~1.2 KB and serialised every wgmma. At D 256 each work tile forms
+//      S and dP over the whole head for its 128 columns (14 D operations
+//      a pair for 10).
+//    dQ partials (64 x 64, or at D 256 128 columns x 32 positions as
+//    dQ^T = K^T dS^T) are staged in shared memory.
+//    A producer warpgroup holds the other roles, one thread each:
 //    the loader streams each tile's K and V and a ring of Q / dO / lse /
 //    Di stages with TMA and mbarriers; two dQ writers, one per consumer
 //    warpgroup, add its staged partials to the float32 dq_acc with bulk
@@ -61,10 +75,7 @@
 //    (one contiguous 16 KB transfer).
 //    setmaxnreg gives the producer's registers to the consumers (40 /
 //    232), the warpgroup index taken from `__shfl_sync` so that the role
-//    test is warp-uniform by construction; with it ptxas allocates the
-//    consumers past the 168 registers of the launch (the D 128 instance
-//    still spills ~1.2 KB: its dK and dV hold 128 accumulators a thread;
-//    ROADMAP keeps that open).
+//    test is warp-uniform by construction.
 //    Why the writers (timed on one H100 80GB HBM3 at 700 W, the training
 //    shape): with the adds done by the consumers themselves (a spin and
 //    32 float32 atomics a thread each query tile) the atomics and the
@@ -73,18 +84,19 @@
 //    staging and adding still showed. PERF.md keeps the current numbers.
 // 3. `fa_bwd_post_kernel`: dq = bf16(scale dq_acc), back in (B, S, Hq, D).
 //
-// bf16 at D 16 and D 256 (the smoke-width and gemma2 heads): the Di pass,
-// then the dk/dv and dq kernels of the first design, on mma.sync
+// bf16 at D 16 (the smoke-width heads): the Di pass, then the dk/dv and
+// dq kernels of the first design, on mma.sync
 // m16n8k16 (tensor_core.cuh): `dkdv_bf16_kernel`, one block per (batch
 // row, KV head, 64 keys) walking every query row of the group, the G
 // heads packed into the rows of the query tiles (packed row r = query
 // head hk * G + r % G at position r / G); `dq_bf16_kernel`, one block per
 // (batch row, KV head, tile of packed query rows) walking the key tiles
 // it can see. S and dP are computed in both (seven products for five):
-// the price of writing each gradient from one block without atomics. At
-// D 256 the dk/dv kernel splits the output columns over two blocks, and
-// both kernels take 32-key or 32-row tiles: no instance spills. ROADMAP
-// keeps D 256's backward open.
+// the price of writing each gradient from one block without atomics. They
+// also take D 256 (the dk/dv kernel then splits the output columns over
+// two blocks, both kernels 32-key or 32-row tiles), which the D 256
+// warpgroup kernel replaced; `launch/ab_attention.py --backward` builds
+// that instance to time the two side by side.
 //
 // float32 (the smoke-width models): FP32 FMAs, as the forward's float32
 // kernel: one block of 4 warps per (batch row, head, 32 rows), lane j
@@ -134,6 +146,34 @@ __device__ __forceinline__ void score_grad(float s, float dp, float di,
   } else {
     p = tc::exp2_approx(fmaf(s, c_exp, -l2));
     ds = p * (dp - di);
+  }
+}
+
+// tanh(x) = 1 - 2 / (2^(2 x log2(e)) + 1) in two MUFU ops (ex2, rcp;
+// +-1 where 2^.. overflows or underflows): an absolute error of ~2e-7, a
+// few parts in 1e5 of a logit at a softcap of 50, against tanhf's ~20
+// instructions, which took a fifth of the D 256 kernel.
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(r) : "f"(tc::exp2_approx(2.f * kLog2e * x) + 1.f));
+  return fmaf(-2.f, r, 1.f);
+}
+
+// P of one score from its raw dot product s and the row's l2, and F = P
+// (1 - (t / softcap)^2) with a softcap (F = P without), so that dS = F (dP
+// - Di): `score_grad` split where one warpgroup forms P and another dS.
+__device__ __forceinline__ void score_p(float s, float l2, float scale,
+                                        float c_exp, float softcap, float& p,
+                                        float& f) {
+  if (softcap > 0.f) {
+    const float t = softcap * tanh_ex2(s * scale / softcap);
+    const float c = t / softcap;
+    p = tc::exp2_approx(fmaf(t, kLog2e, -l2));
+    f = p * (1.f - c * c);
+  } else {
+    p = tc::exp2_approx(fmaf(s, c_exp, -l2));
+    f = p;
   }
 }
 
@@ -873,40 +913,69 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout,
 
 namespace wgk {
 
-constexpr int kBc = 128;                 // keys a work tile, 64 a consumer
-constexpr int kBr = 64;                  // positions a query tile (one head)
 constexpr int kConsumers = 256;          // two consumer warpgroups
 constexpr int kThreads = 128 + kConsumers; // + the producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kTileFloats = kBr * 64;    // a dQ partial: 64 rows x 64 cols
+constexpr int kTileFloats = 4096;        // a staged dQ partial, 16 KB
+
+// How the two consumer warpgroups share a work tile: by keys, 64 each
+// (`consume`, D 64), or by roles, warpgroup 0 forming P and dV and
+// warpgroup 1 dS, dK and dQ over the same 64 keys (`consume_roles`, D 128
+// and 256).
+template <int D>
+constexpr bool kByRoles = D != 64;
+// A work tile's keys and a query tile's positions: 128 keys shared by
+// keys, 64 by roles; 64-position query tiles, 32 at D 256 (what fits the
+// 227 KB of shared memory beside a 64-key K and V of 256 columns).
+template <int D>
+constexpr int kBc = kByRoles<D> ? 64 : 128;
+template <int D>
+constexpr int kBr = D == 256 ? 32 : 64;
+// Work tiles a key tile is dealt as: shared by roles, one per 128 output
+// columns of dK, dV and dQ (two at D 256, each forming S and dP over the
+// whole head: 14 D operations a pair for 10, so that a warpgroup holds 64
+// accumulators of dK or dV and stays inside the ~168 registers with which
+// ptxas keeps the wgmmas pipelined); otherwise one.
+template <int D>
+constexpr int kColSplit = kByRoles<D> ? D / 128 : 1;
+// dQ partials a (key tile, query tile) pair stages, each 64 x 64 (D 64,
+// 128) or 128 columns x 32 positions, transposed (D 256).
+template <int D>
+constexpr int kAdds = kBr<D> * D / kTileFloats;
 
 template <int D>
 struct Smem {                            // byte offsets, 1024-aligned tiles
   static constexpr int kStages = D == 64 ? 3 : 2;     // Q / dO / lse / Di
-  static constexpr int kBufs = D == 64 ? 3 : 2;       // dQ staging, per WG
+  static constexpr int kBufs = D == 64 ? 3 : 2;       // dQ staging, per ring
   static constexpr int kHalves = D / 64; // 128-byte column blocks of a row
-  static constexpr int kKV = kBc * D * 2, kKVHalf = kBc * 128;
-  static constexpr int kQ = kBr * D * 2, kQHalf = kBr * 128;
-  static constexpr int kDS = kBc * kBr * 2;           // dS^T [key][query]
+  static constexpr int kKV = kBc<D> * D * 2, kKVHalf = kBc<D> * 128;
+  static constexpr int kQ = kBr<D> * D * 2, kQHalf = kBr<D> * 128;
+  // dS^T [key][query] (dS [query][key] at D 256), bf16: two buffers by
+  // query tile (`consume`), one (`consume_roles`)
+  static constexpr int kDS = kBc<D> * kBr<D> * 2;
+  // F^T of `consume_roles`, float32, two buffers by query tile
+  static constexpr int kF = kByRoles<D> ? kBc<D> * kBr<D> * 4 : 0;
   static constexpr int oK = 0, oV = oK + kKV, oQ = oV + kKV;
   static constexpr int oDO = oQ + kStages * kQ;
-  static constexpr int oDS = oDO + kStages * kQ;      // two buffers
-  static constexpr int oStage = oDS + 2 * kDS;        // [2 WGs][kBufs]
+  static constexpr int oDS = oDO + kStages * kQ;
+  static constexpr int oF = oDS + (kByRoles<D> ? 1 : 2) * kDS;
+  static constexpr int oStage = oF + 2 * kF;          // [2 rings][kBufs]
   static constexpr int oL = oStage + 2 * kBufs * kTileFloats * 4;  // lse2
-  static constexpr int oI = oL + kStages * kBr * 4;   // Di per stage
+  static constexpr int oI = oL + kStages * kBr<D> * 4;  // Di per stage
   // full[kStages], empty[kStages], kv_full, kv_empty, dq_full[2][kBufs],
   // dq_empty[2][kBufs]; then the tile slot and the partials' notes
-  static constexpr int oBar = oI + kStages * kBr * 4;
+  static constexpr int oBar = oI + kStages * kBr<D> * 4;
   static constexpr int kBars = 2 * kStages + 2 + 4 * kBufs;
   static constexpr int oTile = oBar + kBars * 8;
   static constexpr int oNote = oTile + 16;
   static constexpr int kBytes = oNote + 2 * kBufs * 16 + 1024;  // + slack
+  static_assert(kBytes <= 232448, "past a block's shared memory");
 };
 
 struct Args {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  float* dq_acc;          // (B, Hq, Tq, D / 64) tiles of 4096 floats
+  float* dq_acc;          // (B, Hq, Tq, kAdds) tiles of 4096 floats
   const float* lse2;      // (B, Hq, S_pad): lse in log2 units, +inf past S
   const float* di;        // (B, Hq, S_pad), 0 past S
   int* counters;          // (B, Hq, Tq): dQ partials added per query tile
@@ -928,18 +997,21 @@ struct Note {
 // query) of theirs is visible: key <= query (causal) and key > query -
 // window (a window). Tile n sees the query tiles [m_first, m_last]; tile m
 // is seen by the key tiles from n_first on, a contiguous run.
+template <int D>
 __device__ __forceinline__ int m_first(const Args& a, int n) {
-  return a.causal ? n * kBc / kBr : 0;
+  return a.causal ? n * kBc<D> / kBr<D> : 0;
 }
+template <int D>
 __device__ __forceinline__ int m_last(const Args& a, int n) {
   if (a.window <= 0) return a.Tq - 1;
-  const int k_last = min(n * kBc + kBc, a.S) - 1;
-  return min(a.Tq - 1, (k_last + a.window - 1) / kBr);
+  const int k_last = min(n * kBc<D> + kBc<D>, a.S) - 1;
+  return min(a.Tq - 1, (k_last + a.window - 1) / kBr<D>);
 }
+template <int D>
 __device__ __forceinline__ int n_first(const Args& a, int m) {
   if (a.window <= 0) return 0;
-  const int x = m * kBr - a.window + 1;
-  return x <= 0 ? 0 : x / kBc;
+  const int x = m * kBr<D> - a.window + 1;
+  return x <= 0 ? 0 : x / kBc<D>;
 }
 
 // Di = rowsum(dO * O) and the lse in log2 units (+inf where it is -inf:
@@ -1004,53 +1076,85 @@ fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
 }
 
 // dq = bf16(scale * dq_acc). A dq_acc tile holds a dQ partial as the
-// consumer warpgroup staged it: float4 (c, t) is thread t's accumulators
-// 4 c .. 4 c + 3, i.e. rows 16 w + grp and + 8, columns 8 c + 2 tig and
-// + 1 of the tile (t = 32 w + 4 grp + tig). A thread takes the 4 float4
-// of one (c, w, grp), tig 0..3 (64 contiguous bytes), and writes the 8
-// columns 8 c .. 8 c + 7 of its two rows as two 16-byte stores; c runs
-// fastest, so 8 neighbouring threads write a row's 64 columns.
+// consumer warpgroup staged it: float4 (c, t) of thread t at c * 128 + t,
+// its accumulators 4 c .. 4 c + 3 (t = 32 w + 4 grp + tig).
+// D 64 / 128 (dQ, 64 rows x 64 columns): rows 16 w + grp and + 8, columns
+// 8 c + 2 tig and + 1. A thread takes the 4 float4 of one (c, w, grp),
+// tig 0..3 (64 contiguous bytes), and writes the 8 columns 8 c .. 8 c + 7
+// of its two rows as two 16-byte stores; c runs fastest, so 8
+// neighbouring threads write a row's 64 columns.
+// D 256 (dQ^T, a warpgroup's 128 columns x 32 positions, float4 c = 4 c2 +
+// j): columns 64 c2 + 16 w + grp and + 8, positions 8 j + 2 tig and + 1.
+// A thread takes the 8 float4 of one (c, w, tig), grp 0..7, and writes
+// the 16 columns 64 c2 + 16 w .. + 15 of its two positions as four
+// 16-byte stores.
 template <int D>
 __global__ void __launch_bounds__(256)
 fa_bwd_post_kernel(const float* __restrict__ acc,
                    __nv_bfloat16* __restrict__ dq, int B, int S, int Hq,
                    int Tq, float scale) {
-  constexpr int kItems = kTileFloats / 16;          // a tile's (c, w, grp)
+  constexpr int kPer = D == 256 ? 8 : 4;            // float4 a thread
+  constexpr int kItems = kTileFloats / (4 * kPer);  // threads a tile
   const long long n =
-      static_cast<long long>(B) * Hq * Tq * (D / 64) * kItems;
+      static_cast<long long>(B) * Hq * Tq * kAdds<D> * kItems;
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long f = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        f < n; f += threads) {
     const long long tile = f / kItems;
     const int within = static_cast<int>(f % kItems);
-    const int c = within % 8, wg = within / 8;       // wg = 8 w + grp
-    const int cb = static_cast<int>(tile % (D / 64));
-    const long long rest = tile / (D / 64);
+    const int cb = static_cast<int>(tile % kAdds<D>);
+    const long long rest = tile / kAdds<D>;
     const int m = static_cast<int>(rest % Tq);
     const long long bh = rest / Tq;
     const int h = static_cast<int>(bh % Hq);
     const long long b = bh / Hq;
     const float4* src = reinterpret_cast<const float4*>(acc) +
-                        tile * (kTileFloats / 4) + c * 128 + 4 * wg;
-    float4 v[4];
+                        tile * (kTileFloats / 4);
+    float4 v[kPer];
+    if constexpr (D == 256) {
+      const int tig = within % 4, w = (within / 4) % 4, c = within / 16;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = src[k];
-    const int col = 64 * cb + 8 * c;
-    const int s0 = m * kBr + 16 * (wg >> 3) + (wg & 7);
-    if (s0 < S)
-      *reinterpret_cast<uint4*>(dq + ((b * S + s0) * Hq + h) * D + col) =
-          make_uint4(tc::pack_bf16(v[0].x * scale, v[0].y * scale),
-                     tc::pack_bf16(v[1].x * scale, v[1].y * scale),
-                     tc::pack_bf16(v[2].x * scale, v[2].y * scale),
-                     tc::pack_bf16(v[3].x * scale, v[3].y * scale));
-    if (s0 + 8 < S)
-      *reinterpret_cast<uint4*>(dq + ((b * S + s0 + 8) * Hq + h) * D +
-                                col) =
-          make_uint4(tc::pack_bf16(v[0].z * scale, v[0].w * scale),
-                     tc::pack_bf16(v[1].z * scale, v[1].w * scale),
-                     tc::pack_bf16(v[2].z * scale, v[2].w * scale),
-                     tc::pack_bf16(v[3].z * scale, v[3].w * scale));
+      for (int g = 0; g < 8; ++g) v[g] = src[c * 128 + 32 * w + 4 * g + tig];
+      const int col = 128 * cb + 64 * (c / 4) + 16 * w;
+      const int s0 = m * kBr<D> + 8 * (c % 4) + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s0 + e >= S) continue;
+        uint32_t x[8];
+#pragma unroll
+        for (int g = 0; g < 8; g += 2) {
+          x[g / 2] = e ? tc::pack_bf16(v[g].y * scale, v[g + 1].y * scale)
+                       : tc::pack_bf16(v[g].x * scale, v[g + 1].x * scale);
+          x[4 + g / 2] =
+              e ? tc::pack_bf16(v[g].w * scale, v[g + 1].w * scale)
+                : tc::pack_bf16(v[g].z * scale, v[g + 1].z * scale);
+        }
+        uint4* out = reinterpret_cast<uint4*>(
+            dq + ((b * S + s0 + e) * Hq + h) * D + col);
+        out[0] = make_uint4(x[0], x[1], x[2], x[3]);
+        out[1] = make_uint4(x[4], x[5], x[6], x[7]);
+      }
+    } else {
+      const int c = within % 8, wg = within / 8;     // wg = 8 w + grp
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = src[c * 128 + 4 * wg + k];
+      const int col = 64 * cb + 8 * c;
+      const int s0 = m * kBr<D> + 16 * (wg >> 3) + (wg & 7);
+      if (s0 < S)
+        *reinterpret_cast<uint4*>(dq + ((b * S + s0) * Hq + h) * D + col) =
+            make_uint4(tc::pack_bf16(v[0].x * scale, v[0].y * scale),
+                       tc::pack_bf16(v[1].x * scale, v[1].y * scale),
+                       tc::pack_bf16(v[2].x * scale, v[2].y * scale),
+                       tc::pack_bf16(v[3].x * scale, v[3].y * scale));
+      if (s0 + 8 < S)
+        *reinterpret_cast<uint4*>(dq + ((b * S + s0 + 8) * Hq + h) * D +
+                                  col) =
+            make_uint4(tc::pack_bf16(v[0].z * scale, v[0].w * scale),
+                       tc::pack_bf16(v[1].z * scale, v[1].w * scale),
+                       tc::pack_bf16(v[2].z * scale, v[2].w * scale),
+                       tc::pack_bf16(v[3].z * scale, v[3].w * scale));
+    }
   }
 }
 
@@ -1080,34 +1184,36 @@ __device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
       hop::mbar_arrive(kv_full);
       return;
     }
-    const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    const int n = t / pairs / kColSplit<D>, b = (t % pairs) / a.Hkv;
+    const int hk = t % a.Hkv;
     hop::mbar_expect(kv_full, 2 * L::kKV);
 #pragma unroll
     for (int c = 0; c < L::kHalves; ++c) {
       hop::tma_load_4d(sm + L::oK + c * L::kKVHalf, tk, 64 * c, hk,
-                       n * kBc, b, kv_full);
+                       n * kBc<D>, b, kv_full);
       hop::tma_load_4d(sm + L::oV + c * L::kKVHalf, tv, 64 * c, hk,
-                       n * kBc, b, kv_full);
+                       n * kBc<D>, b, kv_full);
     }
-    const int lo = m_first(a, n);
-    for (int m = m_last(a, n); m >= lo; --m)
+    const int lo = m_first<D>(a, n);
+    for (int m = m_last<D>(a, n); m >= lo; --m)
       for (int g = 0; g < G; ++g, ++qt) {
         const int s = qt % kStages;
         hop::mbar_wait(empty + s, ((qt / kStages) & 1) ^ 1);
         const int h = hk * G + g;
-        hop::mbar_expect(full + s, 2 * L::kQ + 2 * kBr * 4);
+        constexpr int kR = kBr<D>;
+        hop::mbar_expect(full + s, 2 * L::kQ + 2 * kR * 4);
 #pragma unroll
         for (int c = 0; c < L::kHalves; ++c) {
           hop::tma_load_4d(sm + L::oQ + s * L::kQ + c * L::kQHalf, tq,
-                           64 * c, h, m * kBr, b, full + s);
+                           64 * c, h, m * kR, b, full + s);
           hop::tma_load_4d(sm + L::oDO + s * L::kQ + c * L::kQHalf, tdo,
-                           64 * c, h, m * kBr, b, full + s);
+                           64 * c, h, m * kR, b, full + s);
         }
         const long long row =
-            (static_cast<long long>(b) * a.Hq + h) * a.S_pad + m * kBr;
-        hop::bulk_load(sm + L::oL + s * kBr * 4, a.lse2 + row, kBr * 4,
+            (static_cast<long long>(b) * a.Hq + h) * a.S_pad + m * kR;
+        hop::bulk_load(sm + L::oL + s * kR * 4, a.lse2 + row, kR * 4,
                        full + s);
-        hop::bulk_load(sm + L::oI + s * kBr * 4, a.di + row, kBr * 4,
+        hop::bulk_load(sm + L::oI + s * kR * 4, a.di + row, kR * 4,
                        full + s);
       }
   }
@@ -1195,7 +1301,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
     hop::wgmma_rs_n128<1>(d, a, db, 1);
 }
 
-// A consumer warpgroup: the 64 keys key0.. of each work tile. Per query
+// S^T (or dP^T) of a warpgroup's 64 keys and N queries, both operands
+// K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_scores(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (N == 32)
+    hop::wgmma_ss_n32<0, 0>(d, da, db, 1);
+  else
+    hop::wgmma_ss_n64<0, 0>(d, da, db, 1);
+}
+
+// Accumulators as the bf16 A operand of k-steps of 16 of their columns.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&out)[N / 16][4],
+                                       const float (&f)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      out[kk][r] = tc::pack_bf16(f[8 * kk + 2 * r], f[8 * kk + 2 * r + 1]);
+}
+
+// A consumer warpgroup sharing a work tile by keys (D 64):
+// the 64 keys key0.. of each work tile. Per query
 // tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared
 // memory), P^T and dS^T in registers, dV += P^T dO and dK += dS^T Q
 // (wgmma, A from registers), dS^T to shared memory, and dQ_partial = dS K
@@ -1208,7 +1337,6 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
   using L = Smem<D>;
   constexpr int kStages = L::kStages;
   constexpr int NA = D / 2;              // dK / dV accumulators a thread
-  constexpr int kAdds = D / 64;          // partials a (key, query) tile pair
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::oBar);
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
@@ -1240,12 +1368,12 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
       return;
     }
     const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
-    const int key0 = n * kBc + 64 * wg;  // this warpgroup's first key
+    const int key0 = n * kBc<D> + 64 * wg;  // this warpgroup's first key
     const int kr = 64 * wg + 16 * warp + grp;  // its rows kr, kr + 8
 #pragma unroll
     for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
-    const int lo = m_first(a, n);
-    for (int m = m_last(a, n); m >= lo; --m)
+    const int lo = m_first<D>(a, n);
+    for (int m = m_last<D>(a, n); m >= lo; --m)
       for (int g = 0; g < G; ++g, ++qt) {
         const int s = qt % kStages;
         hop::mbar_wait(full + s, (qt / kStages) & 1);
@@ -1272,13 +1400,16 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
         hop::fence_regs(sc);
         hop::fence_regs(dp);
 
-        const int q0 = m * kBr;
-        const float* ls = reinterpret_cast<const float*>(sm + L::oL) + s * kBr;
-        const float* is = reinterpret_cast<const float*>(sm + L::oI) + s * kBr;
+        const int q0 = m * kBr<D>;
+        const float* ls = reinterpret_cast<const float*>(sm + L::oL) +
+                          s * kBr<D>;
+        const float* is = reinterpret_cast<const float*>(sm + L::oI) +
+                          s * kBr<D>;
         // every pair of this warpgroup's block visible: no mask
-        const bool open = key0 + 63 < a.S && q0 + kBr <= a.S &&
+        const bool open = key0 + 63 < a.S && q0 + kBr<D> <= a.S &&
                           (!a.causal || q0 >= key0 + 63) &&
-                          (a.window <= 0 || q0 + kBr - 1 - a.window < key0);
+                          (a.window <= 0 ||
+                           q0 + kBr<D> - 1 - a.window < key0);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1365,9 +1496,9 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
             const long long ctr = (static_cast<long long>(b) * a.Hq + h) *
                                       a.Tq + m;
             Note& note = notes[buf];
-            note.tile = (ctr * kAdds + cb) * kTileFloats;
+            note.tile = (ctr * kAdds<D> + cb) * kTileFloats;
             note.ctr = static_cast<int>(ctr);
-            note.target = kAdds * (n - n_first(a, m));
+            note.target = kAdds<D> * (n - n_first<D>(a, m));
             note.done = 0;
           }
           hop::fence_async_smem();
@@ -1389,6 +1520,268 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
             dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
         *reinterpret_cast<uint32_t*>(a.dv + at) =
             tc::pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// The two consumer warpgroups sharing a work tile by roles (`kByRoles`, D
+// 128 and 256): a work tile is 64 keys and 128 output columns c0 ..
+// (`kColSplit`), and both warpgroups take all 64 keys. Warpgroup 0 forms
+// S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 dP^T = V dO^T, dS^T, dK
+// += dS^T Q and dQ. Warpgroup 0 hands P on through shared memory in
+// float32 as F^T = P^T (1 - (t / softcap)^2) (P^T itself without a
+// softcap), so that dS^T = F^T (dP^T - Di): each warpgroup holds 64
+// accumulators of dV or dK and one of S^T, dP^T. With dK and dV and both
+// score tiles in one warpgroup (128 keys shared by halves, D 128's first
+// design), ptxas spilled and serialised the wgmmas. Warpgroup 1 forms
+// dQ on the tile's columns as dQ partials, each staged into a writer's
+// ring: at D 128 dQ = dS K, two of 64 columns, from dS^T [key][query]; at
+// D 256 dQ^T = K^T dS^T, one of 128 columns in two 64-column chunks, from
+// dS [query][key] (32 positions are too few rows for a wgmma's 64, 64
+// columns are not).
+template <int D>
+__device__ __forceinline__ void consume_roles(const Args& a, uint8_t* sm,
+                                              int wg, int tid) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kBufs = L::kBufs;
+  constexpr int NQ = kBr<D>;             // queries a tile: 64 (D 128), 32
+  constexpr int NS = NQ / 2;             // S^T or dP^T accumulators
+  constexpr int kParts = kAdds<D> / kColSplit<D>;  // dQ partials a tile
+  constexpr int kChunks = D == 256 ? 2 : 1;        // wgmmas a partial
+  constexpr int NC = 32 / kChunks;       // accumulators a chunk
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::oBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* dq_full = kv_empty + 1;      // writer w's ring at + w * kBufs
+  uint64_t* dq_empty = dq_full + 2 * kBufs;
+  const volatile int* tile_slot =
+      reinterpret_cast<const volatile int*>(sm + L::oTile);
+  Note* notes = reinterpret_cast<Note*>(sm + L::oNote);
+  const uint32_t base = hop::smem_u32(sm);
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int G = a.Hq / a.Hkv, pairs = a.B * a.Hkv;
+  // F^T by query tile parity: float4 j of thread t at j * 128 + t
+  float4* fbuf = reinterpret_cast<float4*>(sm + L::oF);
+  uint8_t* dsb = sm + L::oDS;
+  const uint32_t dsu = hop::smem_u32(dsb);
+  float acc[64];                         // dV (warpgroup 0) or dK (1)
+  int qt = 0, staged[2] = {0, 0};
+  auto next_stage = [&](int w) {
+    const int buf = staged[w] % kBufs;
+    hop::mbar_wait(dq_empty + w * kBufs + buf,
+                   ((staged[w] / kBufs) & 1) ^ 1);
+    return buf;
+  };
+  for (int it = 0;; ++it) {
+    hop::mbar_wait(kv_full, it & 1);
+    const int t = *tile_slot;
+    if (t >= a.n_tiles) {
+      if (wg == 1)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int buf = next_stage(w);
+          if (tid == 0) notes[w * kBufs + buf].done = 1;
+          hop::mbar_arrive(dq_full + w * kBufs + buf);
+        }
+      return;
+    }
+    const int n = t / pairs / kColSplit<D>, half = (t / pairs) % kColSplit<D>;
+    const int b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    const int key0 = n * kBc<D>, c0 = 128 * half;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int lo = m_first<D>(a, n);
+    for (int m = m_last<D>(a, n); m >= lo; --m)
+      for (int g = 0; g < G; ++g, ++qt) {
+        const int s = qt % kStages;
+        hop::mbar_wait(full + s, (qt / kStages) & 1);
+        const uint32_t qs = base + L::oQ + s * L::kQ;
+        const uint32_t dos = base + L::oDO + s * L::kQ;
+        // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1), over the head
+        const uint32_t xa = base + (wg == 0 ? L::oK : L::oV);
+        const uint32_t xb = wg == 0 ? qs : dos;
+        float sc[NS];
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+        hop::fence_regs(sc);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * L::kKVHalf + (kk % 4) * 32;
+          const uint32_t qoff = (kk / 4) * L::kQHalf + (kk % 4) * 32;
+          wgmma_scores<NQ>(sc, hop::desc_sw128(xa + off, 16),
+                           hop::desc_sw128(xb + qoff, 16));
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+
+        const int q0 = m * NQ;
+        const float* ls = reinterpret_cast<const float*>(sm + L::oL) + s * NQ;
+        const float* is = reinterpret_cast<const float*>(sm + L::oI) + s * NQ;
+        float4* fb = fbuf + (qt & 1) * (NS / 4) * 128;
+        // the tile's 128 columns of dO (warpgroup 0) or Q (1), MN-major
+        const uint32_t cols = (wg == 0 ? dos : qs) + 2 * half * L::kQHalf;
+        uint32_t pa[NQ / 16][4];
+        if (wg == 0) {
+          // every pair of the block visible: no mask
+          const bool open = key0 + 63 < a.S && q0 + NQ <= a.S &&
+                            (!a.causal || q0 >= key0 + 63) &&
+                            (a.window <= 0 || q0 + NQ - 1 - a.window < key0);
+#pragma unroll
+          for (int j = 0; j < NQ / 8; ++j) {
+            float f[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * tig + (e & 1);
+              const int key = key0 + 16 * warp + grp + 8 * (e >> 1);
+              const int q = q0 + col;
+              const bool ok = open || (key < a.S && q < a.S &&
+                                       sees(key, q, a.causal, a.window));
+              float p, fv;
+              score_p(sc[4 * j + e], ls[col], a.scale, a.c_exp, a.softcap,
+                      p, fv);
+              sc[4 * j + e] = ok ? p : 0.f;
+              f[e] = ok ? fv : 0.f;
+            }
+            fb[j * 128 + tid] = make_float4(f[0], f[1], f[2], f[3]);
+          }
+          hop::named_arrive(2 + (qt & 1), kConsumers);  // F^T written
+          pack_a<NQ>(pa, sc);
+          hop::fence_regs(pa);
+          hop::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+            hop::wgmma_rs_n128<1>(
+                acc, pa[kk], hop::desc_sw128(cols + kk * 2048, L::kQHalf),
+                1);
+          hop::wgmma_commit();
+          hop::wgmma_wait<0>();
+          hop::fence_regs(acc);
+          hop::fence_regs(pa);
+          if (lane == 0) hop::mbar_arrive(empty + s);
+          continue;
+        }
+        hop::named_sync(2 + (qt & 1), kConsumers);      // F^T of this tile
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float4 f = fb[j * 128 + tid];
+          const float fe[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = fe[e] * (sc[4 * j + e] - is[8 * j + 2 * tig +
+                                                        (e & 1)]);
+        }
+        pack_a<NQ>(pa, sc);
+        if constexpr (D == 256) {
+          // dS [query][key], 128-byte swizzled: the 16-byte chunk c (keys
+          // 8 c ..) of query row q at chunk c ^ (q % 8)
+#pragma unroll
+          for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = 8 * j + 2 * tig + (e & 1);
+              const int key = 16 * warp + grp + 8 * (e >> 1);
+              const uint32_t pair = pa[j >> 1][(j & 1) * 2 + (e >> 1)];
+              *reinterpret_cast<uint16_t*>(
+                  dsb + q * 128 + (((key >> 3) ^ (q & 7)) << 4) +
+                  2 * (key & 7)) =
+                  static_cast<uint16_t>((e & 1) ? pair >> 16
+                                                : pair & 0xffffu);
+            }
+        } else {
+          // dS^T [key][query], swizzled as the tiles TMA writes
+#pragma unroll
+          for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<uint32_t*>(
+                  dsb + (16 * warp + grp + 8 * h) * 128 +
+                  ((j ^ grp) << 4) + 4 * tig) = pa[j >> 1][(j & 1) * 2 + h];
+        }
+        hop::fence_async_smem();
+        hop::fence_regs(pa);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+          hop::wgmma_rs_n128<1>(
+              acc, pa[kk], hop::desc_sw128(cols + kk * 2048, L::kQHalf), 1);
+        hop::wgmma_commit();
+        hop::named_sync(4, 128);         // the warpgroup's dS is written
+        // dK in before dQ's products are issued: with dK's A registers
+        // still held, ptxas put dQ's accumulators on them and serialised
+        // every wgmma of the kernel
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+        hop::fence_regs(pa);
+        if (lane == 0) hop::mbar_arrive(empty + s);
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          const int cb = half * kParts + part;   // the partial's dq_acc tile
+          const int w = kParts == 1 ? (qt & 1) : part;  // its writer
+          const int buf = next_stage(w);
+          float4* stage = reinterpret_cast<float4*>(
+              sm + L::oStage + (w * kBufs + buf) * kTileFloats * 4);
+#pragma unroll
+          for (int c2 = 0; c2 < kChunks; ++c2) {
+            float dq[NC];
+#pragma unroll
+            for (int i = 0; i < NC; ++i) dq[i] = 0.f;
+            hop::fence_regs(dq);
+            hop::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBc<D> / 16; ++kk) {
+              if constexpr (D == 256)   // dQ^T, 64 columns x 32 positions
+                hop::wgmma_ss_n32<1, 0>(
+                    dq, hop::desc_sw128(base + L::oK + (2 * cb + c2) *
+                                        L::kKVHalf + kk * 2048, L::kKVHalf),
+                    hop::desc_sw128(dsu + kk * 32, 16), 1);
+              else                      // dQ, 64 positions x 64 columns
+                hop::wgmma_ss_n64<1, 1>(
+                    dq, hop::desc_sw128(dsu + kk * 2048, L::kDS),
+                    hop::desc_sw128(base + L::oK + cb * L::kKVHalf +
+                                    kk * 2048, L::kKVHalf), 1);
+            }
+            hop::wgmma_commit();
+            hop::wgmma_wait<0>();
+            hop::fence_regs(dq);
+#pragma unroll
+            for (int c = 0; c < NC / 4; ++c)
+              stage[(c2 * NC / 4 + c) * 128 + tid] = make_float4(
+                  dq[4 * c], dq[4 * c + 1], dq[4 * c + 2], dq[4 * c + 3]);
+          }
+          if (tid == 0) {
+            const int h = hk * G + g;
+            const long long ctr =
+                (static_cast<long long>(b) * a.Hq + h) * a.Tq + m;
+            Note& note = notes[w * kBufs + buf];
+            note.tile = (ctr * kAdds<D> + cb) * kTileFloats;
+            note.ctr = static_cast<int>(ctr);
+            note.target = kAdds<D> * (n - n_first<D>(a, m));
+            note.done = 0;
+          }
+          hop::fence_async_smem();
+          hop::mbar_arrive(dq_full + w * kBufs + buf);
+          ++staged[w];
+        }
+      }
+    if (lane == 0) hop::mbar_arrive(kv_empty);
+    // dV unscaled, dK times the scale
+    __nv_bfloat16* out = wg == 0 ? a.dv : a.dk;
+    const float mul = wg == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key0 + 16 * warp + grp + 8 * h;
+        if (key >= a.S) continue;
+        const long long at =
+            ((static_cast<long long>(b) * a.S + key) * a.Hkv + hk) * D +
+            c0 + 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(
+            acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
       }
   }
 }
@@ -1434,7 +1827,10 @@ fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 64) write_dq<D>(a, sm, 1);
   } else {
     hop::setmaxnreg_inc<kConsumerRegs>();
-    consume<D>(a, sm, wgi - 1, threadIdx.x % 128);
+    if constexpr (kByRoles<D>)
+      consume_roles<D>(a, sm, wgi - 1, threadIdx.x % 128);
+    else
+      consume<D>(a, sm, wgi - 1, threadIdx.x % 128);
   }
 }
 
@@ -1443,8 +1839,9 @@ struct Workspace {                       // carved from the wrapper's bytes
 };
 
 Workspace workspace(int B, int S, int Hq, int D) {
-  const long long s_pad = (S + kBr - 1) / kBr * kBr;
-  const long long tq = s_pad / kBr;
+  const long long br = D == 256 ? kBr<256> : kBr<64>;
+  const long long s_pad = (S + br - 1) / br * br;
+  const long long tq = s_pad / br;
   Workspace w;
   w.dq_acc = 0;
   w.di = static_cast<long long>(B) * Hq * s_pad * D;
@@ -1460,8 +1857,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* work, int B, int S, int Hq, int Hkv, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
   using L = Smem<D>;
-  const int Tq = (S + kBr - 1) / kBr, Tk = (S + kBc - 1) / kBc;
-  const long long n_tiles = static_cast<long long>(Tk) * B * Hkv;
+  const int Tq = (S + kBr<D> - 1) / kBr<D>, Tk = (S + kBc<D> - 1) / kBc<D>;
+  const long long n_tiles =
+      static_cast<long long>(Tk) * kColSplit<D> * B * Hkv;
   if (n_tiles == 0) return 0;
   if (n_tiles > 0x7fffffffLL || static_cast<long long>(B) * Hq * Tq >
                                     0x7fffffffLL)
@@ -1478,7 +1876,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.lse2 = wf + ws.lse2;
   a.counters = reinterpret_cast<int*>(wf + ws.counters);
   a.next_tile = a.counters + static_cast<long long>(B) * Hq * Tq;
-  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.Tq = Tq; a.S_pad = Tq * kBr;
+  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.Tq = Tq; a.S_pad = Tq * kBr<D>;
   a.n_tiles = static_cast<int>(n_tiles);
   a.scale = scale; a.c_exp = scale * kLog2e; a.softcap = softcap;
   a.causal = causal; a.window = window;
@@ -1496,10 +1894,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   CUtensorMap tq, tdo, tk, tv;
   if (hop::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
-  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBr) ||
-      !hop::tensor_map(&tdo, dout, B, S, Hq, D, kBr) ||
-      !hop::tensor_map(&tk, k, B, S, Hkv, D, kBc) ||
-      !hop::tensor_map(&tv, v, B, S, Hkv, D, kBc))
+  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBr<D>) ||
+      !hop::tensor_map(&tdo, dout, B, S, Hq, D, kBr<D>) ||
+      !hop::tensor_map(&tk, k, B, S, Hkv, D, kBc<D>) ||
+      !hop::tensor_map(&tv, v, B, S, Hkv, D, kBc<D>))
     return static_cast<int>(cudaErrorInvalidPitchValue);
   err = cudaFuncSetAttribute(fa_bwd_main_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1532,17 +1930,18 @@ int launch_di(const void* o, const void* dout, float* di, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 64 and D 128 take the warpgroup kernels.
+// bf16 at D 64, 128 and 256 take the warpgroup kernels.
 bool warpgroup_path(int D, int dtype) {
-  return dtype == 1 && (D == 64 || D == 128);
+  return dtype == 1 && (D == 64 || D == 128 || D == 256);
 }
 
 }  // namespace
 
 // Bytes of the float32 workspace the wrapper allocates for one call:
 // (B, Hq, S) of Di for the FMA and mma.sync kernels; for the warpgroup
-// kernels dq_acc (B, Hq, S_pad, D in 64 x 64 tiles), Di and the lse in
-// log2 units (B, Hq, S_pad), and the counters.
+// kernels dq_acc (B, Hq, S_pad, D in tiles of 4096 floats), Di and the
+// lse in log2 units (B, Hq, S_pad; S_pad a whole number of query tiles),
+// and the counters.
 extern "C" long long flash_attention_bwd_workspace_bytes(int B, int S,
                                                          int Hq, int D,
                                                          int dtype) {
@@ -1552,8 +1951,9 @@ extern "C" long long flash_attention_bwd_workspace_bytes(int B, int S,
 
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor cores); D in
 // {16, 64, 128, 256} (the wrapper checks). work: the workspace above.
-// bf16 at D 64 and D 128: the pre-pass, the warpgroup kernel and the
-// post-pass; otherwise the Di pass, the dk/dv kernel and the dq kernel.
+// bf16 at D 64, 128 and 256: the pre-pass, the warpgroup kernel and the
+// post-pass; otherwise (float32, bf16 D 16) the Di pass, the dk/dv kernel
+// and the dq kernel.
 // All on `stream`; returns the first cudaGetLastError() that is not 0
 // (0 = ok).
 extern "C" int flash_attention_bwd_launch(
@@ -1567,7 +1967,10 @@ extern "C" int flash_attention_bwd_launch(
     if (D == 64)
       return wgk::launch<64>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
                              Hq, Hkv, scale, causal, window, softcap, st);
-    return wgk::launch<128>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
+    if (D == 128)
+      return wgk::launch<128>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
+                              Hq, Hkv, scale, causal, window, softcap, st);
+    return wgk::launch<256>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
                             Hq, Hkv, scale, causal, window, softcap, st);
   }
   float* dis = static_cast<float*>(work);
@@ -1586,7 +1989,6 @@ extern "C" int flash_attention_bwd_launch(
     if (D == 256) FB_CASE(launch_f32, 256);
   } else {
     if (D == 16) FB_CASE(launch_bf16, 16);
-    if (D == 256) FB_CASE(launch_bf16, 256);
   }
 #undef FB_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -68,6 +68,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
+// d[O .. O + 15] (m64n32, 16 floats a thread) (+)= A B, A and B from
+// shared memory.
+template <int TA, int TB, int O = 0, int N>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[N], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  static_assert(O + 16 <= N, "the accumulators lie past the array");
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (m64n64, 32 floats a thread) (+)= A B, A and B from shared memory.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,

@@ -1,22 +1,30 @@
-"""Design choices of ``flash_attention``'s wgmma instance, timed side by side.
+"""Design choices of the attention kernels, timed side by side.
 
-Each variant is ``csrc/flash_attention.cu`` with one named edit (a tile
-size, the consumers' turns, where O is rescaled and P packed, an
-exp2 on the FMA pipe, or a diagnostic that drops the K/V loads); every variant is built with the port's ``nvcc``
-flags, one process each, all at once, and called through its own
-``flash_attention_launch`` with the wgmma instance forced
-(``long_from`` 0). Run on a machine with an H100:
+The forward: each variant is ``csrc/flash_attention.cu`` with one named
+edit (a tile size, the consumers' turns, where O is rescaled and P
+packed, an exp2 on the FMA pipe, or a diagnostic that drops the K/V
+loads), called through its own ``flash_attention_launch`` with the wgmma
+instance forced (``long_from`` 0). With ``--backward``: each variant is
+``csrc/flash_attention_bwd.cu`` with one named edit of ``BWD_VARIANTS``
+(the kernels the warpgroup kernels replaced, or a design choice of
+theirs), called through its own ``flash_attention_bwd_launch`` on the o
+and lse of the port's forward. Every variant is built with the port's
+``nvcc`` flags, one process each, all at once. Run on a machine with an
+H100:
 
-    python3 src/repro_torch/launch/ab_attention.py [VARIANT ...]
-        [--shape B,S,Hq,Hkv,D ...] [--iters N]
+    python3 src/repro_torch/launch/ab_attention.py [--backward] [VARIANT ...]
+        [--shape B,S,Hq,Hkv,D[,softcap] ...] [--iters N]
 
-With no variant named, all of ``VARIANTS``. Prints, per variant, what
-ptxas said of the four wgmma instances (registers, spills, serialised
-wgmma), then one JSON line a shape: each variant's mean CUDA-event time
-(1 GiB written between launches), serving (P split) and with the lse
-(bf16 P once), in turns (the variants in order, then reversed), and its
-max abs error against ``flash_attention_ref``; the diagnostics compute no
-attention and their errors are large by design. Exits 2 without a card.
+With no variant named, all of ``VARIANTS`` (or ``BWD_VARIANTS``). Prints,
+per variant, what ptxas said of its wgmma kernels (registers, spills,
+serialised wgmma), then one JSON line a shape: each variant's mean
+CUDA-event time (1 GiB written between launches), in turns (the variants
+in order, then reversed), and its error against the plain version: the
+forward serving (P split) and with the lse (bf16 P once), max abs against
+``flash_attention_ref``; the backward each of dq, dk, dv as max abs over
+the plain output's max abs (``flash_attention_bwd_ref``). The
+diagnostics compute no attention and their errors are large by design.
+Exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "repro_torch" / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 _KBN = ("static constexpr int kBN =\n"
         "      D == 64 ? (kSplit ? 96 : 128) : (kSplit ? 64 : 96);")
@@ -99,27 +108,51 @@ VARIANTS = {
     "diag_same_kv": [(_KV_LOADS, _KV_LOADS.replace(
         "64 * c, hk, j * C::kBN, w.b,", "64 * c, 0, j * C::kBN, 0,"))],
 }
+_BWD_PATH = "return dtype == 1 && (D == 64 || D == 128 || D == 256);"
+_BWD_BF16 = "    if (D == 16) FB_CASE(launch_bf16, 16);"
+_SHARE = "constexpr bool kByRoles = D != 64;"
+# name -> [(old, new)]: edits of csrc/flash_attention_bwd.cu as committed
+BWD_VARIANTS = {
+    # the kernels the D 128 and D 256 instances replaced: at D 128 the two
+    # warpgroups sharing 128 keys by halves (which spills), at D 256 the
+    # mma.sync dk/dv and dq kernels
+    "d128_key_halves": [(_SHARE, "constexpr bool kByRoles = D == 256;")],
+    "d256_mma_sync": [(_BWD_PATH, "return dtype == 1 && (D == 64 || "
+                                  "D == 128);"),
+                      (_BWD_BF16, _BWD_BF16 + "\n    if (D == 256) "
+                                  "FB_CASE(launch_bf16, 256);")],
+    # the role split's softcap with libdevice's tanhf, as `score_grad`
+    # takes it, in place of tanh_ex2
+    "tanhf": [("    const float t = softcap * tanh_ex2(s * scale / softcap);",
+               "    const float t = softcap * tanhf(s * scale / softcap);")],
+}
 DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128"]
+BWD_DEFAULT_SHAPES = ["2,4096,40,8,128", "2,4096,8,4,256,50",
+                      "8,4096,9,3,64"]
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                ctypes.c_int, ctypes.c_void_p])
+BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p])
 
 
-def variant_source(name: str) -> str:
-    text = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
+def variant_source(name: str, backward: bool = False) -> str:
+    text = (BWD_SOURCE if backward else SOURCE).read_text()
+    for old, new in (BWD_VARIANTS if backward else VARIANTS)[name]:
         if old not in text:
             raise ValueError(f"variant {name}: its edit no longer applies")
         text = text.replace(old, new)
     return text
 
 
-def ptxas_notes(log: str) -> dict:
-    """Registers, spill bytes and serialised wgmma of each wgmma
-    instance, from ``-Xptxas -v``."""
+def ptxas_notes(log: str, kernel: str = "fa_fwd_wgmma_kernel") -> dict:
+    """Registers, spill bytes and serialised wgmma of each instance of
+    ``kernel`` (by head dimension, ``_lse`` where it writes the lse),
+    from ``-Xptxas -v``."""
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"fa_fwd_wgmma_kernelILi(\d+)ELb([01])E", line)
+        m = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", line)
         if m and "Compiling entry" in line:
             cur = f"D{m.group(1)}" + ("_lse" if m.group(2) == "1" else "")
             out.setdefault(cur, {})
@@ -137,54 +170,49 @@ def ptxas_notes(log: str) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("variants", nargs="*", default=list(VARIANTS))
-    ap.add_argument("--shape", action="append",
-                    help="B,S,Hq,Hkv,D (causal bf16); repeatable")
-    ap.add_argument("--iters", type=int, default=20)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
-
-    import torch
+def build_variants(names, backward: bool) -> dict:
+    """Each named variant built into ``build/ab/<name>/lib.so`` (one nvcc
+    each, all at once), its ptxas notes printed; returns the loaded
+    libraries by name."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.time_attention import timed_ms
-    if not torch.cuda.is_available():
-        print("ab_attention: no CUDA device", file=sys.stderr)
-        return 2
-
-    names = ["committed"] + list(args.variants)
+    source = BWD_SOURCE if backward else SOURCE
     procs = {}
     for name in names:
-        d = _build.BUILD_DIR / "ab" / name
+        d = _build.BUILD_DIR / "ab" / ("bwd" if backward else "") / name
         d.mkdir(parents=True, exist_ok=True)
         for header in ("tensor_core.cuh", "wgmma.cuh"):
             (d / header).write_text((SOURCE.parent / header).read_text())
-        (d / "flash_attention.cu").write_text(
-            SOURCE.read_text() if name == "committed"
-            else variant_source(name))
-        procs[name] = subprocess.Popen(
+        (d / source.name).write_text(
+            source.read_text() if name == "committed"
+            else variant_source(name, backward))
+        procs[name] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "flash_attention.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
+             str(d / source.name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (d, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}:\n{log[-4000:]}")
-        print(json.dumps({"variant": name, "ptxas": ptxas_notes(log)}),
-              flush=True)
-        fn = ctypes.CDLL(str(_build.BUILD_DIR / "ab" / name / "lib.so")
-                         ).flash_attention_launch
-        fn.argtypes = ARGTYPES
-        fns[name] = fn
+        kernel = "fa_bwd_main_kernel" if backward else "fa_fwd_wgmma_kernel"
+        print(json.dumps({"variant": name,
+                          "ptxas": ptxas_notes(log, kernel)}), flush=True)
+        libs[name] = ctypes.CDLL(str(d / "lib.so"))
+    return libs
 
-    dev = torch.device("cuda")
-    scratch = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
 
+def time_forward(libs, shapes, iters: int, scratch) -> None:
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.time_attention import timed_ms
+    names = list(libs)
+    fns = {}
+    for name, lib in libs.items():
+        fns[name] = lib.flash_attention_launch
+        fns[name].argtypes = ARGTYPES
+    dev = scratch.device
     gen = torch.Generator(device=dev).manual_seed(0)
-    for spec in args.shape or DEFAULT_SHAPES:
+    for spec in shapes:
         B, S, Hq, Hkv, D = (int(x) for x in spec.split(","))
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
@@ -206,13 +234,106 @@ def main(argv=None) -> int:
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
                 cell = row.setdefault(f"{name}/{kind}", {"ms": []})
-                cell["ms"].append(timed_ms(call, args.iters, scratch))
+                cell["ms"].append(timed_ms(call, iters, scratch))
                 call()
                 torch.cuda.synchronize()
                 cell["max_abs_err"] = float((out.float() - want).abs().max())
         print(json.dumps(row), flush=True)
         del q, k, v, want
         torch.cuda.empty_cache()
+
+
+def time_backward(libs, shapes, iters: int, scratch) -> None:
+    """Each variant's ``flash_attention_bwd_launch`` on the same causal
+    inputs, with the o and lse of the port's forward kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.time_attention import timed_ms
+    names = list(libs)
+    fns, ws = {}, {}
+    for name, lib in libs.items():
+        fns[name] = lib.flash_attention_bwd_launch
+        fns[name].argtypes = BWD_ARGTYPES
+        ws[name] = lib.flash_attention_bwd_workspace_bytes
+        ws[name].argtypes = [ctypes.c_int] * 5
+        ws[name].restype = ctypes.c_longlong
+    dev = scratch.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for spec in shapes:
+        B, S, Hq, Hkv, D, *cap = spec.split(",")
+        B, S, Hq, Hkv, D = (int(x) for x in (B, S, Hq, Hkv, D))
+        softcap = float(cap[0]) if cap else 0.0
+        # q scaled so that a softcap bites (logits of spread ~8 x 5)
+        q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device=dev)
+                       for h in (Hq, Hkv, Hkv, Hq))
+        q, k, v, do = ((q * (8.0 if softcap else 1.0)).to(torch.bfloat16),
+                       k.to(torch.bfloat16), v.to(torch.bfloat16),
+                       do.to(torch.bfloat16))
+        kw = dict(causal=True, window=0, softcap=softcap,
+                  sm_scale=D ** -0.5)
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+        o = FA._forward(q, k, v, lse=lse, **kw)
+        want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        row = {"card": torch.cuda.get_device_name(0),
+               "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal, "
+                        f"softcap {softcap}"}
+        for name in names + names[::-1]:
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            work = torch.empty(ws[name](B, S, Hq, D, 1), dtype=torch.uint8,
+                               device=dev)
+
+            def call(fn=fns[name]):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                         *(g.data_ptr() for g in grads), work.data_ptr(),
+                         B, S, Hq, Hkv, D, 1, D ** -0.5, 1, 0, softcap,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError {err}")
+            cell = row.setdefault(name, {"ms": []})
+            cell["ms"].append(timed_ms(call, iters, scratch))
+            call()
+            torch.cuda.synchronize()
+            for g, w, what in zip(grads, want, ("dq", "dk", "dv")):
+                err = float((g.float() - w.float()).abs().max())
+                cell[f"{what}_rel_err"] = err / max(
+                    float(w.float().abs().max()), 1e-30)
+            del work, grads
+        print(json.dumps(row), flush=True)
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("variants", nargs="*")
+    ap.add_argument("--backward", action="store_true",
+                    help="variants of csrc/flash_attention_bwd.cu")
+    ap.add_argument("--shape", action="append",
+                    help="B,S,Hq,Hkv,D (causal bf16; with --backward a "
+                         "sixth field, the softcap); repeatable")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("ab_attention: no CUDA device", file=sys.stderr)
+        return 2
+    table = BWD_VARIANTS if args.backward else VARIANTS
+    unknown = [v for v in args.variants if v not in table]
+    if unknown:
+        ap.error(f"unknown variants {unknown}; known: {sorted(table)}")
+    libs = build_variants(["committed"] + (args.variants or list(table)),
+                          args.backward)
+    scratch = torch.empty(1 << 30, dtype=torch.uint8,
+                          device=torch.device("cuda"))
+    if args.backward:
+        time_backward(libs, args.shape or BWD_DEFAULT_SHAPES, args.iters,
+                      scratch)
+    else:
+        time_forward(libs, args.shape or DEFAULT_SHAPES, args.iters,
+                     scratch)
     return 0
 
 

@@ -844,6 +844,16 @@ BWD_CASES = [
     (1, 257, 6, 2, 128, 0, 0.0, False),     # D 128, not causal
     (1, 300, 4, 2, 64, 64, 0.0, False),     # not causal, window
     (1, 1024, 9, 3, 64, 0, 0.0, True),      # the training shape, B 1 S 1024
+    # D 256's warpgroup kernel (64 keys a work tile, 32-position query
+    # tiles, the two warpgroups 128 columns each)
+    (1, 31, 8, 4, 256, 0, 50.0, True),      # S < Br
+    (2, 32, 8, 4, 256, 0, 0.0, True),       # S = Br
+    (1, 33, 8, 8, 256, 0, 50.0, True),      # S = Br + 1, G 1
+    (1, 63, 8, 1, 256, 0, 0.0, True),       # S = Bc - 1, G 8
+    (1, 65, 4, 2, 256, 0, 50.0, False),     # S = Bc + 1, not causal
+    (1, 129, 8, 4, 256, 0, 50.0, True),     # S = 2 Bc + 1
+    (1, 300, 8, 4, 256, 40, 50.0, True),    # window: whole key tiles out
+    (1, 257, 4, 4, 256, 70, 0.0, False),    # not causal, window, G 1
 ]
 
 
@@ -935,7 +945,7 @@ def test_flash_attention_bwd_kernel_row_that_saw_no_key(dev, D, dtype):
         _rel_close(g, w, BWD_TOL[dtype], name)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
     """Two calls give the same bits (dq is added in a fixed order), with a
     call at another shape in between, so that a counter or an accumulator

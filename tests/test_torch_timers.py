@@ -1,0 +1,43 @@
+"""The attention timers kept as tools, on a machine with no card:
+``launch/time_attention.py`` (both forward instances side by side) and
+``launch/ab_attention.py`` (named variants of the forward's and the
+backward's CUDA source) import without a card and exit 2 before building
+or timing anything; and every named variant's edit still applies to the
+committed source, so that the tool does not rot as the kernels change."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.launch import ab_attention
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+LAUNCH = ROOT / "src" / "repro_torch" / "launch"
+
+
+@pytest.mark.parametrize("argv", [
+    ["time_attention.py"],
+    ["ab_attention.py"],
+    ["ab_attention.py", "--backward", "d128_key_halves"],
+])
+def test_timer_exits_2_without_a_card(argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(LAUNCH / argv[0]), *argv[1:]],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT))
+    assert out.returncode == 2, (out.stdout, out.stderr)
+    assert "no CUDA device" in out.stderr
+    assert out.stdout == ""
+
+
+@pytest.mark.parametrize("backward,name", [
+    *[(False, n) for n in ab_attention.VARIANTS],
+    *[(True, n) for n in ab_attention.BWD_VARIANTS]])
+def test_ab_variant_applies_to_the_committed_source(backward, name):
+    source = (ab_attention.BWD_SOURCE if backward
+              else ab_attention.SOURCE).read_text()
+    edited = ab_attention.variant_source(name, backward)
+    assert edited != source

@@ -118,6 +118,42 @@ def test_loss_and_every_gradient_leaf_match_jax(arch):
                          jax.tree.leaves(gj))
 
 
+def test_gemma2_loss_and_gradients_at_its_head_dim_match_jax():
+    """gemma2-2b cut to 2 layers, a d_model of 64 and 2 query heads over
+    1, at its published head dim of 256, attention softcap 50, final
+    softcap 30 and query scalar 256, with a 16-key window that bites at S
+    64: the loss within 1e-5 and every gradient leaf of ``lm_loss``
+    within REL of its norm against ``jax.value_and_grad``, float32 (the
+    heads the D 256 attention kernels take on the card, here through the
+    plain attention)."""
+    import dataclasses
+    over = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=1,
+                d_head=256, d_ff=128, vocab_size=256, sliding_window=16,
+                query_pre_attn_scalar=256.0, remat=False, dtype="float32")
+    cfg_j = dataclasses.replace(get_config_j("gemma2-2b"), scan_layers=False,
+                                **over)
+    cfg = dataclasses.replace(get_config("gemma2-2b"), **over)
+    assert cfg.attn_logit_softcap == 50.0 and cfg.local_global_pattern
+    params = jax.tree.map(np.asarray,
+                          T_j.init_params(jax.random.PRNGKey(2), cfg_j))
+    pt = T.params_from_jax(params, cfg, device="cpu")
+    b = next(D_j.lm_batches(cfg_j, 2, 64, seed=4))
+
+    def loss_j(p):
+        return _scalar(T_j.lm_loss(p, cfg_j, jnp.asarray(b["tokens"]),
+                                   jnp.asarray(b["labels"])))
+    lj, gj = jax.value_and_grad(loss_j)(jax.tree.map(jnp.asarray, params))
+    for p in leaves(pt):
+        p.requires_grad_(True)
+    t = TL.to_device(b, "cpu")
+    lt = _scalar(T.lm_loss(pt, cfg, t["tokens"], t["labels"]))
+    lt.backward()
+    assert abs(lt.item() - float(lj)) <= 1e-5, (lt.item(), float(lj))
+    _assert_leaves_close([p.grad if p.grad is not None
+                          else torch.zeros_like(p) for p in leaves(pt)],
+                         jax.tree.leaves(gj))
+
+
 def test_graph_readout_loss_and_gradients_match_jax():
     cfg_j, cfg = get_config_j("gcn-cora", smoke=True), get_config(
         "gcn-cora", smoke=True)
