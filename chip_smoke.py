@@ -14,9 +14,10 @@ its path gives it:
 * ``flash_attention``: causal GQA attention of the transformer
   evaluator, of ``prefill`` and of training (with its row log-sum-exp);
   in bf16 two instances, the ``mma.sync`` one (the evaluators' S 31,
-  D 16 and 256, windows, softcaps) and the warp-specialised ``wgmma``
-  one that ``long_instance`` gives the long sequences (the prefills,
-  training, and a D 128 training row with qwen2.5's heads), each row
+  D 16, and D 64 or 128 with a window or a softcap) and the
+  warp-specialised ``wgmma`` one that ``long_instance`` gives the long
+  sequences (the prefills, training, a D 128 training row with qwen2.5's
+  heads, and gemma2's D 256 with its window and softcap), each row
   printed with its instance, the ``mma.sync`` instance timed beside the
   ``wgmma`` one, and the new kernel's registers and spills from this
   run's build;
@@ -115,7 +116,10 @@ launch counts set to 0 just before it and read just after:
 Beside the kernel checks, the two attention kernels are held against
 their plain versions and timed at the new evaluators' heads (D 256 with
 softcap and window, qwen2.5's 40/8 x 128, the D 12 smoke head padded to
-16), and each new evaluator at smoke width on the card against the CPU.
+16), gemma2's D 256 ``wgmma`` instances at its training microbatch and
+its longest prefill beside the ``mma.sync`` instance they replaced (no D
+256 ``wgmma`` instance may spill or serialise its wgmma), and each new
+evaluator at smoke width on the card against the CPU.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
@@ -467,14 +471,20 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def ptxas_report(name: str, entry: str) -> dict:
     """Registers and spill bytes of each instance of kernel ``entry`` in
-    library ``name``, from this run's ``-Xptxas -v`` output, keyed by the
-    mangled name's head dimension (``_lse`` for the instance that writes
-    the lse); empty if the library was not built in this run."""
+    library ``name``, and whether ptxas serialised its wgmma
+    (``wgmma_serialized``), from this run's ``-Xptxas -v`` output, keyed by
+    the mangled name's head dimension (``_lse`` for the instance that
+    writes the lse); empty if the library was not built in this run."""
     out, cur = {}, None
     for line in BUILD_LOGS.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = m.group(1) if entry in m.group(1) else None
+            continue
+        m = re.search(entry + r"ILi(\d+)E(?:Lb([01])E)?", line)
+        if m and "serialized" in line:
+            key = f"D{m.group(1)}" + ("_lse" if m.group(2) == "1" else "")
+            out.setdefault(key, {})["wgmma_serialized"] = True
             continue
         if cur is None:
             continue
@@ -892,7 +902,11 @@ def phase_flash_attention(dev) -> dict:
            "instances": {"evaluator": instance_of(q),
                          "prefill": instance_of(q5),
                          "train": "wgmma" if FA.long_instance(
-                             TRAIN_SEQ, D, torch.bfloat16) else "mma.sync"},
+                             TRAIN_SEQ, D, torch.bfloat16) else "mma.sync",
+                         "d256_train": long_rows[256]["instance"],
+                         "d256_prefill": "wgmma" if FA.long_instance(
+                             GEMMA_MAX_PROMPT, 256, torch.bfloat16,
+                             window=4096, softcap=50.0) else "mma.sync"},
            "prefill_lse_mma_sync_ms": prefill_old["lse_ms"],
            "prefill_mma_sync_ms": prefill_old["ms"],
            "train_mma_sync_ms": train_old["ms"],
@@ -938,7 +952,8 @@ def instance_of(q, window: int = 0, softcap: float = 0.0) -> str:
                                        softcap=softcap) else "mma.sync"
 
 
-def forward_check(q, k, v, label: str) -> dict:
+def forward_check(q, k, v, label: str, window: int = 0,
+                  softcap: float = 0.0, scale=None) -> dict:
     """Both bf16 forward instances' o at one causal shape (serving: P
     split in two; with the lse: bf16 P once) against
     ``flash_attention_ref``, one batch row at a time, within BF16_ATOL;
@@ -946,7 +961,8 @@ def forward_check(q, k, v, label: str) -> dict:
     call of each equal to the first bit for bit (a training restart
     repeats its bits)."""
     B, S, Hq, D = q.shape
-    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    kw = dict(causal=True, window=window, softcap=softcap,
+              sm_scale=D ** -0.5 if scale is None else scale)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lse2 = torch.empty_like(lse)
     serving, with_lse = FA._forward(q, k, v, **kw), FA._forward(q, k, v,
@@ -966,19 +982,21 @@ def forward_check(q, k, v, label: str) -> dict:
             and torch.isfinite(serving.float()).all()):
         raise AssertionError(f"flash_attention {label}: max abs err {errs}, "
                              f"lse {lse_err}, repeat bits {same}")
-    return {"instance": instance_of(q), "max_abs_err": errs,
+    return {"instance": instance_of(q, window, softcap), "max_abs_err": errs,
             "lse_max_abs_err": lse_err, "repeat_bits": same}
 
 
-def mma_sync_ms(q, k, v, flush) -> dict:
+def mma_sync_ms(q, k, v, flush, window: int = 0, softcap: float = 0.0,
+                scale=None) -> dict:
     """The mma.sync instance's time at a shape the rule sends to the wgmma
     instance (``long_from=NEVER_LONG``), with and without the lse: the
     earlier design beside the new one in the same run."""
     B, S, Hq, D = q.shape
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if scale is None else scale
 
     def call(out_lse):
-        return FA._forward(q, k, v, True, 0, 0.0, D ** -0.5, out_lse,
+        return FA._forward(q, k, v, True, window, softcap, scale, out_lse,
                            long_from=FA.NEVER_LONG)
     return {"ms": timed_ms(lambda: call(None), 10, flush),
             "lse_ms": timed_ms(lambda: call(lse), 10, flush)}
@@ -1845,6 +1863,7 @@ KERNEL_GROUPS = (
     ("dot_interaction backward kernel", ("dot_interaction_bwd_kernel",)),
     ("shed_partition kernel", ("shed_partition_kernel",)),
     ("flash_attention kernel", ("flash_attention_bf16_kernel",
+                                "fa_fwd_wgmma_kernel",
                                 "flash_attention_f32_kernel")),
     ("dot_interaction kernel", ("dot_interaction_kernel",)),
     ("flash_decode kernel", ("flash_decode_pieces_kernel",
@@ -3316,6 +3335,68 @@ def softcap_moves(plain, kw: dict, atol: float, label: str) -> float:
     return moved
 
 
+def d256_instances(g2, gen, dev, flush) -> list:
+    """gemma2's D 256 forward on the instance ``long_instance`` gives it
+    (the ``wgmma`` one from LONG_FROM on) at its training microbatch (B
+    2, the lse instance's shape; S 4096, global layer) and its longest
+    prefill (S 8000, the local layer's window of 4096): both instances
+    (serving: P split; with the lse: bf16 P once) held to the plain
+    version within BF16_ATOL, on plain inputs and with the softcap biting
+    (q x BITE_Q), two calls equal bit for bit; then timed beside the
+    ``mma.sync`` instance it replaced (``long_from=NEVER_LONG``), SDPA
+    (no softcap) and the bound. Fails if ptxas spilled or serialised a D
+    256 ``wgmma`` instance in this run's build."""
+    ptxas = {key: row for key, row in ptxas_report(
+        "flash_attention", "fa_fwd_wgmma_kernel").items()
+        if key.startswith("D256")}
+    if sorted(ptxas) != ["D256", "D256_lse"] or any(
+            row.get("spill_stores") != 0 or row.get("wgmma_serialized")
+            for row in ptxas.values()):
+        raise AssertionError(f"flash_attention: a D 256 wgmma instance "
+                             f"spills or serialises its wgmma (this run's "
+                             f"ptxas: {ptxas})")
+    scale, cap = g2.query_pre_attn_scalar ** -0.5, g2.attn_logit_softcap
+    rows = []
+    for label, B, S, window in (
+            ("gemma2 training forward", 2, TRAIN_SEQ, 0),
+            ("gemma2 longest prefill, local layer", 1, GEMMA_MAX_PROMPT,
+             g2.sliding_window)):
+        q, k, v = attention_inputs(B, S, g2.n_heads, g2.n_kv_heads,
+                                   g2.d_head, torch.bfloat16, gen, dev)
+        kw = dict(window=window, softcap=cap, scale=scale)
+        check = {"plain": forward_check(q, k, v, label, **kw),
+                 "softcap biting": forward_check(
+                     (q.float() * BITE_Q).to(q.dtype), k, v,
+                     f"{label}, softcap biting", **kw)}
+        t = attention_timing(q, k, v, flush, plain_iters=0, **kw)
+        lse = torch.empty((B, g2.n_heads, S), dtype=torch.float32,
+                          device=dev)
+        lse_ms = timed_ms(lambda: FA._forward(
+            q, k, v, True, window, cap, scale, lse), 20, flush)
+        old = mma_sync_ms(q, k, v, flush, **kw)
+        row = {"shape": f"{label}: B={B} S={S} {g2.n_heads}/"
+                        f"{g2.n_kv_heads} heads D={g2.d_head} bf16 "
+                        f"window={window} softcap={cap}",
+               "instance": instance_of(q, window, cap),
+               "max_abs_err": max(max(c["max_abs_err"].values())
+                                  for c in check.values()),
+               "ms": t["ms"], "lse_ms": lse_ms,
+               "mma_sync_ms": old["ms"], "mma_sync_lse_ms": old["lse_ms"],
+               "library_ms": t["library_ms"], "library": "sdpa, no softcap",
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "plain_ms": None, "checks": check, "ptxas": ptxas}
+        log(f"flash_attention {row['shape']} ({row['instance']}): serving "
+            f"(P split) {t['ms']:.4f} ms, with the lse (bf16 P once) "
+            f"{lse_ms:.4f} ms; the mma.sync instance {old['ms']:.4f} / "
+            f"{old['lse_ms']:.4f} ms; sdpa (no softcap) "
+            f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP); "
+            f"{json.dumps(check)}; ptxas {json.dumps(ptxas)}")
+        rows.append(row)
+        del q, k, v, lse
+    return rows
+
+
 def phase_new_head_dims(dev) -> dict:
     """``flash_attention`` and ``flash_decode`` at the heads the new
     evaluators give them, each against its plain version, then timed
@@ -3401,6 +3482,9 @@ def phase_new_head_dims(dev) -> dict:
         log(msg)
         attn.append(row)
         del q, k, v, got, want
+    d256 = d256_instances(g2, gen, dev, flush)
+    attn += d256
+    worst_attn = max([worst_attn] + [r["max_abs_err"] for r in d256])
 
     # the backward at every head dimension the forward has, in both
     # types, with windows and biting softcaps, and rows handed an lse of

@@ -15,11 +15,12 @@
 // training (B = 8, S = 4096: 1.55e11 FLOP, 0.156 ms at 989 TFLOP/s).
 //
 // Two bf16 instances. `long_instance` in kernels/flash_attention.py holds
-// the shape rule, mirrored in `launch_bf16`: D 64 or 128, no window, no
-// softcap and S >= LONG_FROM take `fa_fwd_wgmma_kernel`; everything else
-// (the evaluators' S 31, D 16 and 256, windows, softcaps) takes
-// `flash_attention_bf16_kernel`. A call the rule sends to an instance
-// launches it or fails; neither stands in for the other.
+// the shape rule, mirrored in `launch_bf16`: from S >= LONG_FROM on, D 256
+// (gemma2, with or without its window and softcap) and D 64 or 128 with
+// no window and no softcap take `fa_fwd_wgmma_kernel`; everything else
+// (the evaluators' S 31, D 16, D 64 and 128 with a window or a softcap)
+// takes `flash_attention_bf16_kernel`. A call the rule sends to an
+// instance launches it or fails; neither stands in for the other.
 //
 // bf16, long sequences (training, prefills): `fa_fwd_wgmma_kernel`.
 // - A work tile is 128 query positions of one (batch row, query head), as
@@ -33,10 +34,14 @@
 //   wholly above the diagonal are not loaded; only the diagonal tiles and
 //   the ragged edge are masked.
 // - A producer warp's thread loads each tile's Q once, into one of two
-//   buffers (the next tile's Q lands while this one runs), and streams
-//   K/V tiles of 64, 96 or 128 keys (Cfg::kBN: as many as the registers
-//   allow) with TMA, 128-byte swizzled, through a ring of 64 KB each on
-//   mbarriers; setmaxnreg moves its registers to the consumers.
+//   buffers (the next tile's Q lands while this one runs; one at D 256,
+//   where a Q tile is 64 KB), and streams K/V tiles of 48 to 128 keys
+//   (Cfg::kBN) with TMA, 128-byte swizzled, through a ring of 64 KB each
+//   (at D 256 three stages of 48 keys) on mbarriers; setmaxnreg moves its
+//   registers to the consumers.
+// - Windows (D 256): a tile's key walk starts at the first key tile its
+//   earliest row sees; only the diagonal tiles, the window's edge and the
+//   ragged edge are masked. A window of S or more is no window.
 // - S = Q K^T is wgmma with both operands in shared memory; the online
 //   softmax runs in float32 registers (p = 2^(s c - m c): one FMA and one
 //   MUFU op a score, the row max and sum as four partial chains); P,
@@ -51,6 +56,13 @@
 //   loop runs as fast with no K/V loads at all: the consumers bound it,
 //   not the loads or L2. A quarter of the ex2 moved to the FMA pipe (a
 //   cubic) made it slower, so MUFU alone does not bound it either.
+// - Softcap (D 256): s -> softcap log2(e) tanh(s scale / softcap) in
+//   registers before the online softmax, tanh as one ex2 and one rcp
+//   (tc::tanh_ex2, the function the backward rebuilds P with), then c =
+//   1. At gemma2's training shape that is ~4e8 MUFU ops beside the tensor
+//   cores' 0.139 ms. The warpgroups run without turns: with them ptxas
+//   spilled ~1.3 KB at D 256, serialised the wgmma, and the kernel ran
+//   2.2x slower (PERF.md).
 // - P's precision: the instance that writes the lse (training, reached
 //   only through FlashAttentionFn) multiplies bf16 P by V once, as the
 //   reference rounds it (src/repro/models/attention.py:104,
@@ -100,12 +112,14 @@
 // then accumulates output columns lane + 32 c over the tile's keys.
 //
 // D 256 (Gemma-2: 8 query heads over 4, softcap 50, a 4096-key window on
-// alternate layers): the mma.sync bf16 kernel with two K/V stages instead of
+// alternate layers): S 31 (the evaluator) and prefills shorter than
+// LONG_FROM take the mma.sync bf16 kernel with two K/V stages instead of
 // three (three would need 270,336 B of shared memory at 8 warps, over the
 // 232,448 a block may have) and the Q fragments read from shared memory at
 // each k-step rather than held in registers, which leaves the 128 float32
-// accumulators of a thread's output rows the registers they need. The
-// float32 kernel takes D 256 as it is (99,328 B of shared memory).
+// accumulators of a thread's output rows the registers they need; longer
+// ones the wgmma kernel (above). The float32 kernel takes D 256 as it is
+// (99,328 B of shared memory).
 //
 // All accept any S (rows and keys past S are masked) and their D; a row
 // that sees no key writes zeros.
@@ -410,7 +424,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D 64 and D 128, long sequences: warp-specialised wgmma on TMA stages
+// bf16, D 64, 128 and 256, long sequences: warp-specialised wgmma on TMA
+// stages
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -421,35 +436,72 @@ constexpr int kConsumerWarps = kConsumers / 32;
 constexpr int kThreads = 128 + kConsumers; // + the producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // Named barriers 1 and 2: warpgroup w waits at 1 + w for its turn to
-// issue its products, and hands the turn on at 2 - w.
-constexpr int kTurnBar = 1;
+// issue its products, and hands the turn on at 2 - w. The column split:
+// warpgroup w arrives at 3 + 2 (j % 2) + w once its half of key tile j's P
+// is written, and the other waits there; both meet at 7 over the rows'
+// sums.
+constexpr int kTurnBar = 1, kHandBar = 3, kSumBar = 7;
+
+// A block's dynamic shared memory, the most a block may have.
+constexpr int kSmemLimit = 232448;
+// Design (b) at D 256, the column split (`consume_cols`); off: measured
+// slower than the row split (PERF.md), built by launch/ab_attention.py's
+// variant d256_col_split.
+constexpr bool kColSplitD256 = false;
 
 // kSplit: P V as two products, P's bf16 hi and lo terms (the serving
 // instance); else bf16 P once (the lse instance).
 template <int D, bool kSplit>
 struct Cfg {
-  // Keys a K/V tile, the most whose S, O and P fit the ~168 registers a
-  // thread that ptxas gave the consumers (the launch's count: it does not
-  // allocate up to setmaxnreg's 232). D 64: 128 keys (S 64 floats a
-  // thread, O 32, P 32), 96 with the split (48 + 32 + 2 x 24; at 128 its
-  // wgmma were serialised and spilled); D 128: 96 (48 + 64 + 24), 64 with
-  // the split (32 + 64 + 2 x 16). Measured on an H100 with
-  // launch/ab_attention.py (PERF.md): 96 keys against 64 took the D 128
-  // lse instance from 0.649 to 0.609 ms at (2, 4096, 40/8), the D 64
-  // split one from 0.0338 to 0.0330 ms at the prefill (1, 1984, 9/3).
+  // Design (b), for the lse instance only (`consume_cols`): each
+  // consumer warpgroup forms S and the softmax of its 64 rows, hands bf16
+  // P and the rows' corrections over through shared memory, and owns 128
+  // of O's 256 columns for all 128 rows of the tile.
+  static constexpr bool kColSplit = kColSplitD256 && D == 256 && !kSplit;
+  // Keys a K/V tile. D 64: 128 keys (S 64 floats a thread, O 32, P 32),
+  // 96 with the split (48 + 32 + 2 x 24; at 128 its wgmma were serialised
+  // and spilled); D 128: 96 (48 + 64 + 24), 64 with the split (32 + 64 +
+  // 2 x 16). D 256: 48 (S 24 floats, O 128, P 12, and P's fresh copy 12;
+  // with the split 200 floats in all: ptxas does give the consumers more
+  // than the launch's 168 registers a thread after setmaxnreg, and spills
+  // nothing); with one Q buffer the ring holds 3 stages of 48 keys. 80
+  // keys spilled and serialised the split instance. Measured on an H100
+  // with launch/ab_attention.py (PERF.md): 96 keys against 64 took the D
+  // 128 lse instance from 0.649 to 0.609 ms at (2, 4096, 40/8), the D 64
+  // split one from 0.0338 to 0.0330 ms at the prefill (1, 1984, 9/3); at D
+  // 256, 48 keys against 32 took the lse instance from 0.370 to 0.300 ms
+  // at (2, 4096, 8/4, softcap 50) (two Q buffers and 2 stages: 0.437).
   static constexpr int kBN =
-      D == 64 ? (kSplit ? 96 : 128) : (kSplit ? 64 : 96);
+      D == 64 ? (kSplit ? 96 : 128) : D == 128 ? (kSplit ? 64 : 96)
+                                               : (kColSplit ? 64 : 48);
   static constexpr int kHalves = D / 64;   // 128-byte column blocks of a row
   static constexpr int kQHalf = kBM * 128, kKVHalf = kBN * 128;
   static constexpr int kQ = kBM * D * 2;   // bytes of Q, of a K (V) tile
   static constexpr int kKV = kBN * D * 2;
-  // a ring of 64 KB of K and of V, and at least 3 stages (2 in use)
-  static constexpr int kStages = 65536 / kKV < 3 ? 3 : 65536 / kKV;
-  // two Q buffers (the next tile's loads while this one runs), the ring
-  static constexpr int oQ = 0, oK = 2 * kQ, oV = oK + kStages * kKV;
-  // q_full[2], q_empty[2], full[kStages], empty[kStages]
-  static constexpr int oBar = oV + kStages * kKV;
-  static constexpr int kBytes = oBar + (4 + 2 * kStages) * 8 + 1024;
+  // The column split's hand-over: bf16 P of the tile's 128 rows, two
+  // buffers (kBN 64: one 128-byte row a query row), and two buffers of
+  // the rows' corrections and one of their sums, float32.
+  static constexpr int kPBuf = kBM * kBN * 2;
+  static constexpr int kHandOver = kColSplit ? 2 * kPBuf + 3 * kBM * 4 : 0;
+  // Two Q buffers (the next tile's Q lands while this one runs), one
+  // where two would leave the ring fewer than 3 stages (a Q tile is 64 KB
+  // at D 256: the ring's depth counted for more than Q's overlap with the
+  // tile before); 1280 bytes for the barriers and the 1024-byte
+  // alignment.
+  static constexpr int kFree = kSmemLimit - 1280 - kHandOver;
+  static constexpr int kQBufs = kFree - 2 * kQ < 3 * 2 * kKV ? 1 : 2;
+  // D 64 and 128: a ring of 64 KB of K and of V, and at least 3 stages (2
+  // in use); D 256: as many stages as the shared memory holds.
+  static constexpr int kStages =
+      D == 256 ? (kFree - kQBufs * kQ) / (2 * kKV)
+               : (65536 / kKV < 3 ? 3 : 65536 / kKV);
+  static constexpr int oQ = 0, oK = kQBufs * kQ, oV = oK + kStages * kKV;
+  static constexpr int oP = oV + kStages * kKV, oX = oP + 2 * kPBuf;
+  // q_full[kQBufs], q_empty[kQBufs], full[kStages], empty[kStages]
+  static constexpr int oBar = oP + kHandOver;
+  static constexpr int kBytes =
+      oBar + (2 * kQBufs + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= kSmemLimit, "shared memory");
   static constexpr int NS = kBN / 2;       // S accumulators a thread
   static constexpr int NO = D / 2;         // O accumulators a thread
   static constexpr int KP = kBN / 16;      // k-steps of P V
@@ -459,23 +511,31 @@ struct Cfg {
   // D 128, where it is shorter, they slowed the split instance (0.844
   // against 0.807 ms).
   static constexpr bool kTurns = D == 64;
+  // Windows and softcaps: the rule sends them here only at D 256
+  // (gemma2), so D 64 and 128 compile without them.
+  static constexpr bool kMasks = D == 256;
 };
 
 struct Args {
   __nv_bfloat16* o;
   float* lse;
   int B, S, Hq, Hkv, Tq, n_tiles;
-  float c_exp;                             // scale * log2(e)
+  float c_exp;                             // scale * log2(e); 1 with a cap
   int causal;
+  int window;                              // 0: none (nor one >= S)
+  float cap_in, cap_out;                   // scale / softcap, softcap log2 e
 };
 
 struct Tile {
-  int b, h, m, n_kv;                       // batch row, query head, tile
+  int b, h, m;                             // batch row, query head, tile
+  int j0, n_kv;                            // its first key tile, how many
 };
 
-// Work tiles are numbered longest causal walk first: query tile Tq - 1 of
-// every (batch row, head), then Tq - 2, ...
-template <int kBN>
+// Work tiles are numbered longest walk first: query tile Tq - 1 of every
+// (batch row, head), then Tq - 2, ... A walk runs from the first key tile
+// the tile's earliest row sees (with a window) to the diagonal (causal):
+// its length does not fall as the query tile rises.
+template <int kBN, bool kMasks>
 __device__ __forceinline__ Tile tile_of(const Args& a, int t) {
   const int bh_n = a.B * a.Hq, bh = t % bh_n;
   Tile w;
@@ -483,7 +543,9 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int t) {
   w.b = bh / a.Hq;
   w.h = bh % a.Hq;
   const int kv_end = a.causal ? min((w.m + 1) * kBM, a.S) : a.S;
-  w.n_kv = (kv_end + kBN - 1) / kBN;
+  w.j0 = kMasks && a.window > 0 ? max(0, w.m * kBM - a.window + 1) / kBN
+                                : 0;
+  w.n_kv = (kv_end + kBN - 1) / kBN - w.j0;
   return w;
 }
 
@@ -497,25 +559,26 @@ __device__ __forceinline__ int tile_at(int r) {
 }
 
 // The loader (one thread of the producer warpgroup): each tile's Q into
-// its buffer once both consumers are done with the tile before last, then
-// its K/V tiles through the ring, up to the diagonal.
+// its buffer once both consumers are done with the tile that used it
+// last, then its K/V tiles through the ring, from the window's edge up to
+// the diagonal.
 template <int D, bool kSplit>
 __device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
                                      const CUtensorMap* tk,
                                      const CUtensorMap* tv, uint8_t* sm) {
   using C = Cfg<D, kSplit>;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::oBar);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* full = q_full + 4;
+  uint64_t* q_empty = q_full + C::kQBufs;
+  uint64_t* full = q_full + 2 * C::kQBufs;
   uint64_t* empty = full + C::kStages;
   const int G = a.Hq / a.Hkv;
   int it = 0, ti = 0;
   for (int r = 0; r * static_cast<int>(gridDim.x) < a.n_tiles; ++r) {
     const int t = tile_at(r);
     if (t >= a.n_tiles) continue;
-    const Tile w = tile_of<C::kBN>(a, t);
-    const int qb = ti & 1;
-    hop::mbar_wait(q_empty + qb, ((ti >> 1) & 1) ^ 1);
+    const Tile w = tile_of<C::kBN, C::kMasks>(a, t);
+    const int qb = ti % C::kQBufs;
+    hop::mbar_wait(q_empty + qb, ((ti / C::kQBufs) & 1) ^ 1);
     hop::mbar_expect(q_full + qb, C::kQ);
 #pragma unroll
     for (int c = 0; c < C::kHalves; ++c)
@@ -529,9 +592,9 @@ __device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
 #pragma unroll
       for (int c = 0; c < C::kHalves; ++c) {
         hop::tma_load_4d(sm + C::oK + s * C::kKV + c * C::kKVHalf, tk,
-                         64 * c, hk, j * C::kBN, w.b, full + s);
+                         64 * c, hk, (w.j0 + j) * C::kBN, w.b, full + s);
         hop::tma_load_4d(sm + C::oV + s * C::kKV + c * C::kKVHalf, tv,
-                         64 * c, hk, j * C::kBN, w.b, full + s);
+                         64 * c, hk, (w.j0 + j) * C::kBN, w.b, full + s);
       }
     }
     ++ti;
@@ -555,8 +618,14 @@ __device__ __forceinline__ void s_product(
       hop::wgmma_ss_n128<0, 0>(s, dq, dk, kk > 0);
     else if constexpr (C::kBN == 96)
       hop::wgmma_ss_n96<0, 0>(s, dq, dk, kk > 0);
-    else
+    else if constexpr (C::kBN == 80)
+      hop::wgmma_ss_n80<0, 0>(s, dq, dk, kk > 0);
+    else if constexpr (C::kBN == 64)
       hop::wgmma_ss_n64<0, 0>(s, dq, dk, kk > 0);
+    else if constexpr (C::kBN == 48)
+      hop::wgmma_ss_n48<0, 0>(s, dq, dk, kk > 0);
+    else
+      hop::wgmma_ss_n32<0, 0>(s, dq, dk, kk > 0);
   }
   hop::wgmma_commit();
 }
@@ -576,12 +645,77 @@ __device__ __forceinline__ void pv_product(
     if constexpr (D == 64) {
       hop::wgmma_rs_n64<1>(o, p[kk], dv, 1);
       if constexpr (kSplit) hop::wgmma_rs_n64<1>(o, lo[kk], dv, 1);
-    } else {
+    } else if constexpr (D == 128) {
       hop::wgmma_rs_n128<1>(o, p[kk], dv, 1);
       if constexpr (kSplit) hop::wgmma_rs_n128<1>(o, lo[kk], dv, 1);
+    } else {
+      hop::wgmma_rs_n256<1>(o, p[kk], dv, 1);
+      if constexpr (kSplit) hop::wgmma_rs_n256<1>(o, lo[kk], dv, 1);
     }
   }
   hop::wgmma_commit();
+}
+
+// The online softmax of a key tile's scores s (a warpgroup's 64 rows from
+// row0; this thread's rows r_lo and r_lo + 8, its columns 2 tig, 2 tig + 1
+// of each 8): p = 2^(s c - m c) with c = scale log2(e), one FMA and one
+// MUFU op a score (with the softcap, s is first mapped to softcap log2(e)
+// tanh(s scale / softcap), two MUFU ops more, and c = 1); the causal,
+// window and ragged-edge masks only off the open tiles; row max and sum as
+// four partial chains. s becomes p; m and l are the rows' running max and
+// sum, corr O's correction.
+template <class C, int NS>
+__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[NS],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0,
+                                             int row0, int r_lo, int tig) {
+  constexpr int kBN = C::kBN;
+  if constexpr (C::kMasks) {
+    if (a.cap_out > 0.f) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = a.cap_out * tc::tanh_ex2(s[i] * a.cap_in);
+    }
+  }
+  // every key of the tile seen by every row of the warpgroup
+  const bool open =
+      k0 + kBN <= a.S && (!a.causal || k0 + kBN - 1 <= row0) &&
+      (!C::kMasks || a.window <= 0 || k0 > row0 + 63 - a.window);
+  if (!open) {
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * tig + (e & 1);
+        const int row = r_lo + 8 * (e >> 1);
+        if (key >= a.S || (a.causal && key > row) ||
+            (C::kMasks && a.window > 0 && key <= row - a.window))
+          s[4 * n + e] = -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+      mx[n % 4] = fmaxf(mx[n % 4],
+                        fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+    const float m_new = fmaxf(
+        m[h], tc::quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = tc::exp2_approx((m[h] - m_use) * a.c_exp);
+    const float off = -m_use * a.c_exp;
+    m[h] = m_new;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));
+        sum[n % 4] += s[4 * n + e];
+      }
+    l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+  }
 }
 
 // A consumer warpgroup: rows 64 wg .. 64 wg + 63 of each work tile. Per
@@ -599,8 +733,8 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
   using C = Cfg<D, kSplit>;
   constexpr int kBN = C::kBN, NS = C::NS, NO = C::NO, KP = C::KP;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::oBar);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* full = q_full + 4;
+  uint64_t* q_empty = q_full + C::kQBufs;
+  uint64_t* full = q_full + 2 * C::kQBufs;
   uint64_t* empty = full + C::kStages;
   const uint32_t base = hop::smem_u32(sm);
   const uint64_t k_desc = hop::desc_sw128(base + C::oK, 16);
@@ -623,8 +757,8 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
   for (int r = 0; r * static_cast<int>(gridDim.x) < a.n_tiles; ++r) {
     const int t = tile_at(r);
     if (t >= a.n_tiles) continue;
-    const Tile w = tile_of<kBN>(a, t);
-    const int qb = ti & 1;
+    const Tile w = tile_of<kBN, C::kMasks>(a, t);
+    const int qb = ti % C::kQBufs;
     const uint64_t q_desc =
         hop::desc_sw128(base + C::oQ + qb * C::kQ + wg * 64 * 128, 16);
     const int row0 = w.m * kBM + 64 * wg;  // the warpgroup's first row
@@ -633,49 +767,9 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] = 0.f;
 
-    // p = 2^(s c - m c) with c = scale log2(e): one FMA and one MUFU op a
-    // score; the causal and ragged-edge masks only off the open tiles;
-    // row max and sum as four partial chains; corr: O's correction.
     float corr[2];
     auto softmax = [&](int j) {
-      const int k0 = j * kBN;
-      const bool open =
-          k0 + kBN <= a.S && (!a.causal || k0 + kBN - 1 <= row0);
-      if (!open) {
-#pragma unroll
-        for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + 8 * n + 2 * tig + (e & 1);
-            const int row = r_lo + 8 * (e >> 1);
-            if (key >= a.S || (a.causal && key > row))
-              s[4 * n + e] = -INFINITY;
-          }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-        for (int n = 0; n < NS / 4; ++n)
-          mx[n % 4] = fmaxf(mx[n % 4],
-                            fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
-        const float m_new = fmaxf(
-            m[h], tc::quad_max(fmaxf(fmaxf(mx[0], mx[1]),
-                                     fmaxf(mx[2], mx[3]))));
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        corr[h] = tc::exp2_approx((m[h] - m_use) * a.c_exp);
-        const float off = -m_use * a.c_exp;
-        m[h] = m_new;
-        float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-          for (int e = 2 * h; e < 2 * h + 2; ++e) {
-            s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));
-            sum[n % 4] += s[4 * n + e];
-          }
-        l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
-      }
+      softmax_tile<C>(a, s, m, l, corr, (w.j0 + j) * kBN, row0, r_lo, tig);
     };
     // P as the A fragments of the k-steps of P V (with the split, hi and
     // lo = bf16(p - hi)), packed into fresh registers (pn, ln) while the
@@ -725,7 +819,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
       if (lane == 0) hop::mbar_arrive(empty + stage);
     };
 
-    hop::mbar_wait(q_full + qb, (ti >> 1) & 1);
+    hop::mbar_wait(q_full + qb, (ti / C::kQBufs) & 1);
     {                                      // S_0
       const int st = it % C::kStages;
       hop::mbar_wait(full + st, (it / C::kStages) & 1);
@@ -803,6 +897,166 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* sm, int wg,
   if (C::kTurns && wg == 0) hop::named_sync(kTurnBar, kConsumers);
 }
 
+// Design (b), the column split (`Cfg::kColSplit`): warpgroup wg forms S
+// and the softmax of rows 64 wg .. 64 wg + 63 as `consume` does, writes
+// that bf16 P and the rows' corrections into shared memory (two buffers
+// by key tile), and owns O's columns 128 wg .. 128 wg + 127 of all 128
+// rows: per k-step two m64n128 products, P and V from shared memory. Per
+// key tile j: S_j; once the other half of P_{j-1} is in, O rescaled by
+// corr_{j-1} and O += P_{j-1} V_{j-1}; the softmax of S_j; P_j handed
+// over once P_{j-1} V_{j-1} is in.
+template <int D, bool kLse>
+__device__ __forceinline__ void consume_cols(const Args& a, uint8_t* sm,
+                                             int wg, int tid) {
+  using C = Cfg<D, !kLse>;
+  constexpr int kBN = C::kBN, NS = C::NS, KP = C::KP;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* q_empty = q_full + C::kQBufs;
+  uint64_t* full = q_full + 2 * C::kQBufs;
+  uint64_t* empty = full + C::kStages;
+  const uint32_t base = hop::smem_u32(sm);
+  const uint64_t k_desc = hop::desc_sw128(base + C::oK, 16);
+  // this warpgroup's 128 columns of V: 64-column blocks 2 wg and 2 wg + 1
+  const uint64_t v_desc =
+      hop::desc_sw128(base + C::oV + 2 * wg * C::kKVHalf, C::kKVHalf);
+  constexpr int kStageDesc = C::kKV / 16;
+  float* xc = reinterpret_cast<float*>(sm + C::oX);   // corr[2][kBM]
+  float* xl = xc + 2 * kBM;                           // l[kBM]
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int wrow = 16 * warp + grp;        // this thread's row of a half
+
+  float s[NS], o[2][64];                   // o[half]: rows 64 half ..
+  int it = 0, ti = 0;
+  for (int r = 0; r * static_cast<int>(gridDim.x) < a.n_tiles; ++r) {
+    const int t = tile_at(r);
+    if (t >= a.n_tiles) continue;
+    const Tile w = tile_of<kBN, C::kMasks>(a, t);
+    const int qb = ti % C::kQBufs;
+    const uint64_t q_desc =
+        hop::desc_sw128(base + C::oQ + qb * C::kQ + wg * 64 * 128, 16);
+    const int row0 = w.m * kBM + 64 * wg;
+    const int r_lo = row0 + wrow;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+
+    auto release_q = [&]() {
+      if (lane == 0) hop::mbar_arrive(q_empty + qb);
+    };
+    auto s_of = [&](int j) {               // S_j issued
+      const int st = (it + j) % C::kStages;
+      hop::mbar_wait(full + st, ((it + j) / C::kStages) & 1);
+      hop::fence_regs(s);
+      hop::wgmma_fence();
+      s_product<D, !kLse>(s, q_desc, k_desc + st * kStageDesc);
+    };
+    auto hand_over = [&](int j) {          // P_j, corr_j into buffer j % 2
+      uint8_t* pb = sm + C::oP + (j & 1) * C::kPBuf + wg * 64 * 128;
+#pragma unroll
+      for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(pb + (wrow + 8 * h) * 128 +
+                                       ((n ^ grp) << 4) + 4 * tig) =
+              tc::pack_bf16(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]);
+      if (tig == 0) {
+        xc[(j & 1) * kBM + 64 * wg + wrow] = corr[0];
+        xc[(j & 1) * kBM + 64 * wg + wrow + 8] = corr[1];
+      }
+      hop::fence_async_smem();
+      hop::named_arrive(kHandBar + 2 * (j & 1) + wg, kConsumers);
+    };
+    auto pv_of = [&](int j) {              // O by corr_j, O += P_j V_j
+      hop::named_sync(kHandBar + 2 * (j & 1) + 1 - wg, kConsumers);
+      const float* cj = xc + (j & 1) * kBM;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float c0 = cj[64 * h + wrow], c1 = cj[64 * h + wrow + 8];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[h][i] *= (i & 2) ? c1 : c0;
+      }
+      hop::fence_regs(o[0]);
+      hop::fence_regs(o[1]);
+      hop::wgmma_fence();
+      const uint64_t dp =
+          hop::desc_sw128(base + C::oP + (j & 1) * C::kPBuf, 16);
+      const uint64_t dv = v_desc + ((it + j) % C::kStages) * kStageDesc;
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          hop::wgmma_ss_n128<0, 1>(o[h], dp + (h * 64 * 128 + kk * 32) / 16,
+                                   dv + kk * 2048 / 16, 1);
+      hop::wgmma_commit();
+    };
+    auto release_stage = [&](int j) {
+      if (lane == 0) hop::mbar_arrive(empty + (it + j) % C::kStages);
+    };
+
+    hop::mbar_wait(q_full + qb, (ti / C::kQBufs) & 1);
+    s_of(0);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+    if (w.n_kv == 1) release_q();
+    softmax_tile<C>(a, s, m, l, corr, w.j0 * kBN, row0, r_lo, tig);
+    hand_over(0);
+    for (int j = 1; j < w.n_kv; ++j) {
+      s_of(j);
+      pv_of(j - 1);
+      hop::wgmma_wait<1>();                // S_j is in
+      hop::fence_regs(s);
+      if (j == w.n_kv - 1) release_q();
+      softmax_tile<C>(a, s, m, l, corr, (w.j0 + j) * kBN, row0, r_lo, tig);
+      hop::wgmma_wait<0>();                // P_{j-1} V_{j-1} is in
+      hop::fence_regs(o[0]);
+      hop::fence_regs(o[1]);
+      release_stage(j - 1);
+      hand_over(j);
+    }
+    pv_of(w.n_kv - 1);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(o[0]);
+    hop::fence_regs(o[1]);
+    release_stage(w.n_kv - 1);
+    it += w.n_kv;
+    ++ti;
+
+    // The rows' sums to both warpgroups; each stores its columns of all
+    // 128 rows, and the lse of its own.
+    float den[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      den[h] = tc::quad_sum(l[h]);
+      if (tig == 0) xl[64 * wg + wrow + 8 * h] = den[h];
+    }
+    hop::named_sync(kSumBar, kConsumers);
+    const long long q_pos = static_cast<long long>(a.Hq) * D;
+    __nv_bfloat16* ob = a.o + static_cast<long long>(w.b) * a.S * q_pos +
+                        static_cast<long long>(w.h) * D + 128 * wg;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = 64 * half + wrow + 8 * h;
+        const int row = w.m * kBM + rr;
+        const float dn = xl[rr];
+        const float inv = dn > 0.f ? 1.f / dn : 0.f;
+        if (row >= a.S) continue;
+        if (kLse && half == wg && tig == 0)
+          a.lse[(static_cast<long long>(w.b) * a.Hq + w.h) * a.S + row] =
+              den[h] > 0.f ? (m[h] * a.c_exp + log2f(den[h])) * kLn2
+                           : -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+          *reinterpret_cast<uint32_t*>(ob + row * q_pos + 8 * n + 2 * tig) =
+              tc::pack_bf16(o[half][4 * n + 2 * h] * inv,
+                            o[half][4 * n + 2 * h + 1] * inv);
+      }
+  }
+}
+
 // The producer warpgroup (the loader is its thread 0) and two consumer
 // warpgroups; setmaxnreg moves registers from the producer to the
 // consumers (40 + 2 x 232 a thread in a quarter of the register file).
@@ -816,13 +1070,14 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   if (threadIdx.x == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::oBar);
-    for (int i = 0; i < 2; ++i) {
+    uint64_t* ring = bars + 2 * C::kQBufs;
+    for (int i = 0; i < C::kQBufs; ++i) {
       hop::mbar_init(bars + i, 1);                            // q_full
-      hop::mbar_init(bars + 2 + i, kConsumerWarps);           // q_empty
+      hop::mbar_init(bars + C::kQBufs + i, kConsumerWarps);   // q_empty
     }
     for (int s = 0; s < C::kStages; ++s) {
-      hop::mbar_init(bars + 4 + s, 1);                        // full
-      hop::mbar_init(bars + 4 + C::kStages + s, kConsumerWarps);  // empty
+      hop::mbar_init(ring + s, 1);                            // full
+      hop::mbar_init(ring + C::kStages + s, kConsumerWarps);  // empty
     }
     hop::mbar_fence_init();
   }
@@ -835,14 +1090,17 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) load<D, !kLse>(a, &tq, &tk, &tv, sm);
   } else {
     hop::setmaxnreg_inc<kConsumerRegs>();
-    consume<D, kLse>(a, sm, wgi - 1, threadIdx.x % 128);
+    if constexpr (C::kColSplit)
+      consume_cols<D, kLse>(a, sm, wgi - 1, threadIdx.x % 128);
+    else
+      consume<D, kLse>(a, sm, wgi - 1, threadIdx.x % 128);
   }
 }
 
 template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Hq, int Hkv, float scale, int causal,
-           cudaStream_t stream) {
+           int window, float softcap, cudaStream_t stream) {
   using C = Cfg<D, !kLse>;
   const long long Tq = (S + kBM - 1) / kBM;
   const long long n_tiles = static_cast<long long>(B) * Hq * Tq;
@@ -869,8 +1127,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv;
   a.Tq = static_cast<int>(Tq);
   a.n_tiles = static_cast<int>(n_tiles);
-  a.c_exp = scale * kLog2e;
+  a.c_exp = softcap > 0.f ? 1.f : scale * kLog2e;
   a.causal = causal;
+  // a window of S or more hides no key (causal or not)
+  a.window = window < S ? window : 0;
+  a.cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  a.cap_out = softcap > 0.f ? softcap * kLog2e : 0.f;
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   fa_fwd_wgmma_kernel<D, kLse><<<grid, kThreads, C::kBytes, stream>>>(
       tq, tk, tv, a);
@@ -885,13 +1147,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int causal, int window, float softcap, int long_from,
                 cudaStream_t stream) {
   // The shape rule of `long_instance` in kernels/flash_attention.py.
-  if constexpr (D == 64 || D == 128) {
-    if (window <= 0 && softcap <= 0.f && S >= long_from)
+  if constexpr (D != 16) {
+    if (S >= long_from && (D == 256 || (window <= 0 && softcap <= 0.f)))
       return lse != nullptr
                  ? wg::launch<D, true>(q, k, v, o, lse, B, S, Hq, Hkv,
-                                       scale, causal, stream)
+                                       scale, causal, window, softcap,
+                                       stream)
                  : wg::launch<D, false>(q, k, v, o, lse, B, S, Hq, Hkv,
-                                        scale, causal, stream);
+                                        scale, causal, window, softcap,
+                                        stream);
   }
   auto kernel = lse != nullptr ? flash_attention_bf16_kernel<D, true>
                                : flash_attention_bf16_kernel<D, false>;
@@ -1094,9 +1358,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // must be 16, 64, 128 or 256 (the wrapper checks, and zero-pads a head
 // narrower than 16 to 16; 16 is the smoke-width evaluators' head, 256
 // Gemma-2's). `lse`: null, or (B, Hq, S) float32 to receive each row's
-// log-sum-exp. `long_from`: bf16 calls at D 64 or 128 with no window and
-// no softcap take the wgmma instance from this S on (the wrapper passes
-// its LONG_FROM). Launches on `stream`; returns cudaGetLastError() (0 =
+// log-sum-exp. `long_from`: bf16 calls at D 256, and at D 64 or 128 with
+// no window and no softcap, take the wgmma instance from this S on (the
+// wrapper passes its LONG_FROM). Launches on `stream`; returns cudaGetLastError() (0 =
 // ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,

@@ -149,17 +149,6 @@ __device__ __forceinline__ void score_grad(float s, float dp, float di,
   }
 }
 
-// tanh(x) = 1 - 2 / (2^(2 x log2(e)) + 1) in two MUFU ops (ex2, rcp;
-// +-1 where 2^.. overflows or underflows): an absolute error of ~2e-7, a
-// few parts in 1e5 of a logit at a softcap of 50, against tanhf's ~20
-// instructions, which took a fifth of the D 256 kernel.
-__device__ __forceinline__ float tanh_ex2(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n"
-      : "=f"(r) : "f"(tc::exp2_approx(2.f * kLog2e * x) + 1.f));
-  return fmaf(-2.f, r, 1.f);
-}
-
 // P of one score from its raw dot product s and the row's l2, and F = P
 // (1 - (t / softcap)^2) with a softcap (F = P without), so that dS = F (dP
 // - Di): `score_grad` split where one warpgroup forms P and another dS.
@@ -167,7 +156,9 @@ __device__ __forceinline__ void score_p(float s, float l2, float scale,
                                         float c_exp, float softcap, float& p,
                                         float& f) {
   if (softcap > 0.f) {
-    const float t = softcap * tanh_ex2(s * scale / softcap);
+    // tc::tanh_ex2 for libdevice tanhf, which took a fifth of the D 256
+    // kernel
+    const float t = softcap * tc::tanh_ex2(s * scale / softcap);
     const float c = t / softcap;
     p = tc::exp2_approx(fmaf(t, kLog2e, -l2));
     f = p * (1.f - c * c);

@@ -1,8 +1,8 @@
-// PTX helpers shared by the bf16 attention kernels (flash_attention.cu and
-// flash_decode.cu) and dot_interaction.cu: 16-byte asynchronous copies
-// into shared memory,
-// ldmatrix fragment loads, and the m16n8k16 bf16 tensor-core product with
-// float32 accumulators.
+// PTX helpers shared by the bf16 attention kernels (flash_attention.cu,
+// flash_attention_bwd.cu and flash_decode.cu) and dot_interaction.cu:
+// 16-byte asynchronous copies into shared memory, ldmatrix fragment
+// loads, the m16n8k16 bf16 tensor-core product with float32
+// accumulators, and the MUFU forms of 2^x and tanh.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * grp + tig, grp = lane / 4,
 // tig = lane % 4):
@@ -96,6 +96,21 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh(x) = 1 - 2 / (2^(2 x log2(e)) + 1) in two MUFU ops (ex2, rcp;
+// +-1 where 2^.. overflows or underflows): an absolute error of ~2e-7, a
+// few parts in 1e5 of a logit at a softcap of 50, against tanhf's ~20
+// instructions. The softcap of the bf16 wgmma kernels, forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu): one
+// function, so that the backward's P = exp(t - lse) rebuilds the t whose
+// lse the forward wrote.
+__device__ __forceinline__ float tanh_ex2(float x) {
+  constexpr float kTwoLog2e = 2.f * 1.4426950408889634f;
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(r) : "f"(exp2_approx(kTwoLog2e * x) + 1.f));
+  return fmaf(-2.f, r, 1.f);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -12,12 +12,12 @@ attention with ``jax.grad`` and has no backward kernel; the port's
 forward on the card is a kernel, so its gradient is one too; in bf16 at D
 64, 128 and 256 it is one warp-specialised ``wgmma`` kernel between a
 pre-pass and a post-pass. The forward's bf16 has two
-instances, chosen by the shape rule ``long_instance``: long sequences at D
-64 or 128 with no window or softcap (training, prefills) take a
-warp-specialised ``wgmma`` kernel on TMA stages; the rest (the
-evaluators' S 31, D 16 and 256, windows, softcaps) run on ``mma.sync``
-with the GQA group packed into the rows of a tile. float32 runs in FP32
-FMAs. The kernel accepts any S (the ragged edge is masked); it takes D of
+instances, chosen by the shape rule ``long_instance``: long sequences
+(training, prefills) at D 64 or 128 with no window or softcap, and at D
+256 with or without gemma2's window and softcap, take a warp-specialised
+``wgmma`` kernel on TMA stages; the rest (the evaluators' S 31, D 16, D
+64 and 128 with a window or a softcap) run on ``mma.sync`` with the GQA
+group packed into the rows of a tile. float32 runs in FP32 FMAs. The kernel accepts any S (the ragged edge is masked); it takes D of
 16 (the smoke-width evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
 qwen2.5 smoke config's 12) is zero-padded to 16 and the output cut back:
 zero columns add nothing to q k^T, and the padded columns of v are
@@ -48,14 +48,16 @@ NEVER_LONG = 0x7fffffff
 def long_instance(S: int, D: int, dtype: torch.dtype, *, window: int = 0,
                   softcap: float = 0.0, long_from: int = LONG_FROM) -> bool:
     """Whether a forward call takes the warp-specialised ``wgmma``
-    instance: bf16 at D 64 or 128, no window, no softcap, causal or not,
-    and S (positions, not the packed rows of a GQA group) at least
-    ``long_from``. ``launch_bf16`` in ``csrc/flash_attention.cu`` applies
-    the same rule to the ``long_from`` it is passed. A shape rule, not a
-    fallback: a call it sends to either instance launches it or
-    raises."""
-    return (dtype == torch.bfloat16 and D in (64, 128) and window <= 0
-            and softcap <= 0.0 and S >= long_from)
+    instance: bf16, causal or not, S (positions, not the packed rows of a
+    GQA group) at least ``long_from``, and either D 256 (gemma2's heads,
+    with or without its window and softcap) or D 64 or 128 with no window
+    and no softcap (no path runs those at a long S). ``launch_bf16`` in
+    ``csrc/flash_attention.cu`` applies the same rule to the
+    ``long_from`` it is passed. A shape rule, not a fallback: a call it
+    sends to either instance launches it or raises."""
+    return (dtype == torch.bfloat16 and S >= long_from
+            and (D == 256 or (D in (64, 128) and window <= 0
+                              and softcap <= 0.0)))
 
 
 def pad_head_dim(*ts: torch.Tensor):

@@ -2,9 +2,10 @@
 
 The forward: each variant is ``csrc/flash_attention.cu`` with one named
 edit (a tile size, the consumers' turns, where O is rescaled and P
-packed, an exp2 on the FMA pipe, or a diagnostic that drops the K/V
-loads), called through its own ``flash_attention_launch`` with the wgmma
-instance forced (``long_from`` 0). With ``--backward``: each variant is
+packed, an exp2 on the FMA pipe, the softcap's tanh, or a diagnostic
+that drops the K/V loads), called through its own
+``flash_attention_launch`` with the wgmma instance forced (``long_from``
+0). With ``--backward``: each variant is
 ``csrc/flash_attention_bwd.cu`` with one named edit of ``BWD_VARIANTS``
 (the kernels the warpgroup kernels replaced, or a design choice of
 theirs), called through its own ``flash_attention_bwd_launch`` on the o
@@ -13,7 +14,7 @@ and lse of the port's forward. Every variant is built with the port's
 H100:
 
     python3 src/repro_torch/launch/ab_attention.py [--backward] [VARIANT ...]
-        [--shape B,S,Hq,Hkv,D[,softcap] ...] [--iters N]
+        [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...] [--iters N]
 
 With no variant named, all of ``VARIANTS`` (or ``BWD_VARIANTS``). Prints,
 per variant, what ptxas said of its wgmma kernels (registers, spills,
@@ -41,12 +42,15 @@ SOURCE = ROOT / "repro_torch" / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 _KBN = ("static constexpr int kBN =\n"
-        "      D == 64 ? (kSplit ? 96 : 128) : (kSplit ? 64 : 96);")
+        "      D == 64 ? (kSplit ? 96 : 128) : D == 128 ? (kSplit ? 64 : 96)\n"
+        "                                               : (kColSplit ? 64 : 48);")
 _TURNS = "static constexpr bool kTurns = D == 64;"
+_QBUFS = ("static constexpr int kQBufs = kFree - 2 * kQ < 3 * 2 * kKV ? 1 "
+          ": 2;")
 _KV_LOADS = """        hop::tma_load_4d(sm + C::oK + s * C::kKV + c * C::kKVHalf, tk,
-                         64 * c, hk, j * C::kBN, w.b, full + s);
+                         64 * c, hk, (w.j0 + j) * C::kBN, w.b, full + s);
         hop::tma_load_4d(sm + C::oV + s * C::kKV + c * C::kKVHalf, tv,
-                         64 * c, hk, j * C::kBN, w.b, full + s);"""
+                         64 * c, hk, (w.j0 + j) * C::kBN, w.b, full + s);"""
 _RESCALE = """      rescale();
       hop::fence_regs(o);
       hop::wgmma_fence();
@@ -56,7 +60,7 @@ _PACK = """      pack();
       fence_pv();
       release_stage(prev);
       take_p();"""
-_EXP = """            s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));"""
+_EXP = """        s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));"""
 _POLY = """
 // 2^x for x <= 0 on the FMA pipe: x = j + f, j = round(x); 2^f by a
 // cubic with p(0) = 1 (relative error 1.0e-4); j added to the exponent.
@@ -73,13 +77,28 @@ struct Args {"""
 
 # name -> [(old, new)]: edits of the source as committed
 VARIANTS = {
-    "d64_split_128keys": [(_KBN, "static constexpr int kBN =\n"
-                           "      D == 64 ? 128 : (kSplit ? 64 : 96);")],
-    "d64_split_64keys": [(_KBN, "static constexpr int kBN =\n"
-                          "      D == 64 ? (kSplit ? 64 : 128) : "
-                          "(kSplit ? 64 : 96);")],
-    "d128_lse_64keys": [(_KBN, "static constexpr int kBN =\n"
-                         "      D == 64 ? (kSplit ? 96 : 128) : 64;")],
+    "d64_split_128keys": [(_KBN, _KBN.replace("(kSplit ? 96 : 128)", "128"))],
+    "d64_split_64keys": [(_KBN, _KBN.replace("(kSplit ? 96 : 128)",
+                                             "(kSplit ? 64 : 128)"))],
+    "d128_lse_64keys": [(_KBN, _KBN.replace("(kSplit ? 64 : 96)", "64"))],
+    # D 256: design (a) as first built, 32-key tiles (two Q buffers, three
+    # stages), and with one Q buffer (five stages); design (b), the column
+    # split (the lse instance; the serving one keeps the row split); 64-
+    # and 80-key tiles (one Q buffer, two stages); 48 keys with two Q
+    # buffers (two stages); the consumers' turns; libdevice tanhf for the
+    # softcap
+    "d256_32keys": [(_KBN, _KBN.replace("(kColSplit ? 64 : 48)", "32"))],
+    "d256_32keys_1q": [(_KBN, _KBN.replace("(kColSplit ? 64 : 48)", "32")),
+                       (_QBUFS, "static constexpr int kQBufs = "
+                                "D == 256 ? 1 : 2;")],
+    "d256_col_split": [("constexpr bool kColSplitD256 = false;",
+                        "constexpr bool kColSplitD256 = true;")],
+    "d256_64keys": [(_KBN, _KBN.replace("(kColSplit ? 64 : 48)", "64"))],
+    "d256_80keys": [(_KBN, _KBN.replace("(kColSplit ? 64 : 48)", "80"))],
+    "d256_2q": [(_QBUFS, "static constexpr int kQBufs = 2;")],
+    "d256_turns": [(_TURNS, "static constexpr bool kTurns = D != 128;")],
+    "d256_tanhf": [("        s[i] = a.cap_out * tc::tanh_ex2(s[i] * a.cap_in);",
+                    "        s[i] = a.cap_out * tanhf(s[i] * a.cap_in);")],
     "no_turns": [(_TURNS, "static constexpr bool kTurns = false;")],
     # O rescaled and P packed after the wait for P V (one set of P
     # registers), as the first version did
@@ -97,16 +116,17 @@ VARIANTS = {
     "turns_at_d128": [(_TURNS, "static constexpr bool kTurns = true;")],
     # every fourth 8-column block of S through exp2_poly (D 64, lse)
     "poly_exp2": [("\nstruct Args {", _POLY),
-                  (_EXP, """            const float x = fmaf(s[4 * n + e], a.c_exp, off);
-            s[4 * n + e] = D == 64 && !kSplit && n % 4 == 3
-                               ? exp2_poly(x) : tc::exp2_approx(x);""")],
+                  (_EXP, """        const float x = fmaf(s[4 * n + e], a.c_exp, off);
+        s[4 * n + e] = C::NO == 32 && C::kBN == 128 && n % 4 == 3
+                           ? exp2_poly(x) : tc::exp2_approx(x);""")],
     # diagnostics: no K/V loads (the barrier completes with no bytes), and
     # every tile reading the K/V of (batch row 0, KV head 0)
     "diag_no_kv_loads": [(_KV_LOADS, ""),
                          ("hop::mbar_expect(full + s, 2 * C::kKV);",
                           "hop::mbar_arrive(full + s);")],
     "diag_same_kv": [(_KV_LOADS, _KV_LOADS.replace(
-        "64 * c, hk, j * C::kBN, w.b,", "64 * c, 0, j * C::kBN, 0,"))],
+        "64 * c, hk, (w.j0 + j) * C::kBN, w.b,",
+        "64 * c, 0, (w.j0 + j) * C::kBN, 0,"))],
 }
 _BWD_PATH = "return dtype == 1 && (D == 64 || D == 128 || D == 256);"
 _BWD_BF16 = "    if (D == 16) FB_CASE(launch_bf16, 16);"
@@ -123,10 +143,11 @@ BWD_VARIANTS = {
                                   "FB_CASE(launch_bf16, 256);")],
     # the role split's softcap with libdevice's tanhf, as `score_grad`
     # takes it, in place of tanh_ex2
-    "tanhf": [("    const float t = softcap * tanh_ex2(s * scale / softcap);",
+    "tanhf": [("    const float t = softcap * tc::tanh_ex2(s * scale / softcap);",
                "    const float t = softcap * tanhf(s * scale / softcap);")],
 }
-DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128"]
+DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128",
+                  "2,4096,8,4,256,50", "1,8000,8,4,256,50,4096"]
 BWD_DEFAULT_SHAPES = ["2,4096,40,8,128", "2,4096,8,4,256,50",
                       "8,4096,9,3,64"]
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -213,23 +234,27 @@ def time_forward(libs, shapes, iters: int, scratch) -> None:
     dev = scratch.device
     gen = torch.Generator(device=dev).manual_seed(0)
     for spec in shapes:
-        B, S, Hq, Hkv, D = (int(x) for x in spec.split(","))
+        B, S, Hq, Hkv, D, *extra = spec.split(",")
+        B, S, Hq, Hkv, D = (int(x) for x in (B, S, Hq, Hkv, D))
+        softcap = float(extra[0]) if extra else 0.0
+        window = int(extra[1]) if len(extra) > 1 else 0
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         want = torch.cat([FA.flash_attention_ref(
-            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
-            for b in range(B)]).float()
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True, window=window,
+            softcap=softcap) for b in range(B)]).float()
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
         out = torch.empty_like(q)
         row = {"card": torch.cuda.get_device_name(0),
-               "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal"}
+               "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal, "
+                        f"softcap {softcap}, window {window}"}
         for name in names + names[::-1]:
             for kind in ("serving", "lse"):
                 def call(fn=fns[name], with_lse=kind == "lse"):
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(),
                              lse.data_ptr() if with_lse else None, B, S, Hq,
-                             Hkv, D, 1, D ** -0.5, 1, 0, 0.0, 0,
+                             Hkv, D, 1, D ** -0.5, 1, window, softcap, 0,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
@@ -310,8 +335,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backward", action="store_true",
                     help="variants of csrc/flash_attention_bwd.cu")
     ap.add_argument("--shape", action="append",
-                    help="B,S,Hq,Hkv,D (causal bf16; with --backward a "
-                         "sixth field, the softcap); repeatable")
+                    help="B,S,Hq,Hkv,D[,softcap[,window]] (causal bf16; "
+                         "the backward takes no window); repeatable")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))

@@ -7,10 +7,12 @@ sequences take. This script holds each against the plain version and
 times each, with and without the lse output, beside SDPA and the bound,
 at the shapes given (default: smollm-135m's training microbatch, the
 decode phase's longest prefill, a D 128 training row with qwen2.5's
-heads, and a sweep of prefill lengths that places ``LONG_FROM``):
+heads, gemma2-2b's training microbatch (D 256, softcap 50), and sweeps
+of prefill lengths that place ``LONG_FROM``: smollm's heads, qwen2.5's,
+and gemma2's local layer, S 128 to 8000 with its 4096-key window):
 
-    python3 src/repro_torch/launch/time_attention.py [--shape B,S,Hq,Hkv,D ...]
-        [--no-check] [--iters N]
+    python3 src/repro_torch/launch/time_attention.py
+        [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...] [--no-check] [--iters N]
 
 One JSON line a shape: the instance ``long_instance`` picks, each
 instance's ``ms`` / ``lse_ms`` and its max abs error against
@@ -29,7 +31,9 @@ from pathlib import Path
 DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128",
                   "1,128,9,3,64", "1,192,9,3,64", "1,256,9,3,64",
                   "1,384,9,3,64", "1,512,9,3,64", "1,1024,9,3,64",
-                  "1,256,40,8,128", "1,512,40,8,128"]
+                  "1,256,40,8,128", "1,512,40,8,128", "2,4096,8,4,256,50",
+                  *(f"1,{s},8,4,256,50,4096" for s in (
+                      128, 192, 256, 512, 1024, 2048, 4096, 8000))]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12
 
@@ -56,7 +60,8 @@ def timed_ms(call, iters: int, scratch) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", action="append",
-                    help="B,S,Hq,Hkv,D (causal bf16); repeatable")
+                    help="B,S,Hq,Hkv,D[,softcap[,window]] (causal bf16); "
+                         "repeatable")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--no-check", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -77,14 +82,21 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     for spec in args.shape or DEFAULT_SHAPES:
-        B, S, Hq, Hkv, D = (int(x) for x in spec.split(","))
+        B, S, Hq, Hkv, D, *extra = spec.split(",")
+        B, S, Hq, Hkv, D = (int(x) for x in (B, S, Hq, Hkv, D))
+        softcap = float(extra[0]) if extra else 0.0
+        window = int(extra[1]) if len(extra) > 1 else 0
+        kw = dict(causal=True, window=window, softcap=softcap)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         scale = D ** -0.5
-        flops, n_bytes = FA.cost(B, S, Hq, Hkv, D, 2, causal=True)
+        flops, n_bytes = FA.cost(B, S, Hq, Hkv, D, 2, causal=True,
+                                 window=window)
         row = {"card": torch.cuda.get_device_name(0),
-               "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal",
-               "instance": "wgmma" if FA.long_instance(S, D, torch.bfloat16)
+               "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal, "
+                        f"softcap {softcap}, window {window}",
+               "instance": "wgmma" if FA.long_instance(
+                   S, D, torch.bfloat16, window=window, softcap=softcap)
                else "mma.sync",
                "bound_ms": max(flops / BF16_FLOP_PER_S,
                                n_bytes / HBM_BYTES_PER_S) * 1e3}
@@ -92,7 +104,7 @@ def main(argv=None) -> int:
             lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
 
             def call(with_lse, lf=long_from):
-                return FA._forward(q, k, v, True, 0, 0.0, scale,
+                return FA._forward(q, k, v, True, window, softcap, scale,
                                    lse if with_lse else None, long_from=lf)
             r = {"ms": timed(lambda: call(False)),
                  "lse_ms": timed(lambda: call(True))}
@@ -103,21 +115,26 @@ def main(argv=None) -> int:
                     err = 0.0
                     for b in range(B):
                         want = FA.flash_attention_ref(
-                            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+                            q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
                         err = max(err, float((got[b:b + 1].float()
                                               - want.float()).abs().max()))
                     errs["lse" if with_lse else "serving"] = {
                         "max_abs_err": err,
                         "repeat_bits": bool(torch.equal(
                             got.view(torch.int16), again.view(torch.int16)))}
-                lse_want = FA.flash_attention_lse_ref(q, k, causal=True)
+                lse_want = FA.flash_attention_lse_ref(q, k, **kw)
                 errs["lse_max_abs_err"] = float((lse - lse_want).abs().max())
                 r["check"] = errs
             row[name] = r
+        mask = None                    # SDPA has no softcap
+        if 0 < window < S:
+            pos = torch.arange(S, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
         with torch.no_grad():
             row["sdpa_ms"] = timed(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True))
+                attn_mask=mask, is_causal=mask is None, enable_gqa=True))
         print(json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()

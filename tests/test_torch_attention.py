@@ -41,6 +41,9 @@ CASES = [
     (1, 64, 4, 2, 16, 16, 0.0, 32),     # sliding window, chunked
     (2, 32, 9, 3, 64, 0, 50.0, 32),     # softcap
     (1, 64, 4, 2, 32, 24, 30.0, 16),    # window + softcap, 4 chunks
+    # gemma2's heads: a window, the softcap, S no multiple of 32 (one
+    # chunk: the reference's chunks must divide S)
+    (1, 77, 8, 4, 256, 40, 50.0, 128),
 ]
 
 
@@ -178,7 +181,8 @@ def test_backward_plain_version_matches_jax_grad_at_d256(B, S, Hq, Hkv, D,
         assert moved > 100 * ATOL * max(1.0, float(got[0].abs().max()))
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,cap", BWD_CASES[:3])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,cap",
+                         BWD_CASES[:3] + [CASES[-1][:7]])
 def test_lse_plain_version_matches_jax(B, S, Hq, Hkv, D, win, cap):
     q, k, _, _ = _bwd_inputs(B, S, Hq, Hkv, D, seed=4)
     G = Hq // Hkv
@@ -238,11 +242,12 @@ def test_a_row_that_saw_no_key_gives_and_gets_no_gradient():
 
 
 # --- the forward's shape rule: which bf16 instance a call takes ------------
-# ``long_instance`` sends bf16 calls at D 64 or 128 with no window and no
-# softcap from S = LONG_FROM on to the warp-specialised wgmma kernel; all
-# else stays on the mma.sync (GQA-packed) or float32 kernels. The rule
-# reads S, not the packed rows of a GQA group (S 31 x G 5 = 155 rows for
-# qwen2.5's evaluator), so no S 31 evaluator shape moves.
+# ``long_instance`` sends bf16 calls from S = LONG_FROM on to the
+# warp-specialised wgmma kernel at D 256 (gemma2's heads, with or without
+# its window and softcap) and at D 64 or 128 with no window and no
+# softcap; all else stays on the mma.sync (GQA-packed) or float32
+# kernels. The rule reads S, not the packed rows of a GQA group (S 31 x G
+# 5 = 155 rows for qwen2.5's evaluator), so no S 31 evaluator shape moves.
 
 from repro_torch.configs.registry import arch_ids, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -274,9 +279,6 @@ def test_every_evaluator_shape_keeps_its_instance(arch, smoke):
 
 @pytest.mark.parametrize("S", [FA.LONG_FROM, 1984, 4096, 8000])
 @pytest.mark.parametrize("D,dtype,window,softcap", [
-    (256, torch.bfloat16, 0, 0.0),          # gemma2's head, no cap
-    (256, torch.bfloat16, 4096, 50.0),      # gemma2's local layer
-    (256, torch.bfloat16, 0, 50.0),         # gemma2's global layer
     (64, torch.float32, 0, 0.0),            # float32
     (128, torch.float32, 0, 0.0),
     (16, torch.bfloat16, 0, 0.0),           # the smoke heads
@@ -289,19 +291,32 @@ def test_long_sequences_outside_the_rule_keep_their_instance(S, D, dtype,
     assert not FA.long_instance(S, D, dtype, window=window, softcap=softcap)
 
 
-@pytest.mark.parametrize("S,D", [
-    (4096, 64),                             # smollm's training microbatch
-    (1984, 64),                             # the decode phase's longest prompt
-    (FA.LONG_FROM, 64),                     # the shortest prefill it takes
-    (FA.LONG_FROM + 1, 64),
-    (1000, 64),
-    (4096, 128),                            # qwen2.5's heads in training
-    (FA.LONG_FROM, 128),
+def _rule_case(S, D, window=0, softcap=0.0):
+    """A case of the rule's test, named as before D 256 joined it."""
+    name = f"{S}-{D}" + (f"-{window}-{softcap}" if D == 256 else "")
+    return pytest.param(S, D, window, softcap, id=name)
+
+
+@pytest.mark.parametrize("S,D,window,softcap", [
+    _rule_case(4096, 64),                   # smollm's training microbatch
+    _rule_case(1984, 64),                   # the decode phase's longest prompt
+    _rule_case(FA.LONG_FROM, 64),           # the shortest prefill it takes
+    _rule_case(FA.LONG_FROM + 1, 64),
+    _rule_case(1000, 64),
+    _rule_case(4096, 128),                  # qwen2.5's heads in training
+    _rule_case(FA.LONG_FROM, 128),
+    # gemma2's heads: no cap, its local layer, its global layer; its
+    # training microbatch (4096) and prefills up to the decode phase's 8000
+    *(_rule_case(S, 256, window, softcap)
+      for window, softcap in ((0, 0.0), (4096, 50.0), (0, 50.0))
+      for S in (FA.LONG_FROM, 1984, 4096, 8000)),
 ])
-def test_training_and_prefills_take_the_wgmma_instance(S, D):
-    assert FA.long_instance(S, D, torch.bfloat16)
+def test_training_and_prefills_take_the_wgmma_instance(S, D, window,
+                                                       softcap):
+    kw = dict(window=window, softcap=softcap)
+    assert FA.long_instance(S, D, torch.bfloat16, **kw)
     assert not FA.long_instance(S, D, torch.bfloat16,
-                                long_from=FA.NEVER_LONG)
+                                long_from=FA.NEVER_LONG, **kw)
 
 
 @pytest.mark.parametrize("S", [1, 31, 128, FA.LONG_FROM - 1])
@@ -316,3 +331,15 @@ def test_smollm_training_microbatch_takes_the_wgmma_instance():
     assert FA.long_instance(4096, cfg.d_head, getattr(torch, cfg.dtype),
                             window=cfg.sliding_window,
                             softcap=cfg.attn_logit_softcap)
+
+
+def test_gemma2_training_microbatch_takes_the_wgmma_instance():
+    """gemma2-2b's training microbatch (S 4096) on both of its layer
+    kinds: the local layers' window of 4096 and the global layers' none,
+    each with the softcap of 50."""
+    cfg = get_config("gemma2-2b")
+    assert cfg.d_head == 256 and cfg.attn_logit_softcap > 0
+    for window in _layer_windows(cfg):
+        assert FA.long_instance(4096, cfg.d_head, getattr(torch, cfg.dtype),
+                                window=window,
+                                softcap=cfg.attn_logit_softcap)

@@ -12,8 +12,9 @@ card against the CPU; a fan-out mirror stripe's retrieve equal to its
 primary's bit for bit on the card; the ragged embedding bag repeating
 its bits run after run on the card; the forward's warp-specialised
 wgmma instance (long sequences: S around ``LONG_FROM``, odd lengths, D
-64 and 128, G 1, 3 and 5, with and without the lse, two calls equal bit
-for bit, a row whose every score is -inf); and training: the forward's
+64, 128 and 256, G 1, 2, 3 and 5, with and without the lse, two calls
+equal bit for bit, a row whose every score is -inf; at D 256 gemma2's
+window and biting softcap); and training: the forward's
 log-sum-exp, both backward kernels (``flash_attention_bwd`` and
 ``dot_interaction_bwd``) against their plain versions within 2e-2 (bf16)
 and 1e-4 (f32) of each output's max abs, and ``loss.backward()`` through
@@ -966,8 +967,8 @@ def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
 
 # --- the forward's wgmma instance (long sequences) --------------------------
 # S just below, at and above LONG_FROM (below it the mma.sync instance
-# runs: the rule's edge), odd lengths, D 64 and 128, G 1, 3 and 5,
-# causal or not; bf16 within 2e-2 of the plain output, the lse within
+# runs: the rule's edge), odd lengths, D 64, 128 and 256, G 1, 2, 3 and
+# 5, causal or not; bf16 within 2e-2 of the plain output, the lse within
 # 1e-3 of the plain log-sum-exp.
 
 LONG_CASES = [
@@ -983,6 +984,11 @@ LONG_CASES = [
     (1, 257, 8, 8, 128, True),              # G 1
     (1, 1000, 10, 2, 128, False),           # G 5
     (2, 1000, 6, 2, 128, True),
+    (1, FA.LONG_FROM - 1, 8, 4, 256, True),  # gemma2's heads
+    (1, 257, 8, 4, 256, True),
+    (1, 4095, 8, 4, 256, True),
+    (1, 8000, 8, 4, 256, True),
+    (1, 300, 4, 4, 256, False),             # G 1
 ]
 
 
@@ -1013,8 +1019,63 @@ def test_flash_attention_long_instance_close_to_plain(dev, B, S, Hq, Hkv, D,
         assert torch.equal(first_lse, lse)
 
 
+# gemma2's heads (D 256) on the wgmma instance with its window and
+# softcap: a window inside a 32-key tile (100) and gemma2's 4096 at S
+# 8000, the softcap biting (q scaled by BITE_Q: logits of spread ~40 meet
+# the cap of 50, which then moves the plain output by more than ten
+# tolerances), GQA 8/4 and G 1, causal or not, and a window of S (as
+# none).
+WINDOW_CASES = [
+    # B, S, Hq, Hkv, window, softcap, q_mult, causal
+    (1, 257, 8, 4, 100, 50.0, 1.0, True),
+    (1, 4095, 8, 4, 100, 50.0, BITE_Q, True),
+    (1, 8000, 8, 4, 4096, 50.0, 1.0, True),
+    (1, 8000, 8, 4, 4096, 50.0, BITE_Q, True),
+    (2, 1000, 4, 4, 100, 50.0, BITE_Q, True),      # G 1
+    (1, 600, 8, 4, 0, 50.0, BITE_Q, True),         # gemma2's global layers
+    (1, 600, 8, 4, 100, 0.0, 1.0, False),          # a window alone
+    (2, 4096, 8, 4, 4096, 50.0, 1.0, True),        # gemma2's training
+]
+
+
 @pytest.mark.parametrize("with_lse", [False, True])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv,window,softcap,q_mult,causal",
+                         WINDOW_CASES)
+def test_flash_attention_long_instance_window_softcap_close_to_plain(
+        dev, B, S, Hq, Hkv, window, softcap, q_mult, causal, with_lse):
+    """The D 256 wgmma instance with a window and a softcap against the
+    plain version, and two calls equal bit for bit."""
+    D = 256
+    assert FA.long_instance(S, D, torch.bfloat16, window=window,
+                            softcap=softcap)
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, torch.bfloat16,
+                              S + window, q_mult)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    given = lse if with_lse else None
+    before = flash_attention.launches
+    got = FA._forward(q, k, v, lse=given, **kw)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, **kw).float()
+    torch.testing.assert_close(got.float(), want, atol=BWD_TOL[q.dtype],
+                               rtol=0)
+    if q_mult != 1.0:
+        uncapped = flash_attention_ref(q, k, v, **{**kw, "softcap": 0.0})
+        assert float((uncapped.float() - want).abs().max()) > \
+            10 * BWD_TOL[q.dtype]
+    if with_lse:
+        first_lse = lse.clone()
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-3, rtol=0)
+    again = FA._forward(q, k, v, lse=given, **kw)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    if with_lse:
+        assert torch.equal(first_lse, lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_long_instance_row_that_sees_no_key(dev, D,
                                                             with_lse):
     """A row whose every score is -inf (its q is -inf on a column where
