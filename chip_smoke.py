@@ -13,14 +13,18 @@ its path gives it:
   compacted eval rank of one micro-batch (exact);
 * ``flash_attention``: causal GQA attention of the transformer
   evaluator, of ``prefill`` and of training (with its row log-sum-exp);
-  in bf16 two instances, the ``mma.sync`` one (the evaluators' S 31,
-  D 16, and D 64 or 128 with a window or a softcap) and the
-  warp-specialised ``wgmma`` one that ``long_instance`` gives the long
-  sequences (the prefills, training, a D 128 training row with qwen2.5's
-  heads, and gemma2's D 256 with its window and softcap), each row
-  printed with its instance, the ``mma.sync`` instance timed beside the
-  ``wgmma`` one, and the new kernel's registers and spills from this
-  run's build;
+  in bf16 three instances: the warp-specialised ``wgmma`` one that
+  ``long_instance`` gives the long sequences (the prefills, training, a
+  D 128 training row with qwen2.5's heads, and gemma2's D 256 with its
+  window and softcap), the persistent TMA-fed one that
+  ``short_instance`` gives the evaluators' S 31 at D 64 and 128
+  (smollm's at the fused drain's and the engine's batches, the Qwen
+  models' at theirs, both of its instances held to the plain version
+  and repeating their bits), and the ``mma.sync`` one (D 16, gemma2's S
+  31, D 64 or 128 with a window or a softcap); each row printed with its
+  instance, the ``mma.sync`` instance timed beside the other two through
+  the overrides, and the new kernels' registers and spills from this
+  run's build (none may spill or serialise its wgmma);
 * ``topk_select``: the candidate set of one query (exact);
 * ``dot_interaction``: the DLRM evaluator's pairwise feature dots;
 * ``flash_decode``: one-token attention against the KV cache, and its
@@ -120,6 +124,10 @@ softcap and window, qwen2.5's 40/8 x 128, the D 12 smoke head padded to
 its longest prefill beside the ``mma.sync`` instance they replaced (no D
 256 ``wgmma`` instance may spill or serialise its wgmma), and each new
 evaluator at smoke width on the card against the CPU.
+
+Every path's ``flash_attention`` launches are also counted by instance:
+the S 31 of smollm's and the Qwen models' evaluators must all have run
+on the short instance, gemma2's on ``mma.sync``.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
@@ -760,17 +768,25 @@ def phase_flash_attention(dev) -> dict:
                           dtype=torch.float32, device=dev)
         lse_ms[name] = timed_ms(lambda: FA._forward(
             qq, kk, vv, True, 0, 0.0, D ** -0.5, lse), 20, flush)
-    log(f"flash_attention @evaluator shape ({instance_of(q)}): kernel "
+    log(f"flash_attention @evaluator shape ({instance_of(q, k)}): kernel "
         f"{timing['ms']:.4f} ms, "
         f"plain {timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} "
         f"ms (sdpa max abs err {max_err(timing['library_out'], want):.3e}), "
         f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
         f"{timing['bytes']} B, {timing['flops']} FLOP)")
+    short_rows = [short_row(q, k, v, flush, "smollm evaluator", timing),
+                  short_row(q3, k3, v3, flush, "smollm at the engine's "
+                            "batch", attention_timing(q3, k3, v3, flush,
+                                                      plain_iters=0))]
+    del q3, k3, v3
+    short_ptx = short_ptxas()
+    log(f"flash_attention short instance (ptxas, this run's build): "
+        f"{json.dumps(short_ptx)}")
     prefill = attention_timing(q5, k5, v5, flush, plain_iters=0)
     prefill_old = mma_sync_ms(q5, k5, v5, flush)
     prefill_check = forward_check(q5, k5, v5, "prefill")
     log(f"flash_attention @prefill shape (B=1, S={MAX_PROMPT}, "
-        f"{instance_of(q5)}; rule: S >= {FA.LONG_FROM}): kernel "
+        f"{instance_of(q5, k5)}; rule: S >= {FA.LONG_FROM}): kernel "
         f"{prefill['ms']:.4f} ms (P split), with the lse (bf16 P once) "
         f"{lse_ms['prefill']:.4f} ms; the mma.sync instance "
         f"{prefill_old['ms']:.4f} / {prefill_old['lse_ms']:.4f} ms; sdpa "
@@ -815,7 +831,7 @@ def phase_flash_attention(dev) -> dict:
         f"forward at this shape {bt['fwd_ms']:.4f} ms, with the lse "
         f"{bt['fwd_lse_ms']:.4f} ms, sdpa {bt['fwd_library_ms']:.4f} ms, "
         f"bound {bt['fwd_bound_ms']:.4f} ms")
-    log(f"flash_attention at the training shape ({instance_of(tq)}): "
+    log(f"flash_attention at the training shape ({instance_of(tq, tk)}): "
         f"with the lse (bf16 P once) {bt['fwd_lse_ms']:.4f} ms, serving (P "
         f"split) {bt['fwd_ms']:.4f} ms; the mma.sync instance "
         f"{train_old['lse_ms']:.4f} / {train_old['ms']:.4f} ms; sdpa "
@@ -848,7 +864,7 @@ def phase_flash_attention(dev) -> dict:
             row["fwd_mma_sync"] = mma_sync_ms(*full[:3], flush)
         row["timing"] = attention_bwd_timing(*full, flush, plain_iters=0,
                                              softcap=cap)
-        row["instance"] = instance_of(full[0], softcap=cap)
+        row["instance"] = instance_of(full[0], full[1], softcap=cap)
         long_rows[D] = row
         del full
     ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
@@ -899,8 +915,8 @@ def phase_flash_attention(dev) -> dict:
            "train_library_ms": bt["fwd_library_ms"],
            "train_bound_ms": bt["fwd_bound_ms"],
            "long_from": FA.LONG_FROM,
-           "instances": {"evaluator": instance_of(q),
-                         "prefill": instance_of(q5),
+           "instances": {"evaluator": instance_of(q, k),
+                         "prefill": instance_of(q5, k5),
                          "train": "wgmma" if FA.long_instance(
                              TRAIN_SEQ, D, torch.bfloat16) else "mma.sync",
                          "d256_train": long_rows[256]["instance"],
@@ -921,7 +937,9 @@ def phase_flash_attention(dev) -> dict:
            "d256_bound_ms": b256["fwd_bound_ms"],
            "checks": {"prefill": prefill_check, "train": train_check,
                       "d128": d128_check},
-           "wgmma_ptxas": wgmma_ptxas}
+           "wgmma_ptxas": wgmma_ptxas,
+           "short_to": FA.SHORT_TO, "short": short_rows,
+           "short_ptxas": short_ptx}
     bwd = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:97 (its "
@@ -942,24 +960,27 @@ def phase_flash_attention(dev) -> dict:
     return fwd, bwd
 
 
-def instance_of(q, window: int = 0, softcap: float = 0.0) -> str:
-    """The forward instance ``long_instance`` sends a causal call on
-    ``q`` to."""
-    if q.dtype != torch.bfloat16:
-        return "f32 FMA"
-    return "wgmma" if FA.long_instance(q.shape[1], q.shape[-1], q.dtype,
-                                       window=window,
-                                       softcap=softcap) else "mma.sync"
+def instance_of(q, k, window: int = 0, softcap: float = 0.0) -> str:
+    """The forward instance the rules (``FA.instance``) send a causal call
+    on ``q``, ``k`` to: ``wgmma``, ``short``, ``mma.sync`` or ``f32``."""
+    return FA.instance(q.shape[1], q.shape[2] // k.shape[2],
+                       max(q.shape[-1], FA.MIN_HEAD_DIM), q.dtype,
+                       window=window, softcap=softcap)
 
 
 def forward_check(q, k, v, label: str, window: int = 0,
-                  softcap: float = 0.0, scale=None) -> dict:
+                  softcap: float = 0.0, scale=None,
+                  lse_rel: bool = False) -> dict:
     """Both bf16 forward instances' o at one causal shape (serving: P
     split in two; with the lse: bf16 P once) against
-    ``flash_attention_ref``, one batch row at a time, within BF16_ATOL;
+    ``flash_attention_ref``, in chunks of batch rows whose float32 scores
+    stay within 1 GiB, within BF16_ATOL;
     the lse against ``flash_attention_lse_ref`` within 1e-3; and a second
     call of each equal to the first bit for bit (a training restart
-    repeats its bits)."""
+    repeats its bits). With ``lse_rel`` the lse instance's o is held as
+    the backward checks hold it, within BWD_REL_TOL of the plain output's
+    max abs (P rounded to bf16 once; its output rounds to bf16 at values
+    up to ~8, where one step is 3.1e-2)."""
     B, S, Hq, D = q.shape
     kw = dict(causal=True, window=window, softcap=softcap,
               sm_scale=D ** -0.5 if scale is None else scale)
@@ -971,35 +992,92 @@ def forward_check(q, k, v, label: str, window: int = 0,
             and same_bits(with_lse, FA._forward(q, k, v, lse=lse2, **kw))
             and same_bits(lse, lse2))
     errs = {"serving": 0.0, "lse_instance": 0.0}
-    for b in range(B):
-        want = flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
-        errs["serving"] = max(errs["serving"], max_err(serving[b:b + 1], want))
+    n = max(1, (1 << 28) // (Hq * S * S))   # batch rows a plain call
+    top = 0.0                                # the plain output's max abs
+    for b in range(0, B, n):
+        want = flash_attention_ref(q[b:b + n], k[b:b + n], v[b:b + n], **kw)
+        errs["serving"] = max(errs["serving"], max_err(serving[b:b + n], want))
         errs["lse_instance"] = max(errs["lse_instance"],
-                                   max_err(with_lse[b:b + 1], want))
+                                   max_err(with_lse[b:b + n], want))
+        top = max(top, float(want.float().abs().max()))
         del want
     lse_err = max_err(lse, flash_attention_lse_ref(q, k, **kw))
-    if not (same and max(errs.values()) <= BF16_ATOL and lse_err <= 1e-3
+    lse_tol = BWD_REL_TOL[q.dtype] * top if lse_rel else BF16_ATOL
+    if not (same and errs["serving"] <= BF16_ATOL
+            and errs["lse_instance"] <= lse_tol and lse_err <= 1e-3
             and torch.isfinite(serving.float()).all()):
         raise AssertionError(f"flash_attention {label}: max abs err {errs}, "
                              f"lse {lse_err}, repeat bits {same}")
-    return {"instance": instance_of(q, window, softcap), "max_abs_err": errs,
-            "lse_max_abs_err": lse_err, "repeat_bits": same}
+    return {"instance": instance_of(q, k, window, softcap), "max_abs_err": errs,
+            "lse_instance_tol": lse_tol, "lse_max_abs_err": lse_err,
+            "repeat_bits": same}
 
 
 def mma_sync_ms(q, k, v, flush, window: int = 0, softcap: float = 0.0,
                 scale=None) -> dict:
-    """The mma.sync instance's time at a shape the rule sends to the wgmma
-    instance (``long_from=NEVER_LONG``), with and without the lse: the
-    earlier design beside the new one in the same run."""
+    """The mma.sync instance's time at a shape the rules send to the wgmma
+    or the short instance (``long_from=NEVER_LONG``,
+    ``short_to=NEVER_SHORT``), with and without the lse: the earlier
+    design beside the new one in the same run."""
     B, S, Hq, D = q.shape
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     scale = D ** -0.5 if scale is None else scale
 
     def call(out_lse):
         return FA._forward(q, k, v, True, window, softcap, scale, out_lse,
-                           long_from=FA.NEVER_LONG)
+                           long_from=FA.NEVER_LONG,
+                           short_to=FA.NEVER_SHORT)
     return {"ms": timed_ms(lambda: call(None), 10, flush),
             "lse_ms": timed_ms(lambda: call(lse), 10, flush)}
+
+
+def short_row(q, k, v, flush, label: str, t: dict) -> dict:
+    """The short instance at one of the evaluators' S 31 shapes (``t``:
+    its ``attention_timing``, whose kernel is the short instance): both
+    of its instances held to the plain version (``forward_check``), the
+    one that writes the lse timed (its o within BWD_REL_TOL of the plain
+    output's max abs, the serving one's within BF16_ATOL), and the
+    ``mma.sync`` instance it
+    replaced timed beside it in the same run (``mma_sync_ms``)."""
+    B, S, Hq, D = q.shape
+    if instance_of(q, k) != "short":
+        raise AssertionError(f"flash_attention {label}: the rules send "
+                             f"it to {instance_of(q, k)}, not the short "
+                             f"instance")
+    check = forward_check(q, k, v, label, lse_rel=True)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lse_ms = timed_ms(lambda: FA._forward(q, k, v, True, 0, 0.0, D ** -0.5,
+                                          lse), 20, flush)
+    old = mma_sync_ms(q, k, v, flush)
+    row = {"shape": f"{label}: B={B} S={S} {Hq}/{k.shape[2]} heads D={D} "
+                    f"bf16 causal", "instance": "short",
+           "ms": t["ms"], "lse_ms": lse_ms, "mma_sync_ms": old["ms"],
+           "mma_sync_lse_ms": old["lse_ms"],
+           "faster": t["ms"] <= old["ms"] and lse_ms <= old["lse_ms"],
+           "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "bound_share": t["bound_ms"] / t["ms"],
+           "check": check}
+    log(f"flash_attention {row['shape']} (short): serving (P split) "
+        f"{t['ms']:.4f} ms, with the lse (bf16 P once) {lse_ms:.4f} ms; the "
+        f"mma.sync instance {old['ms']:.4f} / {old['lse_ms']:.4f} ms; sdpa "
+        f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP), "
+        f"{row['bound_share']:.2f} of it; {json.dumps(check)}")
+    return row
+
+
+def short_ptxas() -> dict:
+    """This run's ptxas report of the short instance's four kernels (D 64
+    and 128, serving and lse); fails if one spills or serialises its
+    wgmma."""
+    ptxas = ptxas_report("flash_attention", "fa_fwd_short_kernel")
+    if sorted(ptxas) != ["D128", "D128_lse", "D64", "D64_lse"] or any(
+            row.get("spill_stores") != 0 or row.get("wgmma_serialized")
+            for row in ptxas.values()):
+        raise AssertionError(f"flash_attention: a short instance spills or "
+                             f"serialises its wgmma (this run's ptxas: "
+                             f"{ptxas})")
+    return ptxas
 
 
 def attention_timing(q, k, v, flush, plain_iters: int, window: int = 0,
@@ -1799,8 +1877,7 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
 
     ex = DrainExecutor(fused, finalize, depth=2)
     torch.cuda.synchronize()
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     for b in batches:
         ex.submit(DrainBatch(*b))
@@ -1808,6 +1885,7 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: w.launches for name, w in KERNELS.items()}
+    note_instances(label)
     want = {name: 0 for name in KERNELS}
     want["shed_partition"] = n_batches
     want["flash_attention"] = n_attn * n_batches
@@ -1864,6 +1942,7 @@ KERNEL_GROUPS = (
     ("shed_partition kernel", ("shed_partition_kernel",)),
     ("flash_attention kernel", ("flash_attention_bf16_kernel",
                                 "fa_fwd_wgmma_kernel",
+                                "fa_fwd_short_kernel",
                                 "flash_attention_f32_kernel")),
     ("dot_interaction kernel", ("dot_interaction_kernel",)),
     ("flash_decode kernel", ("flash_decode_pieces_kernel",
@@ -2068,8 +2147,7 @@ def phase_engine(cfg: TrustIRConfig, searcher, evaluate, dev, label: str,
     n_search0, timed.total_s = searcher.n_searches, 0.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     if isinstance(evaluate, CountedEvaluator):
         evaluate.calls = 0
     t0 = time.monotonic()
@@ -2077,6 +2155,7 @@ def phase_engine(cfg: TrustIRConfig, searcher, evaluate, dev, label: str,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: w.launches for name, w in KERNELS.items()}
+    note_instances(label)
 
     st = sched.stats.as_dict()
     n_batches = st["n_batches"] - base["n_batches"]
@@ -2252,8 +2331,7 @@ def phase_fleet(fcfg: TrustIRConfig, retrieval, shard, evaluate, mk,
     extra = engine_queries(retrieval.corpus, SEED + 6, FLEET_EXTRA_QUERIES)
     rids: list = []
     torch.cuda.synchronize()
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     runs = [fleet_serve(coord, queries, rids)]
     # half a drain's worth of queries queues up before the leave, so the
@@ -2272,6 +2350,7 @@ def phase_fleet(fcfg: TrustIRConfig, retrieval, shard, evaluate, mk,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: w.launches for name, w in KERNELS.items()}
+    note_instances("fleet")
     want_topk = sum(n for n, _ in runs)
     retrieve_s = sum(t for _, t in runs)
 
@@ -2505,13 +2584,14 @@ def fanout_run(fcfg: TrustIRConfig, retrieval, evaluate, dev, counted: bool):
     timed = TimedSearcher(fan)
     torch.cuda.synchronize()
     if counted:
-        for wrapper in KERNELS.values():
-            wrapper.launches = 0
+        reset_launches()
     t1 = time.monotonic()
     rep = run_churn_workload(coord, timed, wl, events)
     torch.cuda.synchronize()
     wall = time.monotonic() - t1
     launches = {name: w.launches for name, w in KERNELS.items()}
+    if counted:
+        note_instances("fanout")
     return coord, rep, built, launches, wall, timed.total_s, build_s
 
 
@@ -3012,6 +3092,7 @@ def phase_sharded(evaluate, mk, dev) -> dict:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             got = read_launches()
+            note_instances(name)
             st = eng.scheduler.stats.as_dict()
             n_batches = st["n_batches"] - base["n_batches"]
             items = st["n_batched_items"] - base["n_batched_items"]
@@ -3222,8 +3303,7 @@ def phase_decode(dev) -> dict:
                        device=dev)
     kv_bytes = sum(t.numel() * t.element_size()
                    for t in (pool.cache["k"], pool.cache["v"]))
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     scores = []
     for i, p in enumerate(prompts):
@@ -3235,6 +3315,7 @@ def phase_decode(dev) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.monotonic() - t0
     prefill_launches = {n: w.launches for n, w in KERNELS.items()}
+    note_instances("decode prefill")
     scores = torch.cat(scores)
     if prefill_launches["flash_attention"] != cfg.n_layers * DECODE_SLOTS \
             or not torch.isfinite(scores).all():
@@ -3244,8 +3325,7 @@ def phase_decode(dev) -> dict:
     check_slots = (0, 1, DECODE_SLOTS * 3 // 5)  # shortest, longest, one
     check_steps = (0, DECODE_STEPS // 2, DECODE_STEPS - 1)
     kept = {}
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t1 = time.monotonic()
     for t in range(DECODE_STEPS):
         tok = torch.as_tensor(feed[t], dtype=torch.int32, device=dev)
@@ -3377,7 +3457,7 @@ def d256_instances(g2, gen, dev, flush) -> list:
         row = {"shape": f"{label}: B={B} S={S} {g2.n_heads}/"
                         f"{g2.n_kv_heads} heads D={g2.d_head} bf16 "
                         f"window={window} softcap={cap}",
-               "instance": instance_of(q, window, cap),
+               "instance": instance_of(q, k, window, cap),
                "max_abs_err": max(max(c["max_abs_err"].values())
                                   for c in check.values()),
                "ms": t["ms"], "lse_ms": lse_ms,
@@ -3479,6 +3559,11 @@ def phase_new_head_dims(dev) -> dict:
                     f" ms, {row['library']} {t['library_ms']:.4f} ms, bound "
                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']}"
                     f" B, {t['flops']} FLOP)")
+            row["instance"] = instance_of(q, k, w, sc)
+            if row["instance"] == "short":   # the Qwen models' S 31
+                row["short"] = short_row(q, k, v, flush, label, t)
+                worst_attn = max(worst_attn, row["short"]["check"][
+                    "max_abs_err"]["serving"])
         log(msg)
         attn.append(row)
         del q, k, v, got, want
@@ -3723,8 +3808,7 @@ def phase_gemma2_decode(dev) -> dict:
                        max_len=GEMMA_MAX_LEN, device=dev)
     kv_bytes = sum(t.numel() * t.element_size()
                    for t in (pool.cache["k"], pool.cache["v"]))
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     scores = []
     for i, p in enumerate(prompts):
@@ -3746,8 +3830,7 @@ def phase_gemma2_decode(dev) -> dict:
     check_slots = (0, 1, 2)                # 1, 8000 and 4097 tokens
     check_steps = (0, GEMMA_DECODE_STEPS // 2, GEMMA_DECODE_STEPS - 1)
     kept = {}
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t1 = time.monotonic()
     for t in range(GEMMA_DECODE_STEPS):
         tok = torch.as_tensor(feed[t], dtype=torch.int32, device=dev)
@@ -4048,6 +4131,7 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
                           for _, keys, b, feats, n in batches]
             torch.cuda.synchronize()
             launches = read_launches()
+            note_instances(f"{arch} {name}")
             del fused
         worst = 0.0
         for a, b in zip(runs["replicated"], runs["sharded"]):
@@ -4115,10 +4199,52 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
 def reset_launches() -> None:
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+    for name in flash_attention.by_instance:
+        flash_attention.by_instance[name] = 0
 
 
 def read_launches() -> dict:
     return {name: w.launches for name, w in KERNELS.items()}
+
+
+def check_instances() -> dict:
+    """Every path's ``flash_attention`` launches went to the instance the
+    rules name for its evaluator: the short one for smollm's and the Qwen
+    models' S 31 (the fused drain, the engine, the fleet, the fan-out,
+    the sharded engines and the Qwen drains), ``mma.sync`` for gemma2's D
+    256. The other paths' splits (the decode run's prefills of S
+    1..1984 over the three bf16 instances by length, training on the
+    ``wgmma`` one) are recorded. Returns the launches by path and
+    instance."""
+    qwens = [a for a, _ in BIG_EVALUATORS if a != "gcn-cora"]
+    moes = [a for a in qwens if get_config(a).moe is not None]
+    want = {path: "short" for path in (
+        "serving", "engine", "fleet", "fanout", "replicated", "sharded",
+        *qwens, *(f"{a} {n}" for a in moes
+                  for n in ("replicated", "sharded")))}
+    want[f"{GEMMA} engine"] = "mma.sync"
+    for path, name in want.items():
+        split = INSTANCES.get(path)
+        if not split or set(split) != {name}:
+            raise AssertionError(f"flash_attention on path {path}: launches "
+                                 f"by instance {split}, expected all on "
+                                 f"{name}")
+    log(f"flash_attention launches by path and instance: "
+        f"{json.dumps(INSTANCES)}")
+    return dict(INSTANCES)
+
+
+# flash_attention's launches of each path by the instance that ran them,
+# read with the launch counts (``note_instances``)
+INSTANCES: dict = {}
+
+
+def note_instances(path: str) -> dict:
+    """Records and returns the ``flash_attention`` launches since the last
+    ``reset_launches`` by instance (the nonzero ones), as path ``path``."""
+    INSTANCES[path] = {k: n for k, n in flash_attention.by_instance.items()
+                       if n}
+    return INSTANCES[path]
 
 
 @contextlib.contextmanager
@@ -4826,6 +4952,7 @@ def main() -> int:
                "train cell": cells["launches"]}
     path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
+    instances = check_instances()
     for kern in kernels:
         if kern["name"] == "dot_interaction":
             kern["dlrm_feats_max_abs_err"] = dlrm["feats_err"]
@@ -4840,6 +4967,8 @@ def main() -> int:
         kern["launches_by_path"] = {path: run[kern["name"]]
                                     for path, run in by_path.items()
                                     if run[kern["name"]]}
+        if kern["name"] == "flash_attention":
+            kern["launches_by_instance"] = instances
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "
                                  f"path")

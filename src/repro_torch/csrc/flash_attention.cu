@@ -14,13 +14,18 @@
 // ~2000 FLOP per byte and leans on the tensor cores instead, as does
 // training (B = 8, S = 4096: 1.55e11 FLOP, 0.156 ms at 989 TFLOP/s).
 //
-// Two bf16 instances. `long_instance` in kernels/flash_attention.py holds
-// the shape rule, mirrored in `launch_bf16`: from S >= LONG_FROM on, D 256
-// (gemma2, with or without its window and softcap) and D 64 or 128 with
-// no window and no softcap take `fa_fwd_wgmma_kernel`; everything else
-// (the evaluators' S 31, D 16, D 64 and 128 with a window or a softcap)
-// takes `flash_attention_bf16_kernel`. A call the rule sends to an
-// instance launches it or fails; neither stands in for the other.
+// Three bf16 instances. `long_instance` and `short_instance` in
+// kernels/flash_attention.py hold the shape rules, mirrored in
+// `launch_bf16` in that order: from S >= LONG_FROM on, D 256 (gemma2,
+// with or without its window and softcap) and D 64 or 128 with no window
+// and no softcap take `fa_fwd_wgmma_kernel`; up to S <= SHORT_TO (one key
+// tile of 32), D 64 or 128 with no window and no softcap and at most 256
+// packed rows a (batch row, KV head) pair (the evaluators' S 31 at
+// smollm's and the Qwen models' heads) take `fa_fwd_short_kernel`;
+// everything else (D 16, gemma2's D 256 at S 31, prefills from S 33 to
+// LONG_FROM, D 64 and 128 with a window or a softcap) takes
+// `flash_attention_bf16_kernel`. A call a rule sends to an instance
+// launches it or fails; none stands in for another.
 //
 // bf16, long sequences (training, prefills): `fa_fwd_wgmma_kernel`.
 // - A work tile is 128 query positions of one (batch row, query head), as
@@ -70,6 +75,40 @@
 //   hi/lo split described below, two P V products: with bf16 P alone the
 //   decode logits missed the chip check's 0.1 by 0.1016.
 //
+// bf16, short sequences (the evaluators' S 31 at D 64 and 128):
+// `fa_fwd_short_kernel`. At these shapes the call is bound by bytes (~12
+// FLOP a byte); the mma.sync instance below reached 0.40-0.73 of the
+// bytes' bound, because a pair too big for one block was cut into tiles
+// that each read K and V again, blocks far apart in the launch, and
+// because nothing overlapped within a block (load, wait, compute, store,
+// exit). This instance:
+// - A persistent grid, one block an SM (a loader warp, three consumer
+//   warpgroups at D 64, two at D 128); a block walks the (batch row, KV
+//   head) pairs b Hkv + hk in a static stride. No counter: two calls
+//   give equal bits.
+// - The loader streams each pair whole into a ring of up to 8 stages, as
+//   many as 227 KB hold in a multiple of the consumer warpgroups, each of
+//   which owns its stages (6 at smollm's 24 KB, 2 at qwen2.5's 64 KB and
+//   qwen3-moe's 80 KB, 6 at moonshot's 32 KB), with TMA: Q as one box of (64 columns, G heads, S
+//   positions) a 64-column half from head hk G, which TMA writes in the
+//   packed-row order of the mma.sync instance (row r: position r / G,
+//   head r % G), 128-byte swizzled; K and V as one 32-key box of head hk,
+//   zero-filled past S. A pair's K and V are read once.
+// - The consumer warpgroups take the pairs in turn, so nothing inside a
+//   pair waits on another warpgroup. For each 64-row tile: S = Q K^T
+//   (wgmma m64n32, both operands in shared memory); the softmax of the one
+//   key tile in float32 registers (no running max); O = P V with P from
+//   registers (the serving instance's hi/lo split, the lse instance's
+//   bf16 P once, as the wgmma instance) and V MN-major; O normalised and
+//   written as bf16 over the tile's Q rows in the same swizzle. The rows
+//   past S G of the last tile hold stale data and touch only themselves.
+// - One TMA store a half over the same (64, G, S) box writes the pair's
+//   O (never the padded rows); the stage goes back to the loader once the
+//   store has read it, while the other warpgroups and the loads of the
+//   next stages run.
+// Measured on an H100 (PERF.md): 0.78-0.88 of the bytes' bound at the
+// evaluator shapes, 1.2-2.1x as fast as the mma.sync instance.
+//
 // bf16, everything else: `flash_attention_bf16_kernel`, on the tensor
 // cores through mma.sync m16n8k16 (tensor_core.cuh).
 // - GQA packing: one block per (batch row, KV head, tile of 16 packed
@@ -100,10 +139,9 @@
 // - Tiles wholly above the causal diagonal or behind the window are not
 //   loaded; a warp skips the 16-key steps past its last row's position.
 //   Blocks are ordered heaviest causal tile first.
-// - Why mma.sync and not wgmma/TMA here: the evaluator's shape is bound by
-//   bytes, and mma.sync gives far more than the ~40 TFLOP/s that 4.68
-//   GFLOP in 0.12 ms needs; wgmma's 64-row shared-memory operands and
-//   descriptors would buy nothing at 93 rows per pair.
+// - It took the evaluators' S 31 until the short instance above, whose
+//   gain is in how the bytes move (whole pairs streamed through a ring),
+//   not in the products: 4.68 GFLOP in 0.12 ms needs ~40 TFLOP/s.
 //
 // float32 (the smoke-width evaluator, D = 16): `flash_attention_f32_kernel`
 // in FP32 FMAs, since TF32 tensor cores would miss the 1e-4 float32
@@ -1141,12 +1179,330 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// bf16, D 64 and 128, short sequences (the evaluators' S 31): a persistent
+// TMA-fed kernel over (batch row, KV head) pairs
+// ---------------------------------------------------------------------------
+
+namespace sq {
+
+constexpr int kKeys = 32;                  // the one key tile of a pair
+constexpr int kTileRows = 64;              // rows of a wgmma tile
+constexpr int kMaxTiles = 4;               // 64-row tiles of a pair's rows
+// Consumer warpgroups, taking the pairs in turn: three at D 64, where a
+// pair's products are short beside its softmax, epilogue and store; two
+// at D 128 (PERF.md).
+template <int D>
+constexpr int kConsumerWGs = D == 64 ? 3 : 2;
+template <int D>
+constexpr int kThreads = 128 * kConsumerWGs<D> + 32;  // + the loader's warp
+// Stages of the ring, at most, rounded down to a multiple of the consumer
+// warpgroups: each warpgroup owns its stages. (A stage shared in turn
+// would let a warpgroup that waits for its fill k while fill k - 1, another
+// warpgroup's, has not landed see that phase parity as complete: TMA loads
+// land in no fixed order. With 4 stages for 3 warpgroups that faulted
+// within ~100 calls.)
+constexpr int kMaxStages = 8;
+// The ring's barriers in the first 1024 bytes, the stages after them; and
+// 1024 bytes to align the dynamic shared memory to the swizzle's period.
+constexpr int kHead = 1024, kSlack = 1024;
+
+template <int D>
+struct Cfg {
+  static constexpr int kHalves = D / 64;   // 128-byte column blocks of a row
+  static constexpr int kTileHalf = kTileRows * 128;  // bytes of a tile half
+  static constexpr int kKVHalf = kKeys * 128;        // of a K (V) half
+  static constexpr int kKV = kHalves * kKVHalf;
+  static constexpr int NS = kKeys / 2;     // S accumulators a thread
+  static constexpr int NO = D / 2;         // O accumulators a thread
+  static constexpr int KP = kKeys / 16;    // k-steps of P V
+};
+
+// Bytes of a stage: Q (then O) as T 64-row tiles in each 64-column half,
+// then K and V.
+template <int D>
+__host__ __device__ inline int stage_bytes(int T) {
+  using C = Cfg<D>;
+  return C::kHalves * T * C::kTileHalf + 2 * C::kKV;
+}
+
+struct Args {
+  float* lse;
+  int S, Hq, Hkv, G, T, pairs;
+  int per_wg, stage_bytes;                 // stages a warpgroup owns
+  float c_exp;                             // scale * log2(e)
+  int causal;
+};
+
+// Whether a pair fits the kernel: one key tile, at most kMaxTiles tiles.
+__host__ __device__ inline bool fits(int S, int G) {
+  return S >= 1 && S <= kKeys && S * G <= kMaxTiles * kTileRows;
+}
+
+// Pair i of this block (p = blockIdx.x + i gridDim.x) belongs to consumer
+// warpgroup i % C, as its pair j = i / C, in that warpgroup's stage j %
+// per_wg (stage w + C (j % per_wg) of the ring), its fill j / per_wg.
+template <int D>
+__device__ __forceinline__ int stage_of(const Args& a, int w, int j) {
+  return w + kConsumerWGs<D> * (j % a.per_wg);
+}
+
+// The loader (one thread): pair i into its stage once the pair that used
+// the stage last is stored: Q as one box of (64
+// columns, G heads, S positions) a half, starting at head hk G, which TMA
+// writes in the packed-row order (row r: position r / G, head r % G); K
+// and V as 32 positions of head hk, zero-filled past S.
+template <int D>
+__device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
+                                     const CUtensorMap* tk,
+                                     const CUtensorMap* tv, uint8_t* ring,
+                                     uint64_t* full, uint64_t* empty) {
+  using C = Cfg<D>;
+  const uint32_t tx = C::kHalves * (a.G * a.S * 128 + 2 * C::kKVHalf);
+  const int q_half = a.T * C::kTileHalf;
+  int i = 0;
+  for (int p = blockIdx.x; p < a.pairs; p += gridDim.x, ++i) {
+    const int j = i / kConsumerWGs<D>;
+    const int st = stage_of<D>(a, i % kConsumerWGs<D>, j);
+    hop::mbar_wait(empty + st, ((j / a.per_wg) & 1) ^ 1);
+    hop::mbar_expect(full + st, tx);
+    const int b = p / a.Hkv, hk = p % a.Hkv;
+    uint8_t* q = ring + st * a.stage_bytes;
+    uint8_t* k = q + C::kHalves * q_half;
+#pragma unroll
+    for (int c = 0; c < C::kHalves; ++c) {
+      hop::tma_load_4d(q + c * q_half, tq, 64 * c, hk * a.G, 0, b, full + st);
+      hop::tma_load_4d(k + c * C::kKVHalf, tk, 64 * c, hk, 0, b, full + st);
+      hop::tma_load_4d(k + C::kKV + c * C::kKVHalf, tv, 64 * c, hk, 0, b,
+                       full + st);
+    }
+  }
+}
+
+// A consumer warpgroup: pairs wg, wg + kConsumerWGs<D>, ... of this block,
+// each a 64-row tile at a time: S = Q_t K^T (both K-major in shared
+// memory), the softmax of the one key tile in float32 registers (no
+// running max: every key is in the tile), O = P V with P from registers
+// (hi and lo terms with the split) and V MN-major, O normalised and
+// written as bf16 over Q_t's rows in the same swizzle. Then one TMA store
+// a half over the same (64, G, S) box, so that the padded rows past S G
+// are never written; the stage goes back to the loader once the store has
+// read it.
+template <int D, bool kLse>
+__device__ __forceinline__ void consume(const Args& a, const CUtensorMap* to,
+                                        uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int wg, int tid) {
+  using C = Cfg<D>;
+  constexpr bool kSplit = !kLse;
+  constexpr int NS = C::NS, NO = C::NO, KP = C::KP;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int rows = a.G * a.S;
+  const int q_half = a.T * C::kTileHalf;
+  float s[NS], o[NO];
+  uint32_t p[KP][4], lo[KP][4];
+  int j = 0;
+  for (int pr = blockIdx.x + wg * gridDim.x; pr < a.pairs;
+       pr += kConsumerWGs<D> * gridDim.x, ++j) {
+    const int st = stage_of<D>(a, wg, j);
+    uint8_t* q = ring + st * a.stage_bytes;
+    const uint32_t q0 = hop::smem_u32(q);
+    const uint32_t k0 = q0 + C::kHalves * q_half, v0 = k0 + C::kKV;
+    const int b = pr / a.Hkv, hk = pr % a.Hkv;
+    hop::mbar_wait(full + st, (j / a.per_wg) & 1);
+    // the warp together again (lane 0 may come from the last pair's
+    // store) before the .aligned wgmma instructions
+    __syncwarp();
+    for (int t = 0; t < a.T; ++t) {
+      hop::fence_regs(s);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::wgmma_ss_n32<0, 0>(
+            s,
+            hop::desc_sw128(q0 + (kk / 4) * q_half + t * C::kTileHalf +
+                                (kk % 4) * 32, 16),
+            hop::desc_sw128(k0 + (kk / 4) * C::kKVHalf + (kk % 4) * 32, 16),
+            kk > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(s);
+
+      // this thread's rows r_lo and r_lo + 8 of the pair, at positions
+      // r / G; the padded rows past S G see every key and are not stored
+      const int r_lo = kTileRows * t + 16 * warp + grp;
+      float m[2], l[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = (r_lo + 8 * h) / a.G;
+        const int k_end = a.causal ? min(pos + 1, a.S) : a.S;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            if (8 * n + 2 * tig + (e & 1) >= k_end) s[4 * n + e] = -INFINITY;
+            mx = fmaxf(mx, s[4 * n + e]);
+          }
+        m[h] = tc::quad_max(mx);
+        const float off = -(m[h] == -INFINITY ? 0.f : m[h]) * a.c_exp;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[4 * n + e] = tc::exp2_approx(fmaf(s[4 * n + e], a.c_exp, off));
+            sum += s[4 * n + e];
+          }
+        l[h] = tc::quad_sum(sum);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kSplit)
+            tc::split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], p[kk][j],
+                           lo[kk][j]);
+          else
+            p[kk][j] = tc::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+        }
+
+      hop::fence_regs(o);
+      hop::fence_regs(p);
+      if constexpr (kSplit) hop::fence_regs(lo);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) {
+        const uint64_t dv = hop::desc_sw128(v0 + kk * 2048, C::kKVHalf);
+        if constexpr (D == 64) {
+          hop::wgmma_rs_n64<1>(o, p[kk], dv, kk > 0);
+          if constexpr (kSplit) hop::wgmma_rs_n64<1>(o, lo[kk], dv, 1);
+        } else {
+          hop::wgmma_rs_n128<1>(o, p[kk], dv, kk > 0);
+          if constexpr (kSplit) hop::wgmma_rs_n128<1>(o, lo[kk], dv, 1);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+      hop::fence_regs(p);
+      if constexpr (kSplit) hop::fence_regs(lo);
+
+      // O_t over Q_t (its last reader, S_t, is done); the lse of the rows
+      // that exist, at (b, hk G + r % G, r / G)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h;
+        const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+        if (kLse && tig == 0 && r < rows)
+          a.lse[(static_cast<long long>(b) * a.Hq + hk * a.G + r % a.G) *
+                    a.S + r / a.G] =
+              l[h] > 0.f ? (m[h] * a.c_exp + log2f(l[h])) * kLn2 : -INFINITY;
+        uint8_t* row = q + t * C::kTileHalf + (16 * warp + grp + 8 * h) * 128 +
+                       4 * tig;
+#pragma unroll
+        for (int j = 0; j < NO / 4; ++j)
+          *reinterpret_cast<uint32_t*>(row + (j / 8) * q_half +
+                                       (((j % 8) ^ grp) << 4)) =
+              tc::pack_bf16(o[4 * j + 2 * h] * inv,
+                            o[4 * j + 2 * h + 1] * inv);
+      }
+    }
+    // the pair's O, a box a half; the stage back once the store read it
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < C::kHalves; ++c)
+        hop::tma_store_4d(to, q + c * q_half, 64 * c, hk * a.G, 0, b);
+      hop::bulk_wait_read();
+      hop::mbar_arrive(empty + st);
+    }
+  }
+  if (tid == 0) hop::bulk_wait_all();
+}
+
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads<D>, 1)
+fa_fwd_short_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* empty = full + kMaxStages;
+  uint8_t* ring = sm + kHead;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < a.per_wg * kConsumerWGs<D>; ++st) {
+      hop::mbar_init(full + st, 1);
+      hop::mbar_init(empty + st, 1);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumerWGs<D>) {
+    if (threadIdx.x == 128 * kConsumerWGs<D>)
+      load<D>(a, &tq, &tk, &tv, ring, full, empty);
+  } else {
+    consume<D, kLse>(a, &to, ring, full, empty, wg, threadIdx.x % 128);
+  }
+}
+
+template <int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, float scale, int causal,
+           cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  if (!fits(S, G)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = static_cast<long long>(B) * Hkv;
+  if (pairs == 0) return 0;
+  if (pairs > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int sms = hop::sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
+  Args a;
+  a.lse = lse;
+  a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.G = G;
+  a.T = (S * G + kTileRows - 1) / kTileRows;
+  a.pairs = static_cast<int>(pairs);
+  a.stage_bytes = stage_bytes<D>(a.T);
+  int stages = (wg::kSmemLimit - kHead - kSlack) / a.stage_bytes;
+  if (stages > kMaxStages) stages = kMaxStages;
+  a.per_wg = stages / kConsumerWGs<D>;
+  if (a.per_wg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.c_exp = scale * kLog2e;
+  a.causal = causal;
+  const int bytes =
+      kHead + kSlack + a.per_wg * kConsumerWGs<D> * a.stage_bytes;
+  // a runtime call first: cuTensorMapEncodeTiled wants its context
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_short_kernel<D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tq, tk, tv, to;
+  if (hop::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  if (!hop::tensor_map(&tq, q, B, S, Hq, D, S, G) ||
+      !hop::tensor_map(&tk, k, B, S, Hkv, D, kKeys) ||
+      !hop::tensor_map(&tv, v, B, S, Hkv, D, kKeys) ||
+      !hop::tensor_map(&to, o, B, S, Hq, D, S, G))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  const int grid = static_cast<int>(pairs < sms ? pairs : sms);
+  fa_fwd_short_kernel<D, kLse><<<grid, kThreads<D>, bytes, stream>>>(
+      tq, tk, tv, to, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sq
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Hq, int Hkv, float scale,
                 int causal, int window, float softcap, int long_from,
-                cudaStream_t stream) {
-  // The shape rule of `long_instance` in kernels/flash_attention.py.
+                int short_to, cudaStream_t stream) {
+  // The shape rules of `long_instance` and `short_instance` in
+  // kernels/flash_attention.py, the long one first.
   if constexpr (D != 16) {
     if (S >= long_from && (D == 256 || (window <= 0 && softcap <= 0.f)))
       return lse != nullptr
@@ -1156,6 +1512,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                  : wg::launch<D, false>(q, k, v, o, lse, B, S, Hq, Hkv,
                                         scale, causal, window, softcap,
                                         stream);
+  }
+  if constexpr (D == 64 || D == 128) {
+    if (S <= short_to && sq::fits(S, Hq / Hkv) && window <= 0 &&
+        softcap <= 0.f)
+      return lse != nullptr
+                 ? sq::launch<D, true>(q, k, v, o, lse, B, S, Hq, Hkv, scale,
+                                       causal, stream)
+                 : sq::launch<D, false>(q, k, v, o, lse, B, S, Hq, Hkv,
+                                        scale, causal, stream);
   }
   auto kernel = lse != nullptr ? flash_attention_bf16_kernel<D, true>
                                : flash_attention_bf16_kernel<D, false>;
@@ -1332,7 +1697,7 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int S, int Hq, int Hkv, float scale,
                int causal, int window, float softcap, int /*long_from*/,
-               cudaStream_t stream) {
+               int /*short_to*/, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
   auto kernel = lse != nullptr ? flash_attention_f32_kernel<D, true>
                                : flash_attention_f32_kernel<D, false>;
@@ -1360,19 +1725,23 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // Gemma-2's). `lse`: null, or (B, Hq, S) float32 to receive each row's
 // log-sum-exp. `long_from`: bf16 calls at D 256, and at D 64 or 128 with
 // no window and no softcap, take the wgmma instance from this S on (the
-// wrapper passes its LONG_FROM). Launches on `stream`; returns cudaGetLastError() (0 =
-// ok).
+// wrapper passes its LONG_FROM). `short_to`: bf16 calls at D 64 or 128 with
+// no window and no softcap take the short instance up to this S, where a
+// pair's keys fit one tile and its packed rows four (the wrapper passes
+// its SHORT_TO; 0: never). Launches on `stream`; returns
+// cudaGetLastError() (0 = ok).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int S, int Hq, int Hkv, int D,
                                       int dtype, float scale, int causal,
                                       int window, float softcap,
-                                      int long_from, void* stream) {
+                                      int long_from, int short_to,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
 #define FA_CASE(FN, DIM)                                                  \
   return FN<DIM>(q, k, v, o, ls, B, S, Hq, Hkv, scale, causal, window,    \
-                 softcap, long_from, st)
+                 softcap, long_from, short_to, st)
   if (dtype == 0) {
     if (D == 16) FA_CASE(launch_f32, 16);
     if (D == 64) FA_CASE(launch_f32, 64);

@@ -1,8 +1,8 @@
 // PTX helpers for Hopper's asynchronous units, used by
-// flash_attention.cu (its long-sequence instance) and
+// flash_attention.cu (its long- and short-sequence instances) and
 // flash_attention_bwd.cu: warpgroup matrix products (wgmma) with their
-// shared-memory descriptors, mbarriers, TMA tensor loads, bulk copies and
-// bulk reduce-adds, proxy fences, named barriers and register
+// shared-memory descriptors, mbarriers, TMA tensor loads and stores, bulk
+// copies and bulk reduce-adds, proxy fences, named barriers and register
 // reallocation (setmaxnreg); on the host, the TMA tensor map of a
 // (B, S, H, D) bf16 tensor. sm_90a only.
 //
@@ -394,6 +394,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)) : "memory");
 }
+// One box of a 4-d tensor map from shared memory to global memory, as a
+// bulk group of this thread (wait with bulk_wait_read / bulk_wait_all).
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
+                                             int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
 // `bytes` (a multiple of 16) from global to shared memory, both 16-byte
 // aligned, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -428,6 +440,11 @@ __device__ __forceinline__ void bulk_wait_all() {
 }
 __device__ __forceinline__ void bulk_wait_one() {
   asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+}
+// Waits until this thread's bulk groups have read their shared-memory
+// sources (their writes to global memory may still be in flight).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Orders this thread's shared-memory stores before later reads by the
@@ -500,12 +517,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, S, H, D) bf16 tensor as boxes of 64 columns x `rows` positions of
-// one head, 128-byte swizzled; positions past S read as zeros. Encode
-// after a runtime call on this thread (the encoder wants the runtime's
-// context current: autograd's backward runs on its own thread).
+// A (B, S, H, D) bf16 tensor as boxes of 64 columns x `heads` heads x
+// `rows` positions, 128-byte swizzled: a box lands as rows * heads rows
+// of 128 bytes, position-major (row r: position r / heads, head r %
+// heads). Positions past S read as zeros. Encode after a runtime call on
+// this thread (the encoder wants the runtime's context current:
+// autograd's backward runs on its own thread).
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
-                       int H, int D, int rows) {
+                       int H, int D, int rows, int heads = 1) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -515,7 +534,8 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(H) * D * 2,
                                  static_cast<cuuint64_t>(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(heads),
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,

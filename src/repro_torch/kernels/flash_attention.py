@@ -11,13 +11,19 @@ log-sum-exp, and its backward launches ``flash_attention_bwd``
 attention with ``jax.grad`` and has no backward kernel; the port's
 forward on the card is a kernel, so its gradient is one too; in bf16 at D
 64, 128 and 256 it is one warp-specialised ``wgmma`` kernel between a
-pre-pass and a post-pass. The forward's bf16 has two
-instances, chosen by the shape rule ``long_instance``: long sequences
-(training, prefills) at D 64 or 128 with no window or softcap, and at D
-256 with or without gemma2's window and softcap, take a warp-specialised
-``wgmma`` kernel on TMA stages; the rest (the evaluators' S 31, D 16, D
-64 and 128 with a window or a softcap) run on ``mma.sync`` with the GQA
-group packed into the rows of a tile. float32 runs in FP32 FMAs. The kernel accepts any S (the ragged edge is masked); it takes D of
+pre-pass and a post-pass. The forward's bf16 has three instances,
+chosen by two shape rules (``instance`` names the one a call takes):
+``long_instance`` sends long sequences (training, prefills) at D 64 or
+128 with no window or softcap, and at D 256 with or without gemma2's
+window and softcap, to a warp-specialised ``wgmma`` kernel on TMA
+stages; ``short_instance`` sends the evaluators' S 31 at D 64 and 128
+with no window or softcap (smollm's heads and the Qwen models') to a
+persistent kernel that streams one (batch row, KV head) pair after
+another through a TMA ring, the pair's GQA group packed into its rows,
+on ``wgmma``; the rest (D 16, D 256 at S 31, prefills from S 33 to
+``LONG_FROM``, D 64 and 128 with a window or a softcap) run on
+``mma.sync`` with the GQA group packed into the rows of a tile. float32
+runs in FP32 FMAs. The kernel accepts any S (the ragged edge is masked); it takes D of
 16 (the smoke-width evaluators), 64, 128 or 256 (Gemma-2). A head narrower than 16 (the
 qwen2.5 smoke config's 12) is zero-padded to 16 and the output cut back:
 zero columns add nothing to q k^T, and the padded columns of v are
@@ -43,6 +49,15 @@ MIN_HEAD_DIM = 16                        # narrower heads are zero-padded
 LONG_FROM = 256
 # A ``long_from`` no S reaches: the mma.sync instance for every shape.
 NEVER_LONG = 0x7fffffff
+# S up to which ``short_instance`` sends a call to the persistent
+# TMA-fed instance: where it was never slower than the mma.sync instance
+# on an H100 (PERF.md). Its pairs' keys fit one tile of SHORT_KEYS and
+# their packed rows (S x G) four 64-row tiles, SHORT_ROWS.
+SHORT_KEYS = 32
+SHORT_ROWS = 256
+SHORT_TO = 32
+# A ``short_to`` no S stays within: no call takes the short instance.
+NEVER_SHORT = 0
 
 
 def long_instance(S: int, D: int, dtype: torch.dtype, *, window: int = 0,
@@ -58,6 +73,39 @@ def long_instance(S: int, D: int, dtype: torch.dtype, *, window: int = 0,
     return (dtype == torch.bfloat16 and S >= long_from
             and (D == 256 or (D in (64, 128) and window <= 0
                               and softcap <= 0.0)))
+
+
+def short_instance(S: int, G: int, D: int, dtype: torch.dtype, *,
+                   window: int = 0, softcap: float = 0.0,
+                   short_to: int = SHORT_TO) -> bool:
+    """Whether a forward call that ``long_instance`` does not take goes
+    to the persistent TMA-fed instance: bf16, D 64 or 128, no window and
+    no softcap, causal or not, S at most ``short_to`` (and one key tile,
+    SHORT_KEYS) and the S x G packed rows of a (batch row, KV head) pair
+    within SHORT_ROWS. The evaluators' S 31 at smollm's (G 3) and the Qwen
+    models' heads (G 5, 8, 1). ``launch_bf16`` applies the same rule to
+    the ``short_to`` it is passed, after the long one. A shape rule, not a
+    fallback: a call it sends there launches it or raises."""
+    return (dtype == torch.bfloat16 and D in (64, 128) and window <= 0
+            and softcap <= 0.0 and 1 <= S <= min(short_to, SHORT_KEYS)
+            and S * G <= SHORT_ROWS)
+
+
+def instance(S: int, G: int, D: int, dtype: torch.dtype, *,
+             window: int = 0, softcap: float = 0.0,
+             long_from: int = LONG_FROM, short_to: int = SHORT_TO) -> str:
+    """The forward instance a call launches: ``"wgmma"`` (long
+    sequences), ``"short"`` (the persistent TMA-fed one), ``"mma.sync"``
+    (every other bf16 call) or ``"f32"``, by the rules above in the order
+    ``launch_bf16`` applies them. D is the kernel's (a padded head's)."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    kw = dict(window=window, softcap=softcap)
+    if long_instance(S, D, dtype, long_from=long_from, **kw):
+        return "wgmma"
+    if short_instance(S, G, D, dtype, short_to=short_to, **kw):
+        return "short"
+    return "mma.sync"
 
 
 def pad_head_dim(*ts: torch.Tensor):
@@ -240,11 +288,12 @@ def cost(B: int, S: int, Hq: int, Hkv: int, D: int, size: int, *,
 
 
 def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None,
-             long_from: int = LONG_FROM):
+             long_from: int = LONG_FROM, short_to: int = SHORT_TO):
     """One launch of the forward kernel; writes ``lse`` (B, Hq, S) float32
     where one is given. ``long_from``: the S from which ``long_instance``
-    takes the wgmma instance (``NEVER_LONG``: never; a timing compares
-    the two instances with it)."""
+    takes the wgmma instance (``NEVER_LONG``: never); ``short_to``: the S
+    up to which ``short_instance`` takes the short one (``NEVER_SHORT``:
+    never). A timing compares the instances with them."""
     _kernel_args("flash_attention", q, k, v)
     B, S, Hq, D = q.shape
     if is_fake(q, k, v):
@@ -256,18 +305,21 @@ def _forward(q, k, v, causal, window, softcap, sm_scale, lse=None,
         "flash_attention", "flash_attention_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
              B, S, Hq, k.shape[2], D, _DTYPES[q.dtype], float(sm_scale),
              int(causal), int(window), float(softcap), int(long_from),
-             stream)
+             int(short_to), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.by_instance[instance(
+        S, Hq // k.shape[2], D, q.dtype, window=window, softcap=softcap,
+        long_from=long_from, short_to=short_to)] += 1
     return out
 
 
@@ -331,6 +383,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+# the same launches by the instance that ran them (``instance``)
+flash_attention.by_instance = {"wgmma": 0, "short": 0, "mma.sync": 0,
+                               "f32": 0}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -5,7 +5,12 @@ edit (a tile size, the consumers' turns, where O is rescaled and P
 packed, an exp2 on the FMA pipe, the softcap's tanh, or a diagnostic
 that drops the K/V loads), called through its own
 ``flash_attention_launch`` with the wgmma instance forced (``long_from``
-0). With ``--backward``: each variant is
+0). With ``--short``: each variant is the same source with one named edit
+of ``SHORT_VARIANTS`` (the short instance's consumer warpgroups or ring
+depth, or the forward's ``mma.sync`` instance that it replaced at the
+evaluators' S 31), called with the short instance forced (``long_from``
+``NEVER_LONG``, ``short_to`` at its key tile) at the evaluators' shapes.
+With ``--backward``: each variant is
 ``csrc/flash_attention_bwd.cu`` with one named edit of ``BWD_VARIANTS``
 (the kernels the warpgroup kernels replaced, or a design choice of
 theirs), called through its own ``flash_attention_bwd_launch`` on the o
@@ -13,10 +18,12 @@ and lse of the port's forward. Every variant is built with the port's
 ``nvcc`` flags, one process each, all at once. Run on a machine with an
 H100:
 
-    python3 src/repro_torch/launch/ab_attention.py [--backward] [VARIANT ...]
-        [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...] [--iters N]
+    python3 src/repro_torch/launch/ab_attention.py [--backward | --short]
+        [VARIANT ...] [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...]
+        [--iters N]
 
-With no variant named, all of ``VARIANTS`` (or ``BWD_VARIANTS``). Prints,
+With no variant named, all of ``VARIANTS`` (or ``SHORT_VARIANTS``,
+``BWD_VARIANTS``). Prints,
 per variant, what ptxas said of its wgmma kernels (registers, spills,
 serialised wgmma), then one JSON line a shape: each variant's mean
 CUDA-event time (1 GiB written between launches), in turns (the variants
@@ -128,6 +135,29 @@ VARIANTS = {
         "64 * c, hk, (w.j0 + j) * C::kBN, w.b,",
         "64 * c, 0, (w.j0 + j) * C::kBN, 0,"))],
 }
+_SHORT_RULE = ("    if (S <= short_to && sq::fits(S, Hq / Hkv) && window <= 0 "
+               "&&")
+# name -> [(old, new)]: edits of the short instance as committed
+_WGS = "constexpr int kConsumerWGs = D == 64 ? 3 : 2;"
+SHORT_VARIANTS = {
+    # the consumer warpgroups taking the pairs in turn: one at both D, two
+    # at D 64, three at D 128 (where qwen3-moe's ring has 2 stages, too
+    # few for three to own one each: its launch is refused)
+    "short_1wg": [(_WGS, "constexpr int kConsumerWGs = 1;")],
+    "short_2wg_d64": [(_WGS, "constexpr int kConsumerWGs = 2;")],
+    "short_3wg_d128": [(_WGS, "constexpr int kConsumerWGs = 3;")],
+    # the ring at most 3 or 12 stages deep (each warpgroup owning one
+    # stage, or up to four where shared memory holds them), for the 8 as
+    # committed
+    "short_ring3": [("constexpr int kMaxStages = 8;",
+                     "constexpr int kMaxStages = 3;")],
+    "short_ring12": [("constexpr int kMaxStages = 8;",
+                      "constexpr int kMaxStages = 12;")],
+    # the kernel it replaced: the rule never takes the short instance, so
+    # the forced call runs the mma.sync one
+    "short_mma_sync": [(_SHORT_RULE,
+                        _SHORT_RULE.replace("S <= short_to", "false"))],
+}
 _BWD_PATH = "return dtype == 1 && (D == 64 || D == 128 || D == 256);"
 _BWD_BF16 = "    if (D == 16) FB_CASE(launch_bf16, 16);"
 _SHARE = "constexpr bool kByRoles = D != 64;"
@@ -148,19 +178,31 @@ BWD_VARIANTS = {
 }
 DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128",
                   "2,4096,8,4,256,50", "1,8000,8,4,256,50,4096"]
+SHORT_DEFAULT_SHAPES = ["4096,31,9,3,64", "3072,31,9,3,64",
+                        "4096,31,40,8,128", "2048,31,32,4,128",
+                        "3072,31,16,16,128"]
 BWD_DEFAULT_SHAPES = ["2,4096,40,8,128", "2,4096,8,4,256,50",
                       "8,4096,9,3,64"]
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# (long_from, short_to) of a forced call: the wgmma instance, or the short
+NEVER_LONG, SHORT_KEYS = 0x7fffffff, 32
+FORCE = {"wgmma": (0, 0), "short": (NEVER_LONG, SHORT_KEYS)}
+
+
+def variant_table(backward: bool = False, short: bool = False) -> dict:
+    return BWD_VARIANTS if backward else SHORT_VARIANTS if short \
+        else VARIANTS
 BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_void_p])
 
 
-def variant_source(name: str, backward: bool = False) -> str:
+def variant_source(name: str, backward: bool = False,
+                   short: bool = False) -> str:
     text = (BWD_SOURCE if backward else SOURCE).read_text()
-    for old, new in (BWD_VARIANTS if backward else VARIANTS)[name]:
+    for old, new in variant_table(backward, short)[name]:
         if old not in text:
             raise ValueError(f"variant {name}: its edit no longer applies")
         text = text.replace(old, new)
@@ -191,7 +233,7 @@ def ptxas_notes(log: str, kernel: str = "fa_fwd_wgmma_kernel") -> dict:
     return out
 
 
-def build_variants(names, backward: bool) -> dict:
+def build_variants(names, backward: bool, short: bool = False) -> dict:
     """Each named variant built into ``build/ab/<name>/lib.so`` (one nvcc
     each, all at once), its ptxas notes printed; returns the loaded
     libraries by name."""
@@ -199,13 +241,14 @@ def build_variants(names, backward: bool) -> dict:
     source = BWD_SOURCE if backward else SOURCE
     procs = {}
     for name in names:
-        d = _build.BUILD_DIR / "ab" / ("bwd" if backward else "") / name
+        d = _build.BUILD_DIR / "ab" / ("bwd" if backward else
+                                       "short" if short else "") / name
         d.mkdir(parents=True, exist_ok=True)
         for header in ("tensor_core.cuh", "wgmma.cuh"):
             (d / header).write_text((SOURCE.parent / header).read_text())
         (d / source.name).write_text(
             source.read_text() if name == "committed"
-            else variant_source(name, backward))
+            else variant_source(name, backward, short))
         procs[name] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / source.name)],
@@ -215,14 +258,18 @@ def build_variants(names, backward: bool) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}:\n{log[-4000:]}")
-        kernel = "fa_bwd_main_kernel" if backward else "fa_fwd_wgmma_kernel"
+        kernel = ("fa_bwd_main_kernel" if backward else
+                  "fa_fwd_short_kernel" if short else "fa_fwd_wgmma_kernel")
         print(json.dumps({"variant": name,
                           "ptxas": ptxas_notes(log, kernel)}), flush=True)
         libs[name] = ctypes.CDLL(str(d / "lib.so"))
     return libs
 
 
-def time_forward(libs, shapes, iters: int, scratch) -> None:
+def time_forward(libs, shapes, iters: int, scratch,
+                 force: str = "wgmma") -> None:
+    """Each variant's ``flash_attention_launch`` on the same causal inputs
+    with the ``force`` instance asked for (``FORCE``)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.time_attention import timed_ms
@@ -231,6 +278,7 @@ def time_forward(libs, shapes, iters: int, scratch) -> None:
     for name, lib in libs.items():
         fns[name] = lib.flash_attention_launch
         fns[name].argtypes = ARGTYPES
+    long_from, short_to = FORCE[force]
     dev = scratch.device
     gen = torch.Generator(device=dev).manual_seed(0)
     for spec in shapes:
@@ -240,9 +288,10 @@ def time_forward(libs, shapes, iters: int, scratch) -> None:
         window = int(extra[1]) if len(extra) > 1 else 0
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        n = max(1, (1 << 28) // (Hq * S * S))  # batch rows a plain call
         want = torch.cat([FA.flash_attention_ref(
-            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True, window=window,
-            softcap=softcap) for b in range(B)]).float()
+            q[b:b + n], k[b:b + n], v[b:b + n], causal=True, window=window,
+            softcap=softcap) for b in range(0, B, n)]).float()
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
         out = torch.empty_like(q)
         row = {"card": torch.cuda.get_device_name(0),
@@ -254,12 +303,17 @@ def time_forward(libs, shapes, iters: int, scratch) -> None:
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(),
                              lse.data_ptr() if with_lse else None, B, S, Hq,
-                             Hkv, D, 1, D ** -0.5, 1, window, softcap, 0,
+                             Hkv, D, 1, D ** -0.5, 1, window, softcap,
+                             long_from, short_to,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
                 cell = row.setdefault(f"{name}/{kind}", {"ms": []})
-                cell["ms"].append(timed_ms(call, iters, scratch))
+                try:
+                    cell["ms"].append(timed_ms(call, iters, scratch))
+                except RuntimeError as e:    # a launch the variant refuses
+                    cell["error"] = str(e)
+                    continue
                 call()
                 torch.cuda.synchronize()
                 cell["max_abs_err"] = float((out.float() - want).abs().max())
@@ -332,8 +386,11 @@ def time_backward(libs, shapes, iters: int, scratch) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="*")
-    ap.add_argument("--backward", action="store_true",
-                    help="variants of csrc/flash_attention_bwd.cu")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--backward", action="store_true",
+                      help="variants of csrc/flash_attention_bwd.cu")
+    mode.add_argument("--short", action="store_true",
+                      help="variants of the forward's short instance")
     ap.add_argument("--shape", action="append",
                     help="B,S,Hq,Hkv,D[,softcap[,window]] (causal bf16; "
                          "the backward takes no window); repeatable")
@@ -345,20 +402,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_attention: no CUDA device", file=sys.stderr)
         return 2
-    table = BWD_VARIANTS if args.backward else VARIANTS
+    table = variant_table(args.backward, args.short)
     unknown = [v for v in args.variants if v not in table]
     if unknown:
         ap.error(f"unknown variants {unknown}; known: {sorted(table)}")
     libs = build_variants(["committed"] + (args.variants or list(table)),
-                          args.backward)
+                          args.backward, args.short)
     scratch = torch.empty(1 << 30, dtype=torch.uint8,
                           device=torch.device("cuda"))
     if args.backward:
         time_backward(libs, args.shape or BWD_DEFAULT_SHAPES, args.iters,
                       scratch)
     else:
-        time_forward(libs, args.shape or DEFAULT_SHAPES, args.iters,
-                     scratch)
+        time_forward(libs, args.shape or (SHORT_DEFAULT_SHAPES if args.short
+                                          else DEFAULT_SHAPES),
+                     args.iters, scratch,
+                     "short" if args.short else "wgmma")
     return 0
 
 

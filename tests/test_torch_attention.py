@@ -8,7 +8,7 @@ the gradient: the backward kernel's plain version against ``jax.vjp``
 of the reference's oracle, the forward's log-sum-exp, autograd through
 the CPU model path, and a row that saw no key; and the forward's shape
 rule, ``long_instance`` (which bf16 instance a call on the card
-takes)."""
+takes), ``short_instance`` and the ``instance`` they name together."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +44,14 @@ CASES = [
     # gemma2's heads: a window, the softcap, S no multiple of 32 (one
     # chunk: the reference's chunks must divide S)
     (1, 77, 8, 4, 256, 40, 50.0, 128),
+    # the Qwen families' packed rows at D 128 and the evaluators' S 31
+    # (the short instance on the card): G 5 as qwen2.5's 40/8, G 8 as
+    # qwen3-moe's 32/4, G 1 as moonshot's MHA; and G 8 at S 32, which the
+    # Pallas kernel's blocks divide
+    (2, 31, 10, 2, 128, 0, 0.0, 32),
+    (2, 31, 16, 2, 128, 0, 0.0, 32),
+    (2, 31, 4, 4, 128, 0, 0.0, 32),
+    (1, 32, 16, 2, 128, 0, 0.0, 32),
 ]
 
 
@@ -343,3 +351,119 @@ def test_gemma2_training_microbatch_takes_the_wgmma_instance():
         assert FA.long_instance(4096, cfg.d_head, getattr(torch, cfg.dtype),
                                 window=window,
                                 softcap=cfg.attn_logit_softcap)
+
+
+# --- the short instance's rule -----------------------------------------------
+# ``short_instance`` sends bf16 calls at D 64 and 128 with no window or
+# softcap, S at most SHORT_TO and S x G at most SHORT_ROWS packed rows, to
+# the persistent TMA-fed kernel: the evaluators' S 31 at smollm's heads
+# and the Qwen models'. gemma2's D 256, the smoke heads, float32, windows,
+# softcaps and the long sequences keep their instances.
+
+FULL_WIDTH_INSTANCE = {"smollm-135m": "short", "qwen2.5-14b": "short",
+                       "qwen3-moe-30b-a3b": "short",
+                       "moonshot-v1-16b-a3b": "short",
+                       "gemma2-2b": "mma.sync"}
+
+
+def _kernel_d(d_head):
+    """The head size the kernel sees (narrower heads are padded)."""
+    return max(d_head, FA.MIN_HEAD_DIM)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", TRANSFORMERS)
+def test_every_evaluator_shape_takes_the_instance_the_rule_names(arch,
+                                                                 smoke):
+    """Each transformer of the registry at the trust evaluator's S 31, on
+    every layer kind: the short instance at full width for smollm and
+    the Qwen models, ``mma.sync`` for gemma2's D 256, and the smoke
+    heads (float32) the float32 kernel."""
+    cfg = get_config(arch, smoke=smoke)
+    dtype = getattr(torch, cfg.dtype)
+    want = "f32" if smoke else FULL_WIDTH_INSTANCE[arch]
+    for window in _layer_windows(cfg):
+        assert FA.instance(EVALUATOR_S, cfg.n_heads // cfg.n_kv_heads,
+                           _kernel_d(cfg.d_head), dtype, window=window,
+                           softcap=cfg.attn_logit_softcap) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_short_and_long_instance_are_never_both_true(D, dtype):
+    for S in (1, 16, 31, FA.SHORT_TO, FA.SHORT_TO + 1, 64,
+              FA.LONG_FROM - 1, FA.LONG_FROM, 4096):
+        for G in (1, 3, 5, 8, 9):
+            for window, softcap in ((0, 0.0), (100, 0.0), (0, 50.0)):
+                kw = dict(window=window, softcap=softcap)
+                assert not (FA.long_instance(S, D, dtype, **kw)
+                            and FA.short_instance(S, G, D, dtype, **kw))
+
+
+@pytest.mark.parametrize("G,D", [(3, 64), (5, 128), (8, 128), (1, 128)])
+@pytest.mark.parametrize("dtype,window,softcap", [
+    (torch.float32, 0, 0.0),             # float32
+    (torch.bfloat16, 16, 0.0),           # a window inside S
+    (torch.bfloat16, 4096, 0.0),         # a window past S (the rule reads
+                                         # the argument, as long_instance)
+    (torch.bfloat16, 0, 30.0),           # a softcap
+])
+def test_float32_windows_and_softcaps_never_take_the_short_instance(
+        G, D, dtype, window, softcap):
+    assert not FA.short_instance(EVALUATOR_S, G, D, dtype, window=window,
+                                 softcap=softcap)
+    assert FA.instance(EVALUATOR_S, G, D, dtype, window=window,
+                       softcap=softcap) in ("mma.sync", "f32")
+
+
+@pytest.mark.parametrize("S,G,D,want", [
+    (1, 3, 64, True),                    # a one-token prompt
+    (31, 3, 64, True),                   # smollm's evaluator: 93 rows
+    (31, 5, 128, True),                  # qwen2.5's: 155 rows, 3 tiles
+    (31, 8, 128, True),                  # qwen3-moe's: 248 rows, 4 tiles
+    (31, 1, 128, True),                  # moonshot's: 31 rows, 1 tile
+    (FA.SHORT_TO, 8, 128, True),         # 256 rows: four whole tiles
+    (FA.SHORT_TO + 1, 3, 64, False),     # past one key tile
+    (31, 9, 64, False),                  # 279 rows: past four tiles
+    (29, 9, 128, False),                 # 261 rows
+    (31, 4, 256, False),                 # gemma2's D 256
+    (31, 2, 16, False),                  # the smoke heads' D 16
+])
+def test_short_instance_geometry(S, G, D, want):
+    assert FA.short_instance(S, G, D, torch.bfloat16) is want
+    assert (FA.instance(S, G, D, torch.bfloat16) == "short") is want
+
+
+@pytest.mark.parametrize("arch", [a for a, i in FULL_WIDTH_INSTANCE.items()
+                                  if i == "short"])
+def test_the_override_restores_the_mma_sync_instance(arch):
+    """``short_to=NEVER_SHORT`` (what a timing passes to ``_forward``
+    and ``launch_bf16`` to run the replaced kernel at the same shape)
+    sends every evaluator shape back to ``mma.sync``; ``short_to`` at the
+    key tile forces the short instance wherever the geometry allows."""
+    cfg = get_config(arch)
+    G, D = cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    assert not FA.short_instance(EVALUATOR_S, G, D, torch.bfloat16,
+                                 short_to=FA.NEVER_SHORT)
+    assert FA.instance(EVALUATOR_S, G, D, torch.bfloat16,
+                       short_to=FA.NEVER_SHORT) == "mma.sync"
+    assert FA.instance(EVALUATOR_S, G, D, torch.bfloat16,
+                       long_from=FA.NEVER_LONG,
+                       short_to=FA.SHORT_KEYS) == "short"
+    # forcing the long instance wins over the short one, as in launch_bf16
+    assert FA.instance(EVALUATOR_S, G, D, torch.bfloat16,
+                       long_from=0) == "wgmma"
+
+
+def test_launch_counts_by_instance_name_every_instance():
+    """``flash_attention.by_instance`` keeps a count for each name
+    ``instance`` returns, and a CPU call counts none."""
+    names = {FA.instance(S, G, D, dt) for S in (31, 4096)
+             for G in (3,) for D in (64, 256)
+             for dt in (torch.bfloat16, torch.float32)}
+    assert names == set(flash_attention.by_instance)
+    before = dict(flash_attention.by_instance)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 31, 9, 3, 64))
+    flash_attention(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                    v.to(torch.bfloat16))
+    assert flash_attention.by_instance == before

@@ -14,7 +14,10 @@ its bits run after run on the card; the forward's warp-specialised
 wgmma instance (long sequences: S around ``LONG_FROM``, odd lengths, D
 64, 128 and 256, G 1, 2, 3 and 5, with and without the lse, two calls
 equal bit for bit, a row whose every score is -inf; at D 256 gemma2's
-window and biting softcap); and training: the forward's
+window and biting softcap); its short instance (the evaluators' S 31:
+S 1 to ``SHORT_TO``, G 1, 3, 5 and 8, pairs around the persistent grid,
+the same checks, and the override that runs the replaced kernel); and
+training: the forward's
 log-sum-exp, both backward kernels (``flash_attention_bwd`` and
 ``dot_interaction_bwd``) against their plain versions within 2e-2 (bf16)
 and 1e-4 (f32) of each output's max abs, and ``loss.backward()`` through
@@ -885,10 +888,12 @@ def test_flash_attention_lse_matches_plain(dev, B, S, Hq, Hkv, D, window,
     before = flash_attention.launches
     o = FA._forward(q, k, v, lse=lse, **kw)
     assert flash_attention.launches == before + 1
-    if FA.long_instance(S, D, dtype, window=window, softcap=softcap):
-        # the wgmma instance rounds P to bf16 once where it writes the lse
-        # (as the reference does) and splits it where it does not: the two
-        # o differ by P's rounding, each within the tolerance of the plain
+    if FA.instance(S, Hq // Hkv, D, dtype, window=window,
+                   softcap=softcap) in ("wgmma", "short"):
+        # the wgmma and short instances round P to bf16 once where they
+        # write the lse (as the reference does) and split it where they do
+        # not: the two o differ by P's rounding, each within the tolerance
+        # of the plain
         torch.testing.assert_close(
             o.float(), flash_attention_ref(q, k, v, **kw).float(),
             atol=BWD_TOL[dtype], rtol=0)
@@ -1100,6 +1105,158 @@ def test_flash_attention_long_instance_row_that_sees_no_key(dev, D,
         assert float(lse[0, 2, 100]) == float("-inf")
         torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
                                    atol=1e-3, rtol=0)
+
+
+# --- the forward's short instance (the evaluators' S 31) -------------------
+# The persistent TMA-fed kernel that ``short_instance`` sends bf16 calls at
+# D 64 and 128 with no window or softcap to, from S 1 to SHORT_TO with up
+# to four 64-row tiles of packed rows: G 1, 3, 5 and 8; S 1, 16, 31 and
+# SHORT_TO; causal or not; serving (P split) and with the lse (bf16 P
+# once): o within BWD_TOL of the plain output, the lse within 1e-3; two
+# calls equal bit for bit.
+
+SHORT_CASES = [
+    # B, S, Hq, Hkv, D, causal
+    (3, 31, 9, 3, 64, True),                # smollm's evaluator
+    (2, 1, 9, 3, 64, True),                 # one position
+    (5, 16, 9, 3, 64, False),
+    (4, FA.SHORT_TO, 9, 3, 64, True),       # one whole key tile
+    (3, 31, 10, 2, 128, True),              # G 5: qwen2.5's packed rows
+    (2, 31, 16, 2, 128, True),              # G 8: qwen3-moe's
+    (3, 31, 4, 4, 128, True),               # G 1: moonshot's
+    (2, FA.SHORT_TO, 16, 2, 128, False),    # G 8 at 32: four whole tiles
+    (3, 16, 8, 8, 64, True),                # G 1 at D 64
+    (2, 1, 16, 2, 128, False),
+    (7, 31, 24, 3, 64, True),               # G 8 at D 64
+    (3, 31, 15, 3, 128, False),             # G 5, not causal
+]
+
+
+def _short_forward(dev, B, S, Hq, Hkv, D, causal, with_lse, seed):
+    """The short instance's o (and lse) at one shape, after checking that
+    the rule sends the shape there and that the call launches once."""
+    assert FA.instance(S, Hq // Hkv, D, torch.bfloat16) == "short"
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, torch.bfloat16, seed)
+    kw = dict(causal=causal, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    given = lse if with_lse else None
+    before = dict(flash_attention.by_instance)
+    got = FA._forward(q, k, v, lse=given, **kw)
+    assert flash_attention.by_instance["short"] == before["short"] + 1
+    return (q, k, v), kw, got, given
+
+
+def _assert_short_close(qkv, kw, got, lse):
+    q, k, _ = qkv
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(*qkv, **kw).float(),
+                               atol=BWD_TOL[q.dtype], rtol=0)
+    if lse is not None:
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", SHORT_CASES)
+def test_flash_attention_short_instance_close_to_plain(dev, B, S, Hq, Hkv, D,
+                                                       causal, with_lse):
+    """The short instance against the plain version, and two calls equal
+    bit for bit (o, and the lse where it writes one)."""
+    qkv, kw, got, lse = _short_forward(dev, B, S, Hq, Hkv, D, causal,
+                                       with_lse, S + Hq + D)
+    _assert_short_close(qkv, kw, got, lse)
+    first_lse = None if lse is None else lse.clone()
+    again = FA._forward(*qkv, lse=lse, **kw)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    if lse is not None:
+        assert torch.equal(first_lse, lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("G,D", [(3, 64), (8, 128)])
+@pytest.mark.parametrize("pairs", ["below_grid", "at_grid", "above_grid",
+                                   "many_rounds"])
+def test_flash_attention_short_instance_grid_edges(dev, pairs, G, D,
+                                                   with_lse):
+    """(batch row, KV head) pairs below, at and one past the persistent
+    grid (one block an SM, its consumer warpgroups taking the pairs in
+    turn, so one past the grid gives block 0 a second pair), and many
+    rounds of the ring (the engine's batch)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    Hkv = 1
+    B = {"below_grid": sms - 1, "at_grid": sms, "above_grid": sms + 1,
+         "many_rounds": 3072}[pairs]
+    qkv, kw, got, lse = _short_forward(dev, B, 31, G * Hkv, Hkv, D, True,
+                                       with_lse, B + G)
+    _assert_short_close(qkv, kw, got, lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_short_instance_row_that_sees_no_key(dev, D,
+                                                             with_lse):
+    """A row whose every score is -inf (its q is -inf on a column where
+    every key is 1): zeros and an lse of -inf, as the plain version, and
+    the other rows unmoved."""
+    B, S, Hq, Hkv = 2, 31, 9, 3
+    q, k, v, _ = _attn_inputs(dev, B, S, Hq, Hkv, D, torch.bfloat16, 9)
+    k[..., 0] = 1.0
+    q[1, 20, 4] = 0.0
+    q[1, 20, 4, 0] = float("-inf")
+    assert FA.instance(S, Hq // Hkv, D, torch.bfloat16) == "short"
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=D ** -0.5)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    got = FA._forward(q, k, v, lse=lse if with_lse else None, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    assert float(want[1, 20, 4].float().abs().max()) == 0.0
+    assert torch.equal(got[1, 20, 4], torch.zeros_like(got[1, 20, 4]))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    if with_lse:
+        assert float(lse[1, 4, 20]) == float("-inf")
+        torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **kw),
+                                   atol=1e-3, rtol=0)
+
+
+def test_flash_attention_short_instance_repeats_its_bits_in_turns(dev):
+    """Many calls in turns at two shapes of different geometry (smollm's
+    engine batch at D 64, qwen3-moe's drain batch at D 128, serving and
+    with the lse): every call gives the first call's bits, so no call
+    leaves state (a barrier phase, a stage) that moves the next."""
+    shapes = [_attn_inputs(dev, 3072, 31, 9, 3, 64, torch.bfloat16, 1)[:3],
+              _attn_inputs(dev, 2048, 31, 32, 4, 128, torch.bfloat16, 2)[:3]]
+    first = {}
+    for turn in range(6):
+        for j, (q, k, v) in enumerate(shapes):
+            for with_lse in (False, True):
+                lse = (torch.empty((q.shape[0], q.shape[2], 31),
+                                   dtype=torch.float32, device=dev)
+                       if with_lse else None)
+                o = FA._forward(q, k, v, True, 0, 0.0, q.shape[-1] ** -0.5,
+                                lse)
+                got = (o.view(torch.int16), lse)
+                key = (j, with_lse)
+                if key not in first:
+                    first[key] = got
+                    continue
+                assert torch.equal(got[0], first[key][0]), (turn, key)
+                if with_lse:
+                    assert torch.equal(got[1], first[key][1]), (turn, key)
+
+
+def test_flash_attention_short_instance_override_runs_the_old_kernel(dev):
+    """``short_to=NEVER_SHORT`` at an evaluator shape launches the
+    ``mma.sync`` instance (counted under its name), which the timings
+    set beside the short one."""
+    q, k, v, _ = _attn_inputs(dev, 4, 31, 40, 8, 128, torch.bfloat16, 3)
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=128 ** -0.5)
+    before = dict(flash_attention.by_instance)
+    old = FA._forward(q, k, v, short_to=FA.NEVER_SHORT, **kw)
+    new = FA._forward(q, k, v, **kw)
+    assert flash_attention.by_instance["mma.sync"] == before["mma.sync"] + 1
+    assert flash_attention.by_instance["short"] == before["short"] + 1
+    want = flash_attention_ref(q, k, v, **kw).float()
+    for got in (old, new):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
 
 
 # The row slices of 7 output rows (F 2, 7, 27, 33) and the column widths

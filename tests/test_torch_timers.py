@@ -1,7 +1,7 @@
 """The attention timers kept as tools, on a machine with no card:
 ``launch/time_attention.py`` (both forward instances side by side) and
-``launch/ab_attention.py`` (named variants of the forward's and the
-backward's CUDA source) import without a card and exit 2 before building
+``launch/ab_attention.py`` (named variants of the forward's, its short
+instance's and the backward's CUDA source) import without a card and exit 2 before building
 or timing anything; and every named variant's edit still applies to the
 committed source, so that the tool does not rot as the kernels change."""
 import os
@@ -21,6 +21,7 @@ LAUNCH = ROOT / "src" / "repro_torch" / "launch"
     ["time_attention.py"],
     ["ab_attention.py"],
     ["ab_attention.py", "--backward", "d128_key_halves"],
+    ["ab_attention.py", "--short", "short_3wg_d128"],
 ])
 def test_timer_exits_2_without_a_card(argv):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -41,3 +42,17 @@ def test_ab_variant_applies_to_the_committed_source(backward, name):
               else ab_attention.SOURCE).read_text()
     edited = ab_attention.variant_source(name, backward)
     assert edited != source
+
+
+@pytest.mark.parametrize("name", list(ab_attention.SHORT_VARIANTS))
+def test_ab_short_variant_applies_to_the_committed_source(name):
+    source = ab_attention.SOURCE.read_text()
+    assert ab_attention.variant_source(name, short=True) != source
+
+
+def test_ab_forces_the_instances_as_the_wrapper_names_them():
+    """The constants the tool forces an instance with are the wrapper's."""
+    from repro_torch.kernels import flash_attention as FA
+    assert ab_attention.NEVER_LONG == FA.NEVER_LONG
+    assert ab_attention.SHORT_KEYS == FA.SHORT_KEYS
+    assert ab_attention.FORCE["wgmma"] == (0, FA.NEVER_SHORT)
