@@ -183,6 +183,7 @@ from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
 from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.ab_attention import decode_case  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.kernels import dot_interaction as DI  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -899,6 +900,32 @@ def phase_flash_attention(dev) -> dict:
             f"{ck['shape']}: dq/dk/dv within {ck['dq_rel_err']:.3e}/"
             f"{ck['dk_rel_err']:.3e}/{ck['dv_rel_err']:.3e} of the plain "
             f"output's max (<= {BF16_ATOL}), two calls equal bit for bit")
+    # D 16 in bf16 at smollm's training microbatch, (8, 4096, 9/3, 16):
+    # no path trains it (the smoke archs train in float32), but the next
+    # redesign is chosen among the kernels by their time against the
+    # bound. Held to the plain version at the cut batch first.
+    cut = attention_inputs(1, LONG_CHECK_SEQ, Hq, Hkv, 16, torch.bfloat16,
+                           gen, dev) + (
+        torch.randn((1, LONG_CHECK_SEQ, Hq, 16), generator=gen,
+                    device=dev).to(torch.bfloat16),)
+    d16_check = attention_bwd_check(*cut, dict(causal=True, window=0,
+                                               softcap=0.0),
+                                    "D 16 training row, cut")
+    del cut
+    full = attention_inputs(TRAIN_MICRO, TRAIN_SEQ, Hq, Hkv, 16,
+                            torch.bfloat16, gen, dev) + (
+        torch.randn((TRAIN_MICRO, TRAIN_SEQ, Hq, 16), generator=gen,
+                    device=dev).to(torch.bfloat16),)
+    b16 = attention_bwd_timing(*full, flush, plain_iters=0)
+    del full
+    log(f"flash_attention_bwd D 16 bf16 (B={TRAIN_MICRO}, S={TRAIN_SEQ}, "
+        f"{Hq}/{Hkv}, causal; on no path): kernel {b16['ms']:.4f} ms, sdpa "
+        f"backward {b16['library_ms']:.4f} ms, bound {b16['bound_ms']:.4f} ms"
+        f" ({b16['bound_by']}: {b16['bytes']} B, {b16['flops']} FLOP), share "
+        f"{b16['bound_ms'] / b16['ms']:.3f}; the forward {b16['fwd_ms']:.4f}"
+        f" ms; at {d16_check['shape']}: dq/dk/dv within "
+        f"{d16_check['dq_rel_err']:.3e}/{d16_check['dk_rel_err']:.3e}/"
+        f"{d16_check['dv_rel_err']:.3e} of the plain output's max")
     del flush
     fwd = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -955,8 +982,10 @@ def phase_flash_attention(dev) -> dict:
            "d128_bound_ms": b128["bound_ms"],
            "d256_ms": b256["ms"], "d256_library_ms": b256["library_ms"],
            "d256_bound_ms": b256["bound_ms"],
-           "long_checks": {f"d{D}": r["check"] for D, r in
-                           long_rows.items()}}
+           "d16_ms": b16["ms"], "d16_library_ms": b16["library_ms"],
+           "d16_bound_ms": b16["bound_ms"], "d16_bound_by": b16["bound_by"],
+           "long_checks": {**{f"d{D}": r["check"] for D, r in
+                              long_rows.items()}, "d16": d16_check}}
     return fwd, bwd
 
 
@@ -1743,6 +1772,47 @@ def decode_timing(q, k, v, lengths, flush, plain_iters: int,
                         return_lse), q.dtype)}
 
 
+def tma_decode_checks(q, k, v, lengths, kw: dict, label: str) -> dict:
+    """The TMA instance at a timed decode row: two calls equal bit for
+    bit; with ``return_lse`` (row 0 at length 0) its o equal to the
+    serving call's, zeros in row 0, and its lse within BF16_ATOL of the
+    plain lse, -inf where the plain one is; NaN written into the caches
+    past every row's length and before its window leaves the output equal
+    to the clean call's bit for bit."""
+    o1 = flash_decode(q, k, v, lengths, **kw)
+    if not same_bits(o1, flash_decode(q, k, v, lengths, **kw)):
+        raise AssertionError(f"flash_decode {label}: two calls gave "
+                             f"different bits")
+    lens = lengths.clone()
+    lens[0] = 0
+    o2, lse = flash_decode(q, k, v, lens, return_lse=True, **kw)
+    _, lse_ref = flash_decode_ref(q, k, v, lens, return_lse=True, **kw)
+    fin = torch.isfinite(lse_ref)
+    lse_err = max_err(lse[fin], lse_ref[fin])
+    if not same_bits(o2, flash_decode(q, k, v, lens, **kw)) \
+            or o2[0].any() or not torch.equal(fin, torch.isfinite(lse)) \
+            or lse_err > BF16_ATOL:
+        raise AssertionError(f"flash_decode {label} with the lse: lse err "
+                             f"{lse_err}, or o differs from the serving "
+                             f"call's, or a length-0 row is not zero / -inf")
+    L = k.shape[1]
+    pos = torch.arange(L, device=q.device)[None, :]
+    bad = pos >= lengths[:, None]
+    if kw["window"] > 0:
+        bad |= pos < lengths[:, None] - kw["window"]
+    kp, vp = k.clone(), v.clone()
+    kp[bad], vp[bad] = float("nan"), float("nan")
+    poisoned = flash_decode(q, kp, vp, lengths, **kw)
+    torch.cuda.synchronize()
+    if not same_bits(poisoned, o1):
+        raise AssertionError(f"flash_decode {label}: NaN outside the valid "
+                             f"range reached the output")
+    n_bad = int(bad.sum())
+    del kp, vp, bad
+    return {"repeat_bits": True, "lse_err": lse_err,
+            "nan_positions": n_bad, "nan_kept_out": True}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the fused drain at full width (the first slice's path)
 # ---------------------------------------------------------------------------
@@ -1946,7 +2016,9 @@ KERNEL_GROUPS = (
                                 "flash_attention_f32_kernel")),
     ("dot_interaction kernel", ("dot_interaction_kernel",)),
     ("flash_decode kernel", ("flash_decode_pieces_kernel",
-                             "flash_decode_combine_kernel")),
+                             "flash_decode_combine_kernel",
+                             "flash_decode_tma_kernel",
+                             "flash_decode_tma_combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas")),
     ("reductions (norms, logsumexp)", ("reduce", "softmax", "logsumexp")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -1994,9 +2066,19 @@ def device_profile(label: str, fn):
     for e in top:
         log(f"  top: {e.device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
             f"{e.key[:90]}")
+    decode = {}
+    for e in kernels:
+        name = re.search(r"flash_decode_\w+", e.key)
+        if name:
+            ms_count = decode.setdefault(name.group(0), [0.0, 0])
+            ms_count[0] += e.device_time_total / 1e3
+            ms_count[1] += e.count
+    for name, (ms, count) in decode.items():
+        log(f"  {name}: {ms:.3f} ms x{count} = {ms / count:.4f} ms a launch")
     return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
             "busy_share": busy_ms / (wall * 1e3),
-            "launches": sum(e.count for e in kernels), "groups_ms": groups}
+            "launches": sum(e.count for e in kernels), "groups_ms": groups,
+            "flash_decode_kernels": decode}
 
 
 def phase_profile(cfg: TrustIRConfig, evaluate, mk, dev) -> None:
@@ -3339,6 +3421,10 @@ def phase_decode(dev) -> dict:
     want["flash_decode"] = cfg.n_layers * DECODE_STEPS
     if launches != want:
         raise AssertionError(f"decode: launches {launches}, expected {want}")
+    by_instance = dict(flash_decode.by_instance)
+    if by_instance != {"tma": 0, "pieces": want["flash_decode"]}:
+        raise AssertionError(f"decode: flash_decode launches by instance "
+                             f"{by_instance}, expected all on pieces")
     lengths = pool.cache["lengths"].cpu().numpy()
     if not np.array_equal(lengths, prompt_lens + DECODE_STEPS):
         raise AssertionError("decode: cache lengths do not count the steps")
@@ -3377,8 +3463,8 @@ def phase_decode(dev) -> dict:
              "tokens_per_s": n_tokens / decode_s,
              "step_ms": decode_s / DECODE_STEPS * 1e3,
              "kv_bytes_per_step": float(np.mean(kv_read)),
-             "launches": launches, "peak_bytes": peak,
-             "logit_err": worst}
+             "launches": launches, "by_instance": by_instance,
+             "peak_bytes": peak, "logit_err": worst}
     log(f"decode: {DECODE_SLOTS} prompts of 1..{MAX_PROMPT} tokens (mean "
         f"{prompt_lens.mean():.0f}) prefilled in {prefill_s:.2f} s "
         f"({prefill_launches['flash_attention']} flash_attention launches) "
@@ -3630,16 +3716,23 @@ def phase_new_head_dims(dev) -> dict:
               ("qwen2.5-14b smoke, D 12 padded", 64, 256, qs, f32, 0, 0.0,
                None, False, False)]
     for label, B, L, c, dt, w, sc, scl, timed, bite in dcases:
-        q, k, v = decode_inputs(B, L, c.n_heads, c.n_kv_heads, c.d_head, dt,
-                                gen, dev)
+        if timed:
+            # a generator of the case's own: every run times these lengths
+            q, k, v, lengths = decode_case(
+                B, L, c.n_heads, c.n_kv_heads, c.d_head, w, dev,
+                GEMMA_MAX_PROMPT + GEMMA_DECODE_STEPS)
+        else:
+            q, k, v = decode_inputs(B, L, c.n_heads, c.n_kv_heads, c.d_head,
+                                    dt, gen, dev)
+            lengths = torch.randint(1, min(L, GEMMA_MAX_PROMPT
+                                           + GEMMA_DECODE_STEPS) + 1, (B,),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+            lengths[:3] = torch.tensor([1, min(L, GEMMA_MAX_PROMPT
+                                               + GEMMA_DECODE_STEPS),
+                                        max(w, 1)], device=dev)
         if bite:
             q = (q.float() * BITE_Q).to(dt)
-        lengths = torch.randint(1, min(L, GEMMA_MAX_PROMPT
-                                       + GEMMA_DECODE_STEPS) + 1, (B,),
-                                generator=gen, device=dev, dtype=torch.int32)
-        lengths[:3] = torch.tensor([1, min(L, GEMMA_MAX_PROMPT
-                                           + GEMMA_DECODE_STEPS),
-                                    max(w, 1)], device=dev)
         atol = BF16_ATOL if dt == bf else F32_ATOL
         got = flash_decode(q, k, v, lengths, window=w, softcap=sc,
                            sm_scale=scl)
@@ -3663,19 +3756,36 @@ def phase_new_head_dims(dev) -> dict:
                 f"flash_decode {label}")
             msg += (f"; the softcap moves the plain output by "
                     f"{row['softcap_moves_plain']:.3e}")
+        row["instance"] = FD.instance(c.n_heads // c.n_kv_heads,
+                                      max(c.d_head, FA.MIN_HEAD_DIM), dt)
         if timed:
             t = decode_timing(q, k, v, lengths, flush, plain_iters=5,
                               window=w, softcap=sc, scale=scl)
             row.update({key: t[key] for key in ("ms", "plain_ms",
                                                 "library_ms", "bound_ms",
-                                                "bound_by")})
+                                                "bound_by", "mean_length")})
             row["library"] = "sdpa with a mask, no softcap"
-            msg += (f"; mean valid length {t['mean_length']:.0f}, pieces "
-                    f"of {t['piece']}: kernel {t['ms']:.4f} ms, plain "
-                    f"{t['plain_ms']:.4f} ms, {row['library']} "
+            kw = dict(window=w, softcap=sc, sm_scale=scl)
+            row["pieces_ms"] = timed_ms(lambda: flash_decode(
+                q, k, v, lengths, kernel="pieces", **kw), 200, flush)
+            row["share"] = t["bound_ms"] / t["ms"]
+            row["pieces_share"] = t["bound_ms"] / row["pieces_ms"]
+            if row["instance"] != "tma" or t["ms"] >= row["pieces_ms"]:
+                raise AssertionError(f"flash_decode {label}: the "
+                                     f"{row['instance']} instance "
+                                     f"{t['ms']} ms, not faster than the "
+                                     f"pieces kernel's {row['pieces_ms']} "
+                                     f"ms")
+            row["checks"] = tma_decode_checks(q, k, v, lengths, kw, label)
+            msg += (f"; mean valid length {t['mean_length']:.1f}: the "
+                    f"{row['instance']} instance {t['ms']:.4f} ms "
+                    f"({row['share']:.3f} of the bound), the pieces kernel "
+                    f"{row['pieces_ms']:.4f} ms ({row['pieces_share']:.3f}), "
+                    f"plain {t['plain_ms']:.4f} ms, {row['library']} "
                     f"{t['library_ms']:.4f} ms (vs plain without softcap: "
                     f"{t['library_err']:.3e}), bound {t['bound_ms']:.6f} ms "
-                    f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP)")
+                    f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP); "
+                    f"{json.dumps(row['checks'])}")
         log(msg)
         decode.append(row)
         del q, k, v, got, want
@@ -3845,6 +3955,10 @@ def phase_gemma2_decode(dev) -> dict:
     if launches != want:
         raise AssertionError(f"{GEMMA} decode: launches {launches}, "
                              f"expected {want}")
+    by_instance = dict(flash_decode.by_instance)
+    if by_instance != {"tma": want["flash_decode"], "pieces": 0}:
+        raise AssertionError(f"{GEMMA} decode: flash_decode launches by "
+                             f"instance {by_instance}, expected all on tma")
     lengths = pool.cache["lengths"].cpu().numpy()
     if not np.array_equal(lengths, prompt_lens + GEMMA_DECODE_STEPS):
         raise AssertionError("decode: cache lengths do not count the steps")
@@ -3879,7 +3993,8 @@ def phase_gemma2_decode(dev) -> dict:
              "tokens_per_s": n_tokens / decode_s,
              "step_ms": decode_s / GEMMA_DECODE_STEPS * 1e3,
              "launches": launches, "prefill_launches": prefill_launches,
-             "peak_bytes": peak, "logit_err": worst, "profile": profile}
+             "by_instance": by_instance, "peak_bytes": peak,
+             "logit_err": worst, "profile": profile}
     log(f"{GEMMA} decode: {GEMMA_DECODE_SLOTS} prompts of 1.."
         f"{GEMMA_MAX_PROMPT} tokens (mean {prompt_lens.mean():.0f}; "
         f"{past} rows past the {cfg.sliding_window}-key window) prefilled in "
@@ -3889,7 +4004,8 @@ def phase_gemma2_decode(dev) -> dict:
         f"bf16)")
     log(f"{GEMMA} decode: {GEMMA_DECODE_STEPS} decode_steps in "
         f"{decode_s:.3f} s = {stats['tokens_per_s']:.1f} tokens/s, "
-        f"{stats['step_ms']:.2f} ms per step; launches {launches}; logits "
+        f"{stats['step_ms']:.2f} ms per step; launches {launches} "
+        f"(flash_decode by instance {by_instance}); logits "
         f"vs the full forward at slots {check_slots}, steps {check_steps}: "
         f"max abs err {worst:.3e} <= {GEMMA_DECODE_LOGIT_ATOL} (relative "
         f"{worst_rel:.3e}); every slot retired; peak device memory "
@@ -4201,6 +4317,8 @@ def reset_launches() -> None:
         wrapper.launches = 0
     for name in flash_attention.by_instance:
         flash_attention.by_instance[name] = 0
+    for name in flash_decode.by_instance:
+        flash_decode.by_instance[name] = 0
 
 
 def read_launches() -> dict:
@@ -4969,6 +5087,10 @@ def main() -> int:
                                     if run[kern["name"]]}
         if kern["name"] == "flash_attention":
             kern["launches_by_instance"] = instances
+        if kern["name"] == "flash_decode":
+            kern["launches_by_instance"] = {
+                "decode": decode["by_instance"],
+                f"{GEMMA} decode": gemma_decode["by_instance"]}
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "
                                  f"path")

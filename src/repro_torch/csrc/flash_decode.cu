@@ -1,6 +1,8 @@
 // One-token decode attention against a KV cache: split-K flash-decoding
-// over balanced pieces, with a combine pass. Per-row lengths, optional
-// sliding window and tanh logit softcap, grouped-query heads.
+// with a combine pass. Per-row lengths, optional sliding window and tanh
+// logit softcap, grouped-query heads. Two instances: the TMA instance
+// (namespace td, below: bf16 at D 256, gemma2-2b's decode) and the
+// pieces kernel (every other shape).
 //
 // Replaces the TPU kernel `flash_decode` / `_decode_kernel` in
 // src/repro/kernels/flash_decode.py (pallas_call at :110).
@@ -18,7 +20,7 @@
 // 3.35 TB/s. So the design keeps the whole card reading the valid cache,
 // whatever the spread of lengths, and reads nothing else of size.
 //
-// Design:
+// Design of the pieces kernel:
 // - Balance. The valid range [lo, hi) of each (batch row, KV head) is cut
 //   into pieces of `piece_len` positions, so a row's number of pieces
 //   follows its length. `piece_len` is a multiple of the 32-position tile
@@ -43,10 +45,11 @@
 //   zero), QK^T is one mma per 8 positions and 16 of depth, the softmax
 //   runs on the fragments with quad shuffles, and P enters PV as two bf16
 //   terms (hi + lo, two mma on the same V fragments), keeping ~16 bits of
-//   p as flash_attention.cu does. At D 256 (Gemma-2) the q rows of a piece
-//   are staged in the warp's shared memory and read at each depth step,
-//   not held in registers beside the 128-float accumulator, and a block
-//   has 2 warps (shared memory). float32 keeps FP32 FMAs
+//   p as flash_attention.cu does. At D 256 (bf16 only through a forced
+//   call, or float32) the q rows of a piece are staged in the warp's
+//   shared memory and read at each depth step, not held in registers
+//   beside the 128-float accumulator, and a block has 2 warps (shared
+//   memory). float32 keeps FP32 FMAs
 //   (TF32 would miss the 1e-4 tolerance) under the same split: lane j
 //   scores position j of the tile for every head, and the output columns
 //   are accumulated lane by lane.
@@ -58,6 +61,7 @@
 #include <type_traits>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -670,6 +674,521 @@ int launch(const void* q, const void* k, const void* v, const Shape& sh,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// The TMA instance: bf16, D 256, G <= 8 (gemma2-2b's decode).
+//
+// One block an SM, each a producer warp and a consumer warpgroup. The
+// valid positions [lo, hi) of every (batch row, KV head) are cut into
+// tiles of kTile positions starting at lo (only a row's last tile is
+// short), laid end to end in row order, and grouped into units of
+// kUnitTiles tiles within a row; consumer w takes units [w U / W, (w + 1)
+// U / W), so no consumer carries more than one unit beyond the mean, and
+// a row may be cut at any unit boundary. Every warp finds its block's
+// range from `lengths` by a warp prefix sum: no host sync, no extra
+// launch. Each row segment a consumer touches leaves one partial (max,
+// denominator, unnormalised O, float32) in slot row + w: a consumer's
+// tiles are contiguous in row order, so no two segments share a slot,
+// and the scratch holds B * Hkv + W of them.
+//
+// The producer (one thread) streams each tile into a ring of kStages
+// stages by TMA: K and V as four 128-byte-swizzled boxes of 64 columns x
+// kTile positions each, and the group's q rows as four boxes of 64
+// columns x G heads (rows G..7 stay zero). The box starts at the tile's
+// first position, so nothing before lo is read; the last tile of a row
+// reads up to kTile - 1 positions past hi (zeros past L).
+//
+// The consumer warpgroup runs wgmma with the roles of the operands
+// swapped, so that the group's heads are the narrow N side:
+// S^T = K Q^T is m64n8k16 x 16 (A the K tile, K-major; B the q rows), 4
+// floats a thread; scale, softcap (tc::tanh_ex2), the mask, and an online
+// max and sum per head column, the tile's max crossing the four warps
+// through shared memory; P^T goes to shared memory as bf16 hi and lo
+// (about 16 bits of p, as the pieces kernel keeps), and O^T += V^T P^T is
+// m64n8k16 x 32 (A the V tile read MN-major, over 4 chunks of 64 rows of
+// D and 4 steps of 16 positions), 16 floats a thread. Positions past hi
+// are masked in the scores, and their V rows are zeroed in shared memory
+// before P V (0 x NaN is NaN), so that whatever the cache holds there
+// never reaches the output.
+//
+// What bounds it is the TMA stream: with the math taken out, a call takes
+// nearly as long (launch/ab_attention.py --decode, `tma_no_math`).
+//
+// The combine pass runs one warp per (row, query head, kCombineCols
+// output columns) and merges a row's partials in consumer order, so two
+// calls give equal bits (no counter, no atomics). It is launched as a
+// programmatic dependent of the main kernel (kDependentCombine).
+namespace td {
+
+constexpr int kTile = 64;                 // positions a tile
+constexpr int kD = 256;
+constexpr int kBlocks = kD / 64;          // 64-column blocks of a row
+constexpr int kStages = 3;
+constexpr int kUnitTiles = 1;             // tiles a unit of the split
+constexpr bool kSplitP = true;            // P in P V as bf16 hi + lo
+constexpr int kCombineCols = 64;          // columns a combine warp merges
+// The combine pass launched as a programmatic dependent of the main
+// kernel: it is scheduled as the main kernel's blocks end, with no launch
+// gap between the two, and waits (griddepcontrol.wait) for the partials.
+// The main kernel does not trigger it earlier: that gains nothing, and a
+// profile would charge the combine for its wait under the main kernel.
+constexpr bool kDependentCombine = true;
+constexpr int kConsumerThreads = 128;
+constexpr int kThreads = kConsumerThreads + 32;
+constexpr int kBoxBytes = kTile * 128;    // one 64-column block of a tile
+constexpr int kKV = kBlocks * kBoxBytes;  // K (or V) of a tile
+constexpr int kQ = kBlocks * 1024;        // 8 q rows a 64-column block
+constexpr int kStageBytes = 2 * kKV + kQ;
+// the barriers and the warps' exchange in the first 1024 bytes, then
+// P^T (hi, lo), then the stages; 1024 bytes to align to the swizzle
+constexpr int kHead = 1024;
+constexpr int kPBytes = 8 * kTile * 2;    // P^T: 8 heads x kTile bf16
+constexpr int oStages = kHead + 2 * kPBytes;
+constexpr int kSmemBytes = oStages + kStages * kStageBytes + 1024;
+static_assert(kSmemBytes <= 232448, "shared memory");
+static_assert(kPBytes == 1024, "P^T is one swizzle atom");
+
+struct Args {
+  const int* lengths;
+  float* part_m;
+  float* part_l;
+  float* part_acc;
+  int B, L, Hkv, G, window, W, box_rows;
+  float c_score;                  // scale * log2(e), without a softcap
+  float cap_in, cap_out;          // scale / softcap, softcap * log2(e)
+  int capped;
+};
+
+// Tiles of batch row b's rows (each of its Hkv rows has the same).
+__device__ __forceinline__ int row_tiles(const Args& a, int b, int& lo,
+                                         int& hi) {
+  valid_range(a.lengths[b], a.L, a.window, lo, hi);
+  return (hi - lo + kTile - 1) / kTile;
+}
+__device__ __forceinline__ int units_of(int tiles) {
+  return (tiles + kUnitTiles - 1) / kUnitTiles;
+}
+
+// Units of all rows (warp-collective).
+__device__ int total_units(const Args& a, int lane) {
+  int total = 0;
+  for (int c0 = 0; c0 < a.B; c0 += 32) {
+    int lo, hi;
+    const int r = c0 + lane;
+    const int u = r < a.B ? units_of(row_tiles(a, r, lo, hi)) : 0;
+    total += __reduce_add_sync(kFull, u) * a.Hkv;
+  }
+  return total;
+}
+
+// A consumer's walk over its tiles: batch row b, KV head hk, tile j of
+// the row's `tiles`, `left` units of its range not yet finished.
+struct Walk {
+  int b, hk, j, tiles, lo, hi, left;
+
+  // Consumer w's first tile; false if its range is empty (warp-
+  // collective: the prefix sum of `Cursor::locate`, over units).
+  __device__ bool start(const Args& a, int w, int lane) {
+    const long long U = total_units(a, lane);
+    const long long u0 = w * U / a.W, u1 = (w + 1) * U / a.W;
+    left = static_cast<int>(u1 - u0);
+    if (left == 0) return false;
+    long long base = 0;
+    for (int c0 = 0;; c0 += 32) {          // u0 < U: found before B
+      const int r = c0 + lane;
+      int rlo = 0, rhi = 0, t = 0;
+      if (r < a.B) t = row_tiles(a, r, rlo, rhi);
+      const int cnt = units_of(t) * a.Hkv;
+      int incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int sum = __shfl_sync(kFull, incl, 31);
+      if (u0 < base + sum) {
+        const int owner = __popc(__ballot_sync(kFull, base + incl <= u0));
+        const long long first = base + __shfl_sync(kFull, incl - cnt, owner);
+        b = c0 + owner;
+        tiles = __shfl_sync(kFull, t, owner);
+        lo = __shfl_sync(kFull, rlo, owner);
+        hi = __shfl_sync(kFull, rhi, owner);
+        const int per = units_of(tiles);
+        const int local = static_cast<int>(u0 - first);
+        hk = local / per;
+        j = (local % per) * kUnitTiles;
+        return true;
+      }
+      base += sum;
+    }
+  }
+
+  // Whether this tile ends a segment: the row's last, or the range's.
+  __device__ bool closes() const {
+    return j + 1 == tiles || (left == 1 && (j + 1) % kUnitTiles == 0);
+  }
+
+  // On to the next tile; false past the range's end.
+  __device__ bool advance(const Args& a) {
+    ++j;
+    if (j == tiles || j % kUnitTiles == 0) --left;
+    if (left == 0) return false;
+    if (j == tiles) {
+      j = 0;
+      if (++hk == a.Hkv) {
+        hk = 0;
+        do {
+          ++b;
+          tiles = row_tiles(a, b, lo, hi);
+        } while (tiles == 0);
+      }
+    }
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tq,
+                        const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(sm + 256);   // [warp][head] maxima
+  float* lred = red + 32;                            // [warp][head] sums
+  uint8_t* p_hi = sm + kHead;
+  uint8_t* p_lo = p_hi + kPBytes;
+  uint8_t* stages = sm + oStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hop::mbar_init(full + st, 1);
+      hop::mbar_init(empty + st, kConsumerThreads / 32);
+    }
+    hop::mbar_fence_init();
+  }
+  // rows G..7 of every stage's q tile are zero: the products' columns
+  // past the group read them (the boxes write rows 0..G-1 only)
+  for (int x = threadIdx.x; x < kStages * kBlocks * 64; x += kThreads)
+    if (x % 64 >= a.G * 8)
+      reinterpret_cast<uint4*>(stages + (x / (kBlocks * 64)) * kStageBytes +
+                               2 * kKV)[x % (kBlocks * 64)] =
+          make_uint4(0u, 0u, 0u, 0u);
+  hop::fence_async_smem();
+  __syncthreads();
+
+  Walk wk;
+  if (!wk.start(a, blockIdx.x, lane)) return;        // the block's range
+
+  if (warp == kConsumerThreads / 32) {
+    // the producer
+    if (lane != 0) return;
+    const uint32_t tx = 2 * kBlocks * a.box_rows * 128 + kBlocks * a.G * 128;
+    for (int i = 0;; ++i) {
+      const int st = i % kStages;
+      hop::mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);
+      hop::mbar_expect(full + st, tx);
+      uint8_t* kp = stages + st * kStageBytes;
+      const int pos = wk.lo + wk.j * kTile;
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c) {
+        hop::tma_load_4d(kp + c * kBoxBytes, &tk, 64 * c, wk.hk, pos, wk.b,
+                         full + st);
+        hop::tma_load_4d(kp + kKV + c * kBoxBytes, &tv, 64 * c, wk.hk, pos,
+                         wk.b, full + st);
+        hop::tma_load_4d(kp + 2 * kKV + c * 1024, &tq, 64 * c, wk.hk * a.G,
+                         0, wk.b, full + st);
+      }
+      if (!wk.advance(a)) break;
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread's score rows are positions
+  // 16 warp + grp (+ 8), its O^T rows d = 64 c + 16 warp + grp (+ 8), and
+  // both its columns heads 2 tig and 2 tig + 1
+  const int tid = threadIdx.x, grp = lane >> 2, tig = lane & 3;
+  const int h0 = 2 * tig;
+  const uint32_t ph = hop::smem_u32(p_hi), pl = hop::smem_u32(p_lo);
+  float s[4], o[kBlocks][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  for (int i = 0;; ++i) {
+    const int st = i % kStages;
+    uint8_t* kp = stages + st * kStageBytes;
+    const uint32_t k0 = hop::smem_u32(kp), v0 = k0 + kKV, q0 = k0 + 2 * kKV;
+    const int n_valid = min(kTile, wk.hi - (wk.lo + wk.j * kTile));
+    hop::mbar_wait(full + st, (i / kStages) & 1);
+    __syncwarp();
+
+    hop::fence_regs(s);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      hop::wgmma_ss_n8<0, 0>(
+          s, hop::desc_sw128(k0 + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16),
+          hop::desc_sw128(q0 + (kk / 4) * 1024 + (kk % 4) * 32, 16), kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = a.capped ? a.cap_out * tc::tanh_ex2(s[e] * a.cap_in)
+                               : s[e] * a.c_score;
+      s[e] = 16 * warp + grp + 8 * (e >> 1) < n_valid ? x : -INFINITY;
+      mx[e & 1] = fmaxf(mx[e & 1], s[e]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1)
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], x));
+      if (grp == 0) red[warp * 8 + h0 + h] = mx[h];
+    }
+    if (n_valid < kTile) {
+      // V rows past the row's end: zero (their p is 0, and 0 x NaN is
+      // NaN in P V); a row of a 64-column block is 128 contiguous bytes
+      for (int x = n_valid * 128 + tid * 16; x < kBoxBytes;
+           x += kConsumerThreads * 16)
+#pragma unroll
+        for (int c = 0; c < kBlocks; ++c)
+          *reinterpret_cast<uint4*>(kp + kKV + c * kBoxBytes + x) =
+              make_uint4(0u, 0u, 0u, 0u);
+    }
+    hop::named_sync(1, kConsumerThreads);
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = red[h0 + h];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) t = fmaxf(t, red[w * 8 + h0 + h]);
+      const float m_new = fmaxf(m[h], t);   // finite: a position is valid
+      corr[h] = tc::exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[e] = tc::exp2_approx(s[e] - m[e & 1]);
+      l[e & 1] += s[e];
+      const int p = 16 * warp + grp + 8 * (e >> 1), h = h0 + (e & 1);
+      const int off = h * 128 + ((((p >> 3) ^ h) & 7) << 4) + (p & 7) * 2;
+      const __nv_bfloat16 hi = __float2bfloat16(s[e]);
+      *reinterpret_cast<__nv_bfloat16*>(p_hi + off) = hi;
+      if constexpr (kSplitP)
+        *reinterpret_cast<__nv_bfloat16*>(p_lo + off) =
+            __float2bfloat16(s[e] - __bfloat162float(hi));
+    }
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] *= corr[e & 1];
+    hop::fence_async_smem();               // P^T and zeroed V rows
+    hop::named_sync(1, kConsumerThreads);
+
+    hop::fence_regs(o);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c) {
+        const uint64_t dv =
+            hop::desc_sw128(v0 + c * kBoxBytes + kk * 2048, kBoxBytes);
+        hop::wgmma_ss_n8<1, 0>(o[c], dv, hop::desc_sw128(ph + kk * 32, 16),
+                               1);
+        if constexpr (kSplitP)
+          hop::wgmma_ss_n8<1, 0>(o[c], dv,
+                                 hop::desc_sw128(pl + kk * 32, 16), 1);
+      }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(o);
+    if (lane == 0) hop::mbar_arrive(empty + st);
+
+    if (wk.closes()) {
+      // the segment's partial: the denominators over the lanes of one
+      // tig, then the four warps, in a fixed order
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1)
+          l[h] += __shfl_xor_sync(kFull, l[h], x);
+        if (grp == 0) lred[warp * 8 + h0 + h] = l[h];
+      }
+      hop::named_sync(1, kConsumerThreads);
+      const long long slot = static_cast<long long>(wk.b) * a.Hkv + wk.hk +
+                             blockIdx.x;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (warp == 0 && grp == 0 && h0 + h < a.G) {
+          a.part_m[slot * a.G + h0 + h] = m[h];
+          a.part_l[slot * a.G + h0 + h] = lred[h0 + h] + lred[8 + h0 + h] +
+                                          lred[16 + h0 + h] +
+                                          lred[24 + h0 + h];
+        }
+      float* acc = a.part_acc + slot * a.G * kD;
+#pragma unroll
+      for (int c = 0; c < kBlocks; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = h0 + (e & 1);
+          if (h < a.G)
+            acc[h * kD + 64 * c + 16 * warp + grp + 8 * (e >> 1)] = o[c][e];
+          o[c][e] = 0.f;
+        }
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+    }
+    if (!wk.advance(a)) break;
+  }
+}
+
+// The consumer that takes unit u: the w with w U / W <= u < (w + 1) U / W.
+__device__ __forceinline__ int owner(long long u, long long U, int W) {
+  return static_cast<int>(((u + 1) * W - 1) / U);
+}
+
+// One warp per (row, query head, kCombineCols output columns): the row's
+// partials, slots row + w for the consumers w that touched it, merged in
+// consumer order. With kLse, the lse as the pieces kernel's combine.
+template <bool kLse>
+__global__ void __launch_bounds__(128)
+flash_decode_tma_combine_kernel(const Args a, __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse) {
+  constexpr int kChunks = kD / kCombineCols, N2 = kCombineCols / 64;
+  const int lane = threadIdx.x & 31;
+  const long long task =
+      static_cast<long long>(blockIdx.x) * 4 + (threadIdx.x >> 5);
+  if (task >= static_cast<long long>(a.B) * a.Hkv * a.G * kChunks) return;
+  const int chunk = static_cast<int>(task % kChunks);
+  const long long rg = task / kChunks;
+  const int g = static_cast<int>(rg % a.G);
+  const long long row = rg / a.G;
+  const int b = static_cast<int>(row / a.Hkv), hk = static_cast<int>(row % a.Hkv);
+  const int Hq = a.Hkv * a.G;
+  // the units before this row and in all rows
+  long long before = 0, U = 0;
+  for (int c0 = 0; c0 < a.B; c0 += 32) {
+    int lo, hi;
+    const int r = c0 + lane;
+    const int u = r < a.B ? units_of(row_tiles(a, r, lo, hi)) : 0;
+    before += __reduce_add_sync(kFull, r < b ? u : 0);
+    U += __reduce_add_sync(kFull, u);
+  }
+  int lo, hi;
+  const int per = units_of(row_tiles(a, b, lo, hi));
+  const long long u0 = before * a.Hkv + static_cast<long long>(hk) * per;
+  U *= a.Hkv;
+  float mx = -INFINITY, den = 0.f, num[N2][2];
+#pragma unroll
+  for (int i = 0; i < N2; ++i) num[i][0] = num[i][1] = 0.f;
+  // the main kernel's partials are complete and visible past this point
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (per > 0) {
+    const int w1 = owner(u0 + per - 1, U, a.W);
+    for (int w = owner(u0, U, a.W);;) {
+      const long long slot = row + w;
+      const float ms = a.part_m[slot * a.G + g];
+      const float ls = a.part_l[slot * a.G + g];
+      const float2* acc = reinterpret_cast<const float2*>(
+          a.part_acc + (slot * a.G + g) * kD + chunk * kCombineCols);
+      const float m_new = fmaxf(mx, ms);
+      const float corr = tc::exp2_approx(mx - m_new);
+      const float wt = tc::exp2_approx(ms - m_new);
+      den = den * corr + ls * wt;
+#pragma unroll
+      for (int i = 0; i < N2; ++i) {
+        const float2 x = acc[32 * i + lane];
+        num[i][0] = fmaf(wt, x.x, num[i][0] * corr);
+        num[i][1] = fmaf(wt, x.y, num[i][1] * corr);
+      }
+      mx = m_new;
+      if (w == w1) break;
+      w = owner((w + 1) * U / a.W, U, a.W);   // the next that has units
+    }
+  }
+  const float inv = den > 0.f ? 1.f / den : 0.f;
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+      o + (static_cast<long long>(b) * Hq + hk * a.G + g) * kD +
+      chunk * kCombineCols);
+#pragma unroll
+  for (int i = 0; i < N2; ++i)
+    out[32 * i + lane] =
+        __floats2bfloat162_rn(num[i][0] * inv, num[i][1] * inv);
+  if constexpr (kLse) {
+    if (chunk == 0 && lane == 0)
+      lse[static_cast<long long>(b) * Hq + hk * a.G + g] =
+          den > 0.f ? mx * 0.69314718055994531f + logf(den) : -INFINITY;
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const Shape& sh,
+           float* part_m, float* part_l, float* part_acc, void* o,
+           float* lse, int G, int slots, float scale, float softcap,
+           cudaStream_t stream) {
+  const int W = sm_count();
+  if (static_cast<long long>(slots) !=
+      static_cast<long long>(sh.B) * sh.Hkv + W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.B == 0) return 0;
+  // a runtime call first: cuTensorMapEncodeTiled wants its context
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (hop::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  const int rows = sh.L < kTile ? sh.L : kTile;
+  CUtensorMap tk, tv, tq;
+  if (!hop::tensor_map(&tk, k, sh.B, sh.L, sh.Hkv, kD, rows) ||
+      !hop::tensor_map(&tv, v, sh.B, sh.L, sh.Hkv, kD, rows) ||
+      !hop::tensor_map(&tq, q, sh.B, 1, sh.Hkv * G, kD, 1, G))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  Args a;
+  a.lengths = sh.lengths;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.part_acc = part_acc;
+  a.B = sh.B; a.L = sh.L; a.Hkv = sh.Hkv; a.G = G; a.window = sh.window;
+  a.W = W;
+  a.box_rows = rows;
+  a.c_score = scale * kLog2e;
+  a.capped = softcap > 0.f;
+  a.cap_in = a.capped ? scale / softcap : 0.f;
+  a.cap_out = softcap * kLog2e;
+  flash_decode_tma_kernel<<<W, kThreads, kSmemBytes, stream>>>(tk, tv, tq,
+                                                               a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tasks =
+      static_cast<long long>(sh.B) * sh.Hkv * G * (kD / kCombineCols);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((tasks + 3) / 4));
+  cfg.blockDim = dim3(128);
+  cfg.stream = stream;
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = kDependentCombine;
+  cfg.attrs = dependent;
+  cfg.numAttrs = 1;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  err = lse != nullptr
+            ? cudaLaunchKernelEx(&cfg, flash_decode_tma_combine_kernel<true>,
+                                 a, out, lse)
+            : cudaLaunchKernelEx(&cfg, flash_decode_tma_combine_kernel<false>,
+                                 a, out, lse);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace td
+
 }  // namespace
 
 #define FD_DISPATCH(CALL)                                   \
@@ -697,24 +1216,41 @@ extern "C" int flash_decode_piece_len(int B, int Hkv, int L, int dtype,
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The TMA instance's consumers on this card: one a block, one block an
+// SM (its scratch holds B * Hkv + consumers partials).
+extern "C" int flash_decode_tma_consumers() { return sm_count(); }
+
 // dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128, 256}; G <= 8;
-// piece_len from flash_decode_piece_len; max_pieces = ceil(L / piece_len);
-// part_m, part_l: (B, Hkv, max_pieces, G) and part_acc: (B, Hkv,
-// max_pieces, G, D) float32 scratch; lse: null, or (B, Hq) float32 to
-// receive each row's log-sum-exp. Launches both passes on `stream`;
-// returns cudaGetLastError() (0 = ok).
+// instance: 0 = the pieces kernel, piece_len from flash_decode_piece_len
+// and slots = B * Hkv * ceil(L / piece_len); 1 = the TMA instance (bf16,
+// D 256), piece_len 0 and slots = B * Hkv + flash_decode_tma_consumers().
+// part_m, part_l: (slots, G) and part_acc: (slots, G, D) float32 scratch;
+// lse: null, or (B, Hq) float32 to receive each row's log-sum-exp.
+// Launches both passes on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* lengths,
                                    float* part_m, float* part_l,
                                    float* part_acc, void* o, float* lse,
                                    int B, int L,
                                    int Hkv, int G, int D, int piece_len,
-                                   int max_pieces, int dtype, float scale,
-                                   int window, float softcap, void* stream) {
+                                   int slots, int dtype, float scale,
+                                   int window, float softcap, int instance,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > kMaxG || piece_len < kTile || piece_len % kTile ||
-      max_pieces != (L + piece_len - 1) / piece_len)
+  if (G < 1 || G > kMaxG || B < 0 || L < 1 || Hkv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (instance == 1) {
+    if (dtype != 1 || D != td::kD || piece_len != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Shape sh{lengths, B, L, Hkv, window, 0};
+    return td::launch(q, k, v, sh, part_m, part_l, part_acc, o, lse, G,
+                      slots, scale, softcap, st);
+  }
+  if (instance != 0 || piece_len < kTile || piece_len % kTile ||
+      static_cast<long long>(slots) != static_cast<long long>(B) * Hkv *
+                                           ((L + piece_len - 1) / piece_len))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int max_pieces = (L + piece_len - 1) / piece_len;
   const Shape sh{lengths, B, L, Hkv, window, piece_len};
 #define FD_LAUNCH(TYPE, DIM)                                              \
   launch<TYPE, DIM>(q, k, v, sh, part_m, part_l, part_acc, o, lse, G,   \

@@ -1,6 +1,6 @@
 // PTX helpers for Hopper's asynchronous units, used by
-// flash_attention.cu (its long- and short-sequence instances) and
-// flash_attention_bwd.cu: warpgroup matrix products (wgmma) with their
+// flash_attention.cu (its long- and short-sequence instances),
+// flash_attention_bwd.cu and flash_decode.cu (its TMA instance): warpgroup matrix products (wgmma) with their
 // shared-memory descriptors, mbarriers, TMA tensor loads and stores, bulk
 // copies and bulk reduce-adds, proxy fences, named barriers and register
 // reallocation (setmaxnreg); on the host, the TMA tensor map of a
@@ -61,11 +61,30 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(r[i][j]) :: "memory");
+}
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// d (m64n8, 4 floats a thread) (+)= A B, A and B from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d[O .. O + 15] (m64n32, 16 floats a thread) (+)= A B, A and B from

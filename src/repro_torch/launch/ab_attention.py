@@ -14,25 +14,36 @@ With ``--backward``: each variant is
 ``csrc/flash_attention_bwd.cu`` with one named edit of ``BWD_VARIANTS``
 (the kernels the warpgroup kernels replaced, or a design choice of
 theirs), called through its own ``flash_attention_bwd_launch`` on the o
-and lse of the port's forward. Every variant is built with the port's
-``nvcc`` flags, one process each, all at once. Run on a machine with an
-H100:
+and lse of the port's forward. With ``--decode``: each variant is
+``csrc/flash_decode.cu`` with one named edit of ``DECODE_VARIANTS`` (the
+pieces kernel without its K/V loads or its math, with shorter pieces,
+its combine pass alone; the TMA instance with pieces of 256 positions in
+place of the tile split, with P rounded to bf16 once, with one combine
+warp a (row, head) as the pieces kernel has, its combine pass alone),
+called through its own ``flash_decode_launch`` with the instance its
+name starts with forced, at gemma2-2b's two decode shapes (B 16, L 8192,
+8/4 heads, D 256, softcap 50, window 4096 and none) on the inputs of
+``decode_case``; the committed source runs both instances. Every variant
+is built with the port's ``nvcc`` flags, one process each, all at once.
+Run on a machine with an H100:
 
-    python3 src/repro_torch/launch/ab_attention.py [--backward | --short]
-        [VARIANT ...] [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...]
-        [--iters N]
+    python3 src/repro_torch/launch/ab_attention.py
+        [--backward | --short | --decode] [VARIANT ...]
+        [--shape B,S,Hq,Hkv,D[,softcap[,window]] ...] [--iters N]
 
-With no variant named, all of ``VARIANTS`` (or ``SHORT_VARIANTS``,
-``BWD_VARIANTS``). Prints,
+(``--decode`` shapes: B,L,Hq,Hkv,D,softcap,window.) With no variant
+named, all of ``VARIANTS`` (or ``SHORT_VARIANTS``, ``BWD_VARIANTS``,
+``DECODE_VARIANTS``). Prints,
 per variant, what ptxas said of its wgmma kernels (registers, spills,
 serialised wgmma), then one JSON line a shape: each variant's mean
 CUDA-event time (1 GiB written between launches), in turns (the variants
 in order, then reversed), and its error against the plain version: the
 forward serving (P split) and with the lse (bf16 P once), max abs against
 ``flash_attention_ref``; the backward each of dq, dk, dv as max abs over
-the plain output's max abs (``flash_attention_bwd_ref``). The
-diagnostics compute no attention and their errors are large by design.
-Exits 2 without a card.
+the plain output's max abs (``flash_attention_bwd_ref``); the decode
+max abs against ``flash_decode_ref``, beside the bound of the valid
+cache's bytes. The diagnostics compute no attention and their errors are
+large by design. Exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "repro_torch" / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+DECODE_SOURCE = SOURCE.with_name("flash_decode.cu")
 
 _KBN = ("static constexpr int kBN =\n"
         "      D == 64 ? (kSplit ? 96 : 128) : D == 128 ? (kSplit ? 64 : 96)\n"
@@ -176,6 +188,91 @@ BWD_VARIANTS = {
     "tanhf": [("    const float t = softcap * tc::tanh_ex2(s * scale / softcap);",
                "    const float t = softcap * tanhf(s * scale / softcap);")],
 }
+_CP_ASYNC = """      tc::cp_async16(ks + j * Lay::kRowBytes + part * 16, k + off, ok);
+      tc::cp_async16(vs + j * Lay::kRowBytes + part * 16, v + off, ok);
+"""
+_TILE_CALL = """    math.tile(ring + stage * Lay::kStageBytes, n_valid, scale, softcap,
+              lane);
+"""
+_TMA_LAUNCH = """  flash_decode_tma_kernel<<<W, kThreads, kSmemBytes, stream>>>(tk, tv, tq,
+                                                               a);
+"""
+_TMA_LOADS = """        hop::tma_load_4d(kp + c * kBoxBytes, &tk, 64 * c, wk.hk, pos, wk.b,
+                         full + st);
+        hop::tma_load_4d(kp + kKV + c * kBoxBytes, &tv, 64 * c, wk.hk, pos,
+                         wk.b, full + st);
+        hop::tma_load_4d(kp + 2 * kKV + c * 1024, &tq, 64 * c, wk.hk * a.G,
+                         0, wk.b, full + st);
+"""
+_SYNC = """  hop::fence_async_smem();
+  __syncthreads();
+"""
+_TRIGGER = """  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+"""
+_SKIP_MATH = """    if (lane == 0) hop::mbar_arrive(empty + st);
+    if (!wk.advance(a)) break;
+    continue;
+"""
+_TMA_WAIT = """    hop::mbar_wait(full + st, (i / kStages) & 1);
+    __syncwarp();
+"""
+# name -> [(old, new)]: edits of csrc/flash_decode.cu as committed; a
+# name starting "pieces" runs the pieces kernel, "tma" the TMA instance
+DECODE_VARIANTS = {
+    # the pieces kernel taken apart: no K/V loads (the ring's stale rows
+    # are scored), no math (nothing scored, partials unwritten), pieces
+    # capped at 64 and 128 positions for 256, and its combine pass alone
+    # (the pieces kernel not launched: it merges stale partials)
+    "pieces_no_loads": [(_CP_ASYNC, "")],
+    "pieces_no_math": [(_TILE_CALL, "")],
+    "pieces_64": [("constexpr int kMaxPieceTiles = 8;",
+                   "constexpr int kMaxPieceTiles = 2;")],
+    "pieces_128": [("constexpr int kMaxPieceTiles = 8;",
+                    "constexpr int kMaxPieceTiles = 4;")],
+    "pieces_combine_only": [("  if (blocks > 0) {\n    flash_decode_pieces",
+                             "  if (false) {\n    flash_decode_pieces")],
+    # the TMA instance: units of 4 tiles (pieces of 256 positions) in
+    # place of the tile split; P rounded to bf16 once (16 wgmma a tile
+    # for P V in place of 32); one combine warp a (row, head), as the
+    # pieces kernel's combine; its combine pass alone (stale partials);
+    # and a diagnostic with no K/V or q loads (the barrier completes with
+    # no bytes: stale tiles are scored)
+    "tma_256_pieces": [("constexpr int kUnitTiles = 1;",
+                        "constexpr int kUnitTiles = 4;")],
+    "tma_p_once": [("constexpr bool kSplitP = true;",
+                    "constexpr bool kSplitP = false;")],
+    "tma_old_combine": [("constexpr int kCombineCols = 64;",
+                         "constexpr int kCombineCols = 256;")],
+    "tma_combine_only": [(_TMA_LAUNCH, "")],
+    "tma_no_loads": [(_TMA_LOADS, ""),
+                     ("      hop::mbar_expect(full + st, tx);",
+                      "      hop::mbar_arrive(full + st);")],
+    # the combine launched after the main kernel ends as an ordinary
+    # launch, or triggered by the main kernel's blocks as they start (its
+    # blocks then wait under the main kernel); and a diagnostic whose
+    # consumer only releases each stage (the TMA stream alone: nothing
+    # scored, partials unwritten)
+    "tma_late_combine": [("constexpr bool kDependentCombine = true;",
+                          "constexpr bool kDependentCombine = false;")],
+    "tma_early_combine": [(_SYNC, _SYNC + _TRIGGER)],
+    "tma_no_math": [(_TMA_WAIT, _TMA_WAIT + _SKIP_MATH)],
+    # the same diagnostic reading the same bytes with the Hkv = 4 heads
+    # of 16 positions in one box (2 KB contiguous a position) in place of
+    # 64 positions of one head (512 B of every 2 KB): whether DRAM
+    # locality holds the stream (gemma2's Hkv 4 only)
+    "tma_no_math_heads_together": [
+        (_TMA_WAIT, _TMA_WAIT + _SKIP_MATH),
+        ("hop::tensor_map(&tk, k, sh.B, sh.L, sh.Hkv, kD, rows)",
+         "hop::tensor_map(&tk, k, sh.B, sh.L, sh.Hkv, kD, 16, 4)"),
+        ("hop::tensor_map(&tv, v, sh.B, sh.L, sh.Hkv, kD, rows)",
+         "hop::tensor_map(&tv, v, sh.B, sh.L, sh.Hkv, kD, 16, 4)"),
+        (_TMA_LOADS, _TMA_LOADS.replace("64 * c, wk.hk, pos, wk.b,",
+                                        "64 * c, 0, pos + 16 * wk.hk, wk.b,")
+         .replace("64 * c, wk.hk, pos,\n                         wk.b,",
+                  "64 * c, 0, pos + 16 * wk.hk,\n                         wk.b,"))],
+}
+DECODE_DEFAULT_SHAPES = ["16,8192,8,4,256,50,4096", "16,8192,8,4,256,50,0"]
+DECODE_SEED = 29
 DEFAULT_SHAPES = ["8,4096,9,3,64", "1,1984,9,3,64", "2,4096,40,8,128",
                   "2,4096,8,4,256,50", "1,8000,8,4,256,50,4096"]
 SHORT_DEFAULT_SHAPES = ["4096,31,9,3,64", "3072,31,9,3,64",
@@ -191,18 +288,23 @@ NEVER_LONG, SHORT_KEYS = 0x7fffffff, 32
 FORCE = {"wgmma": (0, 0), "short": (NEVER_LONG, SHORT_KEYS)}
 
 
-def variant_table(backward: bool = False, short: bool = False) -> dict:
+def variant_table(backward: bool = False, short: bool = False,
+                  decode: bool = False) -> dict:
     return BWD_VARIANTS if backward else SHORT_VARIANTS if short \
-        else VARIANTS
+        else DECODE_VARIANTS if decode else VARIANTS
+
+
+def source_of(backward: bool = False, decode: bool = False) -> Path:
+    return BWD_SOURCE if backward else DECODE_SOURCE if decode else SOURCE
 BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_void_p])
 
 
 def variant_source(name: str, backward: bool = False,
-                   short: bool = False) -> str:
-    text = (BWD_SOURCE if backward else SOURCE).read_text()
-    for old, new in variant_table(backward, short)[name]:
+                   short: bool = False, decode: bool = False) -> str:
+    text = source_of(backward, decode).read_text()
+    for old, new in variant_table(backward, short, decode)[name]:
         if old not in text:
             raise ValueError(f"variant {name}: its edit no longer applies")
         text = text.replace(old, new)
@@ -233,22 +335,47 @@ def ptxas_notes(log: str, kernel: str = "fa_fwd_wgmma_kernel") -> dict:
     return out
 
 
-def build_variants(names, backward: bool, short: bool = False) -> dict:
+def decode_ptxas_notes(log: str) -> dict:
+    """Registers and spill bytes of each bf16 D 256 and TMA-instance
+    kernel of ``csrc/flash_decode.cu``, from ``-Xptxas -v``, by its
+    mangled name from the kernel's own name on."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '\w*?(flash_decode_\w+)'", line)
+        if m:
+            cur = m.group(1) if ("Li256E" in m.group(1)
+                                 or "tma" in m.group(1)) else None
+            if cur:
+                out[cur] = {}
+        elif cur is not None:
+            s = re.search(r"(\d+) bytes spill stores", line)
+            if s:
+                out[cur]["spill_stores"] = int(s.group(1))
+            r = re.search(r"Used (\d+) registers", line)
+            if r:
+                out[cur]["registers"] = int(r.group(1))
+                cur = None
+    return out
+
+
+def build_variants(names, backward: bool, short: bool = False,
+                   decode: bool = False) -> dict:
     """Each named variant built into ``build/ab/<name>/lib.so`` (one nvcc
     each, all at once), its ptxas notes printed; returns the loaded
     libraries by name."""
     from repro_torch.kernels import _build
-    source = BWD_SOURCE if backward else SOURCE
+    source = source_of(backward, decode)
     procs = {}
     for name in names:
         d = _build.BUILD_DIR / "ab" / ("bwd" if backward else
-                                       "short" if short else "") / name
+                                       "short" if short else
+                                       "decode" if decode else "") / name
         d.mkdir(parents=True, exist_ok=True)
         for header in ("tensor_core.cuh", "wgmma.cuh"):
             (d / header).write_text((SOURCE.parent / header).read_text())
         (d / source.name).write_text(
             source.read_text() if name == "committed"
-            else variant_source(name, backward, short))
+            else variant_source(name, backward, short, decode))
         procs[name] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / source.name)],
@@ -260,8 +387,9 @@ def build_variants(names, backward: bool, short: bool = False) -> dict:
             raise RuntimeError(f"nvcc {name}:\n{log[-4000:]}")
         kernel = ("fa_bwd_main_kernel" if backward else
                   "fa_fwd_short_kernel" if short else "fa_fwd_wgmma_kernel")
-        print(json.dumps({"variant": name,
-                          "ptxas": ptxas_notes(log, kernel)}), flush=True)
+        notes = decode_ptxas_notes(log) if decode else ptxas_notes(log,
+                                                                   kernel)
+        print(json.dumps({"variant": name, "ptxas": notes}), flush=True)
         libs[name] = ctypes.CDLL(str(d / "lib.so"))
     return libs
 
@@ -383,6 +511,170 @@ def time_backward(libs, shapes, iters: int, scratch) -> None:
         torch.cuda.empty_cache()
 
 
+def decode_case(B: int, L: int, Hq: int, Hkv: int, D: int, window: int,
+                device, max_len: int = 8016):
+    """The bf16 inputs of a timed decode row, from a generator of its own
+    seeded from the case (``DECODE_SEED`` + window), so that every run
+    times the same lengths: q, the caches, and lengths drawn from 1 to
+    min(L, ``max_len``) (gemma2's longest prompt and its decode steps),
+    the first three set to 1, that top and the window."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(DECODE_SEED + window)
+    q = torch.randn((B, Hq, D), generator=g, device=device)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=device)
+            for _ in range(2))
+    top = min(L, max_len)
+    lengths = torch.randint(1, top + 1, (B,), generator=g, device=device,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([1, top, max(window, 1)], device=device)
+    return (q.to(torch.bfloat16), k.to(torch.bfloat16),
+            v.to(torch.bfloat16), lengths)
+
+
+def decode_instance(name: str) -> int:
+    """The instance a decode variant runs: 1 (the TMA instance) for a name
+    starting ``tma``, else 0 (the pieces kernel)."""
+    return 1 if name.startswith("tma") else 0
+
+
+DECODE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+
+
+def timed_clean_ms(call, iters: int, scratch, clean) -> float:
+    """As ``time_attention.timed_ms``, with ``clean`` (256 MB) read after
+    the 1 GiB write: the launch finds L2 cold but holding clean lines, so
+    it pays for no write-back of the flush's dirty ones."""
+    import numpy as np
+    import torch
+    call()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        scratch.zero_()
+        clean.sum()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        call()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+def decode_device_ms(call, n: int = 5) -> dict:
+    """Device time a call of each ``flash_decode`` kernel, by name, from
+    the profiler over ``n`` calls (L2 warm): what a step's profile
+    charges each. A kernel launched early is charged its whole span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"flash_decode_\w+", e.key)
+        if e.device_type == DeviceType.CUDA and name:
+            out[name.group(0)] = (out.get(name.group(0), 0.0)
+                                  + e.device_time_total / 1e3 / n)
+    return out
+
+
+def time_decode(libs, shapes, iters: int, scratch) -> None:
+    """Each variant's ``flash_decode_launch`` on the inputs of
+    ``decode_case`` with its instance forced (the committed source: both
+    instances, as ``committed/tma`` and ``committed/pieces``), in turns;
+    its max abs error against ``flash_decode_ref``; the bound. ``ms``
+    after the 1 GiB write (as ``chip_smoke.py`` times: L2 holds the
+    write's dirty lines), ``clean_ms`` after a read as well
+    (``timed_clean_ms``)."""
+    import torch
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.launch.time_attention import HBM_BYTES_PER_S, timed_ms
+    runs = []                               # (label, lib, instance)
+    for name, lib in libs.items():
+        lib.flash_decode_launch.argtypes = DECODE_ARGTYPES
+        lib.flash_decode_piece_len.argtypes = [ctypes.c_int] * 5
+        insts = (1, 0) if name == "committed" else (decode_instance(name),)
+        runs += [(f"{name}/{'tma' if i else 'pieces'}"
+                  if name == "committed" else name, lib, i) for i in insts]
+    dev = scratch.device
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    for spec in shapes:
+        B, L, Hq, Hkv, D, cap, window = spec.split(",")
+        B, L, Hq, Hkv, D, window = (int(x) for x in (B, L, Hq, Hkv, D,
+                                                     window))
+        softcap, G, scale = float(cap), Hq // Hkv, D ** -0.5
+        q, k, v, lengths = decode_case(B, L, Hq, Hkv, D, window, dev)
+        kw = dict(window=window, softcap=softcap, sm_scale=scale)
+        want = FD.flash_decode_ref(q, k, v, lengths, **kw).float()
+        pos = torch.arange(L, device=dev)
+        ok = pos[None, :] < lengths[:, None]
+        if window > 0:
+            ok &= pos[None, :] >= lengths[:, None] - window
+        seen = int(ok.sum())
+        n_bytes = FD.cost(B, Hq, Hkv, D, 2, seen)[1]
+        row = {"card": torch.cuda.get_device_name(0),
+               "shape": f"B {B}, L {L}, {Hq}/{Hkv}, D {D}, bf16, softcap "
+                        f"{softcap}, window {window}",
+               "mean_valid": seen / B,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        out = torch.empty_like(q)
+        for label, lib, inst in runs + runs[::-1]:
+            if inst:
+                piece = 0
+                slots = B * Hkv + lib.flash_decode_tma_consumers()
+            else:
+                piece = lib.flash_decode_piece_len(B, Hkv, L, 1, D)
+                slots = B * Hkv * -(-L // piece)
+            part = torch.empty(slots * G * (D + 2), dtype=torch.float32,
+                               device=dev)
+
+            def call(fn=lib.flash_decode_launch, inst=inst, piece=piece,
+                     slots=slots, part=part):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lengths.data_ptr(), part.data_ptr(),
+                         part[slots * G:].data_ptr(),
+                         part[2 * slots * G:].data_ptr(), out.data_ptr(),
+                         None, B, L, Hkv, G, D, piece, slots, 1, scale,
+                         window, softcap, inst,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{label}: cudaError {err}")
+            cell = row.setdefault(label, {"ms": [], "clean_ms": []})
+            try:
+                cell["ms"].append(timed_ms(call, iters, scratch))
+                cell["clean_ms"].append(timed_clean_ms(call, iters, scratch,
+                                                       clean))
+            except RuntimeError as e:    # a launch the variant refuses
+                cell["error"] = str(e)
+                continue
+            call()
+            torch.cuda.synchronize()
+            cell["max_abs_err"] = float((out.float() - want).abs().max())
+            cell["share_of_bound"] = row["bound_ms"] / min(cell["ms"])
+            cell.setdefault("device_ms", decode_device_ms(call))
+            del part
+        print(json.dumps(row), flush=True)
+        del q, k, v, want
+        torch.cuda.empty_cache()
+
+
+def card_name_and_power() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi not read"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="*")
@@ -391,6 +683,8 @@ def main(argv=None) -> int:
                       help="variants of csrc/flash_attention_bwd.cu")
     mode.add_argument("--short", action="store_true",
                       help="variants of the forward's short instance")
+    mode.add_argument("--decode", action="store_true",
+                      help="variants of csrc/flash_decode.cu")
     ap.add_argument("--shape", action="append",
                     help="B,S,Hq,Hkv,D[,softcap[,window]] (causal bf16; "
                          "the backward takes no window); repeatable")
@@ -402,15 +696,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_attention: no CUDA device", file=sys.stderr)
         return 2
-    table = variant_table(args.backward, args.short)
+    table = variant_table(args.backward, args.short, args.decode)
     unknown = [v for v in args.variants if v not in table]
     if unknown:
         ap.error(f"unknown variants {unknown}; known: {sorted(table)}")
+    print(json.dumps({"card": card_name_and_power()}), flush=True)
     libs = build_variants(["committed"] + (args.variants or list(table)),
-                          args.backward, args.short)
+                          args.backward, args.short, args.decode)
     scratch = torch.empty(1 << 30, dtype=torch.uint8,
                           device=torch.device("cuda"))
-    if args.backward:
+    if args.decode:
+        time_decode(libs, args.shape or DECODE_DEFAULT_SHAPES, args.iters,
+                    scratch)
+    elif args.backward:
         time_backward(libs, args.shape or BWD_DEFAULT_SHAPES, args.iters,
                       scratch)
     else:

@@ -50,9 +50,10 @@ def test_every_port_kernel_hashes_its_shared_header():
     names = {p.name for p in _build._source_files(
         (_build.CSRC / "flash_attention.cu").resolve(), [])}
     assert names == {"flash_attention.cu", "tensor_core.cuh", "wgmma.cuh"}
+    # and so does the decode's TMA instance
     names = {p.name for p in _build._source_files(
         (_build.CSRC / "flash_decode.cu").resolve(), [])}
-    assert names == {"flash_decode.cu", "tensor_core.cuh"}
+    assert names == {"flash_decode.cu", "tensor_core.cuh", "wgmma.cuh"}
 
 
 def test_backward_kernel_hashes_both_headers():

@@ -34,6 +34,7 @@ from repro_torch.core.fused_shedder import FusedLoadShedder
 from repro_torch.core.shedder import TIER_CACHED, SimClock
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_bwd,
                                                  dot_interaction_bwd_ref,
@@ -661,6 +662,115 @@ def test_flash_decode_kernel_new_head_dims_close_to_plain(
     assert flash_decode.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _tma_lengths(spread, B, L, window, g, dev):
+    """Spreads of lengths for the TMA instance's tile split: one row at L
+    and the rest at 1, every row at L, a window edge (rows at the
+    window, one past it, and the tile edges around it), and the edges (0,
+    1, L, L - 1, a tile, a tile + 1) among random lengths."""
+    if spread == "one_long":
+        lengths = torch.ones(B, dtype=torch.int32, device=dev)
+        lengths[B // 2] = L
+    elif spread == "all_full":
+        lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+        edges = ([window, window + 1, window + 64, window - 63, L]
+                 if spread == "window_edge" else [0, 1, L, L - 1, 64, 65])
+        lengths[:len(edges)] = torch.tensor(edges, device=dev)
+    return lengths
+
+
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("spread,window", [
+    ("one_long", 0), ("all_full", 0), ("window_edge", 300), ("edges", 0),
+    ("edges", 100)])
+def test_flash_decode_tma_instance_length_spreads(dev, spread, window, G):
+    """The TMA instance (bf16, D 256) within 2e-2 of the plain version
+    over the spreads of ``_tma_lengths``, G 1, 2 and 8, one launch a call
+    on the instance ``tma_instance`` names."""
+    B, L, Hkv, D = 48, 1500, 2, 256
+    g = torch.Generator(device=dev).manual_seed(G + window)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=dev)
+    k, v = (torch.randn((B, L, Hkv, D), generator=g, device=dev)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    lengths = _tma_lengths(spread, B, L, window, g, dev)
+    kw = dict(window=window, softcap=50.0, sm_scale=0.0625)
+    assert FD.instance(G, D, torch.bfloat16) == "tma"
+    before = dict(flash_decode.by_instance)
+    got = flash_decode(q, k, v, lengths, **kw)
+    want = flash_decode_ref(q, k, v, lengths, **kw)
+    assert flash_decode.by_instance["tma"] == before["tma"] + 1
+    assert flash_decode.by_instance["pieces"] == before["pieces"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    if spread == "edges":
+        assert not got[0].any()             # length 0: zeros
+
+
+@pytest.mark.parametrize("B,L,Hq,Hkv,window,softcap", [
+    (16, 8192, 8, 4, 4096, 50.0),           # gemma2's decode, local layer
+    (16, 8192, 8, 4, 0, 50.0),              # gemma2's decode, global layer
+    (3, 40, 8, 4, 0, 0.0),                  # a cache shorter than a tile
+    (5, 130, 16, 2, 7, 0.0),                # G 8, a window inside a tile
+    (200, 300, 8, 4, 0, 50.0),              # more rows than consumers
+])
+def test_flash_decode_tma_instance_close_to_plain(dev, B, L, Hq, Hkv,
+                                                  window, softcap):
+    """Both instances forced at the same inputs: each within 2e-2 of the
+    plain version, the lse instance's o equal to the serving one's bit
+    for bit and its lse within 2e-2 of the plain lse (-inf at length 0),
+    and two calls equal bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(B + L + Hq)
+    q = torch.randn((B, Hq, 256), generator=g, device=dev)
+    k, v = (torch.randn((B, L, Hkv, 256), generator=g, device=dev)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, L, max(window, 1)], device=dev)
+    kw = dict(window=window, softcap=softcap, sm_scale=0.0625)
+    want, lse_ref = flash_decode_ref(q, k, v, lengths, return_lse=True, **kw)
+    for kernel in ("tma", "pieces"):
+        got = flash_decode(q, k, v, lengths, kernel=kernel, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+    got = flash_decode(q, k, v, lengths, **kw)
+    assert torch.equal(got, flash_decode(q, k, v, lengths, **kw))
+    o, lse = flash_decode(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(o, got)
+    assert torch.isneginf(lse[0]).all() and torch.isneginf(lse_ref[0]).all()
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_decode_tma_instance_never_reads_nan_past_the_valid_range(
+        dev, window):
+    """NaN in the caches past every row's length and before its window
+    (the rows read past the length share the last tile with valid ones)
+    leaves the output equal to the unpoisoned call's, bit for bit."""
+    B, L, Hq, Hkv = 6, 700, 8, 4
+    g = torch.Generator(device=dev).manual_seed(window + 3)
+    q = torch.randn((B, Hq, 256), generator=g, device=dev)
+    k, v = (torch.randn((B, L, Hkv, 256), generator=g, device=dev)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    lengths = torch.tensor([1, 63, 64, 65, 333, 650], dtype=torch.int32,
+                           device=dev)
+    kw = dict(window=window, softcap=50.0, sm_scale=0.0625)
+    clean = flash_decode(q, k, v, lengths, **kw)
+    want = flash_decode_ref(q, k, v, lengths, **kw)
+    pos = torch.arange(L, device=dev)[None, :]
+    bad = pos >= lengths[:, None]
+    if window:
+        bad |= pos < lengths[:, None] - window
+    k[bad], v[bad] = float("nan"), float("nan")
+    got = flash_decode(q, k, v, lengths, **kw)
+    assert torch.equal(got, clean)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
 
 
 def test_flash_decode_kernel_respects_lengths(dev):
