@@ -183,6 +183,7 @@ from repro_torch.core.shedder import (TIER_INVALID, LoadShedder,  # noqa: E402
 from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import ab_attention as AB  # noqa: E402
 from repro_torch.launch.ab_attention import decode_case  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.kernels import dot_interaction as DI  # noqa: E402
@@ -524,14 +525,23 @@ def card_line() -> str:
 
 
 BUILD_LOGS: dict = {}               # nvcc -Xptxas -v output of this run
+# the kernels a redesign replaced, built beside the port's to be timed in
+# the same run: ab_attention's variant name -> its loaded library
+REPLACED: dict = {}
+REPLACED_VARIANTS = ("d16_mma_sync",)   # the bf16 D 16 backward's
 
 
 def phase_build() -> None:
     t0 = time.monotonic()
+    started = {name: AB.start_variant_build(name, backward=True)
+               for name in REPLACED_VARIANTS}
     logs = _build.build(list(KERNELS))
+    for name, proc in started.items():
+        REPLACED[name] = AB.finish_variant_build(name, proc)[0]
     BUILD_LOGS.update(logs)
     log(f"build: {len(logs)} kernels compiled in "
-        f"{time.monotonic() - t0:.1f} s")
+        f"{time.monotonic() - t0:.1f} s, and the replaced kernels "
+        f"{list(REPLACED)} beside them")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -870,11 +880,12 @@ def phase_flash_attention(dev) -> dict:
         del full
     ptxas = ptxas_report("flash_attention_bwd", "fa_bwd_main_kernel")
     spills = {k: r.get("spill_stores") for k, r in ptxas.items()}
-    if any(spills.get(k) != 0 for k in ("D128", "D256")):
-        raise AssertionError(f"flash_attention_bwd: the D 128 / D 256 main "
-                             f"kernel spills (this run's ptxas: {ptxas})")
+    if any(spills.get(k) != 0 for k in ("D16", "D128", "D256")):
+        raise AssertionError(f"flash_attention_bwd: the D 16 / D 128 / D 256 "
+                             f"main kernel spills (this run's ptxas: "
+                             f"{ptxas})")
     log(f"flash_attention_bwd main kernel (ptxas, this run's build): "
-        f"{json.dumps(ptxas)}; D 128 and D 256 spill no byte")
+        f"{json.dumps(ptxas)}; D 16, D 128 and D 256 spill no byte")
     b128, b256 = long_rows[128]["timing"], long_rows[256]["timing"]
     d128_check, d128_old = long_rows[128]["fwd_check"], \
         long_rows[128]["fwd_mma_sync"]
@@ -901,31 +912,55 @@ def phase_flash_attention(dev) -> dict:
             f"{ck['dk_rel_err']:.3e}/{ck['dv_rel_err']:.3e} of the plain "
             f"output's max (<= {BF16_ATOL}), two calls equal bit for bit")
     # D 16 in bf16 at smollm's training microbatch, (8, 4096, 9/3, 16):
-    # no path trains it (the smoke archs train in float32), but the next
-    # redesign is chosen among the kernels by their time against the
-    # bound. Held to the plain version at the cut batch first.
+    # no path trains it (the smoke archs train in float32). The warpgroup
+    # instance is held to the plain version at the cut batch, with
+    # rows handed an lse of -inf and two calls equal bit for bit, then
+    # timed at the full shape beside the mma.sync kernels it replaced
+    # (ab_attention's d16_mma_sync, built in this run), SDPA's backward
+    # and the exps' floor; one profiled call shows its three launches.
     cut = attention_inputs(1, LONG_CHECK_SEQ, Hq, Hkv, 16, torch.bfloat16,
                            gen, dev) + (
         torch.randn((1, LONG_CHECK_SEQ, Hq, 16), generator=gen,
                     device=dev).to(torch.bfloat16),)
     d16_check = attention_bwd_check(*cut, dict(causal=True, window=0,
                                                softcap=0.0),
-                                    "D 16 training row, cut")
+                                    "D 16 training row, cut", dead_rows=64)
     del cut
     full = attention_inputs(TRAIN_MICRO, TRAIN_SEQ, Hq, Hkv, 16,
                             torch.bfloat16, gen, dev) + (
         torch.randn((TRAIN_MICRO, TRAIN_SEQ, Hq, 16), generator=gen,
                     device=dev).to(torch.bfloat16),)
     b16 = attention_bwd_timing(*full, flush, plain_iters=0)
+    b16["mma_sync_ms"] = replaced_bwd_ms("d16_mma_sync", *full, flush)
+    d16_shares = attention_bwd_shares(*full)
+    if d16_shares and "fa_bwd_main_kernel" not in d16_shares:
+        raise AssertionError(f"flash_attention_bwd D 16 bf16: no warpgroup "
+                             f"kernel in the profile {d16_shares}")
     del full
+    # each causal score's exp once, 16 a clock an SM at the card's clock
+    scores = TRAIN_MICRO * Hq * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    exp_floor = scores / (16 * torch.cuda.get_device_properties(
+        0).multi_processor_count * sm_clock_hz()) * 1e3
+    d16_ptxas = ptxas.get("D16", {})
     log(f"flash_attention_bwd D 16 bf16 (B={TRAIN_MICRO}, S={TRAIN_SEQ}, "
-        f"{Hq}/{Hkv}, causal; on no path): kernel {b16['ms']:.4f} ms, sdpa "
-        f"backward {b16['library_ms']:.4f} ms, bound {b16['bound_ms']:.4f} ms"
-        f" ({b16['bound_by']}: {b16['bytes']} B, {b16['flops']} FLOP), share "
-        f"{b16['bound_ms'] / b16['ms']:.3f}; the forward {b16['fwd_ms']:.4f}"
-        f" ms; at {d16_check['shape']}: dq/dk/dv within "
-        f"{d16_check['dq_rel_err']:.3e}/{d16_check['dk_rel_err']:.3e}/"
-        f"{d16_check['dv_rel_err']:.3e} of the plain output's max")
+        f"{Hq}/{Hkv}, causal; on no path; the warpgroup instance): kernel "
+        f"{b16['ms']:.4f} ms, the mma.sync kernels it replaced "
+        f"{b16['mma_sync_ms']:.4f} ms, sdpa backward "
+        f"{b16['library_ms']:.4f} ms, bound {b16['bound_ms']:.4f} ms "
+        f"({b16['bound_by']}: {b16['bytes']} B, {b16['flops']} FLOP), share "
+        f"{b16['bound_ms'] / b16['ms']:.3f}; the exps' floor "
+        f"{exp_floor:.4f} ms ({scores} scores); launch shares "
+        f"{json.dumps(d16_shares)}; main kernel ptxas "
+        f"{json.dumps(d16_ptxas)}; at {d16_check['shape']}: dq/dk/dv "
+        f"within {d16_check['dq_rel_err']:.3e}/"
+        f"{d16_check['dk_rel_err']:.3e}/{d16_check['dv_rel_err']:.3e} of "
+        f"the plain output's max, {d16_check['rows_without_key']} rows "
+        f"without a key, two calls equal bit for bit")
+    log(f"flash_attention D 16 bf16 at the same shape ("
+        f"{FA.instance(TRAIN_SEQ, Hq // Hkv, 16, torch.bfloat16)}): serving "
+        f"{b16['fwd_ms']:.4f} ms, with the lse {b16['fwd_lse_ms']:.4f} ms, "
+        f"sdpa {b16['fwd_library_ms']:.4f} ms, bound "
+        f"{b16['fwd_bound_ms']:.4f} ms")
     del flush
     fwd = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -984,6 +1019,11 @@ def phase_flash_attention(dev) -> dict:
            "d256_bound_ms": b256["bound_ms"],
            "d16_ms": b16["ms"], "d16_library_ms": b16["library_ms"],
            "d16_bound_ms": b16["bound_ms"], "d16_bound_by": b16["bound_by"],
+           "d16_mma_sync_ms": b16["mma_sync_ms"],
+           "d16_exp_floor_ms": exp_floor, "d16_launch_shares": d16_shares,
+           "d16_fwd_ms": b16["fwd_ms"], "d16_fwd_lse_ms": b16["fwd_lse_ms"],
+           "d16_fwd_library_ms": b16["fwd_library_ms"],
+           "d16_fwd_bound_ms": b16["fwd_bound_ms"],
            "long_checks": {**{f"d{D}": r["check"] for D, r in
                               long_rows.items()}, "d16": d16_check}}
     return fwd, bwd
@@ -1258,6 +1298,27 @@ def attention_bwd_timing(q, k, v, do, flush, plain_iters: int,
                               q.dtype)["bound_ms"]
     del out, qt, kt, vt
     return t
+
+
+def replaced_bwd_ms(name: str, q, k, v, do, flush) -> float:
+    """The time of the backward kernels a redesign replaced
+    (``REPLACED[name]``, the ``ab_attention`` variant built in this run)
+    at one causal shape, given the port's o and lse, L2 flushed."""
+    B, S, Hq, D = q.shape
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    o = FA._forward(q, k, v, lse=lse, causal=True, window=0, softcap=0.0,
+                    sm_scale=D ** -0.5)
+    return timed_ms(AB.bwd_call(REPLACED[name], q, k, v, o, lse, do), 10,
+                    flush)
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock as ``nvidia-smi`` gives it (clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def attention_bwd_shares(q, k, v, do) -> dict:

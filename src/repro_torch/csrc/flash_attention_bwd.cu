@@ -25,7 +25,7 @@
 // the ~295 FLOP a byte where the tensor cores become the limit: the
 // operations bound it (~0.39 ms at 989 TFLOP/s).
 //
-// bf16 at D 64, 128 and 256 (the training paths): three launches.
+// bf16 (D 64, 128 and 256: the training paths; D 16): three launches.
 // 1. `fa_bwd_prep_kernel`: Di and the lse in log2 units (+inf for a row
 //    that saw no key, so that its P is 0 with no test per score), padded
 //    to whole query tiles; zeroes the counters. 8 threads a row, 16-byte
@@ -84,19 +84,25 @@
 //    staging and adding still showed. PERF.md keeps the current numbers.
 // 3. `fa_bwd_post_kernel`: dq = bf16(scale dq_acc), back in (B, S, Hq, D).
 //
-// bf16 at D 16 (the smoke-width heads): the Di pass, then the dk/dv and
-// dq kernels of the first design, on mma.sync
-// m16n8k16 (tensor_core.cuh): `dkdv_bf16_kernel`, one block per (batch
-// row, KV head, 64 keys) walking every query row of the group, the G
-// heads packed into the rows of the query tiles (packed row r = query
-// head hk * G + r % G at position r / G); `dq_bf16_kernel`, one block per
-// (batch row, KV head, tile of packed query rows) walking the key tiles
-// it can see. S and dP are computed in both (seven products for five):
-// the price of writing each gradient from one block without atomics. They
-// also take D 256 (the dk/dv kernel then splits the output columns over
-// two blocks, both kernels 32-key or 32-row tiles), which the D 256
-// warpgroup kernel replaced; `launch/ab_attention.py --backward` builds
-// that instance to time the two side by side.
+// bf16 at D 16 (the smoke-width heads; see `consume16`): what
+// bounds it is not the tensor cores. At smollm's training microbatch (B
+// 8, S 4096, 9/3) the five products over the causal half are 9.67e10
+// FLOP (0.0977 ms), but each of the 6.04e8 scores costs an exp on the
+// SFU (16 a clock an SM: 0.145-0.165 ms) and ~5 float32 operations. The
+// instance forms each score's P and dS once (K/V-stationary, as above)
+// and runs two independent pipelines a block, one a consumer warpgroup
+// with its own loader, ring, dQ writer and 128-key work tiles, so that
+// one warpgroup's exps overlap the other's wgmmas with no barrier
+// between them.
+// The mma.sync kernels it replaced (the first design: `dkdv_bf16_kernel`,
+// one block per (batch row, KV head, 64 keys) walking every query row of the
+// group, the G heads packed into the rows of the query tiles (packed row
+// r = query head hk * G + r % G at position r / G); `dq_bf16_kernel`, one
+// block per tile of packed query rows walking the key tiles it can see;
+// S and dP formed in both, seven products for five and every exp twice)
+// are no longer launched: `launch/ab_attention.py --backward` builds
+// them (`launch_bf16`, variants d16_mma_sync and d256_mma_sync, the D 256
+// instance the D 256 warpgroup kernel replaced) to time them beside it.
 //
 // float32 (the smoke-width models): FP32 FMAs, as the forward's float32
 // kernel: one block of 4 warps per (batch row, head, 32 rows), lane j
@@ -912,12 +918,14 @@ constexpr int kTileFloats = 4096;        // a staged dQ partial, 16 KB
 // How the two consumer warpgroups share a work tile: by keys, 64 each
 // (`consume`, D 64), or by roles, warpgroup 0 forming P and dV and
 // warpgroup 1 dS, dK and dQ over the same 64 keys (`consume_roles`, D 128
-// and 256).
+// and 256). At D 16 they share none: each runs a pipeline of its own
+// (`consume16`).
 template <int D>
-constexpr bool kByRoles = D != 64;
+constexpr bool kByRoles = D == 128 || D == 256;
 // A work tile's keys and a query tile's positions: 128 keys shared by
-// keys, 64 by roles; 64-position query tiles, 32 at D 256 (what fits the
-// 227 KB of shared memory beside a 64-key K and V of 256 columns).
+// keys, 64 by roles, 128 a D 16 pipeline (two 64-key halves, each one
+// 64-row wgmma tile); 64-position query tiles, 32 at D 256 (what fits
+// the 227 KB of shared memory beside a 64-key K and V of 256 columns).
 template <int D>
 constexpr int kBc = kByRoles<D> ? 64 : 128;
 template <int D>
@@ -929,10 +937,13 @@ constexpr int kBr = D == 256 ? 32 : 64;
 // ptxas keeps the wgmmas pipelined); otherwise one.
 template <int D>
 constexpr int kColSplit = kByRoles<D> ? D / 128 : 1;
-// dQ partials a (key tile, query tile) pair stages, each 64 x 64 (D 64,
-// 128) or 128 columns x 32 positions, transposed (D 256).
+// Floats of a staged dQ partial: 64 x 64 (D 64, 128), 128 columns x 32
+// positions, transposed (D 256), or a query tile's 64 x 16 (D 16).
 template <int D>
-constexpr int kAdds = kBr<D> * D / kTileFloats;
+constexpr int kTile = D == 16 ? kBr<16> * 16 : kTileFloats;
+// dQ partials a (key tile, query tile) pair stages.
+template <int D>
+constexpr int kAdds = kBr<D> * D / kTile<D>;
 
 template <int D>
 struct Smem {                            // byte offsets, 1024-aligned tiles
@@ -966,7 +977,7 @@ struct Smem {                            // byte offsets, 1024-aligned tiles
 struct Args {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  float* dq_acc;          // (B, Hq, Tq, kAdds) tiles of 4096 floats
+  float* dq_acc;          // (B, Hq, Tq, kAdds) tiles of kTile floats
   const float* lse2;      // (B, Hq, S_pad): lse in log2 units, +inf past S
   const float* di;        // (B, Hq, S_pad), 0 past S
   int* counters;          // (B, Hq, Tq): dQ partials added per query tile
@@ -1079,13 +1090,16 @@ fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
 // A thread takes the 8 float4 of one (c, w, tig), grp 0..7, and writes
 // the 16 columns 64 c2 + 16 w .. + 15 of its two positions as four
 // 16-byte stores.
+// D 16 (dQ, 64 rows x 16 columns, float4 c = 0, 1): rows 16 w + grp and
+// + 8, columns 8 c + 2 tig and + 1. A thread takes the 8 float4 of one
+// (w, grp), tig 0..3 and c 0..1, and writes its two rows of 32 bytes.
 template <int D>
 __global__ void __launch_bounds__(256)
 fa_bwd_post_kernel(const float* __restrict__ acc,
                    __nv_bfloat16* __restrict__ dq, int B, int S, int Hq,
                    int Tq, float scale) {
-  constexpr int kPer = D == 256 ? 8 : 4;            // float4 a thread
-  constexpr int kItems = kTileFloats / (4 * kPer);  // threads a tile
+  constexpr int kPer = D == 64 || D == 128 ? 4 : 8;  // float4 a thread
+  constexpr int kItems = kTile<D> / (4 * kPer);      // threads a tile
   const long long n =
       static_cast<long long>(B) * Hq * Tq * kAdds<D> * kItems;
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -1101,9 +1115,30 @@ fa_bwd_post_kernel(const float* __restrict__ acc,
     const int h = static_cast<int>(bh % Hq);
     const long long b = bh / Hq;
     const float4* src = reinterpret_cast<const float4*>(acc) +
-                        tile * (kTileFloats / 4);
+                        tile * (kTile<D> / 4);
     float4 v[kPer];
-    if constexpr (D == 256) {
+    if constexpr (D == 16) {
+      const int w = within / 8, grp = within % 8;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int tig = 0; tig < 4; ++tig)
+          v[4 * c + tig] = src[c * 128 + 32 * w + 4 * grp + tig];
+      const int s0 = m * kBr<D> + 16 * w + grp;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (s0 + 8 * e >= S) continue;
+        uint32_t x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          x[i] = e ? tc::pack_bf16(v[i].z * scale, v[i].w * scale)
+                   : tc::pack_bf16(v[i].x * scale, v[i].y * scale);
+        uint4* out = reinterpret_cast<uint4*>(
+            dq + ((b * S + s0 + 8 * e) * Hq + h) * D);
+        out[0] = make_uint4(x[0], x[1], x[2], x[3]);
+        out[1] = make_uint4(x[4], x[5], x[6], x[7]);
+      }
+    } else if constexpr (D == 256) {
       const int tig = within % 4, w = (within / 4) % 4, c = within / 16;
 #pragma unroll
       for (int g = 0; g < 8; ++g) v[g] = src[c * 128 + 32 * w + 4 * g + tig];
@@ -1213,22 +1248,19 @@ __device__ __forceinline__ void load(const Args& a, const CUtensorMap* tq,
 // A dQ writer (one thread of the producer warpgroup for each consumer
 // warpgroup): takes the warpgroup's staged partials in order; once a
 // partial's counter shows that every earlier key tile of its query tile
-// has added, one bulk reduce-add of the 16 KB into dq_acc (a bulk store
-// for the first). Two are kept in flight: when a third is issued, the
-// oldest has completed, and its counter and staging buffer are released.
+// has added, one bulk reduce-add of its 16 KB (4 KB at D 16) into dq_acc
+// (a bulk store for the first). Two are kept in flight: when a third is
+// issued, the oldest has completed, and its counter and staging buffer
+// are released.
 // Before any wait it releases what it has issued, so that a block waiting
 // on this one never waits on work this one holds back.
-template <int D>
-__device__ __forceinline__ void write_dq(const Args& a, uint8_t* sm, int w) {
-  using L = Smem<D>;
-  constexpr int kBufs = L::kBufs;
-  uint64_t* dq_full =
-      reinterpret_cast<uint64_t*>(sm + L::oBar) + 2 * L::kStages + 2 +
-      w * kBufs;
-  uint64_t* dq_empty = dq_full + 2 * kBufs;
-  const volatile Note* notes =
-      reinterpret_cast<const volatile Note*>(sm + L::oNote) + w * kBufs;
-  const uint8_t* stage = sm + L::oStage + w * kBufs * kTileFloats * 4;
+// `kBufs` staging buffers of `kFloats` floats at `stage`, each with its
+// note and its full / empty barriers.
+template <int kBufs, int kFloats>
+__device__ __forceinline__ void write_ring(const Args& a, uint64_t* dq_full,
+                                           uint64_t* dq_empty,
+                                           const volatile Note* notes,
+                                           const uint8_t* stage) {
   int* held[2];                          // counters of the partials in flight
   int n_held = 0, k = 0;
   auto release = [&](int count) {        // the oldest `count` have completed
@@ -1268,11 +1300,11 @@ __device__ __forceinline__ void write_dq(const Args& a, uint8_t* sm, int w) {
       hop::spin_until_at_least(ctr, note.target);
     }
     hop::fence_async_global();
-    const uint8_t* src = stage + buf * kTileFloats * 4;
+    const uint8_t* src = stage + buf * kFloats * 4;
     if (note.target == 0)                // the query tile's first partial
-      hop::bulk_store(a.dq_acc + note.tile, src, kTileFloats * 4);
+      hop::bulk_store(a.dq_acc + note.tile, src, kFloats * 4);
     else
-      hop::bulk_reduce_add(a.dq_acc + note.tile, src, kTileFloats * 4);
+      hop::bulk_reduce_add(a.dq_acc + note.tile, src, kFloats * 4);
     held[n_held++] = ctr;
     ++k;                                 // in flight: k - n_held .. k - 1
     if (n_held == 2) {
@@ -1280,6 +1312,19 @@ __device__ __forceinline__ void write_dq(const Args& a, uint8_t* sm, int w) {
       release(1);
     }
   }
+}
+
+template <int D>
+__device__ __forceinline__ void write_dq(const Args& a, uint8_t* sm, int w) {
+  using L = Smem<D>;
+  constexpr int kBufs = L::kBufs;
+  uint64_t* dq_full =
+      reinterpret_cast<uint64_t*>(sm + L::oBar) + 2 * L::kStages + 2 +
+      w * kBufs;
+  write_ring<kBufs, kTileFloats>(
+      a, dq_full, dq_full + 2 * kBufs,
+      reinterpret_cast<const volatile Note*>(sm + L::oNote) + w * kBufs,
+      sm + L::oStage + w * kBufs * kTileFloats * 4);
 }
 
 template <int D>
@@ -1777,21 +1822,528 @@ __device__ __forceinline__ void consume_roles(const Args& a, uint8_t* sm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 D 16: two pipelines a block (`consume16`)
+// ---------------------------------------------------------------------------
+// At D 16 the products are the small part of the work: each score costs
+// an exp on the SFU (16 a clock an SM) and ~5 float32 operations, against
+// 5 x 16 multiply-adds on the tensor cores. So each consumer warpgroup
+// runs a pipeline of its own, with its own loader, ring, dQ writer and
+// work tiles: the two meet at no barrier, and while one waits on its
+// wgmmas the other's warps issue their exps. A work tile is 128 keys (two
+// 64-row halves). For each 64-position query tile a warpgroup forms S^T
+// and dP^T of a half (wgmma m64n64k16, one k-step each), P^T and dS^T in
+// registers (each score's exp once), dV += P^T dO and dK += dS^T Q
+// (m64n16, A from registers), dS^T [key][query] into shared memory; then
+// the query tile's dQ partial = dS K over the 128 keys (m64n16, both
+// operands in shared memory), staged for its writer. Heads of 16
+// are rows of 32 bytes, which TMA loads 32-byte swizzled
+// (`hop::desc_sw32`); dS^T keeps 128-byte rows of 64 queries.
+
+// Pipelines a block (at most two: their loaders and dQ writers take a
+// warp each of one producer warpgroup).
+constexpr int k16Pipes = 2;
+static_assert(k16Pipes <= 2, "one producer warpgroup hosts the roles");
+constexpr int k16Threads = 128 * (1 + k16Pipes);
+
+struct Smem16 {                          // one pipeline, byte offsets
+  static constexpr int kStages = 4;      // Q / dO / lse / Di
+  static constexpr int kBufs = 4;        // dQ staging
+  static constexpr int kKV = kBc<16> * 32;           // K or V of a work tile
+  static constexpr int kQ = kBr<16> * 32;            // Q or dO of a query tile
+  static constexpr int kDS = kBc<16> * kBr<16> * 2;  // dS^T, bf16
+  static constexpr int oK = 0, oV = oK + 2 * kKV;    // two work tiles each
+  static constexpr int oDS = oV + 2 * kKV;
+  static constexpr int oQ = oDS + kDS, oDO = oQ + kStages * kQ;
+  static constexpr int oStage = oDO + kStages * kQ;
+  static constexpr int oL = oStage + kBufs * kTile<16> * 4;  // lse2
+  static constexpr int oI = oL + kStages * kBr<16> * 4;      // Di
+  // full[kStages], empty[kStages], kv_full[2], kv_empty[2],
+  // dq_full[kBufs], dq_empty[kBufs]; then the two tile slots and the
+  // partials' notes
+  static constexpr int oBar = oI + kStages * kBr<16> * 4;
+  static constexpr int kBars = 2 * kStages + 4 + 2 * kBufs;
+  static constexpr int oTile = oBar + kBars * 8;
+  static constexpr int oNote = oTile + 16;
+  static constexpr int kPipe = (oNote + kBufs * 16 + 1023) / 1024 * 1024;
+  static constexpr int kBytes = k16Pipes * kPipe + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "past a block's shared memory");
+};
+
+struct Bars16 {                          // a pipeline's mbarriers
+  uint64_t *full, *empty, *kv_full, *kv_empty, *dq_full, *dq_empty;
+  __device__ explicit Bars16(uint8_t* sm) {
+    full = reinterpret_cast<uint64_t*>(sm + Smem16::oBar);
+    empty = full + Smem16::kStages;
+    kv_full = empty + Smem16::kStages;
+    kv_empty = kv_full + 2;
+    dq_full = kv_empty + 2;
+    dq_empty = dq_full + Smem16::kBufs;
+  }
+};
+
+// S^T (or dP^T) of 64 keys and 64 queries: the 64 rows of 16 at x times
+// those at y, both K-major (one k-step). d is only written, so that
+// nothing defines it while other wgmmas are in flight: ptxas serialises
+// every wgmma of a kernel that defines an accumulator there.
+__device__ __forceinline__ void scores16(float (&d)[32], uint32_t x,
+                                         uint32_t y) {
+  hop::wgmma_ss_n64_set<0, 0>(d, hop::desc_sw32(x, 16),
+                              hop::desc_sw32(y, 16));
+}
+
+// dV += P^T dO and dK += dS^T Q of one 64-key half (64 x 16 each): A the
+// packed 64 x 64 accumulators pa, da (k-steps of 16 queries), B the 64
+// rows of 16 at dos, qs (MN-major). The two chains' k-steps interleaved,
+// so that no wgmma waits on the one before it.
+__device__ __forceinline__ void dkdv16(float (&dv)[8], float (&dk)[8],
+                                       const uint32_t (&pa)[4][4],
+                                       const uint32_t (&da)[4][4],
+                                       uint32_t dos, uint32_t qs) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hop::wgmma_rs_n16<1>(
+        dv, pa[kk], hop::desc_sw32(dos + kk * 512, Smem16::kQ), 1);
+    hop::wgmma_rs_n16<1>(
+        dk, da[kk], hop::desc_sw32(qs + kk * 512, Smem16::kQ), 1);
+  }
+}
+
+// A warp's packed dS^T rows `row` and `row` + 8 (keys; row % 8 = grp) into
+// ds [key][64 queries], 128-byte swizzled as TMA would write it.
+__device__ __forceinline__ void store_ds16(uint8_t* ds, int row, int tig,
+                                           const uint32_t (&da)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(ds + (row + 8 * hh) * 128 +
+                                   ((j ^ (row & 7)) << 4) + 4 * tig) =
+          da[j >> 1][(j & 1) * 2 + hh];
+}
+
+// dQ (64 queries x 16) = dS K over the 128 keys as two sums, one a
+// 64-key half (dq0 + dq1; their k-steps interleaved, each sum's first
+// product only writes it, as in scores16): dS^T at ds (MN-major A), K's
+// rows of 16 at k (MN-major B).
+__device__ __forceinline__ void dq16(float (&dq0)[8], float (&dq1)[8],
+                                     uint32_t ds, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k2 = 4 * h + kk;
+      const uint64_t da = hop::desc_sw128(ds + k2 * 2048, Smem16::kDS);
+      const uint64_t db = hop::desc_sw32(k + k2 * 512, Smem16::kKV);
+      float (&d)[8] = h ? dq1 : dq0;
+      if (kk == 0)
+        hop::wgmma_ss_n16_set<1, 1>(d, da, db);
+      else
+        hop::wgmma_ss_n16<1, 1>(d, da, db, 1);
+    }
+}
+
+// P^T and dS^T of one half in place of S^T (sc) and dP^T (dp): the keys
+// key, key + 8 of this thread, the queries q0 + 8 j + 2 tig (+ 1). kMask:
+// some pair of the half may be hidden (causal, window, past S).
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void score_math16(const Args& a, float (&sc)[32],
+                                             float (&dp)[32], const float* ls,
+                                             const float* is, int key,
+                                             int q0, int tig) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * tig);
+    const float2 di = *reinterpret_cast<const float2*>(is + 8 * j + 2 * tig);
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {     // one key, two queries
+      float* s2 = sc + 4 * j + e;
+      float* d2 = dp + 4 * j + e;
+      float p[2], f[2];
+      if constexpr (kCap) {
+        score_p(s2[0], l2.x, a.scale, a.c_exp, a.softcap, p[0], f[0]);
+        score_p(s2[1], l2.y, a.scale, a.c_exp, a.softcap, p[1], f[1]);
+      } else {
+        f[0] = p[0] = tc::exp2_approx(fmaf(s2[0], a.c_exp, -l2.x));
+        f[1] = p[1] = tc::exp2_approx(fmaf(s2[1], a.c_exp, -l2.y));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float ds = f[i] * (d2[i] - (i ? di.y : di.x));
+        if constexpr (kMask) {
+          const int k = key + 4 * e, q = q0 + 8 * j + 2 * tig + i;
+          const bool ok =
+              k < a.S && q < a.S && sees(k, q, a.causal, a.window);
+          p[i] = ok ? p[i] : 0.f;
+          ds = ok ? ds : 0.f;
+        }
+        s2[i] = p[i];
+        d2[i] = ds;
+      }
+    }
+  }
+}
+
+// A pipeline's loader (one thread): takes work tiles from the dispenser,
+// loads each one's K and V into one of two buffers (the next tile's while
+// the consumers finish this one), and streams the Q / dO / lse / Di tiles
+// of its walk through the ring.
+__device__ __forceinline__ void load16(const Args& a, const CUtensorMap* tq,
+                                       const CUtensorMap* tdo,
+                                       const CUtensorMap* tk,
+                                       const CUtensorMap* tv, uint8_t* sm) {
+  using L = Smem16;
+  constexpr int kR = kBr<16>;
+  const Bars16 bar(sm);
+  volatile int* slot = reinterpret_cast<volatile int*>(sm + L::oTile);
+  const int G = a.Hq / a.Hkv, pairs = a.B * a.Hkv;
+  int qt = 0;
+  for (int it = 0;; ++it) {
+    const int kb = it & 1;
+    hop::mbar_wait(bar.kv_empty + kb, ((it >> 1) & 1) ^ 1);
+    const int t = atomicAdd(a.next_tile, 1);
+    slot[kb] = t;
+    if (t >= a.n_tiles) {
+      hop::mbar_arrive(bar.kv_full + kb);
+      return;
+    }
+    const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    hop::mbar_expect(bar.kv_full + kb, 2 * L::kKV);
+    hop::tma_load_4d(sm + L::oK + kb * L::kKV, tk, 0, hk, n * kBc<16>, b,
+                     bar.kv_full + kb);
+    hop::tma_load_4d(sm + L::oV + kb * L::kKV, tv, 0, hk, n * kBc<16>, b,
+                     bar.kv_full + kb);
+    const int lo = m_first<16>(a, n);
+    for (int m = m_last<16>(a, n); m >= lo; --m)
+      for (int g = 0; g < G; ++g, ++qt) {
+        const int s = qt % L::kStages;
+        hop::mbar_wait(bar.empty + s, ((qt / L::kStages) & 1) ^ 1);
+        const int h = hk * G + g;
+        hop::mbar_expect(bar.full + s, 2 * L::kQ + 2 * kR * 4);
+        hop::tma_load_4d(sm + L::oQ + s * L::kQ, tq, 0, h, m * kR, b,
+                         bar.full + s);
+        hop::tma_load_4d(sm + L::oDO + s * L::kQ, tdo, 0, h, m * kR, b,
+                         bar.full + s);
+        const long long row =
+            (static_cast<long long>(b) * a.Hq + h) * a.S_pad + m * kR;
+        hop::bulk_load(sm + L::oL + s * kR * 4, a.lse2 + row, kR * 4,
+                       bar.full + s);
+        hop::bulk_load(sm + L::oI + s * kR * 4, a.di + row, kR * 4,
+                       bar.full + s);
+      }
+  }
+}
+
+// A pipeline's consumer warpgroup (see the section's note). A query
+// tile takes three round trips to the tensor cores: S^T and dP^T of half
+// 0; those of half 1 with dV and dK of half 0; dV and dK of half 1 with
+// dQ. Both halves are always formed (a half that sees no pair of the
+// query tile is masked to zero: the causal diagonal and the ragged edge),
+// so that what is in flight never depends on the tile, and nothing but
+// a wgmma defines an accumulator while one is in flight (ptxas
+// serialises every wgmma of the kernel otherwise).
+__device__ __forceinline__ void consume16(const Args& a, uint8_t* block,
+                                          int wg, int tid) {
+  using L = Smem16;
+  constexpr int kR = kBr<16>;
+  uint8_t* sm = block + wg * L::kPipe;
+  const Bars16 bar(sm);
+  const volatile int* slot =
+      reinterpret_cast<const volatile int*>(sm + L::oTile);
+  Note* notes = reinterpret_cast<Note*>(sm + L::oNote);
+  const uint32_t base = hop::smem_u32(sm);
+  uint8_t* dsb = sm + L::oDS;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int G = a.Hq / a.Hkv, pairs = a.B * a.Hkv;
+  float dk[2][8], dv[2][8];              // a half each
+  uint32_t pa[4][4], da[4][4];           // P^T, dS^T as A of k-steps of 16
+  int qt = 0, staged = 0;
+  for (int it = 0;; ++it) {
+    const int kb = it & 1;
+    hop::mbar_wait(bar.kv_full + kb, (it >> 1) & 1);
+    const int t = slot[kb];
+    if (t >= a.n_tiles) {
+      const int buf = staged % L::kBufs;
+      hop::mbar_wait(bar.dq_empty + buf, ((staged / L::kBufs) & 1) ^ 1);
+      if (tid == 0) notes[buf].done = 1;
+      hop::mbar_arrive(bar.dq_full + buf);
+      return;
+    }
+    const int n = t / pairs, b = (t % pairs) / a.Hkv, hk = t % a.Hkv;
+    const int key0 = n * kBc<16>;
+    const uint32_t ks = base + L::oK + kb * L::kKV;
+    const uint32_t vs = base + L::oV + kb * L::kKV;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dk[h][i] = dv[h][i] = 0.f;
+    const int lo = m_first<16>(a, n);
+    for (int m = m_last<16>(a, n); m >= lo; --m)
+      for (int g = 0; g < G; ++g, ++qt) {
+        const int s = qt % L::kStages;
+        hop::mbar_wait(bar.full + s, (qt / L::kStages) & 1);
+        const uint32_t qs = base + L::oQ + s * L::kQ;
+        const uint32_t dos = base + L::oDO + s * L::kQ;
+        const float* ls = reinterpret_cast<const float*>(sm + L::oL) + s * kR;
+        const float* is = reinterpret_cast<const float*>(sm + L::oI) + s * kR;
+        const int q0 = m * kR;
+        // P^T and dS^T of half h from S^T and dP^T, packed into pa, da,
+        // dS^T stored
+        auto half = [&](float (&sc)[32], float (&dp)[32], int h) {
+          const int kh = key0 + 64 * h;
+          // every pair of the half visible: no mask
+          const bool open = kh + 63 < a.S && q0 + kR <= a.S &&
+                            (!a.causal || q0 >= kh + 63) &&
+                            (a.window <= 0 || q0 + kR - 1 - a.window < kh);
+          const int key = kh + 16 * warp + grp;
+          if (a.softcap > 0.f) {
+            if (open)
+              score_math16<true, false>(a, sc, dp, ls, is, key, q0, tig);
+            else
+              score_math16<true, true>(a, sc, dp, ls, is, key, q0, tig);
+          } else if (open) {
+            score_math16<false, false>(a, sc, dp, ls, is, key, q0, tig);
+          } else {
+            score_math16<false, true>(a, sc, dp, ls, is, key, q0, tig);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              pa[kk][r] = tc::pack_bf16(sc[8 * kk + 2 * r],
+                                        sc[8 * kk + 2 * r + 1]);
+              da[kk][r] = tc::pack_bf16(dp[8 * kk + 2 * r],
+                                        dp[8 * kk + 2 * r + 1]);
+            }
+          store_ds16(dsb, 64 * h + 16 * warp + grp, tig, da);
+        };
+        float sc[32], dp[32];            // written by the wgmmas
+        hop::wgmma_fence();
+        scores16(sc, ks, qs);
+        scores16(dp, vs, dos);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+        hop::fence_regs(dp);
+        half(sc, dp, 0);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        hop::wgmma_fence();
+        scores16(sc, ks + 2048, qs);
+        scores16(dp, vs + 2048, dos);
+        dkdv16(dv[0], dk[0], pa, da, dos, qs);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sc);
+        hop::fence_regs(dp);
+        hop::fence_regs(dv[0]);
+        hop::fence_regs(dk[0]);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        half(sc, dp, 1);
+        hop::fence_async_smem();
+        hop::named_sync(1 + wg, 128);    // the four warps' dS^T rows
+        float dq0[8], dq1[8];            // written by the wgmmas
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        hop::wgmma_fence();
+        dkdv16(dv[1], dk[1], pa, da, dos, qs);
+        dq16(dq0, dq1, base + L::oDS, ks);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dv[1]);
+        hop::fence_regs(dk[1]);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
+        hop::fence_regs(dq0);
+        hop::fence_regs(dq1);
+        if (lane == 0) hop::mbar_arrive(bar.empty + s);
+        // stage the partial (float4 c of thread t at c * 128 + t) with the
+        // note its writer orders it by
+        const int buf = staged % L::kBufs;
+        hop::mbar_wait(bar.dq_empty + buf, ((staged / L::kBufs) & 1) ^ 1);
+        float4* stage =
+            reinterpret_cast<float4*>(sm + L::oStage + buf * kTile<16> * 4);
+        stage[tid] = make_float4(dq0[0] + dq1[0], dq0[1] + dq1[1],
+                                 dq0[2] + dq1[2], dq0[3] + dq1[3]);
+        stage[128 + tid] = make_float4(dq0[4] + dq1[4], dq0[5] + dq1[5],
+                                       dq0[6] + dq1[6], dq0[7] + dq1[7]);
+        if (tid == 0) {
+          const int h = hk * G + g;
+          const long long ctr =
+              (static_cast<long long>(b) * a.Hq + h) * a.Tq + m;
+          Note& note = notes[buf];
+          note.tile = ctr * kTile<16>;
+          note.ctr = static_cast<int>(ctr);
+          note.target = n - n_first<16>(a, m);
+          note.done = 0;
+        }
+        hop::fence_async_smem();
+        hop::mbar_arrive(bar.dq_full + buf);
+        ++staged;
+      }
+    if (lane == 0) hop::mbar_arrive(bar.kv_empty + kb);
+    // dV unscaled, dK times the scale
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = key0 + 64 * h + 16 * warp + grp + 8 * hh;
+          if (key >= a.S) continue;
+          const long long at =
+              ((static_cast<long long>(b) * a.S + key) * a.Hkv + hk) * 16 +
+              8 * j + 2 * tig;
+          *reinterpret_cast<uint32_t*>(a.dk + at) =
+              tc::pack_bf16(dk[h][4 * j + 2 * hh] * a.scale,
+                            dk[h][4 * j + 2 * hh + 1] * a.scale);
+          *reinterpret_cast<uint32_t*>(a.dv + at) = tc::pack_bf16(
+              dv[h][4 * j + 2 * hh], dv[h][4 * j + 2 * hh + 1]);
+        }
+  }
+}
+
+// The D 16 main kernel's roles: in the producer warpgroup, lane 0 of
+// warp p loads for pipeline p and lane 0 of warp k16Pipes + p writes its
+// dQ partials; consumer warpgroup 1 + p runs pipeline p.
+__device__ __forceinline__ void run16(const Args& a, const CUtensorMap* tq,
+                                      const CUtensorMap* tdo,
+                                      const CUtensorMap* tk,
+                                      const CUtensorMap* tv, uint8_t* sm) {
+  using L = Smem16;
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < k16Pipes; ++p) {
+      const Bars16 bar(sm + p * L::kPipe);
+      for (int s = 0; s < L::kStages; ++s) {
+        hop::mbar_init(bar.full + s, 1);
+        hop::mbar_init(bar.empty + s, 4);      // a consumer's warps
+      }
+      for (int i = 0; i < 2; ++i) {
+        hop::mbar_init(bar.kv_full + i, 1);
+        hop::mbar_init(bar.kv_empty + i, 4);
+      }
+      for (int i = 0; i < L::kBufs; ++i) {
+        hop::mbar_init(bar.dq_full + i, 128);
+        hop::mbar_init(bar.dq_empty + i, 1);
+      }
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == 0) {
+    hop::setmaxnreg_dec<kProducerRegs>();
+    const int w = threadIdx.x / 32;
+    if (threadIdx.x % 32 != 0 || w >= 2 * k16Pipes) return;
+    if (w < k16Pipes) {
+      load16(a, tq, tdo, tk, tv, sm + w * L::kPipe);
+    } else {
+      uint8_t* pipe = sm + (w - k16Pipes) * L::kPipe;
+      const Bars16 bar(pipe);
+      write_ring<L::kBufs, kTile<16>>(
+          a, bar.dq_full, bar.dq_empty,
+          reinterpret_cast<const volatile Note*>(pipe + L::oNote),
+          pipe + L::oStage);
+    }
+  } else {
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    consume16(a, sm, wgi - 1, threadIdx.x % 128);
+  }
+}
+
+// A card test of the D 16 operand layouts (tests/test_torch_kernels_cuda.py):
+// one warpgroup loads x (128 rows of 16), y (64) and w (128) by TMA as the
+// kernel loads K, Q and dO, and with the kernel's helpers writes, float32
+// row-major: s (128 x 64) = x y^T a 64-row half at a time (S^T = K Q^T);
+// pw (128 x 16) = bf16(s_h) w[0:64] a half at a time (dV += P^T dO; both
+// chains of dkdv16 alike, else NaN); dq (64 x 16) = bf16(s)^T w, dS^T
+// through shared memory (dQ = dS K).
+__global__ void __launch_bounds__(128)
+fa_bwd_d16_probe_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap ty,
+                        const __grid_constant__ CUtensorMap tw,
+                        float* __restrict__ s, float* __restrict__ pw,
+                        float* __restrict__ dq) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  constexpr int oX = 0, oY = 4096, oW = 8192, oDS = 16384, oBar = 32768;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + oBar);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  if (tid == 0) {
+    hop::mbar_init(bar, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hop::mbar_expect(bar, 4096 + 2048 + 4096);
+    hop::tma_load_4d(sm + oX, &tx, 0, 0, 0, 0, bar);
+    hop::tma_load_4d(sm + oY, &ty, 0, 0, 0, 0, bar);
+    hop::tma_load_4d(sm + oW, &tw, 0, 0, 0, 0, bar);
+  }
+  hop::mbar_wait(bar, 0);
+  const uint32_t base = hop::smem_u32(sm);
+  for (int h = 0; h < 2; ++h) {
+    float sc[32], acc[8], acc2[8];
+    uint32_t pa[4][4];
+    for (int i = 0; i < 8; ++i) acc[i] = acc2[i] = 0.f;
+    hop::wgmma_fence();
+    scores16(sc, base + oX + h * 2048, base + oY);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    for (int kk = 0; kk < 4; ++kk)
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = tc::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    store_ds16(sm + oDS, 64 * h + 16 * warp + grp, tig, pa);
+    hop::fence_regs(pa);
+    hop::fence_regs(acc);
+    hop::fence_regs(acc2);
+    hop::wgmma_fence();
+    dkdv16(acc, acc2, pa, pa, base + oW, base + oW);  // both chains alike
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::fence_regs(acc2);
+    hop::fence_regs(pa);
+    for (int i = 0; i < 32; ++i) {
+      const int row = 64 * h + 16 * warp + grp + 8 * ((i & 3) >> 1);
+      s[row * 64 + 8 * (i >> 2) + 2 * tig + (i & 1)] = sc[i];
+    }
+    for (int i = 0; i < 8; ++i) {
+      const int row = 64 * h + 16 * warp + grp + 8 * ((i & 3) >> 1);
+      pw[row * 16 + 8 * (i >> 2) + 2 * tig + (i & 1)] =
+          acc[i] == acc2[i] ? acc[i] : NAN;
+    }
+  }
+  hop::fence_async_smem();
+  __syncthreads();
+  float dq0[8], dq1[8];
+  hop::wgmma_fence();
+  dq16(dq0, dq1, base + oDS, base + oW);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_regs(dq0);
+  hop::fence_regs(dq1);
+  for (int i = 0; i < 8; ++i) {
+    const int row = 16 * warp + grp + 8 * ((i & 3) >> 1);
+    dq[row * 16 + 8 * (i >> 2) + 2 * tig + (i & 1)] = dq0[i] + dq1[i];
+  }
+}
+
 // The producer warpgroup (warps 0-3: the loader in warp 0, a dQ writer
 // in each of warps 1 and 2) and two consumer warpgroups (warps 4-11).
 // setmaxnreg moves registers from the producer to the consumers: a
 // quarter of the SM's register file (one sub-partition) holds 3 warps,
 // 40 + 2 x 232 registers a thread.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tdo,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const Args a) {
+__device__ __forceinline__ void run(const Args& a, const CUtensorMap* tq,
+                                    const CUtensorMap* tdo,
+                                    const CUtensorMap* tk,
+                                    const CUtensorMap* tv, uint8_t* sm) {
   using L = Smem<D>;
   constexpr int kStages = L::kStages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   if (threadIdx.x == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::oBar);
     constexpr int kConsumerWarps = kConsumers / 32;
@@ -1813,7 +2365,7 @@ fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
   const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wgi == 0) {
     hop::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) load<D>(a, &tq, &tdo, &tk, &tv, sm);
+    if (threadIdx.x == 0) load<D>(a, tq, tdo, tk, tv, sm);
     if (threadIdx.x == 32) write_dq<D>(a, sm, 0);
     if (threadIdx.x == 64) write_dq<D>(a, sm, 1);
   } else {
@@ -1823,6 +2375,29 @@ fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
     else
       consume<D>(a, sm, wgi - 1, threadIdx.x % 128);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(D == 16 ? k16Threads : kThreads, 1)
+fa_bwd_main_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  if constexpr (D == 16)
+    run16(a, &tq, &tdo, &tk, &tv, sm);
+  else
+    run<D>(a, &tq, &tdo, &tk, &tv, sm);
+}
+
+// The main kernel's shared memory.
+template <int D>
+constexpr int main_bytes() {
+  if constexpr (D == 16)
+    return Smem16::kBytes;
+  else
+    return Smem<D>::kBytes;
 }
 
 struct Workspace {                       // carved from the wrapper's bytes
@@ -1847,7 +2422,6 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
            void* work, int B, int S, int Hq, int Hkv, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
-  using L = Smem<D>;
   const int Tq = (S + kBr<D> - 1) / kBr<D>, Tk = (S + kBc<D> - 1) / kBc<D>;
   const long long n_tiles =
       static_cast<long long>(Tk) * kColSplit<D> * B * Hkv;
@@ -1885,18 +2459,22 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   CUtensorMap tq, tdo, tk, tv;
   if (hop::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
-  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBr<D>) ||
-      !hop::tensor_map(&tdo, dout, B, S, Hq, D, kBr<D>) ||
-      !hop::tensor_map(&tk, k, B, S, Hkv, D, kBc<D>) ||
-      !hop::tensor_map(&tv, v, B, S, Hkv, D, kBc<D>))
+  constexpr int kCols = D == 16 ? 16 : 64;       // a box's columns
+  if (!hop::tensor_map(&tq, q, B, S, Hq, D, kBr<D>, 1, kCols) ||
+      !hop::tensor_map(&tdo, dout, B, S, Hq, D, kBr<D>, 1, kCols) ||
+      !hop::tensor_map(&tk, k, B, S, Hkv, D, kBc<D>, 1, kCols) ||
+      !hop::tensor_map(&tv, v, B, S, Hkv, D, kBc<D>, 1, kCols))
     return static_cast<int>(cudaErrorInvalidPitchValue);
+  constexpr int kBytes = main_bytes<D>();
+  constexpr int kPipes = D == 16 ? k16Pipes : 1;   // work tiles at a time
   err = cudaFuncSetAttribute(fa_bwd_main_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::kBytes);
+                             kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
-  fa_bwd_main_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(tq, tdo, tk,
-                                                               tv, a);
+  const long long blocks = (n_tiles + kPipes - 1) / kPipes;
+  const int grid = static_cast<int>(blocks < sms ? blocks : sms);
+  fa_bwd_main_kernel<D><<<grid, D == 16 ? k16Threads : kThreads, kBytes,
+                          stream>>>(tq, tdo, tk, tv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fa_bwd_post_kernel<D><<<4 * sms, 256, 0, stream>>>(
@@ -1921,18 +2499,18 @@ int launch_di(const void* o, const void* dout, float* di, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 64, 128 and 256 take the warpgroup kernels.
+// bf16 takes the warpgroup kernels at every head dimension.
 bool warpgroup_path(int D, int dtype) {
-  return dtype == 1 && (D == 64 || D == 128 || D == 256);
+  return dtype == 1 && (D == 16 || D == 64 || D == 128 || D == 256);
 }
 
 }  // namespace
 
 // Bytes of the float32 workspace the wrapper allocates for one call:
-// (B, Hq, S) of Di for the FMA and mma.sync kernels; for the warpgroup
-// kernels dq_acc (B, Hq, S_pad, D in tiles of 4096 floats), Di and the
-// lse in log2 units (B, Hq, S_pad; S_pad a whole number of query tiles),
-// and the counters.
+// (B, Hq, S) of Di for the FMA kernels; for the warpgroup kernels dq_acc
+// (B, Hq, S_pad, D in tiles of kTile floats), Di and the lse in log2
+// units (B, Hq, S_pad; S_pad a whole number of query tiles), the
+// counters and the dispenser.
 extern "C" long long flash_attention_bwd_workspace_bytes(int B, int S,
                                                          int Hq, int D,
                                                          int dtype) {
@@ -1940,11 +2518,37 @@ extern "C" long long flash_attention_bwd_workspace_bytes(int B, int S,
   return 4LL * B * Hq * S;
 }
 
+// The D 16 operand-layout probe (`wgk::fa_bwd_d16_probe_kernel`) on x
+// (128 rows of 16 bf16), y (64 rows) and w (128 rows), writing s (128 x
+// 64), pw (128 x 16) and dq (64 x 16) float32, row-major. Returns
+// cudaGetLastError() (0 = ok).
+extern "C" int flash_attention_bwd_d16_probe(const void* x, const void* y,
+                                             const void* w, float* s,
+                                             float* pw, float* dq,
+                                             void* stream) {
+  constexpr int kBytes = 32768 + 64 + 1024;        // + alignment slack
+  // a runtime call first: the encoder wants the runtime's context current
+  cudaError_t err = cudaFuncSetAttribute(
+      wgk::fa_bwd_d16_probe_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (hop::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tx, ty, tw;
+  if (!hop::tensor_map(&tx, x, 1, 128, 1, 16, 128, 1, 16) ||
+      !hop::tensor_map(&ty, y, 1, 64, 1, 16, 64, 1, 16) ||
+      !hop::tensor_map(&tw, w, 1, 128, 1, 16, 128, 1, 16))
+    return static_cast<int>(cudaErrorInvalidPitchValue);
+  wgk::fa_bwd_d16_probe_kernel<<<1, 128, kBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      tx, ty, tw, s, pw, dq);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor cores); D in
 // {16, 64, 128, 256} (the wrapper checks). work: the workspace above.
-// bf16 at D 64, 128 and 256: the pre-pass, the warpgroup kernel and the
-// post-pass; otherwise (float32, bf16 D 16) the Di pass, the dk/dv kernel
-// and the dq kernel.
+// bf16: the pre-pass, the warpgroup kernel and the post-pass; float32:
+// the Di pass, the dk/dv kernel and the dq kernel.
 // All on `stream`; returns the first cudaGetLastError() that is not 0
 // (0 = ok).
 extern "C" int flash_attention_bwd_launch(
@@ -1955,6 +2559,9 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   if (warpgroup_path(D, dtype)) {
+    if (D == 16)
+      return wgk::launch<16>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
+                             Hq, Hkv, scale, causal, window, softcap, st);
     if (D == 64)
       return wgk::launch<64>(q, k, v, o, ls, dout, dq, dk, dv, work, B, S,
                              Hq, Hkv, scale, causal, window, softcap, st);
@@ -1978,8 +2585,6 @@ extern "C" int flash_attention_bwd_launch(
     if (D == 64) FB_CASE(launch_f32, 64);
     if (D == 128) FB_CASE(launch_f32, 128);
     if (D == 256) FB_CASE(launch_f32, 256);
-  } else {
-    if (D == 16) FB_CASE(launch_bf16, 16);
   }
 #undef FB_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -13,6 +13,10 @@
 // steps 16 elements of k by adding 32 bytes to the start address; an
 // MN-major one (transposed: the reduction runs down the rows) steps 16
 // rows by adding 2048 bytes, and its next 64 columns lie `lbo` bytes on.
+// Heads of 16 (rows of 32 bytes) are 32-byte-swizzled
+// (CU_TENSOR_MAP_SWIZZLE_32B): chunk c of row r at chunk c ^ ((r / 4) %
+// 2), tiles 256-byte aligned; one row is one k-step of a K-major operand,
+// and an MN-major one (16 columns) steps 16 rows by adding 512 bytes.
 //
 // Accumulator layout of wgmma m64nN (float32): warp w of the warpgroup
 // holds rows 16 w + grp and 16 w + grp + 8 (grp = lane / 4, tig = lane %
@@ -40,6 +44,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of a 32-byte-swizzled operand (rows of 16 bf16) at `addr`:
+// sbo = 256 bytes between 8-row groups; lbo = bytes between 16-column
+// blocks of an MN-major operand (K-major: unused, 16).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -85,6 +98,34 @@ __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
       "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64n16, 8 floats a thread) (+)= A B, A and B from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64n16) = A B, A and B from shared memory: d is only written (no
+// scale-d), so that no instruction has to define it before the product,
+// which ptxas would count against the wgmmas in flight.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16_set(float (&d)[8], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %10, %11;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // d[O .. O + 15] (m64n32, 16 floats a thread) (+)= A B, A and B from
@@ -145,6 +186,29 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64n64) = A B, A and B from shared memory, d only written (as
+// wgmma_ss_n16_set).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64_set(float (&d)[32], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %34, %35;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // d (m64n80, 40 floats a thread) (+)= A B, A and B from shared memory.
@@ -228,6 +292,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64n16, 8 floats a thread) (+)= A B, A from registers (the m16n8k16
+// A fragment of each warp's 16 rows), B from shared memory (TB:
+// transposed, MN-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
 }
 
 // d (m64n64, 32 floats a thread) (+)= A B, A from registers (the
@@ -539,11 +621,13 @@ inline EncodeTiled encode_tiled() {
 // A (B, S, H, D) bf16 tensor as boxes of 64 columns x `heads` heads x
 // `rows` positions, 128-byte swizzled: a box lands as rows * heads rows
 // of 128 bytes, position-major (row r: position r / heads, head r %
-// heads). Positions past S read as zeros. Encode after a runtime call on
-// this thread (the encoder wants the runtime's context current:
+// heads); with `cols` 16, boxes of 16 columns, 32-byte swizzled (rows of
+// 32 bytes). Positions past S read as zeros. Encode after a runtime call
+// on this thread (the encoder wants the runtime's context current:
 // autograd's backward runs on its own thread).
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
-                       int H, int D, int rows, int heads = 1) {
+                       int H, int D, int rows, int heads = 1,
+                       int cols = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -553,12 +637,15 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(H) * D * 2,
                                  static_cast<cuuint64_t>(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(heads),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(heads),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

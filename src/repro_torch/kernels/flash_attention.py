@@ -9,9 +9,9 @@ log-sum-exp, and its backward launches ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``; plain version
 ``flash_attention_bwd_ref``). The JAX package differentiates its jnp
 attention with ``jax.grad`` and has no backward kernel; the port's
-forward on the card is a kernel, so its gradient is one too; in bf16 at D
-64, 128 and 256 it is one warp-specialised ``wgmma`` kernel between a
-pre-pass and a post-pass. The forward's bf16 has three instances,
+forward on the card is a kernel, so its gradient is one too; in bf16 (D
+16, 64, 128 and 256) it is one warp-specialised ``wgmma`` kernel between
+a pre-pass and a post-pass. The forward's bf16 has three instances,
 chosen by two shape rules (``instance`` names the one a call takes):
 ``long_instance`` sends long sequences (training, prefills) at D 64 or
 128 with no window or softcap, and at D 256 with or without gemma2's
@@ -394,13 +394,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradient of ``flash_attention``: (dq, dk, dv) in the inputs' type
     from q, k, v, the forward's ``o`` and ``lse`` (B, Hq, S) float32, and
     ``do`` (B, S, Hq, D). CUDA tensors launch the backward kernels,
-    counted once a call in ``flash_attention_bwd.launches``: in bf16 at D
-    64, 128 and 256 a pre-pass (Di and the lse in log2 units), one
-    persistent warpgroup kernel (the five products, dq added into a
-    float32 workspace in a fixed order) and a post-pass (dq to the
-    input's type); in float32 and in bf16 at D 16 the ``rowsum(do * o)``
-    pass, the dk/dv kernel and the dq kernel. CPU tensors take
-    ``flash_attention_bwd_ref``."""
+    counted once a call in ``flash_attention_bwd.launches``: in bf16 a
+    pre-pass (Di and the lse in log2 units), one persistent warpgroup
+    kernel (the five products, each score's exp once, dq added into a
+    float32 workspace in a fixed order; at D 16 two independent pipelines
+    a block, one a consumer warpgroup) and a post-pass (dq to the input's
+    type); in float32 the ``rowsum(do * o)`` pass, the dk/dv kernel and
+    the dq kernel. CPU tensors take ``flash_attention_bwd_ref``."""
     _check(q, k, v)
     B, S, Hq, D = q.shape
     if sm_scale is None:
@@ -456,10 +456,10 @@ flash_attention_bwd.launches = 0
 def workspace_bytes(B: int, S: int, Hq: int, D: int,
                     dtype: torch.dtype) -> int:
     """Bytes of the float32 workspace one backward call takes: for bf16
-    at D 64, 128 and 256 (the warpgroup kernel) the dq accumulator (B, S,
-    Hq, D), Di and the lse padded to whole query tiles (64 positions; 32
-    at D 256), and the counters of the ordered adds; otherwise Di (B, Hq,
-    S)."""
+    (the warpgroup kernel, every D) the dq accumulator (B, S, Hq, D), Di
+    and the lse padded to whole query tiles (64 positions; 32 at D 256),
+    the counters of the ordered adds and the work-tile dispenser; for
+    float32 Di (B, Hq, S)."""
     return library_function(
         "flash_attention_bwd", "flash_attention_bwd_workspace_bytes",
         [ctypes.c_int] * 5, restype=ctypes.c_longlong)(

@@ -12,9 +12,11 @@ evaluators' S 31), called with the short instance forced (``long_from``
 ``NEVER_LONG``, ``short_to`` at its key tile) at the evaluators' shapes.
 With ``--backward``: each variant is
 ``csrc/flash_attention_bwd.cu`` with one named edit of ``BWD_VARIANTS``
-(the kernels the warpgroup kernels replaced, or a design choice of
-theirs), called through its own ``flash_attention_bwd_launch`` on the o
-and lse of the port's forward. With ``--decode``: each variant is
+(the kernels the warpgroup kernels replaced, and at D 16 those taken
+apart; a design choice of the warpgroup kernels; at D 16 diagnostics
+that leave a step out), called through its own
+``flash_attention_bwd_launch`` on the o and lse of the port's forward,
+with SDPA's backward timed before and after the variants. With ``--decode``: each variant is
 ``csrc/flash_decode.cu`` with one named edit of ``DECODE_VARIANTS`` (the
 pieces kernel without its K/V loads or its math, with shorter pieces,
 its combine pass alone; the TMA instance with pieces of 256 positions in
@@ -170,23 +172,166 @@ SHORT_VARIANTS = {
     "short_mma_sync": [(_SHORT_RULE,
                         _SHORT_RULE.replace("S <= short_to", "false"))],
 }
-_BWD_PATH = "return dtype == 1 && (D == 64 || D == 128 || D == 256);"
-_BWD_BF16 = "    if (D == 16) FB_CASE(launch_bf16, 16);"
-_SHARE = "constexpr bool kByRoles = D != 64;"
+_BWD_PATH = ("return dtype == 1 && (D == 16 || D == 64 || D == 128 || "
+             "D == 256);")
+_BWD_F32 = "    if (D == 256) FB_CASE(launch_f32, 256);\n  }\n"
+
+
+def _mma_sync(D: int) -> list:
+    """The edits that send bf16 at head dimension ``D`` to the mma.sync
+    dk/dv and dq kernels (``launch_bf16``) that the warpgroup kernel
+    replaced."""
+    return [(_BWD_PATH, _BWD_PATH.replace(f"D == {D} || ", "")
+             .replace(f" || D == {D})", ")")),
+            (_BWD_F32, _BWD_F32.replace(
+                "  }\n", f"  }} else {{\n    if (D == {D}) "
+                         f"FB_CASE(launch_bf16, {D});\n  }}\n"))]
+
+
+_SHARE = "constexpr bool kByRoles = D == 128 || D == 256;"
+_D16_MMA = _mma_sync(16)
+_DQ_LAUNCH = "  dq_bf16_kernel<D><<<"
+_DKDV_LAUNCH = "  dkdv_bf16_kernel<D><<<"
+_DQ_SCORE = """          score_grad(s[n][e], dp[n][e], drow[h], lrow[h], scale, c_exp,
+                     softcap, pv, dsv);"""
+_DQ_NO_EXP = """          pv = fmaf(s[n][e], c_exp, -lrow[h]);
+          dsv = pv * (dp[n][e] - drow[h]);"""
+_DKDV_QLOADS = """      tc::cp_async16(qs + rr * DP + c * 8, qb + off, ok);
+      tc::cp_async16(ds + rr * DP + c * 8, db + off, ok);
+"""
+_D16_MATH = """          if (a.softcap > 0.f) {
+            if (open)
+              score_math16<true, false>(a, sc, dp, ls, is, key, q0, tig);
+            else
+              score_math16<true, true>(a, sc, dp, ls, is, key, q0, tig);
+          } else if (open) {
+            score_math16<false, false>(a, sc, dp, ls, is, key, q0, tig);
+          } else {
+            score_math16<false, true>(a, sc, dp, ls, is, key, q0, tig);
+          }
+"""
+_D16_ACC = ["        dkdv16(dv[0], dk[0], pa, da, dos, qs);\n",
+            "        dkdv16(dv[1], dk[1], pa, da, dos, qs);\n"]
+_D16_DQ = "        dq16(dq0, dq1, base + L::oDS, ks);\n"
+_D16_EXP = """        f[0] = p[0] = tc::exp2_approx(fmaf(s2[0], a.c_exp, -l2.x));
+        f[1] = p[1] = tc::exp2_approx(fmaf(s2[1], a.c_exp, -l2.y));
+"""
+_D16_PAIR_EXP = """        const uint32_t y = exp2_bf16x2(tc::pack_bf16(
+            fmaf(s2[0], a.c_exp, -l2.x), fmaf(s2[1], a.c_exp, -l2.y)));
+        f[0] = p[0] = __uint_as_float(y << 16);
+        f[1] = p[1] = __uint_as_float(y & 0xffff0000u);
+"""
+_D16_MATH_HEAD = "// P^T and dS^T of one half in place of S^T (sc) and dP^T"
+_D16_STAGES = "  static constexpr int kStages = 4;      // Q / dO / lse / Di"
+_BF16X2 = """__device__ __forceinline__ uint32_t exp2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+"""
+_D16_QLOADS = """        hop::tma_load_4d(sm + L::oQ + s * L::kQ, tq, 0, h, m * kR, b,
+                         bar.full + s);
+        hop::tma_load_4d(sm + L::oDO + s * L::kQ, tdo, 0, h, m * kR, b,
+                         bar.full + s);
+"""
+_NO_ADDS = ("""    if (note.target == 0)                // the query tile's first partial
+      hop::bulk_store(a.dq_acc + note.tile, src, kFloats * 4);
+    else
+      hop::bulk_reduce_add(a.dq_acc + note.tile, src, kFloats * 4);
+""", """    asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+""")
+_D16_SLOT = """  uint8_t* sm = block + wg * L::kPipe;
+  const Bars16 bar(sm);
+  const volatile int* slot =
+      reinterpret_cast<const volatile int*>(sm + L::oTile);
+"""
+_D16_TURNS = [
+    (_D16_SLOT, _D16_SLOT + """  // a pipeline's done flag at its oTile + 8, the block's turn at
+  // pipeline 0's oTile + 12
+  volatile int* turn = reinterpret_cast<volatile int*>(block + L::oTile + 12);
+  volatile int* done = reinterpret_cast<volatile int*>(sm + L::oTile + 8);
+  const volatile int* partner_done = reinterpret_cast<const volatile int*>(
+      block + (1 - wg) * L::kPipe + L::oTile + 8);
+  auto take_turn = [&]() {
+    if (tid == 0) {
+      const long long t0 = clock64();
+      while (*turn != wg && !*partner_done && clock64() - t0 < 2000) {
+      }
+    }
+    hop::named_sync(3 + wg, 128);
+  };
+  auto pass_turn = [&]() {
+    if (tid == 0) *turn = 1 - wg;
+  };
+"""),
+    ("      if (tid == 0) notes[buf].done = 1;\n"
+     "      hop::mbar_arrive(bar.dq_full + buf);\n",
+     "      if (tid == 0) notes[buf].done = 1;\n"
+     "      if (tid == 0) *done = 1;\n"
+     "      hop::mbar_arrive(bar.dq_full + buf);\n"),
+    *[(f"        half(sc, dp, {h});\n",
+       f"        take_turn();\n        half(sc, dp, {h});\n") for h in (0, 1)],
+    (_D16_ACC[0] + "        hop::wgmma_commit();\n",
+     _D16_ACC[0] + "        hop::wgmma_commit();\n        pass_turn();\n"),
+    (_D16_DQ + "        hop::wgmma_commit();\n",
+     _D16_DQ + "        hop::wgmma_commit();\n        pass_turn();\n"),
+    ("        hop::mbar_init(bar.dq_empty + i, 1);\n      }\n",
+     "        hop::mbar_init(bar.dq_empty + i, 1);\n      }\n"
+     "      *reinterpret_cast<int2*>(sm + p * L::kPipe + L::oTile + 8) =\n"
+     "          make_int2(0, 0);\n")]
 # name -> [(old, new)]: edits of csrc/flash_attention_bwd.cu as committed
 BWD_VARIANTS = {
     # the kernels the D 128 and D 256 instances replaced: at D 128 the two
     # warpgroups sharing 128 keys by halves (which spills), at D 256 the
     # mma.sync dk/dv and dq kernels
     "d128_key_halves": [(_SHARE, "constexpr bool kByRoles = D == 256;")],
-    "d256_mma_sync": [(_BWD_PATH, "return dtype == 1 && (D == 64 || "
-                                  "D == 128);"),
-                      (_BWD_BF16, _BWD_BF16 + "\n    if (D == 256) "
-                                  "FB_CASE(launch_bf16, 256);")],
+    "d256_mma_sync": _mma_sync(256),
     # the role split's softcap with libdevice's tanhf, as `score_grad`
     # takes it, in place of tanh_ex2
     "tanhf": [("    const float t = softcap * tc::tanh_ex2(s * scale / softcap);",
                "    const float t = softcap * tanhf(s * scale / softcap);")],
+    # the kernels the D 16 instance replaced (the mma.sync dk/dv and dq
+    # kernels), and those taken apart: its dk/dv kernel or its dq kernel
+    # alone, the dq kernel with no exp (P's argument used as P), and the
+    # dk/dv kernel with no Q / dO loads (stale tiles scored)
+    "d16_mma_sync": _D16_MMA,
+    "d16_dkdv_only": _D16_MMA + [(_DQ_LAUNCH,
+                                  "  if (false) " + _DQ_LAUNCH[2:])],
+    "d16_dq_only": _D16_MMA + [(_DKDV_LAUNCH,
+                                "  if (false) " + _DKDV_LAUNCH[2:])],
+    "d16_dq_no_exp": _D16_MMA + [(_DKDV_LAUNCH,
+                                  "  if (false) " + _DKDV_LAUNCH[2:]),
+                                 (_DQ_SCORE, _DQ_NO_EXP)],
+    "d16_dkdv_no_loads": _D16_MMA + [(_DQ_LAUNCH,
+                                      "  if (false) " + _DQ_LAUNCH[2:]),
+                                     (_DKDV_QLOADS, "")],
+    # the D 16 instance taken apart: P's argument used as P (no exp: what
+    # the SFU costs); the dQ writers issuing no adds (empty bulk groups,
+    # counters released in order); no Q / dO loads (stale tiles scored);
+    # each step of a query tile left out in turn (the score math, S and dP
+    # taken as P and dS; dV and dK; the dQ product); one pipeline a block
+    # (the second consumer warpgroup idle). Their results are wrong.
+    "d16_no_exp": [(_D16_EXP, _D16_EXP.replace("tc::exp2_approx", ""))],
+    "d16_no_dq_adds": [_NO_ADDS],
+    "d16_no_q_loads": [(_D16_QLOADS, ""),
+                       ("hop::mbar_expect(bar.full + s, 2 * L::kQ + 2 * kR * 4);",
+                        "hop::mbar_expect(bar.full + s, 2 * kR * 4);")],
+    "d16_no_math": [(_D16_MATH, "")],
+    "d16_no_dkdv": [(x, "") for x in _D16_ACC],
+    "d16_no_dq_product": [(_D16_DQ, "")],
+    "d16_one_pipeline": [("constexpr int k16Pipes = 2;",
+                          "constexpr int k16Pipes = 1;")],
+    # and design choices: two exps an SFU op (ex2.approx.ftz.bf16x2, the
+    # argument and P rounded to bf16); the two pipelines taking their
+    # score math in turns, as FlashAttention-3's forward does its softmax
+    # (a turn a hint: one that has waited 2000 clocks goes on, since the
+    # other may wait on its dQ order, and one whose partner has finished
+    # never waits); the Q / dO ring 12 stages deep (4 as committed)
+    "d16_pair_exp": [(_D16_MATH_HEAD, _BF16X2 + _D16_MATH_HEAD),
+                     (_D16_EXP, _D16_PAIR_EXP)],
+    "d16_turns": _D16_TURNS,
+    "d16_12_stages": [(_D16_STAGES, _D16_STAGES.replace("= 4; ", "= 12;"))],
 }
 _CP_ASYNC = """      tc::cp_async16(ks + j * Lay::kRowBytes + part * 16, k + off, ok);
       tc::cp_async16(vs + j * Lay::kRowBytes + part * 16, v + off, ok);
@@ -279,7 +424,7 @@ SHORT_DEFAULT_SHAPES = ["4096,31,9,3,64", "3072,31,9,3,64",
                         "4096,31,40,8,128", "2048,31,32,4,128",
                         "3072,31,16,16,128"]
 BWD_DEFAULT_SHAPES = ["2,4096,40,8,128", "2,4096,8,4,256,50",
-                      "8,4096,9,3,64"]
+                      "8,4096,9,3,64", "8,4096,9,3,16"]
 ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -358,39 +503,53 @@ def decode_ptxas_notes(log: str) -> dict:
     return out
 
 
+def start_variant_build(name: str, backward: bool, short: bool = False,
+                        decode: bool = False):
+    """Writes variant ``name`` (``committed``: the source as it is) into
+    ``build/ab/<kind>/<name>/`` with the headers it includes and starts its
+    ``nvcc``; returns (directory, process)."""
+    from repro_torch.kernels import _build
+    source = source_of(backward, decode)
+    d = _build.BUILD_DIR / "ab" / ("bwd" if backward else
+                                   "short" if short else
+                                   "decode" if decode else "") / name
+    d.mkdir(parents=True, exist_ok=True)
+    for header in ("tensor_core.cuh", "wgmma.cuh"):
+        (d / header).write_text((SOURCE.parent / header).read_text())
+    (d / source.name).write_text(
+        source.read_text() if name == "committed"
+        else variant_source(name, backward, short, decode))
+    return d, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+         str(d / source.name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_variant_build(name: str, started) -> tuple:
+    """Waits for a build from ``start_variant_build``; returns (the loaded
+    library, the compiler's output). Raises if nvcc failed."""
+    d, proc = started
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {name}:\n{log[-4000:]}")
+    return ctypes.CDLL(str(d / "lib.so")), log
+
+
 def build_variants(names, backward: bool, short: bool = False,
                    decode: bool = False) -> dict:
     """Each named variant built into ``build/ab/<name>/lib.so`` (one nvcc
     each, all at once), its ptxas notes printed; returns the loaded
     libraries by name."""
-    from repro_torch.kernels import _build
-    source = source_of(backward, decode)
-    procs = {}
-    for name in names:
-        d = _build.BUILD_DIR / "ab" / ("bwd" if backward else
-                                       "short" if short else
-                                       "decode" if decode else "") / name
-        d.mkdir(parents=True, exist_ok=True)
-        for header in ("tensor_core.cuh", "wgmma.cuh"):
-            (d / header).write_text((SOURCE.parent / header).read_text())
-        (d / source.name).write_text(
-            source.read_text() if name == "committed"
-            else variant_source(name, backward, short, decode))
-        procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / source.name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    procs = {name: start_variant_build(name, backward, short, decode)
+             for name in names}
     libs = {}
-    for name, (d, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name}:\n{log[-4000:]}")
+    for name, started in procs.items():
+        libs[name], log = finish_variant_build(name, started)
         kernel = ("fa_bwd_main_kernel" if backward else
                   "fa_fwd_short_kernel" if short else "fa_fwd_wgmma_kernel")
         notes = decode_ptxas_notes(log) if decode else ptxas_notes(log,
                                                                    kernel)
         print(json.dumps({"variant": name, "ptxas": notes}), flush=True)
-        libs[name] = ctypes.CDLL(str(d / "lib.so"))
     return libs
 
 
@@ -457,13 +616,6 @@ def time_backward(libs, shapes, iters: int, scratch) -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.time_attention import timed_ms
     names = list(libs)
-    fns, ws = {}, {}
-    for name, lib in libs.items():
-        fns[name] = lib.flash_attention_bwd_launch
-        fns[name].argtypes = BWD_ARGTYPES
-        ws[name] = lib.flash_attention_bwd_workspace_bytes
-        ws[name].argtypes = [ctypes.c_int] * 5
-        ws[name].restype = ctypes.c_longlong
     dev = scratch.device
     gen = torch.Generator(device=dev).manual_seed(0)
     for spec in shapes:
@@ -483,32 +635,70 @@ def time_backward(libs, shapes, iters: int, scratch) -> None:
         want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         row = {"card": torch.cuda.get_device_name(0),
                "shape": f"B {B}, S {S}, {Hq}/{Hkv}, D {D}, bf16 causal, "
-                        f"softcap {softcap}"}
+                        f"softcap {softcap}",
+               "sdpa_backward_ms": []}
+        sdpa = sdpa_backward(q, k, v, do)
+        row["sdpa_backward_ms"].append(timed_ms(sdpa, iters, scratch))
         for name in names + names[::-1]:
-            grads = [torch.empty_like(t) for t in (q, k, v)]
-            work = torch.empty(ws[name](B, S, Hq, D, 1), dtype=torch.uint8,
-                               device=dev)
-
-            def call(fn=fns[name]):
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                         *(g.data_ptr() for g in grads), work.data_ptr(),
-                         B, S, Hq, Hkv, D, 1, D ** -0.5, 1, 0, softcap,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{name}: cudaError {err}")
+            call = bwd_call(libs[name], q, k, v, o, lse, do, softcap=softcap)
             cell = row.setdefault(name, {"ms": []})
             cell["ms"].append(timed_ms(call, iters, scratch))
-            call()
+            grads = call()
             torch.cuda.synchronize()
             for g, w, what in zip(grads, want, ("dq", "dk", "dv")):
                 err = float((g.float() - w.float()).abs().max())
                 cell[f"{what}_rel_err"] = err / max(
                     float(w.float().abs().max()), 1e-30)
-            del work, grads
+            del call, grads
+        row["sdpa_backward_ms"].append(timed_ms(sdpa, iters, scratch))
         print(json.dumps(row), flush=True)
-        del q, k, v, do, o, lse, want
+        del q, k, v, do, o, lse, want, sdpa
         torch.cuda.empty_cache()
+
+
+def bwd_call(lib, q, k, v, o, lse, do, softcap: float = 0.0):
+    """A causal call of a variant library's ``flash_attention_bwd_launch``
+    (bf16, scale D^-0.5, no window) on these inputs, with outputs and a
+    workspace of its own; returns (dq, dk, dv). Raises on a launch
+    error."""
+    import torch
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = BWD_ARGTYPES
+    size = lib.flash_attention_bwd_workspace_bytes
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    work = torch.empty(size(B, S, Hq, D, 1), dtype=torch.uint8,
+                       device=q.device)
+
+    def call():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(),
+                 *(g.data_ptr() for g in grads), work.data_ptr(), B, S, Hq,
+                 Hkv, D, 1, D ** -0.5, 1, 0, softcap,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention_bwd_launch: cudaError "
+                               f"{err}")
+        return grads
+    return call
+
+
+def sdpa_backward(q, k, v, do):
+    """A call of the backward of ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` on the same inputs (no softcap,
+    which SDPA lacks): the library's time for the same function."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def decode_case(B: int, L: int, Hq: int, Hkv: int, D: int, window: int,

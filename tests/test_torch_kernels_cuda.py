@@ -968,6 +968,14 @@ BWD_CASES = [
     (1, 129, 8, 4, 256, 0, 50.0, True),     # S = 2 Bc + 1
     (1, 300, 8, 4, 256, 40, 50.0, True),    # window: whole key tiles out
     (1, 257, 4, 4, 256, 70, 0.0, False),    # not causal, window, G 1
+    # D 16's warpgroup kernel (two pipelines a block, 128 keys a work
+    # tile as two 64-key halves, 64-position query tiles)
+    (2, 63, 9, 3, 16, 0, 0.0, True),        # S = Br - 1, G 3
+    (1, 65, 8, 1, 16, 0, 0.0, True),        # S = Br + 1, G 8
+    (1, 300, 6, 2, 16, 0, 0.0, False),      # not causal, G 3
+    (1, 300, 8, 8, 16, 40, 0.0, True),      # a window inside a tile, G 1
+    (2, 129, 4, 2, 16, 0, 30.0, True),      # softcap 30, S = Bc + 1
+    (1, 257, 8, 1, 16, 100, 30.0, False),   # window + softcap, G 8
 ]
 
 
@@ -1061,7 +1069,7 @@ def test_flash_attention_bwd_kernel_row_that_saw_no_key(dev, D, dtype):
         _rel_close(g, w, BWD_TOL[dtype], name)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
     """Two calls give the same bits (dq is added in a fixed order), with a
     call at another shape in between, so that a counter or an accumulator
@@ -1078,6 +1086,70 @@ def test_flash_attention_bwd_kernel_repeats_its_bits(dev, D):
     again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     for a, b in zip(first, again):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_attention_bwd_d16_one_position(dev, G):
+    """S 1 at D 16 (a query tile and a key tile of one live row each): a
+    row sees its one key, so P is 1, dS is 0 and dq, dk are 0 up to
+    rounding; dv is do summed over the group, within BWD_TOL of the plain
+    version's max abs, and dq, dk within BWD_TOL of it as well."""
+    q, k, v, do = _attn_inputs(dev, 2, 1, 2 * G, 2, 16, torch.bfloat16, G)
+    o = flash_attention(q, k, v, causal=True)
+    lse = flash_attention_lse_ref(q, k, causal=True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    _rel_close(dv, want[2], BWD_TOL[torch.bfloat16], "dv")
+    scale = float(want[2].float().abs().max())
+    for g, name in ((dq, "dq"), (dk, "dk")):
+        err = float(g.float().abs().max())
+        assert torch.isfinite(g.float()).all() and \
+            err <= BWD_TOL[torch.bfloat16] * scale, (name, err, scale)
+
+
+def test_flash_attention_bwd_d16_operand_layouts(dev):
+    """The D 16 instance's operands (rows of 16 bf16, TMA-loaded 32-byte
+    swizzled) through the kernel's own helpers, against plain products:
+    S^T = K Q^T (K-major, both 64-key halves), dV += P^T dO (m64n16, A
+    from registers, B MN-major) and dQ = dS K (m64n16, dS^T through
+    shared memory, K MN-major). A wrong descriptor permutes rows or
+    columns with no fault."""
+    import ctypes
+    from repro_torch.kernels._build import library_function
+    fn = library_function("flash_attention_bwd",
+                          "flash_attention_bwd_d16_probe",
+                          [ctypes.c_void_p] * 7)
+    g = torch.Generator(device=dev).manual_seed(16)
+    x, y, w = (torch.randn((n, 16), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (128, 64, 128))
+    s = torch.empty((128, 64), device=dev)
+    pw = torch.empty((128, 16), device=dev)
+    dq = torch.empty((64, 16), device=dev)
+    err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), s.data_ptr(),
+             pw.data_ptr(), dq.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, x.float() @ y.float().T, atol=1e-4,
+                               rtol=1e-5)
+    p = s.to(torch.bfloat16).float()       # as the kernel packs its A
+    want_pw = torch.cat([p[:64] @ w[:64].float(), p[64:] @ w[:64].float()])
+    # summation order only (a layout fault is off by the operands' size)
+    torch.testing.assert_close(pw, want_pw, atol=1e-2, rtol=1e-5)
+    torch.testing.assert_close(dq, p.T @ w.float(), atol=1e-2, rtol=1e-5)
+
+
+def test_flash_attention_bwd_d16_takes_the_warpgroup_kernel(dev):
+    """A bf16 D 16 call takes the warpgroup kernel: its workspace is the
+    warpgroup layout (dq_acc padded to 64-position query tiles, Di, the
+    lse in log2 units, the counters and the dispenser), not the Di pass's
+    (B, Hq, S) of the mma.sync kernels it replaced; float32 keeps Di."""
+    B, S, Hq = 2, 300, 9
+    s_pad = -(-S // 64) * 64
+    want = 4 * (B * Hq * s_pad * 16 + 2 * B * Hq * s_pad
+                + B * Hq * (s_pad // 64) + 1)
+    assert FA.workspace_bytes(B, S, Hq, 16, torch.bfloat16) == want
+    assert FA.workspace_bytes(B, S, Hq, 16, torch.float32) == 4 * B * Hq * S
 
 
 # --- the forward's wgmma instance (long sequences) --------------------------
