@@ -44,6 +44,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import TrustIRConfig
 from repro_torch.core import average_trust as AT
 from repro_torch.core import trust_cache as TC
@@ -56,6 +57,7 @@ from repro_torch.core.shedder import (LoadShedder, ShedResult, SimClock,
                                       keys_as_int32)
 from repro_torch.distribution.placement import device_put, full_tensor
 from repro_torch.kernels.shed_partition import shed_partition
+from repro_torch.tracing import span, traced
 
 
 class StagedBatch:
@@ -85,7 +87,10 @@ class PendingShed:
     :meth:`result` copies them back, charges the clock/monitor, and
     builds the :class:`ShedResult`. On CUDA, completion is a
     ``torch.cuda.Event`` recorded after the step; on the CPU the step is
-    complete when the handle exists.
+    complete when the handle exists. While a profiler runs
+    (``tracing.enabled``) it is a timing event and ``start`` one recorded
+    before the step: their interval is :meth:`device_ms`. ``max_evals``
+    is the evaluator's row count of the step.
     """
 
     def __init__(self, shedder: "FusedLoadShedder", trust, tier,
@@ -93,7 +98,9 @@ class PendingShed:
                  n: int, regime, deadline_eff: float,
                  skip_observe: bool = False,
                  done: Optional[torch.cuda.Event] = None,
-                 item_keys: Optional[np.ndarray] = None):
+                 item_keys: Optional[np.ndarray] = None,
+                 start: Optional[torch.cuda.Event] = None,
+                 max_evals: Optional[int] = None):
         self._shedder = shedder
         self._trust = trust
         self._tier = tier
@@ -105,6 +112,8 @@ class PendingShed:
         self._deadline_eff = deadline_eff
         self._skip_observe = skip_observe
         self._done = done
+        self._start = start
+        self.max_evals = max_evals
         # host keys of the batch, for the shedder's on_shed tap
         self._item_keys = item_keys
         self._result: Optional[ShedResult] = None
@@ -127,6 +136,18 @@ class PendingShed:
         if done and self._wall_ready is None:
             self._wall_ready = time.monotonic()
         return done
+
+    @property
+    def wall_ready(self) -> Optional[float]:
+        """When the host first saw the step complete (None before)."""
+        return self._wall_ready
+
+    def device_ms(self) -> Optional[float]:
+        """The step's time on the device in ms, once it has completed
+        (None off CUDA or with no profiler running at its launch)."""
+        if self._start is None or self._done is None:
+            return None
+        return self._start.elapsed_time(self._done)
 
 
 class FusedLoadShedder(LoadShedder):
@@ -169,32 +190,38 @@ class FusedLoadShedder(LoadShedder):
               u_capacity: int, u_threshold: int, budget_total: int,
               max_evals: int):
         n = keys.shape[0]
-        tier, cval, rank = shed_partition(
-            keys, valid, cache["keys"], cache["values"],
-            u_capacity, u_threshold, budget_total, budget_is_total=True)
-        # Safety on a too-small max_evals: overflow evals fall back to
-        # the prior tier (no-drop) instead of silently scoring 0. The
-        # default max_evals = batch capacity can never overflow.
-        tier = torch.where((rank >= max_evals) & (tier == TIER_EVAL),
-                           TIER_PRIOR, tier)
-        idx, eval_valid = eval_indices_from_rank(rank, max_evals)
-        gidx = idx.clamp(max=n - 1)                  # clamp pad slots
-        sub = {k: full_tensor(v)[gidx] for k, v in features.items()}
-        scores = self.evaluate_batch(sub).to(torch.float32)
-        # Pad slots scatter into an extra slot n that is sliced off.
-        scattered = torch.zeros(n + 1, dtype=torch.float32,
-                                device=keys.device)
-        scattered.scatter_(0, idx, torch.where(eval_valid, scores,
-                                               torch.zeros_like(scores)))
-        prior_vals = AT.query(prior, buckets)
-        trust = combine_trust(tier, scattered[:n], cval, prior_vals)
-        evald = tier == TIER_EVAL
-        new_cache = TC.insert(cache, keys, trust, evald)
-        new_prior = AT.update(prior, buckets, trust, evald,
-                              ewma=self.cfg.prior_ewma)
+        with span("step.shed_partition"):
+            tier, cval, rank = shed_partition(
+                keys, valid, cache["keys"], cache["values"],
+                u_capacity, u_threshold, budget_total,
+                budget_is_total=True)
+        with span("step.gather"):
+            # Safety on a too-small max_evals: overflow evals fall back
+            # to the prior tier (no-drop) instead of silently scoring 0.
+            # The default max_evals = batch capacity can never overflow.
+            tier = torch.where((rank >= max_evals) & (tier == TIER_EVAL),
+                               TIER_PRIOR, tier)
+            idx, eval_valid = eval_indices_from_rank(rank, max_evals)
+            gidx = idx.clamp(max=n - 1)              # clamp pad slots
+            sub = {k: full_tensor(v)[gidx] for k, v in features.items()}
+        with span("step.evaluate"):
+            scores = self.evaluate_batch(sub).to(torch.float32)
+        with span("step.fold_back"):
+            # Pad slots scatter into an extra slot n that is sliced off.
+            scattered = torch.zeros(n + 1, dtype=torch.float32,
+                                    device=keys.device)
+            scattered.scatter_(0, idx, torch.where(
+                eval_valid, scores, torch.zeros_like(scores)))
+            prior_vals = AT.query(prior, buckets)
+            trust = combine_trust(tier, scattered[:n], cval, prior_vals)
+            evald = tier == TIER_EVAL
+            new_cache = TC.insert(cache, keys, trust, evald)
+            new_prior = AT.update(prior, buckets, trust, evald,
+                                  ewma=self.cfg.prior_ewma)
         return (trust, tier, evald.sum(), new_cache, new_prior)
 
     # -- stage / dispatch / finish --------------------------------------------
+    @traced("shedder.stage")
     def stage(self, item_keys: np.ndarray, buckets: np.ndarray,
               features, n_valid: Optional[int] = None) -> StagedBatch:
         """Front half of the fused step: ONE host->device transfer per
@@ -226,11 +253,16 @@ class FusedLoadShedder(LoadShedder):
             n=n, n_total=n_total, t_start=t_start, wall_start=wall_start,
             item_keys=np.asarray(item_keys))
 
+    @traced("shedder.dispatch")
     def dispatch_staged(self, staged: StagedBatch) -> PendingShed:
         """Back half: launch the shedding step on staged tensors without
         waiting for it; returns a handle whose ``.result()`` materializes
         the :class:`ShedResult`. With a ``SimClock`` the handle resolves
         eagerly (deterministic sequential timeline)."""
+        start = None
+        if staged.keys_t.is_cuda and tracing.enabled():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(staged.keys_t.device))
         n, n_total = staged.n, staged.n_total
         ucap, uthr = self.monitor.parameters()
         regime = classify(n, ucap, uthr)
@@ -253,7 +285,7 @@ class FusedLoadShedder(LoadShedder):
             max_evals)
         done = None
         if trust.is_cuda:
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(enable_timing=start is not None)
             done.record(torch.cuda.current_stream(trust.device))
         pending = PendingShed(self, trust, tier, n_evald,
                               t_start=staged.t_start,
@@ -261,7 +293,8 @@ class FusedLoadShedder(LoadShedder):
                               n=n, regime=regime,
                               deadline_eff=deadline_eff,
                               skip_observe=not warm, done=done,
-                              item_keys=staged.item_keys)
+                              item_keys=staged.item_keys, start=start,
+                              max_evals=max_evals)
         if self.sim_clock is not None:
             pending.result()
         return pending
@@ -276,9 +309,10 @@ class FusedLoadShedder(LoadShedder):
     def _finish(self, p: PendingShed) -> ShedResult:
         t_entry = time.monotonic()
         ready_at_entry = p.is_ready()   # stamps _wall_ready if so
-        trust = p._trust.cpu().numpy()              # sync point
-        tier = p._tier.cpu().numpy()
-        n_evald = int(p._n_evald)
+        with span("shedder.sync"):
+            trust = p._trust.cpu().numpy()          # sync point
+            tier = p._tier.cpu().numpy()
+            n_evald = int(p._n_evald)
         wall_end = time.monotonic()
         if self.sim_clock is not None:
             self.sim_clock.charge_probe()
@@ -301,6 +335,8 @@ class FusedLoadShedder(LoadShedder):
             if completed > base:
                 self.monitor.observe(n_evald, completed - base)
                 self._last_obs_wall = completed
+        if p._wall_ready is None:
+            p._wall_ready = wall_end      # the blocking copy's end
         rt = self._now() - p._t_start
         result = ShedResult(
             trust=trust, tier=tier, regime=p._regime,

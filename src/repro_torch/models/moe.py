@@ -43,6 +43,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.distribution.placement import (all_gather, all_reduce,
                                                 batch_axes, split)
 from repro_torch.models import layers as L
+from repro_torch.tracing import span, traced
 
 
 def moe_init(d_model: int, cfg: MoEConfig, generator: torch.Generator, *,
@@ -75,15 +76,15 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
-              act: str = "silu", compute_dtype=torch.bfloat16
-              ) -> Tuple[torch.Tensor, Dict]:
+              act: str = "silu", compute_dtype=torch.bfloat16,
+              with_metrics: bool = True) -> Tuple[torch.Tensor, Dict]:
     """x: (T, D) flattened tokens -> (out (T, D), metrics): the router's
     load-balance loss ``moe_aux_loss`` and the dropped fraction of
-    (token, choice) pairs ``moe_drop_frac``."""
+    (token, choice) pairs ``moe_drop_frac`` ({} without
+    ``with_metrics``: scoring reads neither)."""
     T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = capacity(T, cfg)
-    xc = x.to(compute_dtype)
 
     probs, topk_w, topk_idx = _router(p, x, cfg)               # float32
     # every expert on this rank (pieces gathered whole: this dispatch
@@ -92,12 +93,13 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
     out = _local_dispatch_compute(x, topk_w, topk_idx, wg, wu, wd,
                                   e_offset=0, e_local=E, capacity_local=C,
                                   act=act, compute_dtype=compute_dtype)
+    if "shared" in p:
+        out = out + _shared_apply(p["shared"], x.to(compute_dtype), act,
+                                  compute_dtype)
+    if not with_metrics:
+        return out.to(x.dtype), {}
     # pairs kept: each expert keeps its first C
     kept = L._counts(topk_idx.reshape(T * K), E).clamp(max=C).sum()
-
-    if "shared" in p:
-        out = out + _shared_apply(p["shared"], xc, act, compute_dtype)
-
     aux = _aux_loss(probs, topk_idx, cfg)
     dropped = 1.0 - kept / (T * K)
     return out.to(x.dtype), {"moe_aux_loss": aux,
@@ -111,6 +113,7 @@ def _whole(w) -> torch.Tensor:
     return local if sh is None else all_gather(local, sh.axes, sh.dim)
 
 
+@traced("moe.experts")
 def _shared_apply(p: Dict, x: torch.Tensor, act: str,
                   compute_dtype) -> torch.Tensor:
     """The shared experts' GLU FFN; ``gate``/``up`` may be column pieces
@@ -127,11 +130,13 @@ def _shared_apply(p: Dict, x: torch.Tensor, act: str,
 
 def _router(p: Dict, x: torch.Tensor, cfg: MoEConfig):
     """(probs (T, E), top-k weights, top-k expert ids), in float32."""
-    logits = x.to(torch.float32) @ p["router"]["w"].to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    topk_w, topk_idx = torch.topk(probs, cfg.top_k, dim=-1)
-    if cfg.norm_topk_prob:
-        topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    with span("moe.router"):
+        logits = x.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+        probs = torch.softmax(logits, dim=-1)
+        topk_w, topk_idx = torch.topk(probs, cfg.top_k, dim=-1)
+        if cfg.norm_topk_prob:
+            topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True).clamp(
+                min=1e-9)
     return probs, topk_w, topk_idx
 
 
@@ -198,45 +203,52 @@ def _local_dispatch_compute(x_loc, topk_w, topk_idx, wg, wu, wd, *,
     T, D = x_loc.shape
     K = topk_idx.shape[1]
     C = capacity_local
-    sort_idx, sorted_e, pos_in_e, keep, flat_e = _dispatch_plan(
-        topk_idx, e_offset, e_local, C)
-    token_of = sort_idx // K
-    safe_e = torch.where(keep, sorted_e, torch.full_like(sorted_e, e_local))
-    safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C))
-    xc = x_loc.to(compute_dtype)
-    # dropped and foreign pairs land in a spare expert row and slot
-    buf = torch.zeros((e_local + 1, C + 1, D), dtype=compute_dtype,
-                      device=x_loc.device)
-    buf[safe_e, safe_pos] = xc[token_of]
-    buf = buf[:e_local, :C]
-    g = torch.bmm(buf, wg.to(compute_dtype))                   # (E, C, F)
-    u = torch.bmm(buf, wu.to(compute_dtype))
-    out_buf = torch.bmm(L.glu(g, u, act), wd.to(compute_dtype))
-    inv_pos = torch.empty_like(pos_in_e)
-    inv_pos[sort_idx] = pos_in_e
-    inv_keep = torch.empty_like(keep)
-    inv_keep[sort_idx] = keep
-    vals = out_buf[flat_e.clamp(0, e_local - 1), inv_pos.clamp(0, C - 1)]
-    w_flat = topk_w.reshape(T * K) * inv_keep
-    return (vals * w_flat[:, None].to(compute_dtype)).reshape(
-        T, K, D).sum(dim=1)
+    with span("moe.dispatch"):
+        sort_idx, sorted_e, pos_in_e, keep, flat_e = _dispatch_plan(
+            topk_idx, e_offset, e_local, C)
+        token_of = sort_idx // K
+        safe_e = torch.where(keep, sorted_e,
+                             torch.full_like(sorted_e, e_local))
+        safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C))
+        xc = x_loc.to(compute_dtype)
+        # dropped and foreign pairs land in a spare expert row and slot
+        buf = torch.zeros((e_local + 1, C + 1, D), dtype=compute_dtype,
+                          device=x_loc.device)
+        buf[safe_e, safe_pos] = xc[token_of]
+        buf = buf[:e_local, :C]
+    with span("moe.experts"):
+        g = torch.bmm(buf, wg.to(compute_dtype))               # (E, C, F)
+        u = torch.bmm(buf, wu.to(compute_dtype))
+        out_buf = torch.bmm(L.glu(g, u, act), wd.to(compute_dtype))
+    with span("moe.combine"):
+        inv_pos = torch.empty_like(pos_in_e)
+        inv_pos[sort_idx] = pos_in_e
+        inv_keep = torch.empty_like(keep)
+        inv_keep[sort_idx] = keep
+        vals = out_buf[flat_e.clamp(0, e_local - 1),
+                       inv_pos.clamp(0, C - 1)]
+        w_flat = topk_w.reshape(T * K) * inv_keep
+        return (vals * w_flat[:, None].to(compute_dtype)).reshape(
+            T, K, D).sum(dim=1)
 
 
 def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
-                 act: str = "silu", compute_dtype=torch.bfloat16
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 act: str = "silu", compute_dtype=torch.bfloat16,
+                 with_metrics: bool = True) -> Tuple[torch.Tensor, Dict]:
     """Expert-parallel MoE over the ambient mesh's ``model`` axis (see
     the module note). x: (T, D) this rank's tokens -> (out (T, D),
     metrics). Falls back to ``moe_apply`` when no mesh (or no ``model``
     axis) is ambient. Where the batch is not split over DP ranks (a
     batch-1 decode, or rows that do not divide), every rank dispatches
     the whole batch with its capacity: the keep sets of ``moe_apply``.
-    ``moe_drop_frac`` is 0, as the reference's."""
+    ``moe_drop_frac`` is 0, as the reference's; without
+    ``with_metrics`` the metrics are {}."""
     from repro_torch.distribution.constraints import ambient_mesh
 
     mesh = ambient_mesh()
     if mesh is None or "model" not in mesh.mesh_dim_names:
-        return moe_apply(p, x, cfg, act=act, compute_dtype=compute_dtype)
+        return moe_apply(p, x, cfg, act=act, compute_dtype=compute_dtype,
+                         with_metrics=with_metrics)
     T, D = x.shape
     E = cfg.n_experts
     wg, sh = split(p["w_gate"])
@@ -256,6 +268,8 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
     if "shared" in p:
         out = out + _shared_apply(p["shared"], x.to(compute_dtype), act,
                                   compute_dtype)
+    if not with_metrics:
+        return out.to(x.dtype), {}
     aux = _aux_loss(probs, topk_idx, cfg)
     return out.to(x.dtype), {"moe_aux_loss": aux,
                              "moe_drop_frac": torch.zeros(
@@ -263,9 +277,9 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: MoEConfig, *,
 
 
 def apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
-          compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
+          compute_dtype=torch.bfloat16, with_metrics: bool = True
+          ) -> Tuple[torch.Tensor, Dict]:
     """Dispatch-mode switch (``MoEConfig.dispatch``)."""
-    if cfg.dispatch == "ep_shard_map":
-        return moe_apply_ep(p, x, cfg, act=act,
-                            compute_dtype=compute_dtype)
-    return moe_apply(p, x, cfg, act=act, compute_dtype=compute_dtype)
+    fn = moe_apply_ep if cfg.dispatch == "ep_shard_map" else moe_apply
+    return fn(p, x, cfg, act=act, compute_dtype=compute_dtype,
+              with_metrics=with_metrics)

@@ -281,11 +281,12 @@ def _glu_ffn(p: Dict, h: torch.Tensor, act: str,
 
 
 def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
-                  o: torch.Tensor, compute_dtype
+                  o: torch.Tensor, compute_dtype, with_metrics: bool = False
                   ) -> Tuple[torch.Tensor, Dict]:
     """The block after attention: output projection, (post-norm,)
     residual, FFN or MoE, (post-norm,) residual. Returns the new x and
-    the MoE metrics ({} for a dense block)."""
+    the MoE metrics ({} for a dense block, or without
+    ``with_metrics``)."""
     o = o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1])
     _, sh = split(bp["attn"]["wo"]["w"])
     if sh is not None and o.shape[-1] == sh.total:   # heads were gathered
@@ -298,7 +299,8 @@ def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
     metrics: Dict = {}
     if "moe" in bp:
         f, metrics = M.apply(bp["moe"], h.reshape(-1, h.shape[-1]), cfg.moe,
-                             act=cfg.act, compute_dtype=compute_dtype)
+                             act=cfg.act, compute_dtype=compute_dtype,
+                             with_metrics=with_metrics)
         f = f.reshape(h.shape)
     else:
         f = _glu_ffn(bp["ffn"], h, cfg.act, compute_dtype)
@@ -309,22 +311,25 @@ def _attn_out_ffn(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
 
 def _block_fwd(bp: Dict, cfg: TransformerConfig, x: torch.Tensor,
                positions: torch.Tensor, window: int, compute_dtype,
-               q_chunk: int):
+               q_chunk: int, with_metrics: bool = False):
     """Full-sequence block forward. x: (B, S, D). Returns the new x, the
-    block's k, v (B, S, Hkv, Dh) and its MoE metrics."""
+    block's k, v (B, S, Hkv, Dh) and its MoE metrics (with
+    ``with_metrics``)."""
     h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(bp, cfg, h, positions, compute_dtype)
     o = A.attention(q, k, v, causal=True, window=window,
                     softcap=cfg.attn_logit_softcap, scale=_attn_scale(cfg),
                     q_chunk=q_chunk)
-    x, metrics = _attn_out_ffn(bp, cfg, x, o, compute_dtype)
+    x, metrics = _attn_out_ffn(bp, cfg, x, o, compute_dtype, with_metrics)
     return x, k, v, metrics
 
 
 def _trunk(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
-           q_chunk: int, kv_sink=None) -> Tuple[torch.Tensor, Dict]:
+           q_chunk: int, kv_sink=None, with_metrics: bool = False
+           ) -> Tuple[torch.Tensor, Dict]:
     """Embedding, every block, final norm. ``kv_sink(i, k, v)`` receives
-    each layer's keys and values. Returns (x, summed MoE metrics)."""
+    each layer's keys and values. Returns (x, summed MoE metrics); the
+    metrics are computed only ``with_metrics`` ({} otherwise)."""
     cdt = L.dtype_of(cfg.dtype)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -334,10 +339,12 @@ def _trunk(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     for i, (bp, w) in enumerate(zip(_layers(params), layer_windows(cfg))):
         if remat:
             x, k, v, m = checkpoint(_block_fwd, bp, cfg, x, positions, w,
-                                    cdt, q_chunk, use_reentrant=False,
+                                    cdt, q_chunk, with_metrics,
+                                    use_reentrant=False,
                                     context_fn=recompute_context)
         else:
-            x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk)
+            x, k, v, m = _block_fwd(bp, cfg, x, positions, w, cdt, q_chunk,
+                                    with_metrics)
         if kv_sink is not None:
             kv_sink(i, k, v)
         metrics = _add_metrics(metrics, m) if m else metrics
@@ -349,8 +356,10 @@ def hidden_states(params: Dict, cfg: TransformerConfig,
                   with_metrics: bool = False):
     """Forward up to (and including) the final norm. tokens: (B, S).
     With ``with_metrics`` returns (x, metrics): the MoE layers' summed
-    ``moe_aux_loss`` and ``moe_drop_frac`` ({} for a dense model)."""
-    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    ``moe_aux_loss`` and ``moe_drop_frac`` ({} for a dense model);
+    without it they are not computed."""
+    x, metrics = _trunk(params, cfg, tokens, q_chunk,
+                        with_metrics=with_metrics)
     return (x, metrics) if with_metrics else x
 
 
@@ -358,7 +367,8 @@ def forward(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
             q_chunk: int = 1024, with_metrics: bool = False):
     """tokens: (B, S) -> logits (B, S, V) in the compute dtype (and the
     MoE metrics with ``with_metrics``, as ``hidden_states``)."""
-    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    x, metrics = _trunk(params, cfg, tokens, q_chunk,
+                        with_metrics=with_metrics)
     logits = unembed(params, cfg, x)
     return (logits, metrics) if with_metrics else logits
 
@@ -398,7 +408,7 @@ def lm_loss(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     the mask sum the CE sum is divided by: a DP rank of a sharded step
     divides by the whole batch's mean weight a rank."""
     B, S = tokens.shape
-    x, metrics = _trunk(params, cfg, tokens, q_chunk)
+    x, metrics = _trunk(params, cfg, tokens, q_chunk, with_metrics=True)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)

@@ -53,6 +53,7 @@ import torch
 from repro_torch.core.pipeline import SearchResults
 from repro_torch.device import resolve
 from repro_torch.kernels.topk_select import topk_select
+from repro_torch.tracing import span, traced
 
 from .corpus import SyntheticCorpus
 from .index import (BM25_B, BM25_K1, CollectionStats, InvertedIndex,
@@ -254,13 +255,16 @@ class IndexShard:
         with ``m <= k``, ordered (score desc, doc id asc). Only docs
         with a positive BM25 score count as matches — parity with
         ``index.topk_py(score_py(q), k)``, exactly. One device-to-host
-        copy."""
+        copy (``retrieval.copy_back``)."""
         if k <= 0 or self.n_docs == 0:
             return (np.zeros(0, np.int64), np.zeros(0, np.float64))
-        scores = self.score(query)
-        kq = min(_pow2_at_least(min(k, self._d_pad)), self._d_pad)
-        vals, idxs = topk_select(scores, kq)
-        both = torch.cat([vals.view(torch.int32), idxs]).cpu().numpy()
+        with span("retrieval.score_topk"):
+            scores = self.score(query)
+            kq = min(_pow2_at_least(min(k, self._d_pad)), self._d_pad)
+            vals, idxs = topk_select(scores, kq)
+            both = torch.cat([vals.view(torch.int32), idxs])
+        with span("retrieval.copy_back"):
+            both = both.cpu().numpy()
         vals, idxs = both[:2 * kq].view(np.float64), both[2 * kq:]
         good = (vals > 0.0) & (idxs < len(self._slot_doc))
         vals, idxs = vals[good][:k], idxs[good][:k]
@@ -316,6 +320,7 @@ class CorpusSearcher:
         n = self.corpus.n_docs
         return np.sort(rng.choice(n, size=min(k, n), replace=False))
 
+    @traced("retrieval.search")
     def search(self, query: str, n_results: int) -> SearchResults:
         t0 = time.perf_counter()
         self.n_searches += 1
@@ -324,8 +329,9 @@ class CorpusSearcher:
             self.n_fallback += 1
             docs = self._fallback_docs(query, max(int(n_results), 1))
         c = self.corpus
-        feats = (self.feature_fn(docs) if self.feature_fn is not None
-                 else {"x": c.features[docs]})
+        with span("retrieval.features"):
+            feats = (self.feature_fn(docs) if self.feature_fn is not None
+                     else {"x": c.features[docs]})
         res = SearchResults(
             url_ids=(docs.astype(np.uint32) + 1),     # 0 reserved = empty
             buckets=c.domains[docs],

@@ -24,6 +24,7 @@ bounded: one shape per jumbo multiple ever seen).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -33,6 +34,57 @@ import torch
 from repro_torch.core.shedder import keys_as_int32
 from repro_torch.device import resolve
 from repro_torch.scheduling.queues import PriorityQueueBank, QueuedRequest
+from repro_torch.tracing import traced
+
+
+class BatchRecord:
+    """What one micro-batch went through, kept while a profiler runs
+    (``tracing.enabled``) for the serving path's per-layer readings.
+    Stamps are ``time.monotonic`` seconds: ``formed`` (the batcher packed
+    it), ``staged`` (its host->device copies enqueued), ``dispatched``
+    (its step launched), ``ready`` (the host first saw the step complete:
+    an ``is_ready`` poll, or the end of the blocking copy) and
+    ``answered`` (its responses handed back). ``enqueued`` holds each
+    request's ``arrival_s``, in ``request_ids`` order. ``n_evaluated``
+    counts the step's evaluated items; ``max_evals`` (the evaluator's
+    rows) and ``device_ms`` (the step's time on the device between two
+    CUDA events) are a fused step's and stay None on a path that has no
+    such thing (the host chunk loop, the CPU); a rescued batch fills none
+    of the three."""
+
+    _LATER = ("staged", "dispatched", "ready", "answered", "max_evals",
+              "n_evaluated", "device_ms")
+    __slots__ = ("batch_id", "request_ids", "enqueued", "formed") + _LATER
+
+    def __init__(self, batch_id: int, request_ids: Tuple[int, ...],
+                 enqueued: Tuple[float, ...]):
+        self.batch_id = batch_id
+        self.request_ids = request_ids
+        self.enqueued = enqueued
+        self.formed = time.monotonic()
+        for k in self._LATER:
+            setattr(self, k, None)
+
+    def note_dispatch(self, handle) -> None:
+        """The step is launched (a fused handle names its row count)."""
+        self.dispatched = time.monotonic()
+        if self.staged is None:                 # nothing staged apart
+            self.staged = self.dispatched
+        self.max_evals = getattr(handle, "max_evals", None)
+
+    def note_result(self, handle, shed) -> None:
+        """The step has landed: when the host first saw it complete, its
+        evaluated items and its device time."""
+        self.ready = getattr(handle, "wall_ready", None) or time.monotonic()
+        self.n_evaluated = int(shed.n_evaluated)
+        device_ms = getattr(handle, "device_ms", None)
+        try:
+            self.device_ms = device_ms() if device_ms is not None else None
+        except RuntimeError:                    # an event never recorded
+            self.device_ms = None
+
+    def as_dict(self) -> Dict:
+        return {k: getattr(self, k) for k in self.__slots__}
 
 
 @dataclass
@@ -46,6 +98,8 @@ class MicroBatch:
     valid: np.ndarray                   # (B,) bool
     segments: np.ndarray                # (B,) int32
     slices: List[Tuple[QueuedRequest, int, int]]   # (qreq, start, length)
+    batch_id: Optional[int] = None         # set by the scheduler
+    record: Optional[BatchRecord] = None   # the same, while tracing
 
     @property
     def capacity(self) -> int:
@@ -73,6 +127,7 @@ class MicroBatcher:
     def _needs_kv_slot(qreq: QueuedRequest) -> bool:
         return bool(getattr(qreq.request, "needs_kv_slot", False))
 
+    @traced("batcher.form")
     def form(self, bank: PriorityQueueBank,
              kv_free: Optional[int] = None) -> Optional[MicroBatch]:
         """Pop whole requests from ``bank`` until the budget is full (or

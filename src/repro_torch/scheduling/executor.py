@@ -43,8 +43,11 @@ and finalizes in one step, exactly the pre-executor behaviour.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional, Tuple
+
+from repro_torch.tracing import traced
 
 
 class DrainExecutor:
@@ -109,6 +112,7 @@ class DrainExecutor:
         self.depth = max(1, int(depth))
 
     # -- the pipeline --------------------------------------------------------
+    @traced("executor.submit")
     def submit(self, batch) -> List:
         """Dispatch one micro-batch; returns the responses of any OLDER
         batches finalized to keep the window at ``depth``.
@@ -137,23 +141,30 @@ class DrainExecutor:
 
     def _dispatch(self, batch):
         sh = self.shedder
-        if getattr(sh, "supports_async", False):
-            if hasattr(sh, "stage"):
-                # Transfer stage first, step dispatch second: the
-                # host->device copies enqueue behind the in-flight
-                # steps of older batches (asynchronous CUDA launches), so at
-                # depth >= 2 batch N+2's features stream to the device
-                # while N computes and N+1 waits its turn.
-                return sh.dispatch_staged(
-                    sh.stage(batch.item_keys, batch.buckets,
-                             batch.features, n_valid=batch.n_valid))
-            return sh.process_async(batch.item_keys, batch.buckets,
-                                    batch.features,
-                                    n_valid=batch.n_valid)
-        return _EagerHandle(sh.process(batch.item_keys, batch.buckets,
-                                       batch.features,
-                                       n_valid=batch.n_valid))
+        rec = getattr(batch, "record", None)
+        if not getattr(sh, "supports_async", False):
+            handle = _EagerHandle(sh.process(batch.item_keys, batch.buckets,
+                                             batch.features,
+                                             n_valid=batch.n_valid))
+        elif hasattr(sh, "stage"):
+            # Transfer stage first, step dispatch second: the
+            # host->device copies enqueue behind the in-flight
+            # steps of older batches (asynchronous CUDA launches), so at
+            # depth >= 2 batch N+2's features stream to the device
+            # while N computes and N+1 waits its turn.
+            staged = sh.stage(batch.item_keys, batch.buckets,
+                              batch.features, n_valid=batch.n_valid)
+            if rec is not None:
+                rec.staged = time.monotonic()
+            handle = sh.dispatch_staged(staged)
+        else:
+            handle = sh.process_async(batch.item_keys, batch.buckets,
+                                      batch.features, n_valid=batch.n_valid)
+        if rec is not None:
+            rec.note_dispatch(handle)
+        return handle
 
+    @traced("executor.finalize")
     def _finalize_oldest(self) -> List:
         batch, handle = self._window.popleft()
         try:
@@ -161,6 +172,8 @@ class DrainExecutor:
             out = self._finalize(batch, shed)
         except Exception as exc:                  # noqa: BLE001
             return self._do_rescue(batch, exc)
+        if getattr(batch, "record", None) is not None:
+            batch.record.note_result(handle, shed)
         self.n_completed += 1
         return out
 
@@ -176,6 +189,7 @@ class DrainExecutor:
             raise exc
         return self._rescue(batch, exc)
 
+    @traced("executor.poll")
     def poll(self) -> List:
         """Finalize every in-flight batch that is already complete,
         WITHOUT blocking on one that is still computing. The cluster

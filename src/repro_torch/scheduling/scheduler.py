@@ -33,17 +33,22 @@ under all three regimes in ``tests/test_scheduling.py``).
 """
 from __future__ import annotations
 
+import itertools
+import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.configs.base import TrustIRConfig
 from repro_torch.core.regimes import Regime, classify
 from repro_torch.core.shedder import (LoadShedder, ShedResult, TIER_CACHED,
                                       TIER_EVAL, TIER_PRIOR)
 from repro_torch.distribution.fault_tolerance import HedgedDispatch
-from repro_torch.scheduling.batcher import MicroBatch, MicroBatcher
+from repro_torch.scheduling.batcher import (BatchRecord, MicroBatch,
+                                            MicroBatcher)
 from repro_torch.scheduling.executor import DrainExecutor
 from repro_torch.scheduling.priorities import (AdmissionPolicy, Priority,
                                                REASON_QUARANTINED,
@@ -53,6 +58,9 @@ from repro_torch.scheduling.quarantine import (PoisonQuarantine,
                                                work_signature)
 from repro_torch.scheduling.queues import PriorityQueueBank, QueuedRequest
 from repro_torch.scheduling.ratelimit import TenantRateLimiter
+from repro_torch.tracing import span, traced
+
+BATCH_RECORDS = 65536      # the newest micro-batches' records kept
 
 
 @dataclass
@@ -82,6 +90,7 @@ class Response:
     reason: str = ""                 # rejection reason when not admitted
     queue_delay_s: float = 0.0
     hedged: bool = False
+    batch_id: Optional[int] = None   # its micro-batch (None: rejected)
 
 
 @dataclass
@@ -160,6 +169,13 @@ class Scheduler:
         self.hedge = (HedgedDispatch(self.sched_cfg.hedge_after_s)
                       if self.sched_cfg.hedge_after_s > 0 else None)
         self.stats = SchedulerStats()
+        # every micro-batch gets an id; while a profiler runs
+        # (``tracing.enabled``) also a record (``batcher.BatchRecord``),
+        # newest last; records landed since the last drain/poll/flush
+        # return wait in ``_landed`` for their ``answered`` stamp
+        self.batch_records: Deque[BatchRecord] = deque(maxlen=BATCH_RECORDS)
+        self._batch_ids = itertools.count()
+        self._landed: List[BatchRecord] = []
         self._answered: set = set()   # rids whose hedged twin is queued
         # Poison-pill circuit breakers in front of the evaluator
         # (quarantine.PoisonQuarantine): quarantine_k = 0 disables and
@@ -211,6 +227,7 @@ class Scheduler:
         ucap, uthr = self.shedder.monitor.parameters()
         return classify(self.bank.n_items + incoming_items, ucap, uthr)
 
+    @traced("scheduler.admit")
     def submit(self, request: Request,
                priority: Priority = Priority.NORMAL,
                tenant: str = "default") -> Optional[Response]:
@@ -268,7 +285,8 @@ class Scheduler:
         latency, met_slo) as of now."""
         n = len(request.item_keys)
         # the prior lives on the shedder's device: one explicit copy
-        means = self.shedder.prior["mean"].cpu().numpy()
+        with span("scheduler.reject_prior"):
+            means = self.shedder.prior["mean"].cpu().numpy()
         trust = means[np.asarray(request.buckets) % len(means)
                       ].astype(np.float32)
         tier = np.full((n,), TIER_PRIOR, np.int32)
@@ -320,6 +338,7 @@ class Scheduler:
         alloc = getattr(self.kv_pool, "alloc", self.kv_pool)
         return len(alloc.free)
 
+    @traced("scheduler.drain")
     def drain(self, max_batches: Optional[int] = None,
               flush: Optional[bool] = None) -> List[Response]:
         """Form micro-batches and feed them through the
@@ -361,6 +380,9 @@ class Scheduler:
             batch = self.batcher.form(self.bank, kv_free=kv_budget)
             if batch is None:
                 break
+            batch.batch_id = next(self._batch_ids)
+            if tracing.enabled():
+                batch.record = self._new_record(batch)
             if kv_budget is not None:
                 kv_budget -= sum(
                     1 for q, _, _ in batch.slices
@@ -369,16 +391,39 @@ class Scheduler:
             n_done += 1
         if flush is None or flush or self.executor.depth <= 1:
             out.extend(self.executor.flush())
+        self._stamp_answered()
         return out
 
     def poll(self) -> List[Response]:
         """Finalize already-completed in-flight batches without
         blocking (fresh stats for steal/hedge/autoscale scans)."""
-        return self.executor.poll()
+        out = self.executor.poll()
+        self._stamp_answered()
+        return out
 
     def flush(self) -> List[Response]:
         """Block until every in-flight batch has landed."""
-        return self.executor.flush()
+        out = self.executor.flush()
+        self._stamp_answered()
+        return out
+
+    # -- batch records ------------------------------------------------------
+    def _new_record(self, batch: MicroBatch) -> BatchRecord:
+        rec = BatchRecord(
+            batch.batch_id,
+            tuple(q.request.request_id for q, _, _ in batch.slices),
+            tuple(q.request.arrival_s for q, _, _ in batch.slices))
+        self.batch_records.append(rec)
+        return rec
+
+    def _stamp_answered(self) -> None:
+        """The batches landed in this call hand their responses back
+        now."""
+        if self._landed:
+            now = time.monotonic()
+            for rec in self._landed:
+                rec.answered = now
+            self._landed.clear()
 
     def _note_executor_error(self, batch: MicroBatch,
                              exc: Exception) -> None:
@@ -402,6 +447,7 @@ class Scheduler:
         batch). The error is counted, not re-raised: overload systems
         shed work, they don't shed the rest of the window."""
         self.stats.n_executor_errors += 1
+        batch_id = self._note_landed(batch)
         end = self._now()
         regime = self.offered_regime()
         responses: List[Response] = []
@@ -418,13 +464,20 @@ class Scheduler:
                 shed=shed, priority=qreq.priority,
                 reason=f"executor_error:{type(exc).__name__}",
                 queue_delay_s=max(end - qreq.enqueue_t, 0.0),
-                hedged=qreq.hedged))
+                hedged=qreq.hedged, batch_id=batch_id))
             if qreq.hedged and self.hedge is not None:
                 self._answered.add(rid)
         return responses
 
+    def _note_landed(self, batch: MicroBatch) -> Optional[int]:
+        if batch.record is not None:
+            self._landed.append(batch.record)
+        return batch.batch_id
+
+    @traced("scheduler.split")
     def _split_responses(self, batch: MicroBatch,
                          shed: ShedResult) -> List[Response]:
+        batch_id = self._note_landed(batch)
         nv = batch.n_valid
         end = self._now()
         batch_start = end - shed.response_time_s
@@ -468,7 +521,7 @@ class Scheduler:
                 met_slo=latency <= qreq.request.slo_s + 1e-9,
                 shed=sub, priority=qreq.priority,
                 queue_delay_s=max(batch_start - qreq.enqueue_t, 0.0),
-                hedged=qreq.hedged))
+                hedged=qreq.hedged, batch_id=batch_id))
             if qreq.hedged and self.hedge is not None:
                 # Skip the twin queued in THIS scheduler later. When the
                 # twin lives on another replica (cluster hedging, where

@@ -48,6 +48,7 @@ from repro_torch.core.shedder import LoadShedder, SimClock
 from repro_torch.device import resolve
 from repro_torch.scheduling import (Priority, Request, Response, Scheduler,
                                     SchedulerConfig)
+from repro_torch.tracing import traced
 
 __all__ = ["Request", "Response", "ServingEngine", "slo_stats_of"]
 
@@ -152,6 +153,7 @@ class ServingEngine:
                 else time.monotonic())
 
     # -- scheduled API ------------------------------------------------------
+    @traced("engine.enqueue")
     def enqueue(self, item_keys: np.ndarray, buckets: np.ndarray,
                 features: Dict[str, np.ndarray],
                 slo_s: Optional[float] = None,
@@ -199,6 +201,7 @@ class ServingEngine:
         if self._retrieval_gate.warm(sig):
             self.monitor.observe(n_items, elapsed_s)
 
+    @traced("engine.enqueue_query")
     def enqueue_query(self, query: str, n_results: Optional[int] = None,
                       slo_s: Optional[float] = None,
                       priority: Priority = Priority.NORMAL,
