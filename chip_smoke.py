@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's seven CUDA kernels from ``src/repro_torch/csrc`` in
+It builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` in
 parallel and holds each against its plain PyTorch version at the shapes
 its path gives it:
 
@@ -31,6 +31,16 @@ its path gives it:
   instance that also writes each head's log-sum-exp (the
   sequence-sharded decode's), with two halves of a cache merged by their
   lse against one call over the whole;
+* ``score_head``: the evaluators' fused scoring head (each position's
+  target log-probability, no logit in device memory) at smollm-135m's,
+  qwen3-moe-30b-a3b's and qwen2.5-14b's steps (tied (V, d) and untied
+  (d, V) weights), held to the plain chunked path within 1e-4 plus one
+  bf16 ulp of the target's logit, repeating its bits, timed beside its
+  bound, the plain path and ``cross_entropy`` on materialised bf16
+  logits (``launch/time_score_head.py``); every path's launch check
+  counts it, and at the end each path's calls by instance
+  (``check_head_instances``): the kernel for smollm's and the Qwens'
+  heads, the chunked path for gemma2's softcapped head;
 * ``flash_attention_bwd`` and ``dot_interaction_bwd``: the gradients of
   the two forward kernels on the training path; each must also repeat
   its bits from one call to the next (the attention backward adds dq
@@ -184,12 +194,14 @@ from repro_torch.configs.base import cap_table_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import ab_attention as AB  # noqa: E402
+from repro_torch.launch import time_score_head as TSH  # noqa: E402
 from repro_torch.launch.ab_attention import decode_case  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.kernels import dot_interaction as DI  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import flash_decode as FD  # noqa: E402
 from repro_torch.kernels import shed_partition as SP  # noqa: E402
+from repro_torch.kernels import score_head as SH  # noqa: E402
 from repro_torch.kernels import topk_select as TS  # noqa: E402
 from repro_torch.kernels.dot_interaction import (  # noqa: E402
     dot_interaction, dot_interaction_bwd, dot_interaction_bwd_ref,
@@ -236,7 +248,8 @@ KERNELS = {"shed_partition": shed_partition,
            "dot_interaction": dot_interaction,
            "flash_decode": flash_decode,
            "flash_attention_bwd": flash_attention_bwd,
-           "dot_interaction_bwd": dot_interaction_bwd}
+           "dot_interaction_bwd": dot_interaction_bwd,
+           "score_head": SH.score_head}
 # What the serving paths launch of the training kernels.
 NO_BACKWARD = {"flash_attention_bwd": 0, "dot_interaction_bwd": 0}
 
@@ -328,6 +341,12 @@ CHAOS_ARGV = ["--trace", "2", "--replicas", "6", "--chaos-flash", "4",
 # 8000 tokens, so that about half the rows pass the local layers' 4096-key
 # window, then 16 steps.
 GEMMA = "gemma2-2b"
+# The path each transformer evaluator's scoring head takes
+# (``kernels.score_head.instance``): the kernel, but for gemma2's
+# softcapped head.
+HEAD_INSTANCE = {"smollm-135m": "fused", "qwen3-moe-30b-a3b": "fused",
+                 "moonshot-v1-16b-a3b": "fused", "qwen2.5-14b": "fused",
+                 GEMMA: "chunked"}
 GEMMA_DECODE_SLOTS = 16
 GEMMA_MAX_LEN = 8192
 GEMMA_MAX_PROMPT = 8000
@@ -1968,12 +1987,13 @@ def drain_batches(mk, n_batches: int, seed: int, fseed: int) -> list:
 
 def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
                   label: str = "serving", n_attn: int = N_LAYERS,
-                  n_batches: int = 8, max_evals: int = 0, seed: int = SEED,
-                  fseed: int = 1000, probe_sync: bool = True,
-                  warm_up: bool = False):
+                  n_head: int = 1, n_batches: int = 8, max_evals: int = 0,
+                  seed: int = SEED, fseed: int = 1000,
+                  probe_sync: bool = True, warm_up: bool = False):
     """DrainExecutor(depth=2) serves ``n_batches`` seeded micro-batches on
     the wall clock, then flushes; every kernel's launches are read around
-    this run (``n_attn`` flash_attention launches a batch). ``max_evals``
+    this run (``n_attn`` flash_attention and ``n_head`` score_head
+    launches a batch). ``max_evals``
     caps the evaluator's rows (0 = the whole batch). ``probe_sync`` first
     checks that dispatch never waits for the card; ``warm_up`` runs one
     more batch before the clock starts. Returns (stats, the shedder)."""
@@ -2020,6 +2040,7 @@ def phase_serving(cfg: TrustIRConfig, evaluate, mk, dev, *,
     want = {name: 0 for name in KERNELS}
     want["shed_partition"] = n_batches
     want["flash_attention"] = n_attn * n_batches
+    want["score_head"] = n_head * n_batches
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want}")
@@ -2502,7 +2523,7 @@ def phase_fleet(fcfg: TrustIRConfig, retrieval, shard, evaluate, mk,
     n_items = st["n_batched_items"] - base["n_batched_items"]
     want = {"topk_select": want_topk, "shed_partition": n_batches,
             "flash_attention": N_LAYERS * n_batches, "dot_interaction": 0,
-            "flash_decode": 0, **NO_BACKWARD}
+            "flash_decode": 0, **NO_BACKWARD, "score_head": n_batches}
     if launches != want:
         raise AssertionError(f"fleet: launches {launches}, expected {want}")
     answered = [r.request_id for r in coord.completed]
@@ -2799,7 +2820,8 @@ def phase_fanout(fcfg: TrustIRConfig, retrieval, evaluate, dev) -> dict:
             + fs["n_shard_hedge_wins"] + len(built),
             "shed_partition": st["n_batches"],
             "flash_attention": N_LAYERS * st["n_batches"],
-            "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
+            "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD,
+            "score_head": st["n_batches"]}
     if launches != want:
         raise AssertionError(f"fan-out: launches {launches}, expected {want}"
                              f" ({len(live)} live shards x {FANOUT_QUERIES} "
@@ -3083,7 +3105,7 @@ def phase_dlrm(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     def expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": 0, "dot_interaction": counted.calls,
-                "flash_decode": 0, **NO_BACKWARD}
+                "flash_decode": 0, **NO_BACKWARD, "score_head": 0}
 
     stats = phase_engine(cfg, make_searcher(), counted, dev, "dlrm engine",
                          expect)
@@ -3242,6 +3264,8 @@ def phase_sharded(evaluate, mk, dev) -> dict:
             want = {n: 0 for n in KERNELS}
             want["shed_partition"] = n_batches
             want["flash_attention"] = N_LAYERS * n_batches
+            # a vocabulary "sharded" over this (1, 1) mesh is whole here
+            want["score_head"] = n_batches
             if got != want:
                 raise AssertionError(f"{name} engine: launches {got}, "
                                      f"expected {want}")
@@ -3391,7 +3415,7 @@ def phase_recsys(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
         def expect(n_searches, n_batches):
             return {"topk_select": n_searches, "shed_partition": n_batches,
                     "flash_attention": 0, "dot_interaction": 0,
-                    "flash_decode": 0, **NO_BACKWARD}
+                    "flash_decode": 0, **NO_BACKWARD, "score_head": 0}
 
         stats = phase_engine(cfg, make_searcher(), evaluate, dev,
                              f"{arch} engine", expect)
@@ -3460,7 +3484,10 @@ def phase_decode(dev) -> dict:
     prefill_launches = {n: w.launches for n, w in KERNELS.items()}
     note_instances("decode prefill")
     scores = torch.cat(scores)
+    # a one-token prompt has no next token to score
+    n_scored = int((prompt_lens > 1).sum())
     if prefill_launches["flash_attention"] != cfg.n_layers * DECODE_SLOTS \
+            or prefill_launches["score_head"] != n_scored \
             or not torch.isfinite(scores).all():
         raise AssertionError(f"prefill: launches {prefill_launches}, "
                              f"finite scores {bool(torch.isfinite(scores).all())}")
@@ -3548,6 +3575,33 @@ def phase_decode(dev) -> dict:
 # main path and in decode, the 14-30 B models and the GCN on the fused
 # drain
 # ---------------------------------------------------------------------------
+
+def phase_score_head(dev) -> dict:
+    """The fused scoring head at the evaluators' steps
+    (``time_score_head.SHAPES``): held to the plain chunked path, its
+    bits repeated, timed (L2 flushed) beside its bound, the plain path
+    and the library yardstick. The paths' own calls are read from their
+    runs (``KERNELS``, ``note_instances``)."""
+    t0 = time.monotonic()
+    flush = l2_flusher(dev)
+    rows = [TSH.run_shape(name, dev, flush) for name in TSH.SHAPES]
+    for r in rows:
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "not measured (its logits do not fit)")
+        log(f"score_head {r['shape']} (P {r['P']}, d {r['d']}, V {r['V']}, "
+            f"{'tied' if r['tied'] else 'untied'}; the rule's path "
+            f"{r['rule']}): kernel {r['kernel_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{100 * r['share_of_bound']:.1f}% of it), plain "
+            f"{r['plain_ms']:.4f} ms, cross_entropy {lib}; max |err| "
+            f"{r['max_abs_err']:.3e}, {r['beyond_tolerance']} beyond "
+            f"tolerance, repeat bits {r['repeat_bits']}")
+        if r["beyond_tolerance"] or not r["finite"] or not r["repeat_bits"]:
+            raise AssertionError(f"score_head at {r['shape']}: {r}")
+    log(f"score_head phase: {time.monotonic() - t0:.1f} s")
+    return {"name": "score_head", "shapes": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
 
 def softcap_moves(plain, kw: dict, atol: float, label: str) -> float:
     """How far the softcap moves the plain output on these inputs (capped
@@ -3936,7 +3990,8 @@ def phase_gemma2_engine(cfg: TrustIRConfig, corpus, shard, dev) -> dict:
     def expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": full.n_layers * n_batches,
-                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
+                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD,
+                "score_head": (HEAD_INSTANCE[GEMMA] == "fused") * n_batches}
 
     stats = phase_engine(cfg, make_searcher(), evaluate, dev,
                          f"{GEMMA} engine", expect)
@@ -3994,7 +4049,8 @@ def phase_gemma2_decode(dev) -> dict:
     prefill_launches = {n: w.launches for n, w in KERNELS.items()}
     scores = torch.cat(scores)
     if prefill_launches["flash_attention"] != cfg.n_layers \
-            * GEMMA_DECODE_SLOTS or not torch.isfinite(scores).all():
+            * GEMMA_DECODE_SLOTS or prefill_launches["score_head"] \
+            or not torch.isfinite(scores).all():
         raise AssertionError(f"{GEMMA} prefill: launches {prefill_launches}"
                              f", finite scores "
                              f"{bool(torch.isfinite(scores).all())}")
@@ -4234,8 +4290,10 @@ def phase_big_evaluator(arch: str, max_evals: int, dev) -> dict:
     held = torch.cuda.memory_allocated() - before
     build_s = time.monotonic() - t0
     n_attn = full.n_layers if hasattr(full, "n_heads") else 0
+    n_head = int(HEAD_INSTANCE.get(arch) == "fused")
     stats, fused = phase_serving(cfg, evaluate, mk, dev, label=arch,
-                                 n_attn=n_attn, n_batches=BIG_BATCHES,
+                                 n_attn=n_attn, n_head=n_head,
+                                 n_batches=BIG_BATCHES,
                                  max_evals=max_evals, seed=SEED + 23,
                                  fseed=3000, probe_sync=False, warm_up=True)
     _, keys, buckets, feats, n = drain_batches(mk, 1, SEED + 24, 3100)[0]
@@ -4322,6 +4380,8 @@ def moe_sharded_check(arch: str, evaluate, mk, full, max_evals: int,
         want = {n: 0 for n in KERNELS}
         want["shed_partition"] = SHARDED_MOE_BATCHES
         want["flash_attention"] = full.n_layers * SHARDED_MOE_BATCHES
+        want["score_head"] = (HEAD_INSTANCE[arch] == "fused") \
+            * SHARDED_MOE_BATCHES
         if worst > TRUST_ATOL or launches != want:
             raise AssertionError(f"{arch} sharded: max |trust diff| {worst}"
                                  f", launches {launches} (expected {want})")
@@ -4380,6 +4440,8 @@ def reset_launches() -> None:
         flash_attention.by_instance[name] = 0
     for name in flash_decode.by_instance:
         flash_decode.by_instance[name] = 0
+    for name in SH.score_head.by_instance:
+        SH.score_head.by_instance[name] = 0
 
 
 def read_launches() -> dict:
@@ -4413,16 +4475,49 @@ def check_instances() -> dict:
     return dict(INSTANCES)
 
 
-# flash_attention's launches of each path by the instance that ran them,
-# read with the launch counts (``note_instances``)
+def check_head_instances() -> dict:
+    """Every path's scoring-head calls took the path ``HEAD_INSTANCE``
+    names for its evaluator: the kernel for smollm's paths (the fused
+    drain, the engine, the fleet, the fan-out, the sharded engines on
+    this card's (1, 1) mesh, whose vocabulary is whole here, and the
+    decode run's prefills) and the Qwens' drains and the MoE Qwens'
+    sharded checks; the chunked path for gemma2's engine. Returns the
+    calls by path and instance."""
+    moes = [a for a, _ in BIG_EVALUATORS if a in HEAD_INSTANCE
+            and get_config(a).moe is not None]
+    want = {path: HEAD_INSTANCE["smollm-135m"] for path in (
+        "serving", "engine", "fleet", "fanout", "replicated", "sharded",
+        "decode prefill")}
+    want.update({a: HEAD_INSTANCE[a] for a, _ in BIG_EVALUATORS
+                 if a in HEAD_INSTANCE})
+    want.update({f"{a} {n}": HEAD_INSTANCE[a] for a in moes
+                 for n in ("replicated", "sharded")})
+    want[f"{GEMMA} engine"] = HEAD_INSTANCE[GEMMA]
+    for path, name in want.items():
+        split = HEAD_INSTANCES.get(path)
+        if not split or set(split) != {name}:
+            raise AssertionError(f"score_head on path {path}: calls by "
+                                 f"instance {split}, expected all on {name}")
+    log(f"score_head calls by path and instance: "
+        f"{json.dumps(HEAD_INSTANCES)}")
+    return dict(HEAD_INSTANCES)
+
+
+# flash_attention's launches and the scoring head's calls of each path by
+# the instance that ran them, read with the launch counts
+# (``note_instances``)
 INSTANCES: dict = {}
+HEAD_INSTANCES: dict = {}
 
 
 def note_instances(path: str) -> dict:
     """Records and returns the ``flash_attention`` launches since the last
-    ``reset_launches`` by instance (the nonzero ones), as path ``path``."""
+    ``reset_launches`` by instance (the nonzero ones), as path ``path``;
+    records the scoring head's calls by instance beside them."""
     INSTANCES[path] = {k: n for k, n in flash_attention.by_instance.items()
                        if n}
+    HEAD_INSTANCES[path] = {k: n for k, n in
+                            SH.score_head.by_instance.items() if n}
     return INSTANCES[path]
 
 
@@ -5003,7 +5098,7 @@ def main() -> int:
     topk = phase_topk_select(dev)
     inter, inter_bwd = phase_dot_interaction(dev)
     kernels = [shed, attn, topk, inter, phase_flash_decode(dev), attn_bwd,
-               inter_bwd]
+               inter_bwd, phase_score_head(dev)]
     new_shapes = phase_new_head_dims(dev)
     phase_smoke_evaluators(dev)
     torch.cuda.empty_cache()
@@ -5029,7 +5124,8 @@ def main() -> int:
     def smollm_expect(n_searches, n_batches):
         return {"topk_select": n_searches, "shed_partition": n_batches,
                 "flash_attention": N_LAYERS * n_batches,
-                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD}
+                "dot_interaction": 0, "flash_decode": 0, **NO_BACKWARD,
+                "score_head": n_batches}
 
     engine = phase_engine(ecfg, retrieval.searcher([shard]), evaluate, dev,
                           "engine", smollm_expect)
@@ -5132,6 +5228,7 @@ def main() -> int:
     path_launches = {name: sum(run[name] for run in by_path.values())
                      for name in KERNELS}
     instances = check_instances()
+    head_instances = check_head_instances()
     for kern in kernels:
         if kern["name"] == "dot_interaction":
             kern["dlrm_feats_max_abs_err"] = dlrm["feats_err"]
@@ -5152,6 +5249,8 @@ def main() -> int:
             kern["launches_by_instance"] = {
                 "decode": decode["by_instance"],
                 f"{GEMMA} decode": gemma_decode["by_instance"]}
+        if kern["name"] == "score_head":
+            kern["calls_by_instance"] = head_instances
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on its "
                                  f"path")

@@ -57,10 +57,12 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.distribution.constraints import recompute_context
 from repro_torch.distribution.placement import (all_gather, all_reduce,
                                                 flat_coord, split)
+from repro_torch.kernels import score_head as SH
 from repro_torch.kernels._build import is_fake
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.tracing import span
 
 # float32 logits the scoring head materializes at once: 256 sequences of
 # S 31 at smollm's vocab of 49152 (1.56 GB), which is 1,523 positions at
@@ -438,19 +440,51 @@ def _token_chunk(cfg: TransformerConfig) -> int:
     return max(1, SCORE_LOGIT_BYTES // (4 * cfg.vocab_size))
 
 
+def _head_weight(params: Dict, cfg: TransformerConfig):
+    """The vocabulary weight as this rank holds it, its placement (None:
+    whole here) and whether the untied head has a bias."""
+    if cfg.tie_embeddings:
+        w, sh = split(params["embed"]["table"])
+        return w, sh, False
+    lp, sh = _local(params["unembed"])
+    return lp["w"], sh, "b" in lp
+
+
 def _mean_token_logprob(params: Dict, cfg: TransformerConfig,
                         x: torch.Tensor, tgt: torch.Tensor,
                         token_chunk: int) -> torch.Tensor:
     """Per-sequence mean logprob of ``tgt`` (B, T) under the final hidden
-    states ``x`` (B, T, d), ``token_chunk`` positions (over rows and
-    positions alike) of logits at a time; zeros where T is 0."""
+    states ``x`` (B, T, d); zeros where T is 0. The head takes the path
+    ``kernels.score_head.instance`` gives it: the fused kernel, or
+    ``token_chunk`` positions (over rows and positions alike) of logits at
+    a time (``_chunked_token_logprob``)."""
     B, T = tgt.shape
     if T == 0:
         return torch.zeros((B,), dtype=torch.float32, device=x.device)
     xf = x.reshape(B * T, x.shape[-1])
-    tf = tgt.reshape(B * T).long()
-    tok_lp = torch.empty((B * T,), dtype=torch.float32, device=x.device)
-    for lo in range(0, B * T, token_chunk):
+    tf = tgt.reshape(B * T)
+    with span("transformer.score_head"):
+        w, sh, bias = _head_weight(params, cfg)
+        path = SH.instance(xf, w, tied=cfg.tie_embeddings,
+                           sharded=sh is not None,
+                           softcap=cfg.final_logit_softcap, bias=bias)
+        SH.score_head.by_instance[path] += 1
+        if path == "fused":
+            tok_lp = SH.score_head(xf, w, tf, tied=cfg.tie_embeddings)
+        else:
+            tok_lp = _chunked_token_logprob(params, cfg, xf, tf.long(),
+                                            token_chunk)
+    return tok_lp.reshape(B, T).mean(dim=-1)
+
+
+def _chunked_token_logprob(params: Dict, cfg: TransformerConfig,
+                           xf: torch.Tensor, tf: torch.Tensor,
+                           token_chunk: int) -> torch.Tensor:
+    """Each position's logprob of its target, ``token_chunk`` positions of
+    float32 logits at a time: xf (P, d), tf (P,) int64 -> (P,) float32."""
+    tok_lp = torch.empty((xf.shape[0],), dtype=torch.float32,
+                         device=xf.device)
+    for lo in range(0, xf.shape[0], token_chunk):
         logits, sh = _vocab_logits(params, cfg, xf[lo:lo + token_chunk])
         logits = logits.to(torch.float32)
         tgt = tf[lo:lo + token_chunk]
@@ -470,7 +504,7 @@ def _mean_token_logprob(params: Dict, cfg: TransformerConfig,
         lab = torch.where((loc >= 0) & (loc < n), lab,
                           torch.zeros_like(lab))
         tok_lp[lo:lo + token_chunk] = all_reduce(lab, sh.axes) - lse
-    return tok_lp.reshape(B, T).mean(dim=-1)
+    return tok_lp
 
 
 def score_tokens(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -478,10 +512,11 @@ def score_tokens(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
     """Sequence log-likelihood score, the LM trust-evaluator head:
     per-sequence mean token logprob (B,).
 
-    The same function as the reference's, computed a chunk of positions
-    at a time after the trunk (``SCORE_LOGIT_BYTES`` of float32 logits),
-    so the (B, S, V) logits and their float32 log-softmax never exist
-    whole."""
+    The same function as the reference's. After the trunk the head runs
+    as one fused kernel (``kernels.score_head``, no logit in device
+    memory) or, where its rule says so, a chunk of positions at a time
+    (``SCORE_LOGIT_BYTES`` of float32 logits), so the (B, S, V) logits and
+    their float32 log-softmax never exist whole."""
     x = hidden_states(params, cfg, tokens[:, :-1], q_chunk)
     return _mean_token_logprob(params, cfg, x, tokens[:, 1:],
                                _token_chunk(cfg))

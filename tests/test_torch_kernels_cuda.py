@@ -22,7 +22,14 @@ log-sum-exp, both backward kernels (``flash_attention_bwd`` and
 ``dot_interaction_bwd``) against their plain versions within 2e-2 (bf16)
 and 1e-4 (f32) of each output's max abs, and ``loss.backward()`` through
 ``attention`` and DLRM on CUDA reaching the weights with the plain
-path's gradients."""
+path's gradients. ``score_head`` (the fused scoring head, tied and
+untied weights, d 64 / 576 / 2048, V 1000 / 49152 / 151936, P 7 and
+3,072 x 31) within 1e-4 plus one bf16 ulp of the target's logit of the
+plain chunked path (the transformer's own), rows whose logits reach
+tens included; the transformer's head on the kernel at smollm-135m's,
+qwen3-moe-30b-a3b's and qwen2.5-14b's (d 5120) published widths."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +42,8 @@ from repro_torch.core.shedder import TIER_CACHED, SimClock
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import score_head as SH
+from repro_torch.launch import time_score_head as TSH
 from repro_torch.kernels.dot_interaction import (dot_interaction,
                                                  dot_interaction_bwd,
                                                  dot_interaction_bwd_ref,
@@ -1646,3 +1655,117 @@ def test_kernel_wrappers_never_take_the_fake_branch_on_a_card(dev):
     before = flash_attention_bwd.launches
     flash_attention_bwd(q, kv, kv, o, lse, torch.randn_like(o))
     assert flash_attention_bwd.launches == before + 1
+
+
+
+# --- score_head: the fused scoring head ------------------------------------
+
+def _score_head_case(dev, P, d, V, tied, seed, dyadic=False):
+    """x (P, d) and the weight ((V, d) tied, (d, V) untied) in bf16, and
+    targets that take 0, V - 1 and both sides of the vocabulary tiles'
+    edges (256 entries) where V has them. Normal entries give logits of
+    about 1 (``time_score_head.inputs``); ``dyadic`` ones lie on grids of
+    1/8 (x) and 1/16 (w) within +-1/2, so that every float32 product and
+    sum is exact in any order, and half the rows are scaled by a power of
+    two to logits of tens."""
+    if dyadic:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(-4, 5, (P, d), generator=g, device=dev) / 8.0
+        w = torch.randint(-8, 9, (V, d), generator=g, device=dev) / 16.0
+        # the logits' spread is ~0.1 sqrt(d): tens in the scaled rows
+        x[: P // 2] *= 2.0 ** round(math.log2(40 / (0.1 * d ** 0.5)))
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        w = w if tied else w.T.contiguous()
+        tgt = torch.randint(0, V, (P,), generator=g, device=dev,
+                            dtype=torch.int32)
+    else:
+        x, w, tgt = TSH.inputs(P, d, V, tied, seed, dev)
+    edges = [0, V - 1] + [e for e in (255, 256, 511, 512) if e < V]
+    n = min(P, len(edges))
+    tgt[:n] = torch.tensor(edges[:n], device=dev, dtype=torch.int32)
+    return x, w, tgt
+
+
+def _assert_score_head_close(x, w, tgt, tied, got):
+    """Per position within ``time_score_head.target_tolerance``: 1e-4
+    plus one bf16 ulp of the target's logit, whose one bf16 rounding the
+    kernel's order of summation can flip."""
+    want = TSH.plain(x, w, tgt, tied, token_chunk=2048)
+    err = (got - want).abs()
+    tol = TSH.target_tolerance(x, w, tgt, tied)
+    bad = err > tol
+    assert not bad.any(), (int(bad.sum()), float(err.max()),
+                           float((err - tol).max()))
+    return want
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("d", [64, 576, 2048])
+@pytest.mark.parametrize("V", [1000, 49152, 151936])
+@pytest.mark.parametrize("P", [7, 3072 * 31])
+def test_score_head_close_to_plain(dev, P, V, d, tied):
+    x, w, tgt = _score_head_case(dev, P, d, V, tied, seed=P + V + d)
+    before = SH.score_head.launches
+    got = SH.score_head(x, w, tgt, tied=tied)
+    torch.cuda.synchronize()
+    assert SH.score_head.launches == before + 1
+    assert got.shape == (P,) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    _assert_score_head_close(x, w, tgt, tied, got)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("d", [64, 576, 2048])
+@pytest.mark.parametrize("V", [1000, 151936])
+def test_score_head_large_logits_need_the_running_max(dev, V, d, tied):
+    """Rows whose logits reach tens (exact float32 sums, so that both
+    paths round every logit alike): without the running max their
+    exponentials overflow; the targets' log-probabilities reach -50."""
+    P = 301
+    x, w, tgt = _score_head_case(dev, P, d, V, tied, seed=V + d + 1,
+                                 dyadic=True)
+    got = SH.score_head(x, w, tgt, tied=tied)
+    torch.cuda.synchronize()
+    want = _assert_score_head_close(x, w, tgt, tied, got)
+    assert float(want[: P // 2].min()) < -50
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_score_head_repeats_its_bits(dev):
+    x, w, tgt = _score_head_case(dev, 3072 * 31, 576, 49152, True, seed=9)
+    a = SH.score_head(x, w, tgt, tied=True)
+    b = SH.score_head(x, w, tgt, tied=True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "qwen2.5-14b"])
+def test_score_head_is_the_transformer_head_on_the_card(dev, arch):
+    """At the published head's width, vocabulary and layout, the bf16
+    transformer's head takes the kernel (counted fused, launched once)
+    and gives the chunked path's per-sequence means."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch, smoke=False),
+                              dtype="bfloat16")
+    B, S = 64, 31
+    x, w, tgt = _score_head_case(dev, B * S, cfg.d_model, cfg.vocab_size,
+                                 cfg.tie_embeddings, seed=11)
+    params = ({"embed": {"table": w}} if cfg.tie_embeddings
+              else {"unembed": {"w": w}})
+    fused, launches = (SH.score_head.by_instance["fused"],
+                       SH.score_head.launches)
+    got = T._mean_token_logprob(params, cfg, x.reshape(B, S, -1),
+                                tgt.reshape(B, S), T._token_chunk(cfg))
+    assert SH.score_head.by_instance["fused"] == fused + 1
+    assert SH.score_head.launches == launches + 1
+    tok = T._chunked_token_logprob(params, cfg, x, tgt.long(),
+                                   T._token_chunk(cfg))
+    tol = TSH.target_tolerance(x, w, tgt, cfg.tie_embeddings)
+    assert ((got - tok.reshape(B, S).mean(-1)).abs()
+            <= tol.reshape(B, S).mean(-1)).all()
+
+
+def test_score_head_refuses_inputs_that_require_grad(dev):
+    x, w, tgt = _score_head_case(dev, 7, 64, 1000, True, seed=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        SH.score_head(x.requires_grad_(True), w, tgt, tied=True)
